@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``wesup_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails loudly (a failed phase is a non-zero exit):
+
+1. build the CUDA kernels from ``wesup_tpu_torch/csrc`` with nvcc;
+2. hold K1 (``cell_pool0``) against its plain version at the main-path
+   shape (8, 288, 416, 128), in bf16 and f32;
+3. hold K2 (``cell_pool_stage``) against its plain version at the four
+   downsampled stages' shapes, in bf16 and f32;
+4. forward parity: the superpixel forward at f32 on the card (kernels) and
+   on the CPU (plain versions), same weights and seg;
+5. the main path: ``make_predict_step`` at B=8 on the 288x416 canvas in
+   bf16 with full-width WESUP, launch counts per step, step time and a
+   per-phase breakdown from CUDA events;
+6. serving: a ``Predictor`` answering GlaS-sized requests at scale 0.5,
+   and the HTTP server's health endpoint;
+7. per-kernel times against the plain version, a library call and the
+   card's bound.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+holds the card's name and power limit, and the line before that the
+kernels' JSON.  Without a CUDA device, or outside a checkout of the
+repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+
+# main-path shapes: GlaS 775x522 images at scale 0.5 -> 261x388 content on
+# a 288x416 canvas, batch 8
+CANVAS = (288, 416)
+CONTENT = (261, 388)
+BATCH = 8
+GLAS_HW = (522, 775)
+METRIC = "GlaS 0.5x superpixel inference (SLIC+VGG16+aggregation fused)"
+
+# NVIDIA H100 SXM data sheet: HBM rate, and the peak operation rate for
+# each input type (f32 outside the tensor cores, dense bf16 on them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bench_images(batch, seed=0):
+    """bench.py's inputs: normal(200, 25) uint8 on the canvas, 261x388 valid."""
+    rng = np.random.default_rng(seed)
+    imgs = np.clip(rng.normal(200, 25, (batch,) + CANVAS + (3,)), 0,
+                   255).astype(np.uint8)
+    valid = np.zeros((batch,) + CANVAS, bool)
+    valid[:, :CONTENT[0], :CONTENT[1]] = True
+    return imgs, valid
+
+
+def cuda_ms(torch, fn, n=20, warmup=3):
+    """Mean device milliseconds per call of ``fn`` over ``n`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound(nbytes: float, flops: float, dtype):
+    """(least milliseconds, what bounds it) for moving ``nbytes`` and
+    doing ``flops`` operations on inputs of ``dtype`` on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class PhaseTimer:
+    """``mark(name)`` callback recording a CUDA event after each phase."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = []
+
+    def start(self):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events = [("start", ev)]
+
+    def __call__(self, name):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def durations(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def profile_steps(torch, run_step, n=5) -> None:
+    """Device busy share and top kernels over ``n`` steps, from the
+    profiler's kernel records (the span runs from the first kernel's start
+    to the last one's end; host work under the profiler is slower than
+    without it, so the idle share is an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run_step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        log("[profile] no device kernels recorded: busy share not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    log(f"[profile] {n} steps: {len(kern) / n:.0f} kernels/step, device busy "
+        f"{busy / n / 1e3:.3f} ms/step of a {span / n / 1e3:.3f} ms/step "
+        f"span, idle share {1 - busy / span:.3f}")
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    for name, us in top:
+        log(f"[profile]   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (REPO / "wesup_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(wesup_tpu_torch/ not found)", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(REPO))
+
+    from wesup_tpu_torch.config import WESUPConfig
+    from wesup_tpu_torch.inference import Predictor, predict_multiscale_batch
+    from wesup_tpu_torch.models import wesup
+    from wesup_tpu_torch.models.steps import make_predict_step
+    from wesup_tpu_torch.ops import _build, cellgrid, cellpool
+    from wesup_tpu_torch.ops.slic import make_plan, slic
+    from wesup_tpu_torch.serve import create_server
+
+    dev = torch.device("cuda")
+    # f32 parity needs full-f32 matmuls and convs (no TF32) on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 1. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"[build] {_build.info.path.name} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {_build.info.seconds:.2f} s)")
+    for line in _build.info.log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"[build] {line.strip()}")
+
+    config = WESUPConfig()
+    H, W = CANVAS
+    plan = make_plan(H, W, config.sp_area)
+    K = plan.n_clusters
+    imgs_u8, valid_np = bench_images(BATCH)
+    imgs = torch.from_numpy(imgs_u8).to(dev).float() / 255.0
+    valid = torch.from_numpy(valid_np).to(dev)
+    seg = slic(imgs, valid, sp_area=config.sp_area,
+               compactness=config.sp_compactness, n_iters=config.slic_iters,
+               update_stride=config.slic_update_stride)
+    seg_m = torch.where(valid, seg, -1).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+
+    # ---- 2. K1 against its plain version ---------------------------------
+    C0 = 128
+    for dt, tol in ((torch.bfloat16, 0.02), (torch.float32, 1e-5)):
+        taps = torch.randn((BATCH, H, W, C0), generator=gen, device=dev).to(dt)
+        got = cellpool.cell_pool0(plan, seg_m, taps)
+        want = cellpool.cell_pool0_plain(plan, seg_m, taps)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        lim = tol * want.abs().max().item()
+        log(f"[K1] {tuple(taps.shape)} {dt}: max_abs_err {err:.3e} "
+            f"(limit {lim:.3e})")
+        if not err <= lim:
+            fail(f"K1 disagrees with its plain version at {dt}")
+        results.setdefault("K1", {})[str(dt)] = err
+
+    # ---- 3. K2 against its plain version, stages 1-4 ---------------------
+    stage_c = {1: 256, 2: 768, 3: 1536, 4: 1536}
+    stage_hw = {s: (H >> s, W >> s) for s in stage_c}
+    e9 = {dt: cellgrid.offset_masks(plan, seg, valid, dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    for s, C in stage_c.items():
+        spp = cellgrid.make_stage_pool_plan(plan, *stage_hw[s], True)
+        for dt in (torch.bfloat16, torch.float32):
+            mc = cellgrid.stage_window_weights(spp, e9[dt])
+            taps = torch.randn((BATCH,) + stage_hw[s] + (C,), generator=gen,
+                               device=dev).to(dt)
+            got = cellpool.cell_pool_stage(spp, mc, taps)
+            want = cellpool.cell_pool_stage_plain(spp, mc, taps)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            lim = 1e-4 * max(1.0, want.abs().max().item())
+            log(f"[K2] stage {s} {tuple(taps.shape)} Ih={spp.Ih} Jw={spp.Jw} "
+                f"{dt}: max_abs_err {err:.3e} (limit {lim:.3e})")
+            if not err <= lim:
+                fail(f"K2 disagrees with its plain version at stage {s}, {dt}")
+            results.setdefault("K2", {})[f"s{s} {dt}"] = err
+
+    # ---- 4. forward parity: card (kernels) vs CPU (plain versions) -------
+    ph, pw = 96, 256
+    pplan = make_plan(ph, pw, config.sp_area)
+    prng = np.random.default_rng(2)
+    pimg = torch.from_numpy(prng.random((1, ph, pw, 3), dtype=np.float32))
+    pvalid = torch.ones((1, ph, pw), dtype=torch.bool)
+    pvalid[:, -9:] = False
+    pvalid[:, :, -13:] = False
+    pseg = slic(pimg, pvalid, sp_area=config.sp_area,
+                compactness=config.sp_compactness, n_iters=config.slic_iters,
+                update_stride=config.slic_update_stride)
+    model_cpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).eval()
+    model_gpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(
+        dev).eval()
+    with torch.inference_mode():
+        ref = wesup.forward_superpixel(model_cpu, pimg, pseg,
+                                       pplan.n_clusters, pvalid,
+                                       torch.float32, plan=pplan)
+        out = wesup.forward_superpixel(model_gpu, pimg.to(dev), pseg.to(dev),
+                                       pplan.n_clusters, pvalid.to(dev),
+                                       torch.float32, plan=pplan)
+    for name, tol in (("sp_pred", 2e-4), ("pred", 2e-4),
+                      ("sp_features", 2e-3)):
+        err = (getattr(out, name).cpu() - getattr(ref, name)).abs().max().item()
+        log(f"[forward f32 {ph}x{pw}] {name}: max_abs_err {err:.3e} "
+            f"(limit {tol:g})")
+        if not err <= tol:
+            fail(f"forward {name} on the card disagrees with the CPU")
+    del model_cpu, model_gpu
+
+    # ---- 5. the main path: predict step at full width --------------------
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(
+        dev).eval()
+    step = make_predict_step(config, CANVAS, "superpixel")
+    imgs_dev = torch.from_numpy(imgs_u8).to(dev)
+    for _ in range(3):
+        step(model, imgs_dev, valid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cellpool.reset_launches()
+    pred = step(model, imgs_dev, valid)
+    torch.cuda.synchronize()
+    launches = dict(cellpool.LAUNCHES)
+    log(f"[step] launches in one step: {launches}")
+    if launches != {"cell_pool0": 1, "cell_pool_stage": 4}:
+        fail(f"expected K1 once and K2 four times per step, got {launches}")
+    if tuple(pred.shape) != (BATCH,) + CANVAS:
+        fail(f"pred shape {tuple(pred.shape)}")
+    if not (torch.isfinite(pred).all() and pred.min() >= 0
+            and pred.max() <= 1):
+        fail("pred is not finite in [0, 1]")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    step_ms = []
+    for _ in range(25):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(model, imgs_dev, valid)
+        b.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    ms = statistics.median(step_ms)
+    log(f"[step] {METRIC}: {ms:.3f} ms/step, {BATCH / ms * 1e3:.2f} img/s "
+        f"(B={BATCH}, {H}x{W}, bf16, median of {len(step_ms)}; "
+        f"min {min(step_ms):.3f} max {max(step_ms):.3f}; peak "
+        f"{peak_gb:.2f} GiB; {card})")
+    timer = PhaseTimer(torch)
+    phases = []
+    for _ in range(10):
+        timer.start()
+        step(model, imgs_dev, valid, mark=timer)
+        phases.append(timer.durations())
+    breakdown = {k: statistics.median(p[k] for p in phases)
+                 for k in phases[0]}
+    log("[step] breakdown (median ms of 10 marked steps): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in breakdown.items())
+        + f"; sum {sum(breakdown.values()):.3f}")
+    profile_steps(torch, lambda: step(model, imgs_dev, valid))
+
+    # ---- 6. serving ------------------------------------------------------
+    predictor = Predictor(model, config)
+    rng = np.random.default_rng(4)
+    reqs = [np.clip(rng.normal(200, 25, GLAS_HW + (3,)), 0, 255).astype(
+        np.uint8) for _ in range(4)]
+    lat = []
+    cellpool.reset_launches()
+    for img in reqs:
+        t0 = time.perf_counter()
+        (mask,) = predict_multiscale_batch(predictor, [img], scales=(0.5,))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if mask.shape != GLAS_HW or not set(np.unique(mask)) <= {0.0, 1.0}:
+            fail(f"serving returned {mask.shape} {np.unique(mask)[:4]}")
+    serve_launches = dict(cellpool.LAUNCHES)
+    log(f"[serve] per-request latency ms (GlaS {GLAS_HW[0]}x{GLAS_HW[1]}, "
+        f"scale 0.5): first {lat[0]:.1f}, then "
+        + ", ".join(f"{x:.1f}" for x in lat[1:])
+        + f"; launches over {len(reqs)} requests: {serve_launches}")
+    if serve_launches != {"cell_pool0": len(reqs),
+                          "cell_pool_stage": 4 * len(reqs)}:
+        fail(f"expected K1 once and K2 four times per request, got "
+             f"{serve_launches}")
+    server = create_server(port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_port}/healthz"
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            health = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"[serve] /healthz: {health}")
+    if health.get("status") != "ok":
+        fail("health endpoint")
+
+    # ---- 7. per-kernel times at the main-path shapes ---------------------
+    cd = torch.bfloat16
+    kernels = []
+    taps0 = torch.randn((BATCH, H, W, C0), generator=gen, device=dev).to(cd)
+    n_valid = int(valid.sum().item())
+    oh = (seg_m[..., None] == torch.arange(K, device=dev, dtype=seg_m.dtype)
+          ).to(cd).reshape(BATCH, H * W, K).transpose(1, 2)     # (B, K, HW)
+    t_k = cuda_ms(torch, lambda: cellpool.cell_pool0(plan, seg_m, taps0))
+    t_p = cuda_ms(torch, lambda: cellpool.cell_pool0_plain(plan, seg_m, taps0),
+                  n=5, warmup=1)
+    t_l = cuda_ms(torch, lambda: torch.bmm(oh, taps0.reshape(BATCH, H * W, C0)))
+    del oh
+    nbytes = seg_m.numel() * 4 + taps0.numel() * 2 + BATCH * K * C0 * 4
+    b_ms, b_by = bound(nbytes, n_valid * C0, cd)
+    log(f"[K1 time] kernel {t_k:.4f} ms, plain {t_p:.4f}, bmm {t_l:.4f}, "
+        f"bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+    kernels.append({
+        "name": "cell_pool0 (K1)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/cellpool.cu",
+        "replaces": "wesup_tpu/ops/cellpool_pallas.py:145",
+        "launches": launches["cell_pool0"],
+        "max_abs_err": results["K1"][str(cd)],
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": t_l})
+
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    for s, C in stage_c.items():
+        spp = cellgrid.make_stage_pool_plan(plan, *stage_hw[s], True)
+        mc = cellgrid.stage_window_weights(spp, e9[cd])
+        taps = torch.randn((BATCH,) + stage_hw[s] + (C,), generator=gen,
+                           device=dev).to(cd)
+        Md = cellgrid.expand_window_weights(spp, mc)   # (B, Hs, Kh, Ws, Kw)
+        Hs, Ws = stage_hw[s]
+        Mt = Md.permute(0, 2, 4, 1, 3).reshape(BATCH, K, Hs * Ws).contiguous()
+        del Md
+        t_k = cuda_ms(torch, lambda: cellpool.cell_pool_stage(spp, mc, taps))
+        t_p = cuda_ms(torch, lambda: cellpool.cell_pool_stage_plain(
+            spp, mc, taps), n=5, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(Mt, taps.reshape(
+            BATCH, Hs * Ws, C)))
+        del Mt
+        nbytes = mc.numel() * 2 + taps.numel() * 2 + BATCH * K * C * 4
+        flops = 2.0 * int((mc != 0).sum().item()) * C
+        b_ms, b_by = bound(nbytes, flops, cd)
+        log(f"[K2 time] stage {s} {Hs}x{Ws}x{C}: kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} ({b_by}, "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        tot["ms"] += t_k
+        tot["plain"] += t_p
+        tot["lib"] += t_l
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    kernels.append({
+        "name": "cell_pool_stage (K2, stages 1-4 summed)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/cellpool.cu",
+        "replaces": "wesup_tpu/ops/cellpool_pallas.py:422",
+        "launches": launches["cell_pool_stage"],
+        "max_abs_err": max(v for k, v in results["K2"].items()
+                           if k.endswith(str(cd))),
+        "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": tot["lib"]})
+    log("[kernels] " + ", ".join(
+        f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,308 @@
+"""The PyTorch port's ops against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and fed to both packages.  The JAX
+Pallas kernels run in interpret mode, as tests/test_cellpool_pallas.py runs
+them; the port's kernel wrappers take their plain versions for CPU tensors.
+The CUDA kernels themselves are held against the plain versions on the card
+(tests/test_torch_port_cuda.py and chip_smoke.py).
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+sys.path.insert(0, str(Path(__file__).parent.parent))
+
+from wesup_tpu.ops import cellgrid as j_cellgrid  # noqa: E402
+from wesup_tpu.ops import cellpool_pallas as j_cellpool  # noqa: E402
+from wesup_tpu.ops import resize as j_resize  # noqa: E402
+from wesup_tpu.ops import slic as j_slic  # noqa: E402
+from wesup_tpu_torch.ops import cellgrid, cellpool, resize  # noqa: E402
+from wesup_tpu_torch.ops import slic as t_slic  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _images(kind, B, H, W, seed=0):
+    """bench.py-style (normal(200, 25) uint8) or uniform images, with
+    ragged validity (last rows and columns invalid)."""
+    rng = np.random.default_rng(seed)
+    if kind == "bench":
+        img = np.clip(rng.normal(200, 25, (B, H, W, 3)), 0, 255).astype(
+            np.uint8).astype(np.float32) / 255.0
+    else:
+        img = rng.random((B, H, W, 3)).astype(np.float32)
+    valid = np.ones((B, H, W), bool)
+    valid[:, -5:] = False
+    valid[:, :, -7:] = False
+    return img, valid
+
+
+def _jax_seg(img, valid, sp_area=200, stride=1):
+    return np.array(jax.vmap(lambda i, v: j_slic.slic(
+        i, v, sp_area=sp_area, update_stride=stride))(
+            jnp.asarray(img), jnp.asarray(valid)))
+
+
+# ---------------------------------------------------------------------------
+# numpy constants
+# ---------------------------------------------------------------------------
+
+SHAPES = [(288, 416, 200), (100, 230, 150)]  # main-path canvas, ragged
+
+
+@pytest.mark.parametrize("H,W,sp_area", SHAPES)
+def test_numpy_constants_equal_jax(H, W, sp_area):
+    jp, tp = j_slic.make_plan(H, W, sp_area), t_slic.make_plan(H, W, sp_area)
+    for field in tp._fields:  # the port's plan keeps the cell-grid fields
+        assert np.array_equal(getattr(jp, field), getattr(tp, field)), field
+    for s in range(1, 5):
+        Hs, Ws = H >> s, W >> s
+        for ac in (True, False):
+            assert np.array_equal(j_resize._interp_matrix(Hs, H, ac),
+                                  resize._interp_matrix(Hs, H, ac))
+            assert np.array_equal(j_resize._interp_matrix(W, Ws, ac),
+                                  resize._interp_matrix(W, Ws, ac))
+        assert np.array_equal(j_resize._nearest_index(Hs, H),
+                              resize._nearest_index(Hs, H))
+        js = j_cellgrid.make_stage_pool_plan(jp, Hs, Ws, True)
+        ts = cellgrid.make_stage_pool_plan(tp, Hs, Ws, True)
+        for field in js._fields:
+            a, b = getattr(js, field), getattr(ts, field)
+            if isinstance(a, tuple):
+                assert all(np.array_equal(x, y) for x, y in zip(a, b)), field
+            else:
+                assert np.array_equal(a, b), field
+
+
+# ---------------------------------------------------------------------------
+# SLIC
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["bench", "uniform"])
+@pytest.mark.parametrize("stride", [1, 3])
+def test_slic_seg_matches_jax(kind, stride):
+    """Measured: 0 of 20480 pixels differ at every parametrization (the
+    arithmetic and its order mirror the JAX formulation).  The bound allows
+    0.1% for summation-order flips of near ties."""
+    B, H, W = 2, 64, 160
+    img, valid = _images(kind, B, H, W)
+    want = _jax_seg(img, valid, stride=stride)
+    got = t_slic.slic(torch.from_numpy(img), torch.from_numpy(valid),
+                      sp_area=200, update_stride=stride).numpy()
+    assert got.dtype == np.int32 and got.shape == want.shape
+    assert (got != want).mean() <= 1e-3
+    assert got.min() >= 0 and got.max() < t_slic.n_clusters(H, W, 200)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_device_resizes_match_jax(align_corners):
+    """Bilinear: the same matrices contracted in the same order (W, then
+    H), so f32 agrees to rounding; nearest copies values, bit for bit."""
+    x = np.random.default_rng(6).random((2, 37, 41, 3)).astype(np.float32)
+    for out_hw in ((23, 29), (60, 80), (37, 20)):
+        want = np.asarray(j_resize.resize_bilinear(jnp.asarray(x), out_hw,
+                                                   align_corners))
+        got = resize.resize_bilinear(torch.from_numpy(x), out_hw,
+                                     align_corners).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-6)
+        assert np.array_equal(
+            resize.resize_nearest(torch.from_numpy(x), out_hw).numpy(),
+            np.asarray(j_resize.resize_nearest(jnp.asarray(x), out_hw)))
+
+
+def test_rgb2lab_matches_jax():
+    from wesup_tpu.ops.colorspace import rgb2lab as j_lab
+    from wesup_tpu_torch.ops.colorspace import rgb2lab as t_lab
+
+    rgb = np.random.default_rng(5).random((16, 16, 3)).astype(np.float32)
+    rgb[0, :4] = 0.0  # the linear branch below eps
+    np.testing.assert_allclose(t_lab(torch.from_numpy(rgb)).numpy(),
+                               np.asarray(j_lab(jnp.asarray(rgb))),
+                               atol=1e-4, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# cell-grid ops
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def seg_setup():
+    B, H, W, sp_area = 2, 64, 160, 200
+    img, valid = _images("uniform", B, H, W, seed=7)
+    seg = _jax_seg(img, valid, sp_area)
+    return t_slic.make_plan(H, W, sp_area), j_slic.make_plan(H, W, sp_area), \
+        seg, valid
+
+
+def test_counts_and_paint_exact(seg_setup):
+    tp, jp, seg, valid = seg_setup
+    K = tp.n_clusters
+    want = np.stack([np.asarray(j_cellgrid.cell_counts(jp, jnp.asarray(s),
+                                                       jnp.asarray(v)))
+                     for s, v in zip(seg, valid)])
+    got = cellgrid.cell_counts(tp, torch.from_numpy(seg),
+                               torch.from_numpy(valid)).numpy()
+    assert np.array_equal(got, want)
+    vals = np.random.default_rng(3).random((2, K)).astype(np.float32)
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        want = np.stack([np.asarray(j_cellgrid.cell_paint(
+            jp, jnp.asarray(s), jnp.asarray(v).astype(jdt)), np.float32)
+            for s, v in zip(seg, vals)])
+        got = cellgrid.cell_paint(tp, torch.from_numpy(seg),
+                                  torch.from_numpy(vals).to(tdt)).float()
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_offset_masks_and_window_weights_match_jax(seg_setup):
+    tp, jp, seg, valid = seg_setup
+    e9_j = j_cellgrid.offset_masks(jp, jnp.asarray(seg), jnp.asarray(valid),
+                                   jnp.float32)
+    e9_t = cellgrid.offset_masks(tp, torch.from_numpy(seg),
+                                 torch.from_numpy(valid), torch.float32)
+    assert np.array_equal(e9_t.numpy(), np.asarray(e9_j))
+    for Hs, Ws in ((32, 80), (16, 40)):
+        js = j_cellgrid.make_stage_pool_plan(jp, Hs, Ws, True)
+        ts = cellgrid.make_stage_pool_plan(tp, Hs, Ws, True)
+        np.testing.assert_allclose(
+            cellgrid.stage_window_weights(ts, e9_t).numpy(),
+            np.asarray(j_cellgrid.stage_window_weights(js, e9_j)),
+            atol=1e-6)
+        np.testing.assert_allclose(
+            cellgrid.stage_adjoint_weights(ts, e9_t).numpy(),
+            np.asarray(j_cellgrid.stage_adjoint_weights(js, e9_j)),
+            atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2 plain versions against the JAX Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cell_pool0_matches_jax_kernel(seg_setup, dtype):
+    tp, jp, seg, valid = seg_setup
+    rng = np.random.default_rng(1)
+    taps = rng.standard_normal(seg.shape + (24,)).astype(np.float32)
+    seg_m = np.where(valid, seg, -1).astype(np.int32)
+    jt = jnp.asarray(taps).astype(getattr(jnp, dtype))
+    want = np.asarray(j_cellpool.cell_pool0(jp, jnp.asarray(seg_m), jt))
+    tt = torch.from_numpy(np.array(jt, np.float32)).to(getattr(torch, dtype))
+    got = cellpool.cell_pool0(tp, torch.from_numpy(seg_m), tt)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = 1e-5 if dtype == "float32" else 0.02
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=tol * np.abs(want).max() + 1e-6)
+
+
+@pytest.mark.parametrize("hs_ws", [(32, 80), (30, 77)])  # even and ragged
+def test_cell_pool_stage_matches_jax_kernel(seg_setup, hs_ws):
+    tp, jp, seg, valid = seg_setup
+    Hs, Ws = hs_ws
+    e9_j = j_cellgrid.offset_masks(jp, jnp.asarray(seg), jnp.asarray(valid),
+                                   jnp.float32)
+    js = j_cellgrid.make_stage_pool_plan(jp, Hs, Ws, True)
+    taps = np.random.default_rng(8).standard_normal(
+        (2, Hs, Ws, 24)).astype(np.float32)
+    want = np.asarray(j_cellpool.cell_pool_stage(jp, js, e9_j,
+                                                 jnp.asarray(taps)))
+    ts = cellgrid.make_stage_pool_plan(tp, Hs, Ws, True)
+    e9_t = cellgrid.offset_masks(tp, torch.from_numpy(seg),
+                                 torch.from_numpy(valid), torch.float32)
+    mc = cellgrid.stage_window_weights(ts, e9_t)
+    got = cellpool.cell_pool_stage(ts, mc, torch.from_numpy(taps)).numpy()
+    np.testing.assert_allclose(got, want,
+                               atol=1e-4 * max(1.0, np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' window walk, emulated on the host
+# ---------------------------------------------------------------------------
+#
+# The kernels visit, for cluster (ky, kx), only the pixel / stage-pixel
+# ranges of the host tables.  Walking those same ranges in numpy and
+# comparing with the dense plain versions checks that no contributing
+# pixel falls outside a window (the part of the kernels' logic that lives
+# in Python).
+
+def _walk_pool0(plan, seg_m, taps):
+    rl, rh, cl, ch = (t.numpy() for t in cellpool._pool0_tables(plan, "cpu"))
+    B, C = seg_m.shape[0], taps.shape[-1]
+    out = np.zeros((B, plan.n_clusters, C), np.float64)
+    for ky in range(plan.Kh):
+        for kx in range(plan.Kw):
+            k = ky * plan.Kw + kx
+            win = (slice(None), slice(rl[ky], rh[ky]), slice(cl[kx], ch[kx]))
+            hit = (seg_m[win] == k).astype(np.float64)
+            out[:, k] = np.einsum("bhw,bhwc->bc", hit, taps[win])
+    return out
+
+
+def _walk_stage(spp, mc, taps):
+    ay, ax, pl, ph, ql, qh = (t.numpy() for t in
+                              cellpool._stage_tables(spp, "cpu"))
+    B, C = mc.shape[0], taps.shape[-1]
+    out = np.zeros((B, spp.Kh * spp.Kw, C), np.float64)
+    for ky in range(spp.Kh):
+        p = np.arange(pl[ky], ph[ky])
+        i = ky - ay[p] - spp.rmin_y
+        assert ((0 <= i) & (i < spp.Ih)).all()
+        for kx in range(spp.Kw):
+            q = np.arange(ql[kx], qh[kx])
+            j = kx - ax[q] - spp.rmin_x
+            assert ((0 <= j) & (j < spp.Jw)).all()
+            wgt = mc[:, p, i][:, :, q, j]                      # (B, np, nq)
+            out[:, ky * spp.Kw + kx] = np.einsum(
+                "bpq,bpqc->bc", wgt, taps[:, p][:, :, q])
+    return out
+
+
+@pytest.mark.parametrize("H,W,sp_area", [(64, 160, 200), (96, 128, 150),
+                                         (288, 416, 200)])
+def test_kernel_windows_cover_every_contribution(H, W, sp_area):
+    plan = t_slic.make_plan(H, W, sp_area)
+    img, valid = _images("bench", 1, H, W, seed=11)
+    seg = t_slic.slic(torch.from_numpy(img), torch.from_numpy(valid),
+                      sp_area=sp_area, update_stride=3)
+    vt = torch.from_numpy(valid)
+    seg_m = torch.where(vt, seg, -1)
+    rng = np.random.default_rng(12)
+    taps = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    want = cellpool.cell_pool0_plain(plan, seg_m, torch.from_numpy(taps))
+    np.testing.assert_allclose(_walk_pool0(plan, seg_m.numpy(), taps),
+                               want.numpy(), atol=1e-4)
+    e9 = cellgrid.offset_masks(plan, seg, vt, torch.float32)
+    for s in range(1, 5):
+        spp = cellgrid.make_stage_pool_plan(plan, H >> s, W >> s, True)
+        mc = cellgrid.stage_window_weights(spp, e9)
+        st = rng.standard_normal((1, H >> s, W >> s, 3)).astype(np.float32)
+        want = cellpool.cell_pool_stage_plain(spp, mc, torch.from_numpy(st))
+        np.testing.assert_allclose(_walk_stage(spp, mc.numpy(), st),
+                                   want.numpy(), atol=1e-4)
+
+
+def test_wrappers_refuse_other_devices():
+    """Only CPU tensors take the plain version; anything else launches the
+    kernel or raises (here: a 'meta' tensor, as no card is present)."""
+    plan = t_slic.make_plan(64, 160, 200)
+    seg = torch.zeros((1, 64, 160), dtype=torch.int32, device="meta")
+    taps = torch.zeros((1, 64, 160, 8), device="meta")
+    with pytest.raises(ValueError):
+        cellpool.cell_pool0(plan, seg, taps)
+    spp = cellgrid.make_stage_pool_plan(plan, 32, 80, True)
+    mc = torch.zeros((1, 32, spp.Ih, 80, spp.Jw), device="meta")
+    with pytest.raises(ValueError):
+        cellpool.cell_pool_stage(spp, mc, torch.zeros((1, 32, 80, 8),
+                                                      device="meta"))

@@ -1,0 +1,1 @@
+"""Tensor ops of the port: colour space, SLIC, resizes, cell-grid pooling."""

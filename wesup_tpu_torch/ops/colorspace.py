@@ -1,0 +1,48 @@
+"""sRGB -> CIELAB, the colour space SLIC clusters in.
+
+Port of ``wesup_tpu.ops.colorspace.rgb2lab``: sRGB -> linear RGB ->
+XYZ (D65) -> CIELAB with skimage's constants.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# sRGB -> XYZ (D65) matrix, same constants as skimage.color
+_RGB2XYZ = np.array(
+    [
+        [0.412453, 0.357580, 0.180423],
+        [0.212671, 0.715160, 0.072169],
+        [0.019334, 0.119193, 0.950227],
+    ],
+    dtype=np.float32,
+)
+
+# D65 reference white
+_XYZ_REF = np.array([0.95047, 1.0, 1.08883], dtype=np.float32)
+
+
+def srgb_to_linear(rgb: torch.Tensor) -> torch.Tensor:
+    rgb = rgb.float()
+    return torch.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4,
+                       rgb / 12.92)
+
+
+def rgb2lab(rgb: torch.Tensor) -> torch.Tensor:
+    """Convert (..., 3) sRGB in [0, 1] to CIELAB (L in [0,100], a/b ~[-128,127])."""
+    lin = srgb_to_linear(rgb)
+    m = torch.as_tensor(_RGB2XYZ.T, device=lin.device)
+    xyz = lin @ m
+    xyz = xyz / torch.as_tensor(_XYZ_REF, device=lin.device)
+
+    eps = 0.008856451679035631  # (6/29)^3
+    kappa = 903.2962962962963  # (29/3)^3
+    # xyz > eps > 0 on the cube-root branch, so pow(1/3) is the real root
+    f = torch.where(xyz > eps, xyz.clamp_min(eps) ** (1.0 / 3.0),
+                    (kappa * xyz + 16.0) / 116.0)
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    L = 116.0 * fy - 16.0
+    a = 500.0 * (fx - fy)
+    b = 200.0 * (fy - fz)
+    return torch.stack([L, a, b], dim=-1)

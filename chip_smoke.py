@@ -18,7 +18,14 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
 6. serving: a ``Predictor`` answering GlaS-sized requests at scale 0.5,
    and the HTTP server's health endpoint;
 7. per-kernel times against the plain version, a library call and the
-   card's bound.
+   card's bound;
+8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
+   against their plain versions at the main-path shapes; one f32
+   forward + backward on the card against the CPU; SLIC on the card
+   against the CPU at 288x416; ``make_train_step`` at B=8 on the 288x416
+   canvas in bf16 with full-width WESUP (point supervision), launch counts
+   per step, step time, peak memory, a per-phase breakdown and a profiler
+   window; two mask-supervised steps (elastic path); K3/K4 times.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -151,6 +158,318 @@ def profile_steps(torch, run_step, n=5) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, us in top:
         log(f"[profile]   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+
+
+def train_batch(batch, point_mode=True):
+    """A train batch on bench.py's images: a checkerboard of 32-pixel class
+    squares inside the content (-1 outside) and, with point supervision,
+    the first 32 of 256 point slots valid, at positions drawn inside the
+    content and labelled with the mask's class there."""
+    n_slots, n_valid = 256, 32
+    imgs, valid = bench_images(batch)
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[:CANVAS[0], :CANVAS[1]]
+    mask = np.where(valid, (yy // 32 + xx // 32) % 2, -1).astype(np.int32)
+    points = np.zeros((batch, n_slots, 3), np.int32)
+    point_valid = np.zeros((batch, n_slots), bool)
+    if point_mode:
+        xs = rng.integers(0, CONTENT[1], (batch, n_valid))
+        ys = rng.integers(0, CONTENT[0], (batch, n_valid))
+        # every image has the same mask
+        points[:, :n_valid] = np.stack([xs, ys, mask[0][ys, xs]], -1)
+        point_valid[:, :n_valid] = True
+    return {"image": imgs, "valid": valid, "pixel_mask": mask,
+            "points": points, "point_valid": point_valid,
+            "use_mask_as_points": np.zeros((batch,), bool),
+            "sample_valid": np.ones((batch,), bool)}
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
+    """Phase 8: the train path.  Returns the K3 and K4 entries of the
+    kernels' JSON line."""
+    from wesup_tpu_torch.config import WESUPConfig
+    from wesup_tpu_torch.models import steps, wesup
+    from wesup_tpu_torch.ops import cellgrid, cellpool
+    from wesup_tpu_torch.ops.slic import make_plan, slic
+
+    dev = torch.device("cuda")
+    config = WESUPConfig()
+    H, W = CANVAS
+    plan = make_plan(H, W, config.sp_area)
+    K = plan.n_clusters
+    stage_c = {1: 256, 2: 768, 3: 1536, 4: 1536}
+    stage_hw = {s: (H >> s, W >> s) for s in stage_c}
+    errs = {}
+
+    # ---- 8a. K3 / K4 against their plain versions ------------------------
+    C0 = 128
+    for dt in (torch.bfloat16, torch.float32):
+        dsums = torch.randn((BATCH, K, C0), generator=gen, device=dev)
+        got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dt)
+        want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dt)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"[K3] {tuple(got.shape)} {dt}: max_abs_err {err:.3e} "
+            f"(limit 0: a pure selection)")
+        if not torch.equal(got, want):
+            fail(f"K3 disagrees with its plain version at {dt}")
+        errs[("K3", dt)] = err
+    e9 = {dt: cellgrid.offset_masks(plan, seg, valid, dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    for s, C in stage_c.items():
+        spp = cellgrid.make_stage_pool_plan(plan, *stage_hw[s], True)
+        for dt in (torch.bfloat16, torch.float32):
+            mc = cellgrid.stage_window_weights(spp, e9[dt])
+            dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+            got = cellpool.cell_pool_stage_bwd(spp, mc, dsums)
+            want = cellpool.cell_pool_stage_bwd_plain(spp, mc, dsums, dt)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            if dt == torch.float32:
+                lim = 1e-5 * max(1.0, want.abs().max().item())
+                ok = err <= lim
+                what = f"limit {lim:.3e}"
+            else:
+                # the two f32 sums differ by their order (1e-5 of the sum
+                # of |terms|), then each rounds to bf16 (one ulp)
+                mass = cellpool.cell_pool_stage_bwd_plain(
+                    spp, mc.abs(), dsums.abs(), torch.float32)
+                ulp = bf16_ulp(torch, want)
+                ok = bool((diff <= ulp + 1e-5 * mass).all())
+                beyond = (diff > ulp).float().mean().item()
+                what = ("limit one bf16 ulp + 1e-5 of the sum of |terms|; "
+                        f"{beyond:.2e} of the values beyond one ulp")
+                del mass, ulp
+            log(f"[K4] stage {s} {tuple(got.shape)} {dt}: max_abs_err "
+                f"{err:.3e} ({what})")
+            if not ok:
+                fail(f"K4 disagrees with its plain version at stage {s}, "
+                     f"{dt}")
+            errs[("K4", s, dt)] = err
+            del mc, dsums, got, want, diff
+    del e9
+
+    # ---- 8b. one f32 train step's gradients: card vs CPU -----------------
+    ph, pw = 96, 256
+    pplan = make_plan(ph, pw, config.sp_area)
+    cfg32 = WESUPConfig(compute_dtype="float32")
+    rng = np.random.default_rng(6)
+    pb = {"image": np.clip(rng.normal(200, 25, (1, ph, pw, 3)), 0,
+                           255).astype(np.uint8),
+          "valid": np.ones((1, ph, pw), bool),
+          "pixel_mask": rng.integers(0, 2, (1, ph, pw)).astype(np.int32),
+          "points": np.stack([rng.integers(0, pw - 13, (1, 16)),
+                              rng.integers(0, ph - 9, (1, 16)),
+                              rng.integers(0, 2, (1, 16))], -1).astype(
+                                  np.int32),
+          "point_valid": np.ones((1, 16), bool),
+          "use_mask_as_points": np.zeros((1,), bool),
+          "sample_valid": np.ones((1,), bool)}
+    pb["valid"][:, -9:] = False
+    pb["valid"][:, :, -13:] = False
+    tb = {k: torch.from_numpy(v) for k, v in pb.items()}
+    prep = steps._preprocess_sample(
+        None, tb["image"], tb["valid"], tb["pixel_mask"], tb["points"],
+        tb["point_valid"], tb["use_mask_as_points"], config=cfg32,
+        train=False, point_mode=True)
+    res = {}
+    for d in ("cpu", "cuda"):
+        model = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(d)
+        p = steps.Preprocessed(*(t.to(d) for t in prep))
+        cellpool.reset_launches()
+        loss, _ = steps._forward_and_loss(model, p, pplan.n_clusters, cfg32,
+                                          tb["sample_valid"].to(d), pplan)
+        loss.backward()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            bwd = dict(cellpool.LAUNCHES)
+        res[d] = (loss.item(), {n: q.grad.cpu()
+                                for n, q in model.named_parameters()})
+        del model
+    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    worst = {"backbone": 0.0, "rest": 0.0}
+    for name, want in res["cpu"][1].items():
+        group = "backbone" if name.startswith("backbone.") else "rest"
+        rel = ((res["cuda"][1][name] - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        worst[group] = max(worst[group], rel)
+    log(f"[train f32 {ph}x{pw}] loss {res['cuda'][0]:.6f} (card) vs "
+        f"{res['cpu'][0]:.6f} (CPU), rel err {loss_err:.2e} (limit 1e-4); "
+        f"largest grad error / the tensor's max |grad|: backbone "
+        f"{worst['backbone']:.2e} (limit 1e-2), rest {worst['rest']:.2e} "
+        f"(limit 1e-3); launches {bwd}")
+    if not (loss_err <= 1e-4 and worst["backbone"] <= 1e-2
+            and worst["rest"] <= 1e-3):
+        fail("the f32 train step on the card disagrees with the CPU")
+    if bwd["cell_pool0_bwd"] != 1 or bwd["cell_pool_stage_bwd"] != 4:
+        fail(f"the f32 backward did not run K3 once and K4 four times: {bwd}")
+    del res, prep
+
+    # ---- 8c. SLIC: card vs CPU at 288x416 --------------------------------
+    seg_cpu = slic(imgs.cpu(), valid.cpu(), sp_area=config.sp_area,
+                   compactness=config.sp_compactness,
+                   n_iters=config.slic_iters,
+                   update_stride=config.slic_update_stride)
+    same = (seg.cpu() == seg_cpu).float().mean().item()
+    log(f"[slic] card vs CPU at B={BATCH} {H}x{W} (bench images): "
+        f"{same:.6f} of the seg pixels equal")
+
+    # ---- 8d. the train path at full width --------------------------------
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(dev)
+    optimizer = steps.make_optimizer(config, model)
+    step = steps.make_train_step(config, CANVAS, point_mode=True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(BATCH).items()}
+    tgen = torch.Generator(device=dev).manual_seed(7)
+    acc = steps.init_metric_acc()
+    for _ in range(3):
+        acc = step(model, optimizer, acc, batch, tgen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cellpool.reset_launches()
+    acc = step(model, optimizer, acc, batch, tgen)
+    torch.cuda.synchronize()
+    launches = dict(cellpool.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] launches in one step: {launches}")
+    if launches != {"cell_pool0": 1, "cell_pool_stage": 4,
+                    "cell_pool0_bwd": 1, "cell_pool_stage_bwd": 4}:
+        fail(f"expected K1, K3 once and K2, K4 four times per train step, "
+             f"got {launches}")
+    step_ms = []
+    for _ in range(20):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        acc = step(model, optimizer, acc, batch, tgen)
+        b.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    ms = statistics.median(step_ms)
+    log(f"[train] train step, WESUPConfig defaults, point supervision: "
+        f"{ms:.3f} ms/step, {BATCH / ms * 1e3:.2f} img/s (B={BATCH}, "
+        f"{H}x{W}, bf16, median of {len(step_ms)}; min {min(step_ms):.3f} "
+        f"max {max(step_ms):.3f}; peak {peak_gb:.2f} GiB; {card})")
+    timer = PhaseTimer(torch)
+    phases = []
+    for _ in range(10):
+        timer.start()
+        acc = step(model, optimizer, acc, batch, tgen, mark=timer)
+        phases.append(timer.durations())
+    breakdown = {k: statistics.median(p[k] for p in phases)
+                 for k in phases[0]}
+    log("[train] breakdown (median ms of 10 marked steps): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in breakdown.items())
+        + f"; sum {sum(breakdown.values()):.3f}")
+    holder = [acc]
+
+    def run_step():
+        holder[0] = step(model, optimizer, holder[0], batch, tgen)
+
+    profile_steps(torch, run_step)
+    acc = holder[0]
+    count = acc["count"].item()
+    means = {k: v.item() / count for k, v in acc["sums"].items()}
+    log(f"[train] metric means over {count:.0f} images: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in means.items()))
+    if acc["nan"].item() or not all(np.isfinite(v) for v in means.values()):
+        fail("the train step's metrics are not finite")
+    if not all(torch.isfinite(q).all() for q in model.parameters()):
+        fail("the weights are not finite after training")
+
+    # ---- 8e. two mask-supervised steps (elastic path) --------------------
+    mstep = steps.make_train_step(config, CANVAS, point_mode=False)
+    mbatch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(
+        BATCH, point_mode=False).items()}
+    macc = steps.init_metric_acc()
+    torch.cuda.reset_peak_memory_stats()
+    cellpool.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        macc = mstep(model, optimizer, macc, mbatch, tgen)
+    torch.cuda.synchronize()
+    mlaunch = dict(cellpool.LAUNCHES)
+    log(f"[train mask] 2 steps in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+        f"(the first includes its set-up); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{mlaunch}; loss mean {macc['sums']['loss'].item() / 2 / BATCH:.4f}")
+    if macc["nan"].item() or mlaunch["cell_pool_stage_bwd"] != 8:
+        fail("the mask-supervised train steps")
+    del model, optimizer, step, mstep, batch, mbatch
+    torch.cuda.empty_cache()
+
+    # ---- 8f. K3 / K4 times at the main-path shapes -----------------------
+    cd = torch.bfloat16
+    out = []
+    dsums = torch.randn((BATCH, K, C0), generator=gen, device=dev)
+    oh = (seg_m[..., None] == torch.arange(K, device=dev, dtype=seg_m.dtype)
+          ).to(cd).reshape(BATCH, H * W, K)                     # (B, HW, K)
+    ds_cd = dsums.to(cd)
+    t_k = cuda_ms(torch, lambda: cellpool.cell_pool0_bwd(plan, seg_m, dsums,
+                                                         cd))
+    t_p = cuda_ms(torch, lambda: cellpool.cell_pool0_bwd_plain(
+        plan, seg_m, dsums, cd), n=5, warmup=1)
+    t_l = cuda_ms(torch, lambda: torch.bmm(oh, ds_cd))
+    del oh
+    nbytes = seg_m.numel() * 4 + dsums.numel() * 4 + BATCH * H * W * C0 * 2
+    b_ms, b_by = bound(nbytes, 0.0, cd)
+    log(f"[K3 time] kernel {t_k:.4f} ms, plain {t_p:.4f}, bmm {t_l:.4f}, "
+        f"bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+    out.append({
+        "name": "cell_pool0_bwd (K3)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/cellpool.cu",
+        "replaces": "wesup_tpu/ops/cellpool_pallas.py:213",
+        "launches": launches["cell_pool0_bwd"],
+        "max_abs_err": errs[("K3", cd)],
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": t_l})
+
+    e9 = cellgrid.offset_masks(plan, seg, valid, cd)
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    for s, C in stage_c.items():
+        spp = cellgrid.make_stage_pool_plan(plan, *stage_hw[s], True)
+        Hs, Ws = stage_hw[s]
+        mc = cellgrid.stage_window_weights(spp, e9)
+        dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+        ds_cd = dsums.to(cd)
+        Md = cellgrid.expand_window_weights(spp, mc)   # (B, Hs, Kh, Ws, Kw)
+        Mq = Md.permute(0, 1, 3, 2, 4).reshape(BATCH, Hs * Ws, K).contiguous()
+        del Md
+        t_k = cuda_ms(torch, lambda: cellpool.cell_pool_stage_bwd(spp, mc,
+                                                                  dsums))
+        t_p = cuda_ms(torch, lambda: cellpool.cell_pool_stage_bwd_plain(
+            spp, mc, dsums, cd), n=5, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(Mq, ds_cd))
+        del Mq
+        nbytes = mc.numel() * 2 + dsums.numel() * 4 + BATCH * Hs * Ws * C * 2
+        flops = 2.0 * int((mc != 0).sum().item()) * C
+        b_ms, b_by = bound(nbytes, flops, cd)
+        log(f"[K4 time] stage {s} {Hs}x{Ws}x{C}: kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} ({b_by}, "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        tot["ms"] += t_k
+        tot["plain"] += t_p
+        tot["lib"] += t_l
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    out.append({
+        "name": "cell_pool_stage_bwd (K4, stages 1-4 summed)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/cellpool.cu",
+        "replaces": "wesup_tpu/ops/cellpool_pallas.py:470",
+        "launches": launches["cell_pool_stage_bwd"],
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k[0] == "K4" and k[-1] == cd),
+        "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": tot["lib"]})
+    return out
 
 
 def card_line() -> str:
@@ -292,8 +611,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cellpool.LAUNCHES)
     log(f"[step] launches in one step: {launches}")
-    if launches != {"cell_pool0": 1, "cell_pool_stage": 4}:
-        fail(f"expected K1 once and K2 four times per step, got {launches}")
+    if launches != {"cell_pool0": 1, "cell_pool_stage": 4,
+                    "cell_pool0_bwd": 0, "cell_pool_stage_bwd": 0}:
+        fail(f"expected K1 once, K2 four times and no backward kernel per "
+             f"step, got {launches}")
     if tuple(pred.shape) != (BATCH,) + CANVAS:
         fail(f"pred shape {tuple(pred.shape)}")
     if not (torch.isfinite(pred).all() and pred.min() >= 0
@@ -347,7 +668,8 @@ def main() -> int:
         + ", ".join(f"{x:.1f}" for x in lat[1:])
         + f"; launches over {len(reqs)} requests: {serve_launches}")
     if serve_launches != {"cell_pool0": len(reqs),
-                          "cell_pool_stage": 4 * len(reqs)}:
+                          "cell_pool_stage": 4 * len(reqs),
+                          "cell_pool0_bwd": 0, "cell_pool_stage_bwd": 0}:
         fail(f"expected K1 once and K2 four times per request, got "
              f"{serve_launches}")
     server = create_server(port=0, host="127.0.0.1")
@@ -427,6 +749,11 @@ def main() -> int:
                            if k.endswith(str(cd))),
         "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": tot["lib"]})
+    del taps0, taps
+    torch.cuda.empty_cache()
+
+    # ---- 8. training -----------------------------------------------------
+    kernels += train_phase(torch, card, imgs, valid, seg, seg_m, gen)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

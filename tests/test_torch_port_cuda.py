@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the predict and train steps on the card against the CPU.
 
 Every test here carries the ``cuda`` marker, needs a CUDA device and skips
 without one (the fixture decides, so every worker collects the same
@@ -24,6 +25,7 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.models import wesup  # noqa: E402
+from wesup_tpu_torch.models import steps  # noqa: E402
 from wesup_tpu_torch.models.steps import make_predict_step  # noqa: E402
 from wesup_tpu_torch.ops import cellgrid, cellpool  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
@@ -110,9 +112,137 @@ def test_predict_step_on_card_matches_cpu(cuda):
     want = make_predict_step(cfg, (64, 160), device="cpu")(model, imgs, valid)
     cellpool.reset_launches()
     got = make_predict_step(cfg, (64, 160))(model.to(cuda), imgs, valid)
-    assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4}
+    assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
+                                 "cell_pool0_bwd": 0, "cell_pool_stage_bwd": 0}
     # SLIC on the card sums its centre updates in another order than on the
     # CPU, which may flip a near-tie pixel's superpixel; elsewhere the two
     # agree to the f32 forward's tolerance
     close = (got.cpu() - want).abs() <= 2e-4
     assert close.float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("B,H,W,sp_area", CANVASES[:2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cell_pool0_bwd_kernel_matches_plain(cuda, B, H, W, sp_area, dtype):
+    """K3 is a pure selection: bitwise equal to the plain gather."""
+    plan, seg, valid = _seg(cuda, B, H, W, sp_area, seed=2)
+    seg_m = torch.where(valid, seg, -1)
+    for C in (40, 37):  # vector and scalar paths
+        dsums = torch.randn((B, plan.n_clusters, C), device=cuda)
+        before = cellpool.LAUNCHES["cell_pool0_bwd"]
+        got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dtype)
+        assert cellpool.LAUNCHES["cell_pool0_bwd"] == before + 1
+        want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,H,W,sp_area", CANVASES[:2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cell_pool_stage_bwd_kernel_matches_plain(cuda, B, H, W, sp_area,
+                                                  dtype):
+    """K4 sums in another order than the plain einsum: f32 to 1e-5 of the
+    largest value; bf16 within one bf16 ulp (the f32 sums round to bf16)
+    plus 1e-5 of the sum of |terms| (the order of the f32 sums, which
+    matters where the terms cancel)."""
+    plan, seg, valid = _seg(cuda, B, H, W, sp_area, seed=3)
+    e9 = cellgrid.offset_masks(plan, seg, valid, dtype)
+    for s in range(1, 5):
+        spp = cellgrid.make_stage_pool_plan(plan, H >> s, W >> s, True)
+        mc = cellgrid.stage_window_weights(spp, e9)
+        dsums = torch.randn((B, plan.n_clusters, 72), device=cuda)
+        got = cellpool.cell_pool_stage_bwd(spp, mc, dsums)
+        want = cellpool.cell_pool_stage_bwd_plain(spp, mc, dsums, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -126))) - 7)
+            mass = cellpool.cell_pool_stage_bwd_plain(
+                spp, mc.abs(), dsums.abs(), torch.float32)
+            assert (err <= ulp + 1e-5 * mass).all(), s
+
+
+def _train_batch(B, H, W, content, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {
+        "image": np.clip(rng.normal(200, 25, (B, H, W, 3)), 0, 255).astype(
+            np.uint8),
+        "valid": np.zeros((B, H, W), bool),
+        "pixel_mask": rng.integers(0, 2, (B, H, W)).astype(np.int32),
+        "points": np.zeros((B, 16, 3), np.int32),
+        "point_valid": np.zeros((B, 16), bool),
+        "use_mask_as_points": np.zeros((B,), bool),
+        "sample_valid": np.ones((B,), bool),
+    }
+    batch["valid"][:, :content[0], :content[1]] = True
+    for b in range(B):
+        for i in range(6):
+            x, y = rng.integers(0, content[1]), rng.integers(0, content[0])
+            batch["points"][b, i] = (x, y, batch["pixel_mask"][b, y, x])
+            batch["point_valid"][b, i] = True
+    return batch
+
+
+def test_train_step_grads_on_card_match_cpu(cuda):
+    """One f32 forward + loss + backward on the same prep: the card runs
+    K1-K4, the CPU their plain versions.  Loss to 1e-4 relative, gradients
+    to 1e-3 of each tensor's largest |grad|, the backbone convs' to 1e-2:
+    cuDNN and the CPU sum convs in other orders, so a ReLU input within
+    that noise of zero may take the other sign and pass (or stop) one
+    position's gradient, which at the 4x10 deepest stage is ~1/80 of a
+    conv's weight gradient (see tests/test_torch_port_train.py)."""
+    cfg = WESUPConfig(compute_dtype="float32")
+    H, W = 64, 160
+    batch = _train_batch(2, H, W, (58, 141))
+    plan = make_plan(H, W, cfg.sp_area)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    prep = steps._preprocess_sample(
+        None, b["image"], b["valid"], b["pixel_mask"], b["points"],
+        b["point_valid"], b["use_mask_as_points"], config=cfg, train=False,
+        point_mode=True)
+    grads, losses = {}, {}
+    for dev in ("cpu", cuda):
+        model = wesup.WESUP(fc_width=64,
+                            generator=torch.Generator().manual_seed(0)).to(dev)
+        p = steps.Preprocessed(*(t.to(dev) for t in prep))
+        cellpool.reset_launches()
+        loss, _ = steps._forward_and_loss(model, p, plan.n_clusters, cfg,
+                                          b["sample_valid"].to(dev), plan)
+        loss.backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
+                                         "cell_pool0_bwd": 1,
+                                         "cell_pool_stage_bwd": 4}
+        losses[str(dev)] = loss.item()
+        grads[str(dev)] = {n: q.grad.cpu() for n, q in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for name, want in grads["cpu"].items():
+        rel = 1e-2 if name.startswith("backbone.") else 1e-3
+        err = (grads["cuda"][name] - want).abs().max().item()
+        assert err <= rel * want.abs().max().item() + 1e-12, name
+
+
+@pytest.mark.parametrize("point_mode", [True, False])
+def test_train_step_launches_on_card(cuda, point_mode):
+    cfg = WESUPConfig()
+    H, W = 64, 160
+    model = wesup.WESUP(fc_width=64,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    optimizer = steps.make_optimizer(cfg, model)
+    step = steps.make_train_step(cfg, (H, W), point_mode=point_mode)
+    acc = steps.init_metric_acc()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = _train_batch(2, H, W, (58, 141))
+    acc = step(model, optimizer, acc, batch, gen)
+    cellpool.reset_launches()
+    acc = step(model, optimizer, acc, batch, gen)
+    torch.cuda.synchronize()
+    assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
+                                 "cell_pool0_bwd": 1, "cell_pool_stage_bwd": 4}
+    assert acc["count"].item() == 4 and not acc["nan"].item()
+    assert all(np.isfinite(v.item()) for v in acc["sums"].values())

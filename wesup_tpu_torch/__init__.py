@@ -2,14 +2,16 @@
 
 The package mirrors ``wesup_tpu``'s module names so that each module's
 counterpart is easy to find, and imports neither jax nor ``wesup_tpu``.
-Plain tensor work (convolutions, matmuls, SLIC) is PyTorch; the superpixel
-pooling kernels that the JAX package wrote in Pallas are CUDA kernels
-(``csrc/cellpool.cu``), built with ``nvcc`` on first use.
+Plain tensor work (convolutions, matmuls, SLIC, augmentation) is PyTorch;
+the superpixel pooling kernels that the JAX package wrote in Pallas, and
+their backward bodies, are CUDA kernels (``csrc/cellpool.cu``), built with
+``nvcc`` on first use.
 
 Entry points (``inference.Predictor``, ``serve.create_server``,
-``models.steps.make_predict_step``/``make_scaled_predict_step``) run on
-``cuda`` unless the caller passes ``device="cpu"``; with no CUDA device and
-no device given they raise instead of falling back to the CPU.
+``models.steps.make_predict_step``/``make_scaled_predict_step``/
+``make_train_step``/``make_eval_step``) run on ``cuda`` unless the caller
+passes ``device="cpu"``; with no CUDA device and no device given they raise
+instead of falling back to the CPU.
 """
 
 __version__ = "0.1.0"

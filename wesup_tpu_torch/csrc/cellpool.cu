@@ -1,6 +1,7 @@
-// Superpixel pooling kernels K1 and K2 of the WESUP forward, for Hopper
-// (sm_90a).  Built by wesup_tpu_torch/ops/_build.py with nvcc into a shared
-// library with a plain C interface, loaded with ctypes; the wrappers are in
+// Superpixel pooling kernels K1 and K2 of the WESUP forward, and their
+// backward bodies K3 and K4, for Hopper (sm_90a).  Built by
+// wesup_tpu_torch/ops/_build.py with nvcc into a shared library with a plain
+// C interface, loaded with ctypes; the wrappers are in
 // wesup_tpu_torch/ops/cellpool.py.
 //
 // K1  cell_pool0      replaces wesup_tpu/ops/cellpool_pallas.py::cell_pool0
@@ -41,6 +42,37 @@
 //     bitwise repeatable.
 //   - taps may be f32 or bf16 (mc has taps' dtype); products of two bf16
 //     values are exact in f32.
+//
+// K3  cell_pool0_bwd       replaces cellpool_pallas.py::cell_pool0's backward
+//                          (Pallas _bwd_kernel via _bwd_impl):
+//       dtaps[b, h, w, c] = T(dsums[b, seg[b, h, w], c]), 0 where seg < 0.
+// K4  cell_pool_stage_bwd  replaces cell_pool_stage's backward
+//                          (Pallas _stage_bwd_kernel via _stage_bwd_impl):
+//       dtaps[b, p, q, c] = T(sum_{i, j} mc[b, p, i, q, j] *
+//                             T(dsums[b, k(p, i, q, j), c])),
+//       k = (ay[p] + rmin_y + i) * Kw + (ax[q] + rmin_x + j), terms whose
+//       cluster row or column falls outside the grid skipped, f32 sums.
+//
+// T is taps' dtype.  The JAX backward rounds the gathered cotangent window to
+// T before its f32-accumulated product and rounds the sum to T at the end;
+// K4 does the same, so bf16 gradients follow the reference's rounding.
+//
+// What bounds them: bytes, as for K1 and K2: each writes a full-resolution
+// tap gradient (245 MB for stage 0 at B=8, 288x416, bf16) from a few MB of
+// dsums that stay in the 50 MB L2.  Neither needs the TPU kernels' one-hot /
+// banded weight tiles: K3 is a gather and K4 a gather with an Ih x Jw
+// weighted sum.
+//
+// Design (simple first):
+//   - K3: one thread per 4 consecutive channels of one pixel (scalar when C
+//     is not a multiple of 4), grid-stride.  Neighbouring threads write
+//     neighbouring addresses; seg is read as a broadcast by the threads of a
+//     pixel; every output element is written once, no atomics.  A pure
+//     selection: bitwise equal to the plain gather.
+//   - K4: one thread per (b, p, q, c), laid out as K2 (32 channels x 8 stage
+//     columns per block), so a warp's mc reads are broadcasts and its dsums
+//     reads one contiguous row segment.  Each thread walks its Ih x Jw window
+//     in a fixed order and writes once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,6 +163,138 @@ dim3 pool_grid(int B, int C, int Kh, int Kw) {
   return dim3((C + kChanPerWarp - 1) / kChanPerWarp, Kh * n_kxb, B);
 }
 
+// ---- backward ------------------------------------------------------------
+
+__device__ __forceinline__ void store_f32(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);
+}
+
+// four consecutive values; dst is 4-element aligned
+__device__ __forceinline__ void store4_f32(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4_f32(__nv_bfloat16* dst, float4 v) {
+  auto* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  d2[0] = __floats2bfloat162_rn(v.x, v.y);
+  d2[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// a dsums value rounded to T, as the reference casts its cotangent window
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+constexpr int kBwdThreads = 256;
+
+// V = 4: one thread per 4 channels (C % 4 == 0); V = 1: one per channel.
+template <typename T, int V>
+__global__ void cell_pool0_bwd_kernel(const int* __restrict__ seg,
+                                      const float* __restrict__ dsums,
+                                      T* __restrict__ dtaps, long long n_items,
+                                      int HW, int C, int K) {
+  const int per_pix = C / V;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       t < n_items; t += stride) {
+    const long long pix = t / per_pix;               // b * HW + h * W + w
+    const int c = static_cast<int>(t - pix * per_pix) * V;
+    const int k = seg[pix];
+    T* out = dtaps + pix * C + c;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k >= 0) {
+      const long long b = pix / HW;
+      const float* src = dsums + (b * K + k) * C + c;
+      if (V == 4) {
+        v = *reinterpret_cast<const float4*>(src);
+      } else {
+        v.x = *src;
+      }
+    }
+    if (V == 4) {
+      store4_f32(out, v);
+    } else {
+      store_f32(out, v.x);
+    }
+  }
+}
+
+template <typename T>
+__global__ void cell_pool_stage_bwd_kernel(
+    const T* __restrict__ mc, const float* __restrict__ dsums,
+    T* __restrict__ dtaps, const int* __restrict__ ay,
+    const int* __restrict__ ax, int Hs, int Ws, int C, int Ih, int Jw, int Kh,
+    int Kw, int rmin_y, int rmin_x) {
+  const int n_qb = (Ws + kClustPerBlock - 1) / kClustPerBlock;
+  const int p = blockIdx.y / n_qb;
+  const int q = (blockIdx.y % n_qb) * kClustPerBlock + threadIdx.y;
+  const int c = blockIdx.x * kChanPerWarp + threadIdx.x;
+  const int b = blockIdx.z;
+  if (q >= Ws || c >= C) return;
+
+  // mc[b, p, i, q, j] lies at ((b * Hs + p) * Ih + i) * Ws * Jw + q * Jw + j
+  const T* mc_pq = mc + (static_cast<size_t>(b) * Hs + p) * Ih * Ws * Jw +
+                   static_cast<size_t>(q) * Jw;
+  const float* ds_b = dsums + static_cast<size_t>(b) * Kh * Kw * C + c;
+  const int ky0 = ay[p] + rmin_y, kx0 = ax[q] + rmin_x;
+  float acc = 0.f;
+  for (int i = 0; i < Ih; ++i) {
+    const int ky = ky0 + i;
+    if (ky < 0 || ky >= Kh) continue;
+    const T* mc_i = mc_pq + static_cast<size_t>(i) * Ws * Jw;
+    for (int j = 0; j < Jw; ++j) {
+      const int kx = kx0 + j;
+      if (kx < 0 || kx >= Kw) continue;
+      const float wgt = to_f32(mc_i[j]);
+      if (wgt != 0.f) {
+        const float g = ds_b[(static_cast<size_t>(ky) * Kw + kx) * C];
+        acc = fmaf(wgt, round_to(g, dtaps), acc);
+      }
+    }
+  }
+  store_f32(dtaps + ((static_cast<size_t>(b) * Hs + p) * Ws + q) * C + c,
+            acc);
+}
+
+template <typename T>
+int launch_pool0_bwd(const int* seg, const float* dsums, void* dtaps, int B,
+                     int H, int W, int C, int K, cudaStream_t s) {
+  const long long n_pix = static_cast<long long>(B) * H * W;
+  // 16-byte loads of dsums and 4-value stores need aligned rows and bases
+  const bool vec = C % 4 == 0 &&
+                   reinterpret_cast<size_t>(dsums) % 16 == 0 &&
+                   reinterpret_cast<size_t>(dtaps) % (4 * sizeof(T)) == 0;
+  const long long n_items = n_pix * (vec ? C / 4 : C);
+  const long long want = (n_items + kBwdThreads - 1) / kBwdThreads;
+  const int blocks = static_cast<int>(want < (1 << 30) ? want : (1 << 30));
+  if (blocks == 0) return 0;
+  T* out = static_cast<T*>(dtaps);
+  if (vec) {
+    cell_pool0_bwd_kernel<T, 4><<<blocks, kBwdThreads, 0, s>>>(
+        seg, dsums, out, n_items, H * W, C, K);
+  } else {
+    cell_pool0_bwd_kernel<T, 1><<<blocks, kBwdThreads, 0, s>>>(
+        seg, dsums, out, n_items, H * W, C, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_stage_bwd(const void* mc, const float* dsums, void* dtaps,
+                     const int* ay, const int* ax, int B, int Hs, int Ws,
+                     int C, int Ih, int Jw, int Kh, int Kw, int rmin_y,
+                     int rmin_x, cudaStream_t s) {
+  const int n_qb = (Ws + kClustPerBlock - 1) / kClustPerBlock;
+  const dim3 block(kChanPerWarp, kClustPerBlock);
+  const dim3 grid((C + kChanPerWarp - 1) / kChanPerWarp, Hs * n_qb, B);
+  cell_pool_stage_bwd_kernel<T><<<grid, block, 0, s>>>(
+      static_cast<const T*>(mc), dsums, static_cast<T*>(dtaps), ay, ax, Hs,
+      Ws, C, Ih, Jw, Kh, Kw, rmin_y, rmin_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
@@ -190,4 +354,39 @@ extern "C" int wesup_cell_pool_stage(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3: dsums (B, K, C) f32, seg (B, H, W) int32 -> dtaps (B, H, W, C) in T.
+extern "C" int wesup_cell_pool0_bwd(const void* seg, const void* dsums,
+                                    void* dtaps, int B, int H, int W, int C,
+                                    int K, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* sg = static_cast<const int*>(seg);
+  const auto* ds = static_cast<const float*>(dsums);
+  if (dtype == 0) return launch_pool0_bwd<float>(sg, ds, dtaps, B, H, W, C, K, s);
+  if (dtype == 1) {
+    return launch_pool0_bwd<__nv_bfloat16>(sg, ds, dtaps, B, H, W, C, K, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4: dsums (B, Kh * Kw, C) f32, mc (B, Hs, Ih, Ws, Jw) in T -> dtaps
+// (B, Hs, Ws, C) in T.
+extern "C" int wesup_cell_pool_stage_bwd(
+    const void* mc, const void* dsums, void* dtaps, const void* ay,
+    const void* ax, int B, int Hs, int Ws, int C, int Ih, int Jw, int Kh,
+    int Kw, int rmin_y, int rmin_x, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* ds = static_cast<const float*>(dsums);
+  const auto* y = static_cast<const int*>(ay);
+  const auto* x = static_cast<const int*>(ax);
+  if (dtype == 0) {
+    return launch_stage_bwd<float>(mc, ds, dtaps, y, x, B, Hs, Ws, C, Ih, Jw,
+                                   Kh, Kw, rmin_y, rmin_x, s);
+  }
+  if (dtype == 1) {
+    return launch_stage_bwd<__nv_bfloat16>(mc, ds, dtaps, y, x, B, Hs, Ws, C,
+                                           Ih, Jw, Kh, Kw, rmin_y, rmin_x, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

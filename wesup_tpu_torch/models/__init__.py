@@ -1,1 +1,2 @@
-"""Model layer of the port: VGG16 backbone, WESUP module, predict steps."""
+"""Model layer of the port: VGG16 backbone, WESUP module, objectives, and
+the train, eval and predict steps."""

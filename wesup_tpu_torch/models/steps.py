@@ -1,11 +1,22 @@
-"""Predict steps: the whole per-batch inference pipeline on the card.
+"""Train, eval and predict steps: the whole per-batch pipeline on the card.
 
-Port of ``wesup_tpu.models.steps.make_predict_step`` and
-``make_scaled_predict_step`` in superpixel mode: uint8 (or float) canvas ->
-float, per-image SLIC, VGG16 taps, superpixel pooling (kernels K1 and K2),
-fused projection, MLP head, painted foreground map.  PyTorch runs eagerly,
-so a "step" is a plain function closed over the static shapes and plans;
-it takes the model as its first argument, as the JAX step takes params.
+Port of ``wesup_tpu.models.steps``:
+
+- ``make_train_step``: augmentation -> point rasterization -> SLIC ->
+  superpixel stats -> hypercolumn forward (pooling kernels K1, K2) ->
+  WESUP loss -> backward (K3, K4 and cuDNN) -> SGD update -> metrics
+  accumulated on the device;
+- ``make_eval_step``: the same without augmentation and gradients;
+- ``make_predict_step`` and ``make_scaled_predict_step`` in superpixel
+  mode: uint8 (or float) canvas -> SLIC -> forward -> painted foreground.
+
+PyTorch runs eagerly, so a "step" is a plain function closed over the
+static shapes and plans; it takes the model as its first argument, as the
+JAX step takes params.  The train step updates the model and the optimizer
+IN PLACE (the JAX step returns new ones) and returns the metric
+accumulator.  Randomness comes from an explicit ``torch.Generator`` on the
+step's device: the augmentation parameters are drawn from it
+(:func:`sample_augmentation`) and then applied.
 
 The step factories run on ``cuda`` unless ``device`` says otherwise, and raise
 when no CUDA device is present and none was given.
@@ -13,13 +24,19 @@ when no CUDA device is present and none was given.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from ..ops import augment as aug
 from ..ops.resize import resize_bilinear, resize_nearest
+from ..ops.segments import superpixel_stats
 from ..ops.slic import make_plan, n_clusters, slic
 from ..runtime import compute_dtype as _compute_dtype
 from ..runtime import resolve_device
+from ..utils.metrics import device_accuracy, device_dice
 from . import wesup
+from .objectives import wesup_loss
 
 _PIXEL_LATER = ("mode='pixel' (the pixel-wise head) is not ported yet: it "
                 "comes with the port's inference-and-pixel-head slice")
@@ -125,5 +142,337 @@ def make_scaled_predict_step(config, content_hw, target_hw, canvas_hw,
         pred = torch.round(out.pred[:, :th, :tw])
         up = resize_nearest(pred[..., None], (Ho, Wo))[..., 0]
         return up.to(torch.uint8)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Optimizer: torch.optim.SGD(lr, momentum, weight_decay), the reference's
+# optimizer (models/wesup.py:445-455)
+# ---------------------------------------------------------------------------
+
+def make_optimizer(config, model) -> torch.optim.SGD:
+    """SGD over the model's trainable parameters.
+
+    Equal to the JAX package's ``add_decayed_weights -> trace -> scale(-lr)``
+    chain: both add ``weight_decay * p`` to the gradient, keep the momentum
+    buffer ``m = g + momentum * m`` (the first step's buffer is ``g``) and
+    step by ``-lr * m``.  Under ``freeze_backbone`` the backbone's
+    parameters are left out, so they never move, as optax's
+    ``set_to_zero`` leaves them."""
+    params = [p for name, p in model.named_parameters()
+              if not (config.freeze_backbone and name.startswith("backbone."))]
+    return torch.optim.SGD(params, lr=config.lr, momentum=config.momentum,
+                           weight_decay=config.weight_decay)
+
+
+# ---------------------------------------------------------------------------
+# Per-batch device preprocessing
+# ---------------------------------------------------------------------------
+
+def _rasterize_points(points, point_valid, hw, n_classes):
+    """Scatter (B, P, 3) xy-class points into (B, H, W, C) one-hot masks.
+
+    Equivalent to the reference's cv2.circle(radius=0) rasterization;
+    out-of-bounds or padded points are dropped (routed to pixel (0, 0) with
+    value 0, a no-op under max)."""
+    H, W = hw
+    B = points.shape[0]
+    xs, ys = points[..., 0], points[..., 1]
+    cs = points[..., 2].clamp(0, n_classes - 1)
+    ok = point_valid & (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    ys = torch.where(ok, ys, torch.zeros_like(ys))
+    xs = torch.where(ok, xs, torch.zeros_like(xs))
+    flat = ((ys * W + xs) * n_classes + cs).to(torch.int64)
+    mask = torch.zeros((B, H * W * n_classes), dtype=torch.float32,
+                       device=points.device)
+    mask.scatter_reduce_(1, flat, ok.to(torch.float32), reduce="amax")
+    return mask.reshape(B, H, W, n_classes)
+
+
+class Preprocessed(NamedTuple):
+    image: torch.Tensor       # (B, H, W, 3) float
+    valid: torch.Tensor       # (B, H, W) bool
+    target: torch.Tensor      # (B, H, W) int32 class idx (-1 where absent)
+    seg: torch.Tensor         # (B, H, W) int32 superpixel ids
+    sup_mask: torch.Tensor    # (B, H, W, C) supervision one-hot
+
+
+class AugParams(NamedTuple):
+    """One batch's drawn augmentation (see :func:`sample_augmentation`)."""
+
+    appearance: aug.AppearanceParams
+    affine: torch.Tensor                  # (B, 3, 3) forward affines
+    elastic: aug.ElasticParams | None     # mask-supervised path only
+
+
+def _aug_configs(point_mode: bool):
+    if point_mode:
+        # albumentations defaults
+        return aug.AppearanceConfig(), aug.PositionConfig(ssr_p=1.0)
+    # SegmentationDataset path: milder appearance, SSR p=0.8, elastic
+    return (aug.AppearanceConfig(hue_shift_limit=10, sat_shift_limit=10,
+                                 val_shift_limit=10, brightness_limit=0.1,
+                                 contrast_limit=0.1),
+            aug.PositionConfig(ssr_p=0.8))
+
+
+def sample_augmentation(config, B: int, hw, point_mode: bool,
+                        generator: torch.Generator, device) -> AugParams:
+    """Draw one batch's augmentation parameters from ``generator``."""
+    app_cfg, pos_cfg = _aug_configs(point_mode)
+    appearance = aug.sample_appearance(generator, B, app_cfg, device)
+    A = aug.random_affine(aug.sample_affine(generator, B, pos_cfg, device),
+                          hw)
+    elastic = None
+    if not point_mode and config.elastic_p > 0:
+        elastic = aug.sample_elastic(generator, B, hw, config.elastic_p,
+                                     device)
+    return AugParams(appearance, A, elastic)
+
+
+def _preprocess_sample(params: AugParams | None, image_u8, valid, pixel_mask,
+                       points, point_valid, use_mask_as_points, *, config,
+                       train: bool, point_mode: bool,
+                       mark=None) -> Preprocessed:
+    """Augment + rasterize + SLIC for a batch (the JAX function's vmap).
+
+    ``params`` are the drawn augmentation parameters (unused unless
+    ``train``).  ``mark`` is called with ``"augment"`` before SLIC and
+    ``"slic"`` after it."""
+    mark = mark or (lambda name: None)
+    H, W = image_u8.shape[1:3]
+    C = config.n_classes
+    img = image_u8.to(torch.float32) / 255.0
+    pts_xy = points[..., :2].to(torch.float32)
+
+    if train:
+        img = aug.random_appearance(img, params.appearance)
+        if params.elastic is not None:
+            el_img, el_mask = aug.random_elastic(
+                img, pixel_mask.to(torch.float32), params.elastic.coarse)
+            do = params.elastic.apply
+            img = torch.where(do[:, None, None, None], el_img, img)
+            pixel_mask = torch.where(do[:, None, None],
+                                     el_mask.to(torch.int32), pixel_mask)
+        A = params.affine
+        warp_fn = aug.warp_exact if config.warp_method == "exact" else aug.warp
+        img = warp_fn(img, A, order=1)
+        # mask and valid share the order-0 warp (two channels, per-channel
+        # fill)
+        aux = torch.stack([pixel_mask.to(torch.float32),
+                           valid.to(torch.float32)], dim=-1)
+        aux = warp_fn(aux, A, order=0, fill=[-1.0, 0.0])
+        pixel_mask = aux[..., 0].to(torch.int32)
+        valid = aux[..., 1] > 0.5
+        pts_xy = aug.transform_points(pts_xy, A)
+
+    pts_int = torch.cat([torch.floor(pts_xy + 0.5).to(torch.int32),
+                         points[..., 2:3].to(torch.int32)], dim=-1)
+    point_mask = _rasterize_points(pts_int, point_valid, (H, W), C)
+
+    classes = torch.arange(C, dtype=pixel_mask.dtype, device=img.device)
+    pixel_onehot = ((pixel_mask[..., None] == classes)
+                    & (pixel_mask[..., None] >= 0)).to(torch.float32)
+
+    # supervision (reference preprocess, models/wesup.py:480-485): point
+    # mask if present, else pixel mask, else nothing
+    per_image = (slice(None), None, None, None)
+    point_sup = torch.where(use_mask_as_points[per_image], pixel_onehot,
+                            point_mask)
+    has_points = point_valid.any(-1) | use_mask_as_points
+    has_pixel = (pixel_mask >= 0).flatten(1).any(-1)
+    sup = torch.where(has_points[per_image], point_sup,
+                      torch.where(has_pixel[per_image], pixel_onehot,
+                                  torch.zeros_like(pixel_onehot)))
+    # annotations only count on valid canvas pixels
+    sup = sup * valid[..., None].to(torch.float32)
+
+    img = torch.clamp(img, 0.0, 1.0)
+    mark("augment")
+    seg = _slic(config, img, valid)
+    mark("slic")
+    return Preprocessed(img, valid, pixel_mask, seg, sup)
+
+
+# ---------------------------------------------------------------------------
+# Train and eval steps
+# ---------------------------------------------------------------------------
+
+def _forward_and_loss(model, prep: Preprocessed, K, config, sample_valid,
+                      plan=None, mark=None):
+    """Forward + mean WESUP loss over the valid samples.
+
+    Returns ``(loss, (out, losses))`` with ``losses`` per image."""
+    mark = mark or (lambda name: None)
+    out = wesup.forward_superpixel(model, prep.image, prep.seg, K, prep.valid,
+                                   _compute_dtype(config),
+                                   pooling=config.pooling, plan=plan)
+    mark("forward")
+    stats = superpixel_stats(prep.seg, K, prep.sup_mask, prep.valid,
+                             plan=plan)
+    losses = wesup_loss(
+        out.sp_pred, out.sp_features, stats.labels, stats.labeled, stats.real,
+        # the reference never applies its class_weights config
+        class_weights=(config.class_weights
+                       if config.apply_class_weights else None),
+        enable_propagation=config.enable_propagation,
+        propagate_threshold=config.propagate_threshold,
+        propagate_weight=config.propagate_weight,
+        epsilon=config.epsilon)
+    w = sample_valid.to(torch.float32)
+    loss = (losses.loss * w).sum() / w.sum().clamp_min(1.0)
+    mark("loss")
+    return loss, (out, losses)
+
+
+TRAIN_METRIC_KEYS = ("loss", "accuracy", "dice", "labeled_sp_ratio",
+                     "propagated_labels", "propagate_loss")
+EVAL_METRIC_KEYS = ("accuracy", "dice")
+
+
+def _extent_valid(content_hw, H, W):
+    """(B, H, W) top-left rectangle masks from (B, 2) content extents."""
+    hs, ws = content_hw[:, 0], content_hw[:, 1]
+    dev = content_hw.device
+    return ((torch.arange(H, device=dev)[None, :, None] < hs[:, None, None])
+            & (torch.arange(W, device=dev)[None, None, :]
+               < ws[:, None, None]))
+
+
+_WIRE_LATER = {
+    "img_idx": "the device-resize cache (img_idx, ops/train_resize.py)",
+    "rng_idx": "the trainer's key-folding wire format (rng_idx)",
+}
+
+
+def _batch_valid_and_mask(batch, H, W):
+    """(valid, int32 pixel_mask) from a batch in either wire format: an
+    explicit (B, H, W) ``valid`` mask or (B, 2) ``content_hw`` extents."""
+    for key, what in _WIRE_LATER.items():
+        if key in batch:
+            raise NotImplementedError(
+                f"{what} is not ported yet: it comes with the port's slice 3 "
+                "(trainer and data layer)")
+    if "content_hw" in batch:
+        valid = _extent_valid(batch["content_hw"], H, W)
+    else:
+        valid = batch["valid"]
+    return valid, batch["pixel_mask"].to(torch.int32)
+
+
+def _batch_on(batch, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def init_metric_acc(keys=TRAIN_METRIC_KEYS, device=None) -> dict:
+    """Metric accumulator on the device: per-metric sums, the sample count
+    and a NaN flag.  Steps add to it without a host sync; read it once per
+    phase."""
+    dev = resolve_device(device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return {"sums": {k: zero.clone() for k in keys}, "count": zero.clone(),
+            "nan": torch.zeros((), dtype=torch.bool, device=dev)}
+
+
+def _accumulate(acc, per_image: dict, sample_valid):
+    w = sample_valid.to(torch.float32)
+    sums = dict(acc["sums"])
+    nan = acc["nan"]
+    for k, v in per_image.items():
+        v = v.to(torch.float32)
+        sums[k] = sums[k] + (v * w).sum()
+        nan = nan | (torch.isnan(v) & (w > 0)).any()
+    return {"sums": sums, "count": acc["count"] + w.sum(), "nan": nan}
+
+
+def _mask_metrics(out, prep: Preprocessed) -> dict:
+    pred = torch.round(out.pred).to(torch.int32)
+    mvalid = prep.valid & (prep.target >= 0)
+    return {"accuracy": device_accuracy(pred, prep.target, mvalid),
+            "dice": device_dice(pred, prep.target, mvalid)}
+
+
+def _train_metrics(out, losses, prep: Preprocessed) -> dict:
+    m = _mask_metrics(out, prep)
+    return {"loss": losses.loss, "accuracy": m["accuracy"],
+            "dice": m["dice"], "labeled_sp_ratio": losses.labeled_sp_ratio,
+            "propagated_labels": losses.propagated_labels,
+            "propagate_loss": losses.propagate_loss}
+
+
+def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
+    """Train step for a (H, W) canvas.
+
+    Returns ``step(model, optimizer, acc, batch, generator, mark=None) ->
+    acc``.  It updates ``model`` and ``optimizer`` (from
+    :func:`make_optimizer`) in place and returns the new metric
+    accumulator (:func:`init_metric_acc`); nothing leaves the device.
+    ``batch`` holds ``image`` (B, H, W, 3) uint8, ``valid`` (B, H, W) bool
+    or ``content_hw`` (B, 2), ``pixel_mask`` (B, H, W) int (-1 where
+    unannotated), ``points`` (B, P, 3) xy-class, ``point_valid`` (B, P),
+    ``use_mask_as_points`` (B,) and ``sample_valid`` (B,).  ``generator``
+    is a ``torch.Generator`` on the step's device, from which the batch's
+    augmentation is drawn.  ``mark(name)`` is called after each phase:
+    augment, slic, forward, loss, backward, optimizer.
+    """
+    dev = resolve_device(device)
+    H, W = int(canvas_hw[0]), int(canvas_hw[1])
+    K = n_clusters(H, W, config.sp_area)
+    plan = make_plan(H, W, config.sp_area)
+
+    def step(model, optimizer, acc, batch, generator, mark=None):
+        _check_model(model, dev)
+        mark = mark or (lambda name: None)
+        b = _batch_on(batch, dev)
+        valid, pixel_mask = _batch_valid_and_mask(b, H, W)
+        B = b["sample_valid"].shape[0]
+        params = sample_augmentation(config, B, (H, W), point_mode,
+                                     generator, dev)
+        prep = _preprocess_sample(
+            params, b["image"], valid, pixel_mask, b["points"],
+            b["point_valid"], b["use_mask_as_points"], config=config,
+            train=True, point_mode=point_mode, mark=mark)
+
+        model.zero_grad(set_to_none=True)
+        loss, (out, losses) = _forward_and_loss(
+            model, prep, K, config, b["sample_valid"], plan, mark=mark)
+        loss.backward()
+        mark("backward")
+        optimizer.step()
+        mark("optimizer")
+        with torch.no_grad():
+            return _accumulate(acc, _train_metrics(out, losses, prep),
+                               b["sample_valid"])
+
+    return step
+
+
+def make_eval_step(config, canvas_hw, device=None):
+    """Validation step: no augmentation, no gradients.
+
+    Returns ``step(model, acc, batch) -> (pred, acc)`` with ``pred`` the
+    (B, H, W) f32 foreground probability and ``acc`` the accumulator of
+    :data:`EVAL_METRIC_KEYS`; ``batch`` as for :func:`make_train_step`."""
+    dev = resolve_device(device)
+    H, W = int(canvas_hw[0]), int(canvas_hw[1])
+    K = n_clusters(H, W, config.sp_area)
+    plan = make_plan(H, W, config.sp_area)
+    cdtype = _compute_dtype(config)
+
+    @torch.inference_mode()
+    def step(model, acc, batch):
+        _check_model(model, dev)
+        b = _batch_on(batch, dev)
+        valid, pixel_mask = _batch_valid_and_mask(b, H, W)
+        prep = _preprocess_sample(
+            None, b["image"], valid, pixel_mask, b["points"],
+            b["point_valid"], b["use_mask_as_points"], config=config,
+            train=False, point_mode=False)
+        out = wesup.forward_superpixel(model, prep.image, prep.seg, K,
+                                       prep.valid, cdtype,
+                                       pooling=config.pooling, plan=plan)
+        acc = _accumulate(acc, _mask_metrics(out, prep), b["sample_valid"])
+        return out.pred, acc
 
     return step

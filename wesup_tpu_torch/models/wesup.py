@@ -178,7 +178,9 @@ def forward_superpixel(model: WESUP, img: torch.Tensor, seg: torch.Tensor,
 
     counts = cellgrid.cell_counts(plan, seg, valid)             # (B, K) f32
     e9 = cellgrid.offset_masks(plan, seg, valid, compute_dtype)
+    # contiguous for K1, whatever layout seg and valid arrive in
     seg_m = seg if valid is None else torch.where(valid, seg, -1)
+    seg_m = seg_m.contiguous()
     mark("masks")
 
     pooled = None

@@ -25,10 +25,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures of the kernels' launch functions (csrc/cellpool.cu)
+# C signatures of the kernels' launch functions (csrc/cellpool.cu): K1, K2
+# and their backward bodies K3, K4
 _SIGNATURES = {
     "wesup_cell_pool0": [_P] * 7 + [_I] * 7 + [_P],
     "wesup_cell_pool_stage": [_P] * 9 + [_I] * 11 + [_P],
+    "wesup_cell_pool0_bwd": [_P] * 3 + [_I] * 6 + [_P],
+    "wesup_cell_pool_stage_bwd": [_P] * 5 + [_I] * 11 + [_P],
 }
 
 

@@ -9,7 +9,9 @@ copies of the JAX package's, so both packages build the same windows.
 Unlike the TPU versions, counts are a scatter-add and painting is a gather
 (``sp_values[seg]``): both are fast on the GPU.  Counts are sums of 0/1
 values in f32, so they are exact integers in any order of summation, and
-painting copies values, so it is bitwise equal to the reference.
+painting copies values, so it is bitwise equal to the reference.  The
+general small-C segment sum (``cell_pool``, the label vote's) keeps the
+reference's cell binning.
 
 The downsampled stages' adjoint pooling weights follow the reference
 derivation (see the notes in ``wesup_tpu/ops/cellgrid.py``): the compact
@@ -25,18 +27,24 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .resize import _interp_matrix
-from .slic import SlicPlan
+from .slic import _OFFSETS, SlicPlan, _bin_cells, _cached_grid
 
 _const_cache: dict = {}
 
 
 def _device_const(key, build):
-    """Per-device copy of a numpy constant, built once."""
+    """Per-device copy of a numpy constant, built once.
+
+    Built outside inference mode even when the first caller runs under
+    ``torch.inference_mode`` (the predict steps): a cached inference tensor
+    would raise later when a train step's autograd saves it."""
     got = _const_cache.get(key)
     if got is None:
-        got = build()
+        with torch.inference_mode(False):
+            got = build()
         _const_cache[key] = got
     return got
 
@@ -64,6 +72,32 @@ def offset_masks(plan: SlicPlan, seg: torch.Tensor, valid, dtype):
     if valid is not None:
         masks = masks * valid[..., None].to(dtype)
     return masks
+
+
+def cell_pool(plan: SlicPlan, seg: torch.Tensor, x: torch.Tensor,
+              valid=None, masks: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact (B, K, C) segment sums of (B, H, W, C) features, no one-hot.
+
+    Port of ``wesup_tpu.ops.cellgrid.cell_pool``: each pixel's value goes to
+    its cell under its local offset (9 * C channels), the cells are binned
+    by the two 0/1 matmuls in f32, and cluster (i, j) collects cell
+    (i - dy, j - dx) for offset (dy, dx).  Integer-valued inputs (point
+    one-hots, counts) sum exactly in any order.  ``masks`` optionally
+    supplies the (validity-masked) :func:`offset_masks`."""
+    B, H, W, C = x.shape
+    Kh, Kw = plan.Kh, plan.Kw
+    if masks is None:
+        masks = offset_masks(plan, seg, valid, x.dtype)
+    contrib = (masks.to(x.dtype)[..., :, None] * x[..., None, :]).reshape(
+        B, H, W, 9 * C)
+    cells = _bin_cells(_cached_grid(plan, 1, x.device),
+                       contrib.to(torch.float32)).reshape(B, Kh, Kw, 9, C)
+    cells = F.pad(cells, (0, 0, 0, 0, 1, 1, 1, 1))
+    total = None
+    for o, (dy, dx) in enumerate(_OFFSETS):
+        term = cells[:, 1 - dy:1 - dy + Kh, 1 - dx:1 - dx + Kw, o]
+        total = term if total is None else total + term
+    return total.reshape(B, Kh * Kw, C)
 
 
 def cell_counts(plan: SlicPlan, seg: torch.Tensor, valid=None) -> torch.Tensor:

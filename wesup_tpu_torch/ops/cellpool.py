@@ -1,33 +1,44 @@
-"""Superpixel pooling kernels K1 (stage 0) and K2 (stages 1-4).
+"""Superpixel pooling kernels K1 (stage 0) and K2 (stages 1-4), and their
+backward bodies K3 and K4.
 
-Port of ``wesup_tpu/ops/cellpool_pallas.py``'s forward kernels:
+Port of ``wesup_tpu/ops/cellpool_pallas.py``'s kernels and custom VJPs:
 
 - :func:`cell_pool0` (K1): ``sums[b, k, c] = sum_{seg[b,h,w]=k}
   taps[b, h, w, c]`` of full-resolution taps; pixels with ``seg < 0`` add
-  nothing (the caller masks invalid pixels that way).
+  nothing (the caller masks invalid pixels that way).  Its backward, K3
+  (:func:`cell_pool0_bwd`), is the transposed selection ``dtaps[b, h, w] =
+  dsums[b, seg[b, h, w]]`` in taps' dtype, 0 where ``seg < 0``.
 - :func:`cell_pool_stage` (K2): ``sums[b, k, c] = sum_{p,q} M[b,p,q,k]
   taps[b, p, q, c]`` of a downsampled stage, with ``M`` given by its
   compact window weights ``mc`` (B, Hs, Ih, Ws, Jw) from
-  :func:`wesup_tpu_torch.ops.cellgrid.stage_window_weights`.
+  :func:`wesup_tpu_torch.ops.cellgrid.stage_window_weights`.  Its backward,
+  K4 (:func:`cell_pool_stage_bwd`), is ``dtaps = M dsums`` with ``dsums``
+  rounded to taps' dtype first and the f32 sum rounded at the end, as the
+  JAX backward rounds.
 
-Both return (B, K, C) float32.  For CUDA tensors the wrapper launches the
-hand-written kernel in ``csrc/cellpool.cu`` (or raises); only for CPU
-tensors does it take the plain PyTorch version beside it, which the tests
-and ``chip_smoke.py`` hold the kernel against.  ``LAUNCHES`` counts the
-kernel launches, one per wrapper call that reaches the card.
+The forwards return (B, K, C) float32.  :func:`cell_pool0` and
+:func:`cell_pool_stage` are ``torch.autograd.Function``s: their backward
+runs K3 / K4, the segment ids and window weights get no gradient (they
+descend from integer SLIC assignments).  For CUDA tensors every wrapper
+launches its hand-written kernel in ``csrc/cellpool.cu`` (or raises); only
+for CPU tensors does it take the plain PyTorch version beside it, which the
+tests and ``chip_smoke.py`` hold the kernel against.  ``LAUNCHES`` counts
+the kernel launches, one per wrapper call that reaches the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from .cellgrid import (StagePoolPlan, _device_const, _spp_const,
                        expand_window_weights)
 from .slic import SlicPlan
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"cell_pool0": 0, "cell_pool_stage": 0}
+LAUNCHES = {"cell_pool0": 0, "cell_pool_stage": 0, "cell_pool0_bwd": 0,
+            "cell_pool_stage_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -111,12 +122,8 @@ def cell_pool0_plain(plan: SlicPlan, seg: torch.Tensor,
     return torch.einsum("bhwk,bhwc->bkc", oh, taps.to(torch.float32))
 
 
-def cell_pool0(plan: SlicPlan, seg: torch.Tensor,
+def _pool0_fwd(plan: SlicPlan, seg: torch.Tensor,
                taps: torch.Tensor) -> torch.Tensor:
-    """(B, K, C) float32 segment sums of full-resolution (B, H, W, C) taps.
-
-    ``seg`` (B, H, W) int32 must be validity-masked (invalid pixels < 0)
-    and come from :func:`wesup_tpu_torch.ops.slic.slic` for ``plan``."""
     if taps.device.type == "cpu":
         return cell_pool0_plain(plan, seg, taps)
     if taps.device.type != "cuda":
@@ -141,6 +148,73 @@ def cell_pool0(plan: SlicPlan, seg: torch.Tensor,
     return out
 
 
+def cell_pool0_bwd_plain(plan: SlicPlan, seg: torch.Tensor,
+                         dsums: torch.Tensor, dtype) -> torch.Tensor:
+    """Plain version of K3: gather each pixel's cotangent row, in ``dtype``,
+    zero where ``seg < 0``."""
+    B, H, W = seg.shape
+    C = dsums.shape[-1]
+    idx = seg.clamp_min(0).reshape(B, H * W, 1).long().expand(B, H * W, C)
+    rows = torch.gather(dsums.to(dtype), 1, idx).reshape(B, H, W, C)
+    return rows.masked_fill((seg < 0)[..., None], 0)
+
+
+def cell_pool0_bwd(plan: SlicPlan, seg: torch.Tensor, dsums: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """K3: (B, H, W, C) gradient in ``dtype`` of :func:`cell_pool0`'s taps
+    from the (B, K, C) float32 cotangent ``dsums``."""
+    dsums = dsums.contiguous()
+    if dsums.device.type == "cpu":
+        return cell_pool0_bwd_plain(plan, seg, dsums, dtype)
+    if dsums.device.type != "cuda":
+        raise ValueError(f"cell_pool0_bwd: unsupported device {dsums.device}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"cell_pool0_bwd: unsupported dtype {dtype}")
+    B, H, W = seg.shape
+    C = dsums.shape[-1]
+    if (H, W) != (plan.H, plan.W):
+        raise ValueError(f"seg is {H}x{W}, plan is {plan.H}x{plan.W}")
+    _check("dsums", dsums, (B, plan.n_clusters, C), (torch.float32,),
+           dsums.device)
+    _check("seg", seg, (B, H, W), (torch.int32,), dsums.device)
+    from ._build import library
+
+    lib = library()
+    out = torch.empty((B, H, W, C), dtype=dtype, device=dsums.device)
+    err = lib.wesup_cell_pool0_bwd(
+        seg.data_ptr(), dsums.data_ptr(), out.data_ptr(), B, H, W, C,
+        plan.n_clusters, _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
+    _raise_on_error("cell_pool0_bwd", err)
+    LAUNCHES["cell_pool0_bwd"] += 1
+    return out
+
+
+class _CellPool0Fn(torch.autograd.Function):
+    """K1 forward, K3 backward; ``seg`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, plan, seg, taps):
+        ctx.plan, ctx.dtype = plan, taps.dtype
+        ctx.save_for_backward(seg)
+        return _pool0_fwd(plan, seg, taps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsums):
+        (seg,) = ctx.saved_tensors
+        return None, None, cell_pool0_bwd(ctx.plan, seg, dsums, ctx.dtype)
+
+
+def cell_pool0(plan: SlicPlan, seg: torch.Tensor,
+               taps: torch.Tensor) -> torch.Tensor:
+    """(B, K, C) float32 segment sums of full-resolution (B, H, W, C) taps.
+
+    ``seg`` (B, H, W) int32 must be validity-masked (invalid pixels < 0)
+    and come from :func:`wesup_tpu_torch.ops.slic.slic` for ``plan``.
+    Differentiable in ``taps`` (through K3)."""
+    return _CellPool0Fn.apply(plan, seg, taps)
+
+
 # ---------------------------------------------------------------------------
 # K2: downsampled stages' adjoint-weighted sums
 # ---------------------------------------------------------------------------
@@ -155,11 +229,8 @@ def cell_pool_stage_plain(spp: StagePoolPlan, mc: torch.Tensor,
     return sums.reshape(B, spp.Kh * spp.Kw, C)
 
 
-def cell_pool_stage(spp: StagePoolPlan, mc: torch.Tensor,
-                    taps: torch.Tensor) -> torch.Tensor:
-    """(B, K, C) float32 adjoint-pooled sums of (B, Hs, Ws, C) stage taps,
-    from the stage's (B, Hs, Ih, Ws, Jw) window weights ``mc`` (same dtype
-    as ``taps``), never expanding them to (B, Hs, Kh, Ws, Kw) on the card."""
+def _stage_fwd(spp: StagePoolPlan, mc: torch.Tensor,
+               taps: torch.Tensor) -> torch.Tensor:
     if taps.device.type == "cpu":
         return cell_pool_stage_plain(spp, mc, taps)
     if taps.device.type != "cuda":
@@ -184,3 +255,69 @@ def cell_pool_stage(spp: StagePoolPlan, mc: torch.Tensor,
     _raise_on_error("cell_pool_stage", err)
     LAUNCHES["cell_pool_stage"] += 1
     return out
+
+
+def cell_pool_stage_bwd_plain(spp: StagePoolPlan, mc: torch.Tensor,
+                              dsums: torch.Tensor, dtype) -> torch.Tensor:
+    """Plain version of K4: the dense weights times the cotangent rounded to
+    ``dtype``, summed in f32 and rounded to ``dtype``."""
+    B, C = dsums.shape[0], dsums.shape[-1]
+    Md = expand_window_weights(spp, mc).to(torch.float32)
+    ds = dsums.reshape(B, spp.Kh, spp.Kw, C).to(dtype).to(torch.float32)
+    return torch.einsum("bpyqx,byxc->bpqc", Md, ds).to(dtype)
+
+
+def cell_pool_stage_bwd(spp: StagePoolPlan, mc: torch.Tensor,
+                        dsums: torch.Tensor) -> torch.Tensor:
+    """K4: (B, Hs, Ws, C) gradient, in ``mc``'s dtype, of
+    :func:`cell_pool_stage`'s taps from the (B, K, C) f32 cotangent."""
+    dsums = dsums.contiguous()
+    if dsums.device.type == "cpu":
+        return cell_pool_stage_bwd_plain(spp, mc, dsums, mc.dtype)
+    if dsums.device.type != "cuda":
+        raise ValueError(f"cell_pool_stage_bwd: unsupported device "
+                         f"{dsums.device}")
+    B, C = dsums.shape[0], dsums.shape[-1]
+    _check("dsums", dsums, (B, spp.Kh * spp.Kw, C), (torch.float32,),
+           dsums.device)
+    _check("mc", mc, (B, spp.Hs, spp.Ih, spp.Ws, spp.Jw), _DTYPE_CODE,
+           dsums.device)
+    from ._build import library
+
+    lib = library()
+    ay, ax = _stage_tables(spp, dsums.device)[:2]
+    out = torch.empty((B, spp.Hs, spp.Ws, C), dtype=mc.dtype,
+                      device=dsums.device)
+    err = lib.wesup_cell_pool_stage_bwd(
+        mc.data_ptr(), dsums.data_ptr(), out.data_ptr(), ay.data_ptr(),
+        ax.data_ptr(), B, spp.Hs, spp.Ws, C, spp.Ih, spp.Jw, spp.Kh, spp.Kw,
+        spp.rmin_y, spp.rmin_x, _DTYPE_CODE[mc.dtype],
+        _stream_ptr(dsums.device))
+    _raise_on_error("cell_pool_stage_bwd", err)
+    LAUNCHES["cell_pool_stage_bwd"] += 1
+    return out
+
+
+class _CellPoolStageFn(torch.autograd.Function):
+    """K2 forward, K4 backward; the window weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, spp, mc, taps):
+        ctx.spp = spp
+        ctx.save_for_backward(mc)
+        return _stage_fwd(spp, mc, taps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsums):
+        (mc,) = ctx.saved_tensors
+        return None, None, cell_pool_stage_bwd(ctx.spp, mc, dsums)
+
+
+def cell_pool_stage(spp: StagePoolPlan, mc: torch.Tensor,
+                    taps: torch.Tensor) -> torch.Tensor:
+    """(B, K, C) float32 adjoint-pooled sums of (B, Hs, Ws, C) stage taps,
+    from the stage's (B, Hs, Ih, Ws, Jw) window weights ``mc`` (same dtype
+    as ``taps``), never expanding them to (B, Hs, Kh, Ws, Kw) on the card.
+    Differentiable in ``taps`` (through K4)."""
+    return _CellPoolStageFn.apply(spp, mc, taps)

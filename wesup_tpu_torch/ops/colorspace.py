@@ -1,7 +1,8 @@
-"""sRGB -> CIELAB, the colour space SLIC clusters in.
+"""Colour spaces: sRGB -> CIELAB (SLIC, CLAHE) and RGB <-> HSV (augmentation).
 
-Port of ``wesup_tpu.ops.colorspace.rgb2lab``: sRGB -> linear RGB ->
-XYZ (D65) -> CIELAB with skimage's constants.
+Port of ``wesup_tpu.ops.colorspace``: sRGB -> linear RGB -> XYZ (D65) ->
+CIELAB with skimage's constants, and the HSV conversions of the
+augmentation stack.
 """
 
 from __future__ import annotations
@@ -46,3 +47,44 @@ def rgb2lab(rgb: torch.Tensor) -> torch.Tensor:
     a = 500.0 * (fx - fy)
     b = 200.0 * (fy - fz)
     return torch.stack([L, a, b], dim=-1)
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB in [0, 1] -> HSV with H in [0, 1)."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    delta = maxc - minc
+    zero = torch.zeros_like(maxc)
+    s = torch.where(maxc > 0, delta / maxc.clamp_min(1e-12), zero)
+    safe = delta.clamp_min(1e-12)
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, torch.remainder(h / 6.0, 1.0), zero)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """(..., 3) HSV (H in [0, 1)) -> RGB."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    h = torch.remainder(h, 1.0)
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def select(*vals):
+        # vals[k] where i == k (exactly one k holds)
+        out = vals[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, vals[k], out)
+        return out
+
+    return torch.stack([select(v, q, p, p, t, v), select(t, v, v, q, p, p),
+                        select(p, p, t, v, v, q)], dim=-1)

@@ -114,8 +114,11 @@ def _cached_grid(plan: SlicPlan, stride: int, device) -> _Grid:
     key = (plan.H, plan.W, plan.Kh, plan.Kw, stride, str(device))
     got = _GRID_CACHE.get(key)
     if got is None:
-        got = _grid(plan, np.arange(0, plan.H, stride),
-                    np.arange(0, plan.W, stride), device)
+        # normal tensors even under inference mode, so that a later train
+        # step may use them under autograd
+        with torch.inference_mode(False):
+            got = _grid(plan, np.arange(0, plan.H, stride),
+                        np.arange(0, plan.W, stride), device)
         _GRID_CACHE[key] = got
     return got
 

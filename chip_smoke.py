@@ -25,7 +25,17 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    against the CPU at 288x416; ``make_train_step`` at B=8 on the 288x416
    canvas in bf16 with full-width WESUP (point supervision), launch counts
    per step, step time, peak memory, a per-phase breakdown and a profiler
-   window; two mask-supervised steps (elastic path); K3/K4 times.
+   window; two mask-supervised steps (elastic path); K3/K4 times;
+9. the adjoint, fullres and fused-pool paths: K5 (``segment_sum``), K6
+   (``adjoint_pool_stage``) and K7 (``fused_relu_pool_pad``, and its
+   gradient) against their plain versions at the main-path shapes; the f32
+   forward on the card against the CPU for ``pooling="adjoint"`` with and
+   without a plan, ``"fullres"`` and ``"local"`` under
+   ``WESUP_FUSED_POOL1=1``; ``make_predict_step`` at B=8 on the 288x416
+   canvas in bf16 for each of them beside phase 5's step, with launch
+   counts, step times and per-phase breakdowns; one gated bf16 train step;
+   K5/K6/K7 times against their plain versions, a library call and the
+   bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -35,7 +45,9 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -127,7 +139,7 @@ class PhaseTimer:
         return out
 
 
-def profile_steps(torch, run_step, n=5) -> None:
+def profile_steps(torch, run_step, n=5, top=12, tag="profile") -> None:
     """Device busy share and top kernels over ``n`` steps, from the
     profiler's kernel records (the span runs from the first kernel's start
     to the last one's end; host work under the profiler is slower than
@@ -144,20 +156,19 @@ def profile_steps(torch, run_step, n=5) -> None:
         torch.cuda.synchronize()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        log("[profile] no device kernels recorded: busy share not measured")
+        log(f"[{tag}] no device kernels recorded: busy share not measured")
         return
     busy = sum(e.time_range.elapsed_us() for e in kern)
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern))
-    log(f"[profile] {n} steps: {len(kern) / n:.0f} kernels/step, device busy "
+    log(f"[{tag}] {n} steps: {len(kern) / n:.0f} kernels/step, device busy "
         f"{busy / n / 1e3:.3f} ms/step of a {span / n / 1e3:.3f} ms/step "
         f"span, idle share {1 - busy / span:.3f}")
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    for name, us in top:
-        log(f"[profile]   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[{tag}]   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
 
 
 def train_batch(batch, point_mode=True):
@@ -472,6 +483,420 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     return out
 
 
+def parity_inputs(torch, config):
+    """Phase 4's f32 parity inputs: one 96x256 image with ragged validity,
+    its SLIC seg and plan (on the CPU)."""
+    from wesup_tpu_torch.ops.slic import make_plan, slic
+
+    ph, pw = 96, 256
+    pplan = make_plan(ph, pw, config.sp_area)
+    prng = np.random.default_rng(2)
+    pimg = torch.from_numpy(prng.random((1, ph, pw, 3), dtype=np.float32))
+    pvalid = torch.ones((1, ph, pw), dtype=torch.bool)
+    pvalid[:, -9:] = False
+    pvalid[:, :, -13:] = False
+    pseg = slic(pimg, pvalid, sp_area=config.sp_area,
+                compactness=config.sp_compactness, n_iters=config.slic_iters,
+                update_stride=config.slic_update_stride)
+    return pimg, pvalid, pseg, pplan
+
+
+@contextlib.contextmanager
+def fused_pool1(on: bool = True):
+    """Run the block with ``WESUP_FUSED_POOL1=1`` (when ``on``)."""
+    old = os.environ.get("WESUP_FUSED_POOL1")
+    if on:
+        os.environ["WESUP_FUSED_POOL1"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("WESUP_FUSED_POOL1", None)
+        if old is not None:
+            os.environ["WESUP_FUSED_POOL1"] = old
+
+
+def expected(nonzero: dict) -> dict:
+    """Every kernel's launch count: ``nonzero``'s, 0 for the others."""
+    from wesup_tpu_torch.ops import launch_counts
+
+    return {name: nonzero.get(name, 0) for name in launch_counts()}
+
+
+def step_times(torch, run, n=25):
+    """Median, min and max device ms of ``n`` calls of ``run``."""
+    out = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out), min(out), max(out)
+
+
+def breakdown(torch, run, n=10) -> dict:
+    """Median ms of each marked phase over ``n`` steps; ``run(mark)``."""
+    timer = PhaseTimer(torch)
+    phases = []
+    for _ in range(n):
+        timer.start()
+        run(timer)
+        phases.append(timer.durations())
+    return {k: statistics.median(p[k] for p in phases) for k in phases[0]}
+
+
+def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
+    """Phase 9: the adjoint, fullres and fused-pool paths.  Returns the K5,
+    K6 and K7 entries of the kernels' JSON line."""
+    import torch.nn.functional as F
+
+    from wesup_tpu_torch.config import WESUPConfig
+    from wesup_tpu_torch.models import steps, wesup
+    from wesup_tpu_torch.ops import (adjoint, launch_counts, pool, pooling,
+                                     reset_launches)
+    from wesup_tpu_torch.ops.resize import _interp_matrix
+    from wesup_tpu_torch.ops.slic import make_plan
+
+    dev = torch.device("cuda")
+    config = WESUPConfig()
+    H, W = CANVAS
+    P = H * W
+    K = make_plan(H, W, config.sp_area).n_clusters
+    stage_c = {1: 256, 2: 768, 3: 1536, 4: 1536}
+    stage_hw = {s: (H >> s, W >> s) for s in stage_c}
+    seg_p = seg_m.reshape(BATCH, P)
+    lists = pooling.segment_lists(seg_m, K)
+    errs = {}
+
+    def stage_inputs(s, dt):
+        """Random stage taps, upsampled along H as the forward does: the
+        channels-last (B, H, Ws, C) tensor viewed as (B, C, H, Ws)."""
+        taps = torch.randn((BATCH,) + stage_hw[s] + (stage_c[s],),
+                           generator=gen, device=dev).to(dt)
+        A_wT = torch.from_numpy(_interp_matrix(stage_hw[s][1], W, True)).t()
+        return taps, wesup._upsample_h(taps, H).permute(0, 3, 1, 2), A_wT
+
+    # ---- 9a. K5 / K6 / K7 against their plain versions -------------------
+    for C in (128, 1024):
+        for dt in (torch.bfloat16, torch.float32):
+            feat = torch.randn((BATCH, P, C), generator=gen,
+                               device=dev).to(dt)
+            got = pooling.segment_sum(seg_p, feat, K)
+            want = pooling.segment_sum_plain(seg_p, feat, K)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            lim = 1e-5 * max(1.0, want.abs().max().item())
+            log(f"[K5] {tuple(feat.shape)} {dt}: max_abs_err {err:.3e} "
+                f"(limit {lim:.3e})")
+            if not err <= lim:
+                fail(f"K5 disagrees with its plain version at C={C}, {dt}")
+            errs[("K5", C, dt)] = err
+            del feat, got, want
+    for s in stage_c:
+        for dt in (torch.bfloat16, torch.float32):
+            _, tapsH_T, A_wT = stage_inputs(s, dt)
+            got = adjoint.adjoint_pool_stage(seg_m, tapsH_T, A_wT, K)
+            want = adjoint.adjoint_pool_stage_plain(seg_m, tapsH_T, A_wT, K)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = diff.max().item()
+            lim = 1e-5 * max(1.0, want.abs().max().item())
+            if dt == torch.float32:
+                ok = err <= lim
+                what = f"limit {lim:.3e}"
+            else:
+                # p_h's f32 weight sums, in another order, may round to bf16
+                # values one ulp apart: 2^-8 of the element's mass
+                mass = adjoint.adjoint_pool_stage_plain(
+                    seg_m, tapsH_T.abs(), A_wT, K)
+                ok = bool((diff <= lim + 2.0 ** -8 * mass).all())
+                beyond = (diff > lim).float().mean().item()
+                what = (f"limit {lim:.3e} + 2^-8 of the mass; {beyond:.2e} "
+                        f"of the values beyond {lim:.3e}")
+                del mass
+            log(f"[K6] stage {s} {tuple(tapsH_T.shape)} {dt}: max_abs_err "
+                f"{err:.3e} ({what})")
+            if not ok:
+                fail(f"K6 disagrees with its plain version at stage {s}, {dt}")
+            errs[("K6", s, dt)] = err
+            del tapsH_T, got, want, diff
+    for cout in (64, 128):
+        for dt in (torch.bfloat16, torch.float32):
+            pre = torch.randn((BATCH, 64, H, W), generator=gen,
+                              device=dev).to(dt).contiguous(
+                memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            p = pre.detach().requires_grad_(True)
+            got = pool.fused_relu_pool_pad(p, cout)
+            want = pool.reference(pre, cout)
+            w = torch.randn(got.shape, generator=gen, device=dev)
+            (g,) = torch.autograd.grad((got.float() * w).sum(), p)
+            p2 = pre.detach().requires_grad_(True)
+            (g_ref,) = torch.autograd.grad(
+                (pool.reference(p2, cout).float() * w).sum(), p2)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"[K7] {tuple(pre.shape)} -> {cout} {dt}: max_abs_err "
+                f"{err:.3e}, gradient equal {torch.equal(g, g_ref)} "
+                f"(limit: equal)")
+            if not (torch.equal(got, want) and torch.equal(g, g_ref)):
+                fail(f"K7 or its gradient differs from the plain version at "
+                     f"{cout} channels, {dt}")
+            del pre, p, got, want, w, g, g_ref, p2
+    torch.cuda.empty_cache()
+
+    # ---- 9b. f32 forward: card vs CPU ------------------------------------
+    pimg, pvalid, pseg, pplan = parity_inputs(torch, config)
+    cases = [("adjoint, plan", "adjoint", True, False,
+              {"segment_sum": 1, "adjoint_pool_stage": 4}),
+             ("adjoint, no plan", "adjoint", False, False,
+              {"segment_sum": 1, "adjoint_pool_stage": 4}),
+             ("fullres", "fullres", False, False, {"segment_sum": 2}),
+             ("local, WESUP_FUSED_POOL1=1", "local", True, True,
+              {"cell_pool0": 1, "cell_pool_stage": 4,
+               "fused_relu_pool_pad": 1})]
+    model_cpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).eval()
+    model_gpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(
+        dev).eval()
+    for label, pooling_, with_plan, gated, launches in cases:
+        plan = pplan if with_plan else None
+        with fused_pool1(gated), torch.inference_mode():
+            ref = wesup.forward_superpixel(model_cpu, pimg, pseg,
+                                           pplan.n_clusters, pvalid,
+                                           torch.float32, pooling=pooling_,
+                                           plan=plan)
+            reset_launches()
+            out = wesup.forward_superpixel(model_gpu, pimg.to(dev),
+                                           pseg.to(dev), pplan.n_clusters,
+                                           pvalid.to(dev), torch.float32,
+                                           pooling=pooling_, plan=plan)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        errs_f = {name: (getattr(out, name).cpu()
+                         - getattr(ref, name)).abs().max().item()
+                  for name in ("sp_pred", "pred", "sp_features")}
+        log(f"[forward f32 96x256, {label}] " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs_f.items())
+            + " (limits 2e-4, 2e-4, 2e-3); launches "
+            + str({k: v for k, v in counts.items() if v}))
+        if not (errs_f["sp_pred"] <= 2e-4 and errs_f["pred"] <= 2e-4
+                and errs_f["sp_features"] <= 2e-3):
+            fail(f"forward ({label}) on the card disagrees with the CPU")
+        if counts != expected(launches):
+            fail(f"forward ({label}) launched {counts}")
+    del model_cpu, model_gpu
+
+    # ---- 9c. the three configurations through make_predict_step ----------
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(
+        dev).eval()
+    imgs_dev = torch.from_numpy(imgs_u8).to(dev)
+    configs = [
+        ("local (phase 5)", "local", False,
+         {"cell_pool0": 1, "cell_pool_stage": 4}),
+        ("local, WESUP_FUSED_POOL1=1", "local", True,
+         {"cell_pool0": 1, "cell_pool_stage": 4, "fused_relu_pool_pad": 1}),
+        ("adjoint", "adjoint", False,
+         {"segment_sum": 1, "adjoint_pool_stage": 4}),
+        ("fullres", "fullres", False, {"segment_sum": 2}),
+    ]
+    path_launches = {}
+    step_fns = {}
+    for label, pooling_, gated, launches in configs:
+        step = make_gated(steps.make_predict_step(
+            WESUPConfig(pooling=pooling_), CANVAS), gated)
+        step_fns[label] = step
+        for _ in range(3):
+            step(model, imgs_dev, valid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        pred = step(model, imgs_dev, valid)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[step {label}] launches in one step: "
+            + str({k: v for k, v in counts.items() if v})
+            + f"; peak {peak:.2f} GiB")
+        if counts != expected(launches):
+            fail(f"the {label} predict step launched {counts}")
+        if not (tuple(pred.shape) == (BATCH,) + CANVAS
+                and torch.isfinite(pred).all() and pred.min() >= 0
+                and pred.max() <= 1):
+            fail(f"the {label} predict step's pred is not finite in [0, 1]")
+        path_launches[label] = counts
+    # two rounds in turns (forward, then reverse order) on one card
+    times = {label: [] for label in step_fns}
+    for order in (list(step_fns), list(reversed(step_fns))):
+        for label in order:
+            times[label].append(step_times(
+                torch, lambda: step_fns[label](model, imgs_dev, valid)))
+    for label, rounds in times.items():
+        log(f"[step {label}] {' / '.join(f'{m:.3f}' for m, _, _ in rounds)} "
+            f"ms/step (median of 25, two rounds; min "
+            f"{min(r[1] for r in rounds):.3f} max "
+            f"{max(r[2] for r in rounds):.3f}), "
+            f"{BATCH / statistics.mean(r[0] for r in rounds) * 1e3:.2f} "
+            f"img/s (B={BATCH}, {H}x{W}, bf16; {card})")
+    for label, step in step_fns.items():
+        parts = breakdown(torch, lambda mark: step(model, imgs_dev, valid,
+                                                   mark=mark))
+        log(f"[step {label}] breakdown (median ms of 10 marked steps): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.3f}")
+        # device busy time: the comparison that host noise does not reach
+        profile_steps(torch, lambda: step(model, imgs_dev, valid), top=6,
+                      tag=f"profile {label}")
+    del model, step_fns
+
+    # one gated bf16 train step
+    tmodel = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(dev)
+    optimizer = steps.make_optimizer(config, tmodel)
+    tstep = make_gated(steps.make_train_step(config, CANVAS,
+                                             point_mode=True), True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(BATCH).items()}
+    reset_launches()
+    acc = tstep(tmodel, optimizer, steps.init_metric_acc(), batch,
+                torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    finite = all(torch.isfinite(q.grad).all() for q in tmodel.parameters()
+                 if q.grad is not None)
+    log(f"[train WESUP_FUSED_POOL1=1] one step: launches "
+        + str({k: v for k, v in counts.items() if v})
+        + f"; gradients finite {finite}; loss "
+        f"{acc['sums']['loss'].item() / BATCH:.4f}")
+    if counts["fused_relu_pool_pad"] != 1 or not finite or acc["nan"].item():
+        fail("the gated train step")
+    del tmodel, optimizer, tstep, batch
+    torch.cuda.empty_cache()
+
+    # ---- 9d. K5 / K6 / K7 times at the main-path shapes ------------------
+    cd = torch.bfloat16
+    out = []
+    n_valid = int((seg_p >= 0).sum().item())
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    t_sort = cuda_ms(torch, lambda: pooling.segment_lists(seg_m, K))
+    oh_t = (seg_p[:, None, :] == torch.arange(K, device=dev, dtype=seg_p.dtype
+                                              )[None, :, None]).to(cd)
+    for C in (128, 1024):
+        feat = torch.randn((BATCH, P, C), generator=gen, device=dev).to(cd)
+        t_k = cuda_ms(torch, lambda: pooling.segment_sum(seg_p, feat, K,
+                                                         lists))
+        t_p = cuda_ms(torch, lambda: pooling.segment_sum_plain(seg_p, feat,
+                                                               K),
+                      n=5, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(oh_t, feat))
+        # the rows of valid pixels are all the kernel needs to read
+        nbytes = seg_p.numel() * 4 + n_valid * C * 2 + BATCH * K * C * 4
+        flops = float(n_valid) * C
+        b_ms, b_by = bound(nbytes, flops, cd)
+        log(f"[K5 time] (8, {P}, {C}): kernel {t_k:.4f} ms (lists built "
+            f"once, {t_sort:.4f} ms), plain {t_p:.4f}, bmm {t_l:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                         ("bytes", nbytes), ("flops", flops)):
+            tot[key] += val
+        del feat
+    del oh_t
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    out.append({
+        "name": "segment_sum (K5; C=128 and C=1024 summed)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/pooling.cu",
+        "replaces": "wesup_tpu/ops/pooling_pallas.py:91",
+        "launches": (path_launches["adjoint"]["segment_sum"]
+                     + path_launches["fullres"]["segment_sum"]),
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k[0] == "K5" and k[-1] == cd),
+        "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": tot["lib"]})
+
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    oh = (seg_m[..., None] == torch.arange(K, device=dev, dtype=seg_m.dtype)
+          ).to(cd)                                               # (B, H, W, K)
+    for s, C in stage_c.items():
+        Hs, Ws = stage_hw[s]
+        taps, tapsH_T, A_wT = stage_inputs(s, cd)
+        A_h = torch.as_tensor(_interp_matrix(Hs, H, True), dtype=cd,
+                              device=dev)
+        A_w = A_wT.t().to(device=dev, dtype=cd)
+        M = torch.einsum("wv,buwk->buvk", A_w,
+                         torch.einsum("hu,bhwk->buwk", A_h, oh))
+        Mt = M.reshape(BATCH, Hs * Ws, K).transpose(1, 2).contiguous()
+        awt = A_wT.to(device=dev, dtype=cd).float()
+        p_nz = torch.einsum("vw,bhwk->bhvk", awt, oh.float()) != 0
+        nnz = int(p_nz.sum().item())              # nonzero p_h[v, k]
+        rows = int(p_nz.any(-1).sum().item())     # tapsH_T rows they meet
+        del M, p_nz
+        table = adjoint.column_table(A_wT, cd, dev)
+        t_k = cuda_ms(torch, lambda: adjoint.adjoint_pool_stage(
+            seg_m, tapsH_T, A_wT, K, lists, table))
+        t_p = cuda_ms(torch, lambda: adjoint.adjoint_pool_stage_plain(
+            seg_m, tapsH_T, A_wT, K), n=3, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(Mt, taps.reshape(
+            BATCH, Hs * Ws, C)))
+        del Mt
+        # the tapsH_T rows (b, h, v) that meet a nonzero p_h are all the
+        # kernel needs to read
+        nbytes = (seg_m.numel() * 4 + rows * C * 2 + A_wT.numel() * 2
+                  + BATCH * K * C * 4)
+        flops = 2.0 * nnz * C
+        b_ms, b_by = bound(nbytes, flops, cd)
+        log(f"[K6 time] stage {s} (8, {C}, {H}, {Ws}): kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} ({b_by}, "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP over {nnz} "
+            f"nonzero p_h entries, {rows} of {BATCH * H * Ws} tapsH_T rows)")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                         ("bytes", nbytes), ("flops", flops)):
+            tot[key] += val
+        del taps, tapsH_T
+    del oh
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    out.append({
+        "name": "adjoint_pool_stage (K6, stages 1-4 summed)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/adjoint.cu",
+        "replaces": "wesup_tpu/ops/adjoint_pallas.py:102",
+        "launches": path_launches["adjoint"]["adjoint_pool_stage"],
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k[0] == "K6" and k[-1] == cd),
+        "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": tot["lib"]})
+
+    x = torch.randn((BATCH, 64, H, W), generator=gen, device=dev).to(
+        cd).contiguous(memory_format=torch.channels_last)
+    pre = x.permute(0, 2, 3, 1)
+    with torch.no_grad():
+        t_k = cuda_ms(torch, lambda: pool.fused_relu_pool_pad(pre, 128))
+        t_p = cuda_ms(torch, lambda: pool.reference(pre, 128), n=5,
+                      warmup=1)
+        t_l = cuda_ms(torch, lambda: F.pad(F.max_pool2d(F.relu(x), 2, 2),
+                                           (0, 0, 0, 0, 0, 64)))
+    nbytes = pre.numel() * 2 + BATCH * (H // 2) * (W // 2) * 128 * 2
+    b_ms, b_by = bound(nbytes, 4.0 * BATCH * (H // 2) * (W // 2) * 64, cd)
+    log(f"[K7 time] (8, {H}, {W}, 64) -> 128: kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f}, pad(max_pool2d(relu)) {t_l:.4f}, bound {b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e6:.1f} MB)")
+    out.append({
+        "name": "fused_relu_pool_pad (K7)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/pool.cu",
+        "replaces": "wesup_tpu/ops/pool_pallas.py:121",
+        "launches": path_launches["local, WESUP_FUSED_POOL1=1"][
+            "fused_relu_pool_pad"],
+        "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": t_l})
+    return out
+
+
+def make_gated(step, gated: bool):
+    """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
+    def run(*args, **kwargs):
+        with fused_pool1(gated):
+            return step(*args, **kwargs)
+
+    return run
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -495,7 +920,8 @@ def main() -> int:
     from wesup_tpu_torch.inference import Predictor, predict_multiscale_batch
     from wesup_tpu_torch.models import wesup
     from wesup_tpu_torch.models.steps import make_predict_step
-    from wesup_tpu_torch.ops import _build, cellgrid, cellpool
+    from wesup_tpu_torch.ops import (_build, cellgrid, cellpool,
+                                     launch_counts, reset_launches)
     from wesup_tpu_torch.ops.slic import make_plan, slic
     from wesup_tpu_torch.serve import create_server
 
@@ -568,26 +994,20 @@ def main() -> int:
             results.setdefault("K2", {})[f"s{s} {dt}"] = err
 
     # ---- 4. forward parity: card (kernels) vs CPU (plain versions) -------
-    ph, pw = 96, 256
-    pplan = make_plan(ph, pw, config.sp_area)
-    prng = np.random.default_rng(2)
-    pimg = torch.from_numpy(prng.random((1, ph, pw, 3), dtype=np.float32))
-    pvalid = torch.ones((1, ph, pw), dtype=torch.bool)
-    pvalid[:, -9:] = False
-    pvalid[:, :, -13:] = False
-    pseg = slic(pimg, pvalid, sp_area=config.sp_area,
-                compactness=config.sp_compactness, n_iters=config.slic_iters,
-                update_stride=config.slic_update_stride)
+    pimg, pvalid, pseg, pplan = parity_inputs(torch, config)
+    ph, pw = pimg.shape[1:3]
     model_cpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).eval()
     model_gpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(
         dev).eval()
     with torch.inference_mode():
         ref = wesup.forward_superpixel(model_cpu, pimg, pseg,
                                        pplan.n_clusters, pvalid,
-                                       torch.float32, plan=pplan)
+                                       torch.float32, pooling="local",
+                                       plan=pplan)
         out = wesup.forward_superpixel(model_gpu, pimg.to(dev), pseg.to(dev),
                                        pplan.n_clusters, pvalid.to(dev),
-                                       torch.float32, plan=pplan)
+                                       torch.float32, pooling="local",
+                                       plan=pplan)
     for name, tol in (("sp_pred", 2e-4), ("pred", 2e-4),
                       ("sp_features", 2e-3)):
         err = (getattr(out, name).cpu() - getattr(ref, name)).abs().max().item()
@@ -606,14 +1026,13 @@ def main() -> int:
         step(model, imgs_dev, valid)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cellpool.reset_launches()
+    reset_launches()
     pred = step(model, imgs_dev, valid)
     torch.cuda.synchronize()
-    launches = dict(cellpool.LAUNCHES)
+    launches = launch_counts()
     log(f"[step] launches in one step: {launches}")
-    if launches != {"cell_pool0": 1, "cell_pool_stage": 4,
-                    "cell_pool0_bwd": 0, "cell_pool_stage_bwd": 0}:
-        fail(f"expected K1 once, K2 four times and no backward kernel per "
+    if launches != expected({"cell_pool0": 1, "cell_pool_stage": 4}):
+        fail(f"expected K1 once, K2 four times and no other kernel per "
              f"step, got {launches}")
     if tuple(pred.shape) != (BATCH,) + CANVAS:
         fail(f"pred shape {tuple(pred.shape)}")
@@ -655,21 +1074,20 @@ def main() -> int:
     reqs = [np.clip(rng.normal(200, 25, GLAS_HW + (3,)), 0, 255).astype(
         np.uint8) for _ in range(4)]
     lat = []
-    cellpool.reset_launches()
+    reset_launches()
     for img in reqs:
         t0 = time.perf_counter()
         (mask,) = predict_multiscale_batch(predictor, [img], scales=(0.5,))
         lat.append((time.perf_counter() - t0) * 1e3)
         if mask.shape != GLAS_HW or not set(np.unique(mask)) <= {0.0, 1.0}:
             fail(f"serving returned {mask.shape} {np.unique(mask)[:4]}")
-    serve_launches = dict(cellpool.LAUNCHES)
+    serve_launches = launch_counts()
     log(f"[serve] per-request latency ms (GlaS {GLAS_HW[0]}x{GLAS_HW[1]}, "
         f"scale 0.5): first {lat[0]:.1f}, then "
         + ", ".join(f"{x:.1f}" for x in lat[1:])
         + f"; launches over {len(reqs)} requests: {serve_launches}")
-    if serve_launches != {"cell_pool0": len(reqs),
-                          "cell_pool_stage": 4 * len(reqs),
-                          "cell_pool0_bwd": 0, "cell_pool_stage_bwd": 0}:
+    if serve_launches != expected({"cell_pool0": len(reqs),
+                                   "cell_pool_stage": 4 * len(reqs)}):
         fail(f"expected K1 once and K2 four times per request, got "
              f"{serve_launches}")
     server = create_server(port=0, host="127.0.0.1")
@@ -699,7 +1117,8 @@ def main() -> int:
                   n=5, warmup=1)
     t_l = cuda_ms(torch, lambda: torch.bmm(oh, taps0.reshape(BATCH, H * W, C0)))
     del oh
-    nbytes = seg_m.numel() * 4 + taps0.numel() * 2 + BATCH * K * C0 * 4
+    # the taps of valid pixels are all the kernel needs to read
+    nbytes = seg_m.numel() * 4 + n_valid * C0 * 2 + BATCH * K * C0 * 4
     b_ms, b_by = bound(nbytes, n_valid * C0, cd)
     log(f"[K1 time] kernel {t_k:.4f} ms, plain {t_p:.4f}, bmm {t_l:.4f}, "
         f"bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
@@ -754,6 +1173,9 @@ def main() -> int:
 
     # ---- 8. training -----------------------------------------------------
     kernels += train_phase(torch, card, imgs, valid, seg, seg_m, gen)
+
+    # ---- 9. the adjoint, fullres and fused-pool paths --------------------
+    kernels += pooling_phase(torch, card, imgs_u8, valid, seg_m, gen)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

@@ -10,8 +10,9 @@ has only PyTorch; there, skip the JAX suite's conftest:
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 
 The shapes cover what chip_smoke.py does not: small and ragged canvases,
-channel counts that are not a multiple of the kernels' 32-channel chunk,
-and a cluster grid narrower than one 8-cluster block.
+channel counts that are not a multiple of the kernels' 32-channel chunk
+or 16-byte vector, misaligned bases, odd pooling windows, and a cluster
+grid narrower than one 8-cluster block.
 """
 
 import sys
@@ -27,7 +28,10 @@ from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.models import wesup  # noqa: E402
 from wesup_tpu_torch.models import steps  # noqa: E402
 from wesup_tpu_torch.models.steps import make_predict_step  # noqa: E402
-from wesup_tpu_torch.ops import cellgrid, cellpool  # noqa: E402
+from wesup_tpu_torch.ops import (adjoint, cellgrid, cellpool,  # noqa: E402
+                                 launch_counts, pool, pooling,
+                                 reset_launches)
+from wesup_tpu_torch.ops.resize import _interp_matrix  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -246,3 +250,171 @@ def test_train_step_launches_on_card(cuda, point_mode):
                                  "cell_pool0_bwd": 1, "cell_pool_stage_bwd": 4}
     assert acc["count"].item() == 4 and not acc["nan"].item()
     assert all(np.isfinite(v.item()) for v in acc["sums"].values())
+
+
+# ---------------------------------------------------------------------------
+# K5, K6, K7 and the adjoint, fullres and gated configurations
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,P,C,offset", [(2, 10240, 128, 0),
+                                          (1, 3000, 70, 0),
+                                          (2, 500, 40, 1),
+                                          (1, 777, 1024, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_matches_plain(cuda, B, P, C, offset, dtype):
+    """K5 sums in another order than the one-hot einsum: 1e-5 of the
+    largest value; two launches agree bitwise.  ``offset`` moves the
+    features off their 16-byte alignment (the scalar path)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    K = 37
+    seg = torch.randint(-1, K, (B, P), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    flat = torch.randn(B * P * C + offset, generator=gen, device=cuda)
+    feat = flat.to(dtype)[offset:].view(B, P, C)
+    before = pooling.LAUNCHES["segment_sum"]
+    got = pooling.segment_sum(seg, feat, K)
+    assert pooling.LAUNCHES["segment_sum"] == before + 1
+    want = pooling.segment_sum_plain(seg, feat, K)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    assert torch.equal(got, pooling.segment_sum(seg, feat, K))
+
+
+@pytest.mark.parametrize("B,H,W,sp_area", CANVASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_adjoint_pool_stage_kernel_matches_plain(cuda, B, H, W, sp_area,
+                                                 dtype, channels_last):
+    """K6 against its plain version, f32 to 1e-5 of the largest value; bf16
+    within 2^-8 of each element's mass (the sum of its |terms|) more: the
+    f32 sums of p_h's weights, formed in another order, may round to bf16
+    values one ulp apart.  tapsH_T as the forward passes it (a channels-
+    last view) and as a contiguous (B, C, H, Ws) tensor."""
+    plan, seg, valid = _seg(cuda, B, H, W, sp_area, seed=4)
+    seg_m = torch.where(valid, seg, -1).contiguous()
+    K = plan.n_clusters
+    for s in range(1, 5):
+        Hs, Ws = H >> s, W >> s
+        taps = torch.randn((B, Hs, Ws, 72), device=cuda)
+        A_h = torch.as_tensor(_interp_matrix(Hs, H, True), device=cuda)
+        tapsH = torch.einsum("hu,buvc->bhvc", A_h, taps).to(dtype)
+        tapsH_T = tapsH.permute(0, 3, 1, 2)
+        if not channels_last:
+            tapsH_T = tapsH_T.contiguous()
+        A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
+        got = adjoint.adjoint_pool_stage(seg_m, tapsH_T, A_wT, K)
+        want = adjoint.adjoint_pool_stage_plain(seg_m, tapsH_T, A_wT, K)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (B, 72, K)
+        lim = 1e-5 * max(1.0, want.abs().max().item())
+        if dtype == torch.bfloat16:
+            mass = adjoint.adjoint_pool_stage_plain(seg_m, tapsH_T.abs(),
+                                                    A_wT, K)
+            lim = lim + 2.0 ** -8 * mass
+        assert ((got - want).abs() <= lim).all(), s
+        assert torch.equal(got, adjoint.adjoint_pool_stage(seg_m, tapsH_T,
+                                                           A_wT, K))
+
+
+@pytest.mark.parametrize("B,H,W,C,cout", [(2, 32, 64, 64, 128),
+                                          (2, 32, 64, 64, 64),
+                                          (1, 33, 65, 64, 128),
+                                          (1, 10, 14, 37, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_relu_pool_pad_kernel_matches_reference(cuda, B, H, W, C, cout,
+                                                      dtype):
+    """K7 and its gradient equal the plain composition (max and zero-padding
+    round nothing; the backward replays it)."""
+    pre = torch.randn((B, C, H, W), device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    before = pool.LAUNCHES["fused_relu_pool_pad"]
+    p = pre.detach().requires_grad_(True)
+    got = pool.fused_relu_pool_pad(p, cout)
+    assert pool.LAUNCHES["fused_relu_pool_pad"] == before + 1
+    assert got.is_contiguous() and got.shape == (B, H // 2, W // 2, cout)
+    want = pool.reference(pre, cout)
+    assert torch.equal(got, want)
+    w = torch.randn(got.shape, device=cuda)
+    (g,) = torch.autograd.grad((got.float() * w).sum(), p)
+    p2 = pre.detach().requires_grad_(True)
+    (g_ref,) = torch.autograd.grad((pool.reference(p2, cout).float()
+                                    * w).sum(), p2)
+    assert torch.equal(g, g_ref)
+    with pytest.raises(ValueError):
+        pool.fused_relu_pool_pad(pre.transpose(1, 2), cout)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    plan, seg, valid = _seg(cuda, 1, 64, 160, 200)
+    feat = torch.randn((1, 64 * 160, 8), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        pooling.segment_sum(seg.reshape(1, -1), feat, plan.n_clusters)
+    with pytest.raises(TypeError):
+        pooling.segment_sum(seg.reshape(1, -1), feat.detach().half(),
+                            plan.n_clusters)
+    tapsH_T = torch.randn((1, 8, 64, 80), device=cuda)
+    with pytest.raises(ValueError):
+        adjoint.adjoint_pool_stage(seg, tapsH_T, torch.ones(80, 150),
+                                   plan.n_clusters)
+    with pytest.raises(TypeError):
+        adjoint.adjoint_pool_stage(
+            seg, tapsH_T.double(),
+            torch.from_numpy(_interp_matrix(80, 160, True)).t(),
+            plan.n_clusters)
+
+
+CONFIGS = [
+    ("adjoint", False, {"segment_sum": 1, "adjoint_pool_stage": 4}),
+    ("fullres", False, {"segment_sum": 2}),
+    ("local", True, {"cell_pool0": 1, "cell_pool_stage": 4,
+                     "fused_relu_pool_pad": 1}),
+]
+
+
+def _expected(nonzero: dict) -> dict:
+    return {name: nonzero.get(name, 0) for name in launch_counts()}
+
+
+@pytest.mark.parametrize("pooling_,gated,launches", CONFIGS)
+def test_predict_step_configurations_on_card(cuda, monkeypatch, pooling_,
+                                             gated, launches):
+    if gated:
+        monkeypatch.setenv("WESUP_FUSED_POOL1", "1")
+    cfg = WESUPConfig(compute_dtype="float32", pooling=pooling_)
+    model = wesup.WESUP(fc_width=64,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(2)
+    imgs = np.clip(rng.normal(200, 25, (2, 64, 160, 3)), 0, 255).astype(
+        np.uint8)
+    valid = np.zeros((2, 64, 160), bool)
+    valid[:, :58, :141] = True
+    want = make_predict_step(cfg, (64, 160), device="cpu")(model, imgs, valid)
+    reset_launches()
+    got = make_predict_step(cfg, (64, 160))(model.to(cuda), imgs, valid)
+    torch.cuda.synchronize()
+    assert launch_counts() == _expected(launches)
+    # as in test_predict_step_on_card_matches_cpu: SLIC may flip a
+    # near-tie pixel between the card and the CPU
+    close = (got.cpu() - want).abs() <= 2e-4
+    assert close.float().mean().item() >= 0.999
+
+
+def test_gated_train_step_on_card(cuda, monkeypatch):
+    monkeypatch.setenv("WESUP_FUSED_POOL1", "1")
+    cfg = WESUPConfig()
+    model = wesup.WESUP(fc_width=64,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    optimizer = steps.make_optimizer(cfg, model)
+    step = steps.make_train_step(cfg, (64, 160), point_mode=True)
+    acc = steps.init_metric_acc()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    reset_launches()
+    acc = step(model, optimizer, acc, _train_batch(2, 64, 160, (58, 141)),
+               gen)
+    torch.cuda.synchronize()
+    assert launch_counts() == _expected({
+        "cell_pool0": 1, "cell_pool_stage": 4, "cell_pool0_bwd": 1,
+        "cell_pool_stage_bwd": 4, "fused_relu_pool_pad": 1})
+    assert not acc["nan"].item()
+    assert all(torch.isfinite(q).all() for q in model.parameters())

@@ -21,7 +21,8 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 from wesup_tpu.models import vgg as j_vgg  # noqa: E402
 from wesup_tpu.models import wesup as j_wesup  # noqa: E402
 from wesup_tpu.ops.slic import make_plan as j_make_plan, slic as j_slic  # noqa: E402
-from wesup_tpu_torch.models import vgg, wesup  # noqa: E402
+from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
+from wesup_tpu_torch.models import steps, vgg, wesup  # noqa: E402
 from wesup_tpu_torch.models.convert import (from_jax_params,  # noqa: E402
                                             load_state_dict_file)
 from wesup_tpu_torch.ops.slic import make_plan  # noqa: E402
@@ -112,7 +113,7 @@ def test_forward_superpixel_matches_jax(weights, batch, dtype):
         got = wesup.forward_superpixel(
             model, torch.from_numpy(img), torch.from_numpy(seg),
             jplan.n_clusters, torch.from_numpy(valid),
-            getattr(torch, dtype), plan=make_plan(H, W, 200))
+            getattr(torch, dtype), pooling="local", plan=make_plan(H, W, 200))
     for name, tol in TOLS[dtype].items():
         g, w = getattr(got, name), np.asarray(getattr(want, name), np.float32)
         assert g.dtype == torch.float32 and g.shape == w.shape
@@ -120,10 +121,18 @@ def test_forward_superpixel_matches_jax(weights, batch, dtype):
 
 
 def test_forward_rejects_other_pooling(weights, batch):
+    """The forward takes "adjoint", "local" and "fullres" and refuses any
+    other pooling; the train step takes only "local" until K5 and K6 have
+    their backward kernels."""
     _, model = weights
     img, valid, seg = batch
     plan = make_plan(*img.shape[1:3], 200)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="pooling"):
         wesup.forward_superpixel(model, torch.from_numpy(img),
                                  torch.from_numpy(seg), plan.n_clusters,
-                                 pooling="adjoint", plan=plan)
+                                 pooling="dense", plan=plan)
+    for pooling in ("adjoint", "fullres"):
+        cfg = WESUPConfig(pooling=pooling)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            steps.make_train_step(cfg, img.shape[1:3], point_mode=True,
+                                  device="cpu")

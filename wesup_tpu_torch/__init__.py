@@ -3,9 +3,10 @@
 The package mirrors ``wesup_tpu``'s module names so that each module's
 counterpart is easy to find, and imports neither jax nor ``wesup_tpu``.
 Plain tensor work (convolutions, matmuls, SLIC, augmentation) is PyTorch;
-the superpixel pooling kernels that the JAX package wrote in Pallas, and
-their backward bodies, are CUDA kernels (``csrc/cellpool.cu``), built with
-``nvcc`` on first use.
+the kernels that the JAX package wrote in Pallas (the superpixel pooling
+kernels and their backward bodies, the general segment sum, the adjoint
+stage pool and the fused stage-1 pool) are CUDA kernels (``csrc/*.cu``),
+built with ``nvcc`` on first use.
 
 Entry points (``inference.Predictor``, ``serve.create_server``,
 ``models.steps.make_predict_step``/``make_scaled_predict_step``/

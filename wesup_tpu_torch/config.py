@@ -151,13 +151,11 @@ class WESUPConfig(BaseConfig):
     # Superpixel pooling formulation: "local" (default) pools every stage at
     # native resolution with the adjoint-resized assignment weights derived
     # from SLIC's 9-channel offset masks through banded window constants
-    # (ops/cellgrid.py) — exact up to fp reassociation, and neither the
-    # stacked H-adjoint t_cat nor any K-wide full-res tensor besides stage
-    # 0's one-hot exists (measured: train B=8 288x416 device 48.0 -> 43.6 ms,
-    # predict 24.8 -> 23.8 ms, PERF_NOTES item 29); "adjoint" keeps the
-    # round-2 one-hot + t_cat route (the general form — it is what plan-less
-    # ``forward_superpixel`` callers get); "fullres" is the round-1
-    # upsample-then-pool path (ablation baseline).
+    # (ops/cellgrid.py; kernels K1, K2), exact up to fp reassociation;
+    # "adjoint" is the general form that needs no plan (kernels K5, K6; it
+    # is what plan-less ``forward_superpixel`` callers get); "fullres" is the
+    # round-1 upsample-then-pool path (ablation baseline; kernel K5).  The
+    # port's train step takes only "local" so far.
     pooling: str = "local"
 
     # Probability of the coarse-field elastic deformation in the

@@ -10,6 +10,12 @@ Port of ``wesup_tpu.models.steps``:
 - ``make_predict_step`` and ``make_scaled_predict_step`` in superpixel
   mode: uint8 (or float) canvas -> SLIC -> forward -> painted foreground.
 
+The predict, scaled-predict and eval steps take every ``config.pooling``
+("local", "adjoint", "fullres"); the train step takes only "local" for now,
+as the adjoint and fullres pools (kernels K5, K6) have no backward kernel
+yet.  All steps honour ``WESUP_FUSED_POOL1`` (kernel K7 in the backbone,
+whose backward replays the plain composition).
+
 PyTorch runs eagerly, so a "step" is a plain function closed over the
 static shapes and plans; it takes the model as its first argument, as the
 JAX step takes params.  The train step updates the model and the optimizer
@@ -76,7 +82,8 @@ def make_predict_step(config, canvas_hw, mode: str = "superpixel",
     probability; ``image`` is (B, H, W, 3) uint8 or float, ``valid``
     (B, H, W) bool (tensors or arrays; they are moved to the device).
     ``mark`` is passed on to :func:`wesup.forward_superpixel` (after a
-    ``"slic"`` mark of its own) for phase timing.
+    ``"slic"`` mark of its own) for phase timing; the phases it marks
+    depend on ``config.pooling``.
     """
     _check_mode(mode)
     dev = resolve_device(device)
@@ -416,6 +423,11 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
     augmentation is drawn.  ``mark(name)`` is called after each phase:
     augment, slic, forward, loss, backward, optimizer.
     """
+    if config.pooling != "local":
+        raise NotImplementedError(
+            f"training with pooling={config.pooling!r} needs the backward "
+            "of kernels K5 and K6, which comes with a later slice of the "
+            "port; train with pooling='local'")
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
     K = n_clusters(H, W, config.sp_area)

@@ -68,6 +68,33 @@ def resize_bilinear(img: torch.Tensor, out_hw,
     return x
 
 
+def resize_w_only(img: torch.Tensor, out_w: int,
+                  align_corners: bool = True) -> torch.Tensor:
+    """Resize only the W axis of (B, H, W, C), in ``img``'s dtype."""
+    W = img.shape[-2]
+    if W == int(out_w):
+        return img
+    A_w = torch.as_tensor(_interp_matrix(W, int(out_w), align_corners),
+                          dtype=img.dtype, device=img.device)
+    return torch.einsum("pw,bhwc->bhpc", A_w, img)
+
+
+def fused_upsample_sum(stage_maps, out_h: int,
+                       align_corners: bool = True) -> torch.Tensor:
+    """Sum of the H-upsampled (B, Hs_i, W, C) maps as ONE contraction
+    against the column-concatenated interpolation matrices, in the maps'
+    dtype: one full-resolution output instead of one per map plus a sum."""
+    dt, dev = stage_maps[0].dtype, stage_maps[0].device
+    A_cat = np.concatenate(
+        [_interp_matrix(int(m.shape[1]), int(out_h), align_corners)
+         for m in stage_maps], axis=1)                       # (out_h, sum Hs)
+    cat = torch.cat(stage_maps, dim=1)                       # (B, sum Hs, W, C)
+    B, Hsum, W, C = cat.shape
+    out = torch.matmul(torch.as_tensor(A_cat, dtype=dt, device=dev),
+                       cat.reshape(B, Hsum, W * C))
+    return out.reshape(B, int(out_h), W, C)
+
+
 def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
     """Nearest resize of (..., H, W, C) matching torch semantics."""
     H, W = img.shape[-3], img.shape[-2]

@@ -1,7 +1,7 @@
-"""Superpixel label vote: per-superpixel counts, labels and masks.
+"""Superpixel label vote, one-hot mean pooling and painting.
 
-Port of ``wesup_tpu.ops.segments`` (``one_hot_assignment`` and
-``superpixel_stats``), batched over images: the JAX functions take one
+Port of ``wesup_tpu.ops.segments`` (``one_hot_assignment``,
+``superpixel_stats``, ``segment_mean``, ``paint``), batched over images: the JAX functions take one
 image and are vmapped, these take a leading batch dimension.  With a
 ``SlicPlan`` the sums come from the exact cell-grid pooling
 (:func:`wesup_tpu_torch.ops.cellgrid.cell_pool`); without one, from the
@@ -80,3 +80,25 @@ def superpixel_stats(seg: torch.Tensor, K: int,
     quant = (sums == sums.amax(-1, keepdim=True)).to(torch.float32)
     labels = quant * labeled[..., None].to(torch.float32)
     return SuperpixelStats(labels, labeled, real, counts)
+
+
+def segment_mean(features: torch.Tensor, assignment: torch.Tensor,
+                 counts: torch.Tensor) -> torch.Tensor:
+    """Mean-pool (B, P, C) features into (B, K, C) through the (B, P, K)
+    :func:`one_hot_assignment`, in the features' dtype with f32 sums."""
+    pooled = torch.einsum("bpk,bpc->bkc",
+                          assignment.to(features.dtype).to(torch.float32),
+                          features.to(torch.float32))
+    return pooled / counts[..., None].clamp_min(1.0)
+
+
+def paint(seg: torch.Tensor, sp_values: torch.Tensor) -> torch.Tensor:
+    """Per-superpixel values (B, K) or (B, K, C) painted back to the
+    (B, H, W) ids in [0, K): ``sp_values[b, seg[b, h, w]]``, a gather."""
+    B, H, W = seg.shape
+    idx = seg.reshape(B, H * W).long()
+    if sp_values.ndim == 2:
+        return torch.gather(sp_values, 1, idx).reshape(B, H, W)
+    C = sp_values.shape[-1]
+    out = torch.gather(sp_values, 1, idx[..., None].expand(B, H * W, C))
+    return out.reshape(B, H, W, C)

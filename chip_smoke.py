@@ -18,7 +18,7 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
 6. serving: a ``Predictor`` answering GlaS-sized requests at scale 0.5,
    and the HTTP server's health endpoint;
 7. per-kernel times against the plain version, a library call and the
-   card's bound;
+   card's bound (for K2 also the achieved share of the HBM rate);
 8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
    against their plain versions at the main-path shapes; one f32
    forward + backward on the card against the CPU; SLIC on the card
@@ -35,7 +35,9 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    canvas in bf16 for each of them beside phase 5's step, with launch
    counts, step times and per-phase breakdowns; one gated bf16 train step;
    K5/K6/K7 times against their plain versions, a library call and the
-   bound.
+   bound; K6 beside two ``bmm``s, of the dense P (B, K, H * Ws) by its own
+   input tapsH (the library time in the JSON line) and of JAX's dense M by
+   the native-resolution stage taps, and its share of the HBM rate.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -93,11 +95,18 @@ def bench_images(batch, seed=0):
 
 
 def cuda_ms(torch, fn, n=20, warmup=3):
-    """Mean device milliseconds per call of ``fn`` over ``n`` calls."""
+    """Mean device milliseconds per call of ``fn`` over ``n`` calls.
+
+    The calls are queued behind a spin of the card (about 10 ms), so the
+    events time the card's work and not the host's launch rate: a wrapper
+    can take longer on the host than its kernel on the card (K2 at stages
+    3-4 does), and the card would idle between back-to-back calls.
+    """
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(n):
         fn()
@@ -112,6 +121,13 @@ def bound(nbytes: float, flops: float, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def share(nbytes: float, ms: float) -> str:
+    """The achieved byte rate of a call and its share of the card's peak."""
+    rate = nbytes / (ms * 1e-3)
+    return (f"{rate / 1e12:.3f} TB/s, {rate / HBM_BYTES_PER_S:.3f} of the "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s bound")
 
 
 class PhaseTimer:
@@ -812,7 +828,8 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
         "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": tot["lib"]})
 
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "dense_m": 0.0, "bytes": 0.0,
+           "flops": 0.0}
     oh = (seg_m[..., None] == torch.arange(K, device=dev, dtype=seg_m.dtype)
           ).to(cd)                                               # (B, H, W, K)
     for s, C in stage_c.items():
@@ -825,18 +842,24 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
                          torch.einsum("hu,bhwk->buwk", A_h, oh))
         Mt = M.reshape(BATCH, Hs * Ws, K).transpose(1, 2).contiguous()
         awt = A_wT.to(device=dev, dtype=cd).float()
-        p_nz = torch.einsum("vw,bhwk->bhvk", awt, oh.float()) != 0
+        p_h = torch.einsum("vw,bhwk->bhvk", awt, oh.float())
+        p_nz = p_h != 0
         nnz = int(p_nz.sum().item())              # nonzero p_h[v, k]
         rows = int(p_nz.any(-1).sum().item())     # tapsH_T rows they meet
-        del M, p_nz
+        # the one PyTorch call over K6's own inputs: the dense P (B, K,
+        # H * Ws), p_h rounded to bf16 as the kernel rounds it, times tapsH
+        P = p_h.to(cd).permute(0, 3, 1, 2).reshape(BATCH, K, H * Ws)
+        tapsH = tapsH_T.permute(0, 2, 3, 1).reshape(BATCH, H * Ws, C)
+        del M, p_h, p_nz
         table = adjoint.column_table(A_wT, cd, dev)
         t_k = cuda_ms(torch, lambda: adjoint.adjoint_pool_stage(
             seg_m, tapsH_T, A_wT, K, lists, table))
         t_p = cuda_ms(torch, lambda: adjoint.adjoint_pool_stage_plain(
             seg_m, tapsH_T, A_wT, K), n=3, warmup=1)
-        t_l = cuda_ms(torch, lambda: torch.bmm(Mt, taps.reshape(
+        t_m = cuda_ms(torch, lambda: torch.bmm(Mt, taps.reshape(
             BATCH, Hs * Ws, C)))
-        del Mt
+        t_l = cuda_ms(torch, lambda: torch.bmm(P, tapsH))
+        del Mt, P
         # the tapsH_T rows (b, h, v) that meet a nonzero p_h are all the
         # kernel needs to read
         nbytes = (seg_m.numel() * 4 + rows * C * 2 + A_wT.numel() * 2
@@ -844,15 +867,22 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
         flops = 2.0 * nnz * C
         b_ms, b_by = bound(nbytes, flops, cd)
         log(f"[K6 time] stage {s} (8, {C}, {H}, {Ws}): kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} ({b_by}, "
+            f"plain {t_p:.4f}, bmm of the dense P by tapsH {t_l:.4f} (the "
+            f"library call over K6's inputs), bmm of JAX's dense M by the "
+            f"stage taps {t_m:.4f}, bound {b_ms:.4f} ({b_by}, "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP over {nnz} "
-            f"nonzero p_h entries, {rows} of {BATCH * H * Ws} tapsH_T rows)")
+            f"nonzero p_h entries, {rows} of {BATCH * H * Ws} tapsH_T rows); "
+            f"{share(nbytes, t_k)}")
         for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
-                         ("bytes", nbytes), ("flops", flops)):
+                         ("dense_m", t_m), ("bytes", nbytes),
+                         ("flops", flops)):
             tot[key] += val
-        del taps, tapsH_T
+        del taps, tapsH_T, tapsH
     del oh
     b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    log(f"[K6 time] stages 1-4: kernel {tot['ms']:.4f} ms, bmm of the dense "
+        f"P {tot['lib']:.4f}, bmm of the dense M {tot['dense_m']:.4f}, bound "
+        f"{b_ms:.4f}; {share(tot['bytes'], tot['ms'])}")
     out.append({
         "name": "adjoint_pool_stage (K6, stages 1-4 summed)", "route": "cuda",
         "source": "wesup_tpu_torch/csrc/adjoint.cu",
@@ -1152,13 +1182,17 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, flops, cd)
         log(f"[K2 time] stage {s} {Hs}x{Ws}x{C}: kernel {t_k:.4f} ms, plain "
             f"{t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} ({b_by}, "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"{share(nbytes, t_k)}")
         tot["ms"] += t_k
         tot["plain"] += t_p
         tot["lib"] += t_l
         tot["bytes"] += nbytes
         tot["flops"] += flops
     b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    log(f"[K2 time] stages 1-4: kernel {tot['ms']:.4f} ms, bmm "
+        f"{tot['lib']:.4f}, bound {b_ms:.4f}; "
+        f"{share(tot['bytes'], tot['ms'])}")
     kernels.append({
         "name": "cell_pool_stage (K2, stages 1-4 summed)", "route": "cuda",
         "source": "wesup_tpu_torch/csrc/cellpool.cu",

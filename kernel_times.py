@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Time kernels K2 and K6 at the main-path shapes, to compare two trees of
+the port on one card.
+
+    python3 kernel_times.py [--repo DIR] [--label NAME]
+
+``DIR`` holds a ``wesup_tpu_torch/`` package (a checkout, or an unpacked
+``git archive`` of another commit); the default is this checkout.  On
+bench.py's images (B=8, 288x416, SLIC seg, WESUPConfig defaults, bf16) it
+times, per stage 1-4, K2 (``cell_pool_stage``) and K6
+(``adjoint_pool_stage``) as the mean of 20 launches between CUDA events,
+after 3 warm-up launches (``chip_smoke.cuda_ms``), and the host's time to
+launch one call of each wrapper, and prints one JSON line with the card's
+name and power limit.  To compare two trees, run them in turns in one call
+on one card: parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+import chip_smoke
+
+
+def host_ms(torch, fn, n=20) -> float:
+    """Host milliseconds per call of ``fn``, taken while the card spins so
+    that no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    from wesup_tpu_torch.config import WESUPConfig
+    from wesup_tpu_torch.models import wesup
+    from wesup_tpu_torch.ops import adjoint, cellgrid, cellpool, pooling
+    from wesup_tpu_torch.ops.resize import _interp_matrix
+    from wesup_tpu_torch.ops.slic import make_plan, slic
+
+    dev = torch.device("cuda")
+    config = WESUPConfig()
+    H, W = chip_smoke.CANVAS
+    B = chip_smoke.BATCH
+    plan = make_plan(H, W, config.sp_area)
+    K = plan.n_clusters
+    imgs_u8, valid_np = chip_smoke.bench_images(B)
+    imgs = torch.from_numpy(imgs_u8).to(dev).float() / 255.0
+    valid = torch.from_numpy(valid_np).to(dev)
+    seg = slic(imgs, valid, sp_area=config.sp_area,
+               compactness=config.sp_compactness, n_iters=config.slic_iters,
+               update_stride=config.slic_update_stride)
+    seg_m = torch.where(valid, seg, -1).contiguous()
+    cd = torch.bfloat16
+    e9 = cellgrid.offset_masks(plan, seg, valid, cd)
+    lists = pooling.segment_lists(seg_m, K)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {"label": args.label, "card": chip_smoke.card_line(),
+           "k2_ms": {}, "k6_ms": {}, "k2_host_ms": {}, "k6_host_ms": {}}
+    for s, C in {1: 256, 2: 768, 3: 1536, 4: 1536}.items():
+        Hs, Ws = H >> s, W >> s
+        spp = cellgrid.make_stage_pool_plan(plan, Hs, Ws, True)
+        mc = cellgrid.stage_window_weights(spp, e9)
+        taps = torch.randn((B, Hs, Ws, C), generator=gen, device=dev).to(cd)
+        tapsH_T = wesup._upsample_h(taps, H).permute(0, 3, 1, 2)
+        A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
+        table = adjoint.column_table(A_wT, cd, dev)
+        for name, fn in (
+                ("k2", lambda: cellpool.cell_pool_stage(spp, mc, taps)),
+                ("k6", lambda: adjoint.adjoint_pool_stage(
+                    seg_m, tapsH_T, A_wT, K, lists, table))):
+            out[f"{name}_ms"][s] = chip_smoke.cuda_ms(torch, fn)
+            out[f"{name}_host_ms"][s] = host_ms(torch, fn)
+        del mc, taps, tapsH_T
+    out["k2_total_ms"] = float(np.sum(list(out["k2_ms"].values())))
+    out["k6_total_ms"] = float(np.sum(list(out["k6_ms"].values())))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -317,6 +317,94 @@ def test_adjoint_pool_stage_kernel_matches_plain(cuda, B, H, W, sp_area,
                                                            A_wT, K))
 
 
+# ---------------------------------------------------------------------------
+# K2 and K6 at ragged shapes: their compacted term lists, the rounds or
+# windows of a list longer than the shared buffer, and the masked channel
+# tail.  Each is held against its plain version within the limits above
+# and checked bitwise across two launches.
+# ---------------------------------------------------------------------------
+
+RAGGED_C = [5, 12, 256, 1544]
+
+
+@pytest.mark.parametrize("C", RAGGED_C)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["masks", "dense", "invalid"])
+def test_cell_pool_stage_kernel_ragged(cuda, C, dtype, kind):
+    """K2 at every stage of the main-path plan (stage 4: Ih = Jw = 7), with
+    the forward's window weights ("masks"), random nonzeros in every slot,
+    so that each window holds more terms than one round of the kernel
+    ("dense", up to 1296 at stage 1), or the weights of an image whose
+    pixels are all invalid ("invalid": every weight 0)."""
+    B, H, W = 1, 288, 416
+    plan, seg, valid = _seg(cuda, B, H, W, 200, seed=5)
+    if kind == "invalid":
+        valid = torch.zeros_like(valid)
+    e9 = cellgrid.offset_masks(plan, seg, valid, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for s in range(1, 5):
+        spp = cellgrid.make_stage_pool_plan(plan, H >> s, W >> s, True)
+        mc = cellgrid.stage_window_weights(spp, e9)
+        if kind == "dense":
+            mc = (torch.rand(mc.shape, generator=gen, device=cuda)
+                  + 0.5).to(dtype)
+        taps = torch.randn((B, H >> s, W >> s, C), device=cuda).to(dtype)
+        got = cellpool.cell_pool_stage(spp, mc, taps)
+        want = cellpool.cell_pool_stage_plain(spp, mc, taps)
+        torch.cuda.synchronize()
+        lim = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= lim, s
+        assert torch.equal(got, cellpool.cell_pool_stage(spp, mc, taps)), s
+        if kind == "invalid":
+            assert not got.any()
+
+
+def _adjoint_seg(dev, kind, B, H, W):
+    """(seg, K): SLIC's ("slic"), five bands of about 2000 pixels each,
+    lists longer than one window of the kernel ("big"), or all invalid."""
+    if kind == "big":
+        hh = torch.arange(H, device=dev)[:, None] * 5 // H
+        seg = (hh + 0 * torch.arange(W, device=dev)[None, :]).to(torch.int32)
+        return seg.expand(B, H, W).contiguous(), 5
+    plan, seg, valid = _seg(dev, B, H, W, 200, seed=6)
+    seg_m = torch.where(valid, seg, -1)
+    if kind == "invalid":
+        seg_m = torch.full_like(seg_m, -1)
+    return seg_m.contiguous(), plan.n_clusters
+
+
+@pytest.mark.parametrize("C", RAGGED_C)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["slic", "big", "invalid"])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_adjoint_pool_stage_kernel_ragged(cuda, C, dtype, kind,
+                                          channels_last):
+    B, H, W = 2, 64, 160
+    seg, K = _adjoint_seg(cuda, kind, B, H, W)
+    for s in range(1, 5):
+        Hs, Ws = H >> s, W >> s
+        taps = torch.randn((B, Hs, Ws, C), device=cuda)
+        A_h = torch.as_tensor(_interp_matrix(Hs, H, True), device=cuda)
+        tapsH_T = torch.einsum("hu,buvc->bhvc", A_h, taps).to(dtype).permute(
+            0, 3, 1, 2)
+        if not channels_last:
+            tapsH_T = tapsH_T.contiguous()
+        A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
+        got = adjoint.adjoint_pool_stage(seg, tapsH_T, A_wT, K)
+        want = adjoint.adjoint_pool_stage_plain(seg, tapsH_T, A_wT, K)
+        torch.cuda.synchronize()
+        lim = 1e-5 * max(1.0, want.abs().max().item())
+        if dtype == torch.bfloat16:
+            mass = adjoint.adjoint_pool_stage_plain(seg, tapsH_T.abs(), A_wT,
+                                                    K)
+            lim = lim + 2.0 ** -8 * mass
+        assert ((got - want).abs() <= lim).all(), s
+        assert torch.equal(got, adjoint.adjoint_pool_stage(seg, tapsH_T,
+                                                           A_wT, K)), s
+        if kind == "invalid":
+            assert not got.any()
+
+
 @pytest.mark.parametrize("B,H,W,C,cout", [(2, 32, 64, 64, 128),
                                           (2, 32, 64, 64, 64),
                                           (1, 33, 65, 64, 128),

@@ -293,6 +293,98 @@ def test_kernel_windows_cover_every_contribution(H, W, sp_area):
                                    want.numpy(), atol=1e-4)
 
 
+# ---------------------------------------------------------------------------
+# K2's compaction and stream, replayed on the host
+# ---------------------------------------------------------------------------
+#
+# The kernel compacts each cluster's nonzero window weights in (p, q)
+# order, 32 positions per warp step (ballot + popc), into a buffer of
+# ``cap`` terms; a full buffer is streamed and the compaction resumes at the
+# first term that did not fit.  Each channel then takes fmaf(w, tap, acc)
+# in list order.  The replay keeps both steps, so the resume logic and the
+# term order are held here; the kernel itself against the plain version on
+# the card.
+
+def _k2_compact(wgt: np.ndarray, cap: int):
+    """The kernel's rounds over a window's weights in position order: a
+    list of rounds, each a list of (position, weight) of at most ``cap``."""
+    rounds, cursor, npos = [], 0, wgt.size
+    while True:
+        terms = []
+        while cursor < npos:
+            step = 32
+            nz = [i for i in range(cursor, min(cursor + 32, npos))
+                  if wgt[i] != 0]
+            if len(terms) + len(nz) > cap:
+                fit = cap - len(terms)
+                terms += [(i, wgt[i]) for i in nz[:fit]]
+                step = nz[fit] - cursor          # the first that did not fit
+            else:
+                terms += [(i, wgt[i]) for i in nz]
+            cursor = min(cursor + step, npos)
+            if len(terms) == cap:
+                break
+        rounds.append(terms)
+        if cursor >= npos:
+            return rounds
+
+
+def _k2_walk(spp, mc, taps, cap=256):
+    """Python replay of K2: per cluster, the rounds of compacted terms, then
+    the f32 fmafs in their order (the product exact in f64, one rounding).
+    Returns the sums and the most rounds any window took."""
+    ay, ax, pl, ph, ql, qh = (t.numpy() for t in
+                              cellpool._stage_tables(spp, "cpu"))
+    B, C = mc.shape[0], taps.shape[-1]
+    out = np.zeros((B, spp.Kh * spp.Kw, C), np.float32)
+    most = 0
+    for b in range(B):
+        for ky in range(spp.Kh):
+            p = np.arange(pl[ky], ph[ky])
+            i = ky - ay[p] - spp.rmin_y
+            for kx in range(spp.Kw):
+                q = np.arange(ql[kx], qh[kx])
+                j = kx - ax[q] - spp.rmin_x
+                wgt = mc[b, p, i][:, q, j].reshape(-1)    # (p, q) order
+                rounds = _k2_compact(wgt, cap)
+                flat = [t for r in rounds for t in r]
+                assert [pos for pos, _ in flat] == list(np.flatnonzero(wgt))
+                most = max(most, len(rounds))
+                acc = np.zeros(C, np.float32)
+                for pos, w in flat:
+                    row = taps[b, p[pos // len(q)], q[pos % len(q)]]
+                    acc = (np.float64(w) * row.astype(np.float64)
+                           + acc.astype(np.float64)).astype(np.float32)
+                out[b, ky * spp.Kw + kx] = acc
+    return out, most
+
+
+@pytest.mark.parametrize("hs_ws", [(32, 80), (30, 77)])  # even and ragged
+@pytest.mark.parametrize("cap", [256, 7])  # one round; many rounds
+def test_k2_compaction_walk_matches_plain_and_jax(seg_setup, hs_ws, cap):
+    """The replay against the plain version and the JAX Pallas kernel
+    (interpret mode), both to K2's limit of 1e-4 of the largest value."""
+    tp, jp, seg, valid = seg_setup
+    Hs, Ws = hs_ws
+    e9_t = cellgrid.offset_masks(tp, torch.from_numpy(seg),
+                                 torch.from_numpy(valid), torch.float32)
+    ts = cellgrid.make_stage_pool_plan(tp, Hs, Ws, True)
+    mc = cellgrid.stage_window_weights(ts, e9_t)
+    taps = np.random.default_rng(9).standard_normal(
+        (2, Hs, Ws, 5)).astype(np.float32)
+    got, most = _k2_walk(ts, mc.numpy(), taps, cap)
+    assert most > 1 or cap > 7                # cap 7 takes several rounds
+    want = cellpool.cell_pool_stage_plain(ts, mc, torch.from_numpy(taps))
+    lim = 1e-4 * max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got, want.numpy(), atol=lim, rtol=0)
+    e9_j = j_cellgrid.offset_masks(jp, jnp.asarray(seg), jnp.asarray(valid),
+                                   jnp.float32)
+    js = j_cellgrid.make_stage_pool_plan(jp, Hs, Ws, True)
+    want_j = np.asarray(j_cellpool.cell_pool_stage(jp, js, e9_j,
+                                                   jnp.asarray(taps)))
+    np.testing.assert_allclose(got, want_j, atol=lim, rtol=0)
+
+
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain version; anything else launches the
     kernel or raises (here: a 'meta' tensor, as no card is present)."""

@@ -244,8 +244,10 @@ def test_adjoint_pool_stage_plain_matches_pallas(dtype):
 
 
 def _k6_walk(seg, tapsH_T, A_wT, K, dtype):
-    """Python replay of the K6 kernel: the pixel lists, the column table,
-    the two running sums of p_h and the rounding at each flush."""
+    """Python replay of the K6 walk in one pass: the pixel lists, the
+    column table, the two running sums of p_h and the rounding at each
+    flush, each flush added into the sums at once.  The kernel's two-phase
+    form (``_k6_entries``, then the sum) must equal it bitwise."""
     tdt = getattr(torch, dtype)
     lists = pooling.segment_lists(torch.from_numpy(seg), K)
     v0, a0, a1 = (t.numpy() for t in adjoint.column_table(
@@ -312,6 +314,92 @@ def test_adjoint_kernel_walk_matches_plain(dtype, Ws, W):
             torch.from_numpy(A_wT), K).numpy()
         lim = lim + 2.0 ** -8 * mass
     assert (np.abs(got - want) <= lim).all()
+
+
+def _k6_entries(seg, A_wT, K, dtype, ncl, win):
+    """Phase 1 of the K6 kernel replayed: blocks of ``ncl`` consecutive
+    lists, their pixels in windows of ``win``, one walk per list whose open
+    sums carry across windows.  Returns each list's (h, v, T(p_h[v]))
+    entries in the order the kernel streams them."""
+    tdt = getattr(torch, dtype)
+    lists = pooling.segment_lists(torch.from_numpy(seg), K)
+    v0, a0, a1 = (t.numpy() for t in adjoint.column_table(
+        torch.from_numpy(A_wT), tdt, torch.device("cpu")))
+    order, start = lists.order.numpy(), lists.start.numpy()
+    B, H, W = seg.shape
+    Ws = A_wT.shape[0]
+
+    def rnd(p):
+        return float(torch.tensor(p, dtype=torch.float32).to(tdt).float())
+
+    entries = [[] for _ in range(B * K)]
+    for g0 in range(0, B * K, ncl):
+        n_lists = min(ncl, B * K - g0)
+        walks = [{"h": -1, "v": -1, "pa": np.float32(0), "pb": np.float32(0)}
+                 for _ in range(n_lists)]
+        r0, r1 = start[g0], start[g0 + n_lists]
+        for ws in range(r0, r1, win):
+            n = min(win, r1 - ws)
+            for l, st in enumerate(walks):
+                lo, hi = start[g0 + l], start[g0 + l + 1]
+                jb, je = max(lo, ws), min(hi, ws + n)
+                out = []
+
+                def flush(h, v, p):
+                    if p != 0 and v < Ws:
+                        out.append((h, v, rnd(p)))
+
+                for pix in order[jb:je]:
+                    h, w = divmod(int(pix), W)
+                    v = int(v0[w])
+                    if (h, v) != (st["h"], st["v"]) and st["v"] >= 0:
+                        flush(st["h"], st["v"], st["pa"])
+                        if h == st["h"] and v == st["v"] + 1:
+                            st["pa"], st["pb"] = st["pb"], np.float32(0)
+                        else:
+                            flush(st["h"], st["v"] + 1, st["pb"])
+                            st["pa"] = st["pb"] = np.float32(0)
+                    st["h"], st["v"] = h, v
+                    st["pa"] = np.float32(st["pa"] + a0[w])
+                    st["pb"] = np.float32(st["pb"] + a1[w])
+                if jb < je and je == hi and st["v"] >= 0:
+                    flush(st["h"], st["v"], st["pa"])
+                    flush(st["h"], st["v"] + 1, st["pb"])
+                # the list's share of the window's entry buffer
+                assert len(out) <= 2 * max(je - jb, 0) + 2
+                entries[g0 + l] += out
+    return entries
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Ws", [24, 7])
+@pytest.mark.parametrize("ncl,win", [(8, 1024), (1, 7), (3, 5)])
+def test_adjoint_two_phase_walk_equals_the_walk(dtype, Ws, ncl, win):
+    """Entries first, then the sum in entry order: bitwise the one-pass
+    walk of ``_k6_walk``, with lists that cross windows (``win`` 5 and 7
+    against lists of about 30 pixels) and rows in which v jumps by more
+    than one (the fragments)."""
+    W, K = 48, 9
+    seg, tapsH_T, _, _ = _k6_inputs(dtype, B=2, H=6, W=W, K=K, Hs=3, Ws=Ws,
+                                    C=5, seed=Ws)
+    rng = np.random.default_rng(Ws + ncl)
+    seg = (np.arange(W)[None, None, :] * 3 // W
+           + 3 * (np.arange(6)[None, :, None] // 2)).astype(np.int32)
+    seg = np.broadcast_to(seg, (2, 6, W)).copy()
+    seg = np.where(rng.random(seg.shape) < 0.2,
+                   rng.integers(-1, K, seg.shape), seg).astype(np.int32)
+    A_wT = j_resize._interp_matrix(Ws, W, True).T.copy()
+    entries = _k6_entries(seg, A_wT, K, dtype, ncl, win)
+    jumps = sum(1 for es in entries for (h0, v0_, _), (h1, v1, _) in
+                zip(es, es[1:]) if h0 == h1 and v1 > v0_ + 1)
+    assert jumps > 0
+    got = np.zeros((2, K, 5), np.float32)
+    for g, es in enumerate(entries):
+        b, k = divmod(g, K)
+        for h, v, p in es:
+            got[b, k] += np.float32(p) * tapsH_T[b, :, h, v]
+    want = _k6_walk(seg, tapsH_T, A_wT, K, dtype)
+    assert np.array_equal(got.transpose(0, 2, 1), want)
 
 
 def test_adjoint_column_table_rejects_other_matrices():

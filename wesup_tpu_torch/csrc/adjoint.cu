@@ -16,115 +16,102 @@
 // for stage 1 at B=8, 288x416, bf16; about 1.17 GB over the four stages)
 // and each of its elements meets one or two clusters.  A_wT has at most two
 // nonzeros per column (linear interpolation), so the work is a few
-// operations per byte.  The TPU kernel built each row's (W, K) one-hot in
-// VMEM and ran two dense MXU products per row (about 6.7e11 operations over
-// the four stages at the main-path shape), nearly all on zeros.
+// operations per byte.  The bytes this data needs are the tapsH_T rows
+// that meet a nonzero p_h: about 1.09 GB over the four stages at the
+// main-path shape, 0.33 ms at 3.35 TB/s.  The TPU kernel built each row's
+// (W, K) one-hot in VMEM and ran two dense MXU products per row (about
+// 6.7e11 operations over the four stages at the main-path shape), nearly
+// all on zeros.
 //
-// Design (simple and deterministic; making it fast is later work):
+// Design (compact once, then stream the rows):
 //   - The wrapper gives the per-(b, k) pixel lists of ops/pooling.py (one
 //     stable sort of seg, so each list is in pixel order: row by row, w
 //     ascending) and a per-column table of A_wT: the first nonzero row
 //     v0[w] (non-decreasing in w) and the weights a0[w], a1[w] of rows
-//     v0[w] and v0[w] + 1.
-//   - One block of 128 threads per (b, k, tile of 512 channels); a thread
-//     owns 4 channels, 128 apart, so each load of a warp is 32 neighbouring
-//     channels when tapsH_T is a channels-last view (its strides are
-//     arguments; the forward passes such a view).
-//   - The block walks k's list once.  Within a row h, pixels arrive with
-//     non-decreasing v0, and pixel w adds a0[w] to p_h[v0] and a1[w] to
-//     p_h[v0 + 1]; so two running sums (rows cur and cur + 1) hold all of
-//     p_h that is still open.  When v0 moves on or the row ends, the
-//     finished p_h[v] is rounded to T and its products with the taps of
-//     (h, v) are added to the f32 accumulators.  Each p_h[v] is the same f32
-//     sum of the same weights the TPU kernel forms (in another order), and
-//     only its nonzeros are visited.
-//   - Every output element is written once: no atomics, so two launches
-//     agree bitwise.
+//     v0[w] and v0[w] + 1.  The lists of consecutive g = b * K + k are
+//     consecutive in ``order``.
+//   - A block owns ncl consecutive lists and nch warps of 256 channels per
+//     list (rows.cuh: C = 256 -> 8 lists x 1 warp, 768 -> 2 x 3, 1536 ->
+//     1 x 6, so ncl * nch <= 8 warps and none idles; channels past 2048 go
+//     to grid.y).  41 KB of shared memory per block: an SM keeps 5 blocks,
+//     30-40 warps, resident.
+//   - Phase 1, compact once.  The block loads its lists' pixels in windows
+//     of kWin = 1024 with coalesced loads, each pixel's h, v0, a0, a1 into
+//     one 16-byte slot of shared memory.  Lane 0 of warp l then walks list
+//     l's part of the window: within a row pixels arrive with
+//     non-decreasing v0, so two running f32 sums (rows cur and cur + 1)
+//     hold all of p_h that is still open; pixel w adds a0[w] to p_h[v0] and
+//     a1[w] to p_h[v0 + 1], in pixel order.  Each finished nonzero p_h[v]
+//     is rounded to T and appended, with the offset of tapsH_T[b, :, h, v],
+//     to the list's entries in (h, v) order.  The walk is serial per list,
+//     but it reads shared memory only and runs once per list, not once per
+//     channel tile.  The open sums carry from one window to the next, so a
+//     list of any length is walked; a window of n pixels gives a list at
+//     most 2n + 2 entries, which its buffer holds.  (A window of 512 pixels
+//     doubles the resident blocks and measured slower at C = 256, where 8
+//     lists share a block and take more windows.)
+//   - Phase 2, stream the rows (rows.cuh).  Each warp walks its list's
+//     entries for its 256 channels: a lane loads 8 consecutive channels 16
+//     bytes at a time, 8 (bf16) or 4 (f32) entries ahead, and fmafs them
+//     in entry order; the f32 sums stay in registers across windows and are
+//     written once, with vector stores.  Each channel's sum is the same
+//     fmaf sequence as a walk that flushes p_h into the taps as it goes
+//     (tests/test_torch_port_pooling.py::_k6_walk): the same rounded p_h,
+//     in the same order.
+//   - A tapsH_T that is not channel-contiguous (or C % 8 != 0, or a
+//     misaligned base) takes the scalar form of phase 2: the same order,
+//     one element per load, masked past C.
+//   - No atomics: two launches agree bitwise.
+//   - Tensor cores (wgmma) are not used: at 1-3 operations per byte of
+//     tapsH_T the card is bound by bytes, and a dense product would also
+//     have to read the zeros of p_h.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChanPerThread = 4;
+using wesup_rows::kLaneChans;
+using wesup_rows::kMaxWarps;
+using wesup_rows::kWarpChans;
+using wesup_rows::round_to;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kWin = 1024;                    // pixels per window
+constexpr int kEntries = 2 * kWin + 2 * kMaxWarps;
 
-// p rounded to the taps' dtype, as the TPU kernel casts p_h
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
+// One list's walk: the open sums of p_h and where its entries go.
 template <typename T>
-struct Block {
-  const T* taps;    // tapsH_T[b] at channel 0
-  long long sc, sh, sv;
+struct Walker {
+  long long sh, sv;
   int Ws;
-  long long coff[kChanPerThread];  // c * sc of this thread's channels
-  bool ok[kChanPerThread];
-  float acc[kChanPerThread];
+  int cur_h, cur_v;
+  float pa, pb;      // open sums of p_h[cur_v], p_h[cur_v + 1]
+  long long* off;    // this window's entries
+  float* p;
+  int n;
 
-  // acc += T(p) * tapsH_T[b, c, h, v] for the thread's channels
-  __device__ __forceinline__ void flush(int h, int v, float p) {
-    if (p == 0.f || v >= Ws) return;
-    const float pr = round_to(p, taps);
-    const T* row = taps + h * sh + v * sv;
-#pragma unroll
-    for (int j = 0; j < kChanPerThread; ++j) {
-      if (ok[j]) acc[j] = fmaf(pr, to_f32(row[coff[j]]), acc[j]);
-    }
-  }
-};
-
-template <typename T>
-__global__ void adjoint_pool_kernel(
-    const int* __restrict__ order, const int* __restrict__ start,
-    const T* __restrict__ taps, long long sb, long long sc, long long sh,
-    long long sv, const int* __restrict__ v0, const float* __restrict__ a0,
-    const float* __restrict__ a1, float* __restrict__ out, int W, int Ws,
-    int C, int K) {
-  const int g = blockIdx.x;  // b * K + k
-  const int b = g / K;
-  const int c_base = blockIdx.y * kThreads * kChanPerThread + threadIdx.x;
-
-  Block<T> blk;
-  blk.taps = taps + b * sb;
-  blk.sc = sc;
-  blk.sh = sh;
-  blk.sv = sv;
-  blk.Ws = Ws;
-#pragma unroll
-  for (int j = 0; j < kChanPerThread; ++j) {
-    const int c = c_base + j * kThreads;
-    blk.ok[j] = c < C;
-    blk.coff[j] = static_cast<long long>(c) * sc;
-    blk.acc[j] = 0.f;
+  __device__ __forceinline__ void flush(int h, int v, float s) {
+    if (s == 0.f || v >= Ws) return;
+    off[n] = h * sh + v * sv;
+    // rounded to the taps' dtype, as the TPU kernel casts p_h
+    p[n] = round_to(s, static_cast<const T*>(nullptr));
+    ++n;
   }
 
-  int cur_h = -1, cur_v = -1;
-  float pa = 0.f, pb = 0.f;  // open sums of p_h[cur_v], p_h[cur_v + 1]
-  const int j1 = start[g + 1];
-  for (int j = start[g]; j < j1; ++j) {
-    const int pix = order[j];
-    const int h = pix / W;
-    const int w = pix - h * W;
-    const int v = v0[w];
+  __device__ __forceinline__ void step(int h, int v, float w0, float w1) {
     if (h != cur_h || v != cur_v) {
       if (cur_v >= 0) {
         if (h == cur_h && v == cur_v + 1) {
-          blk.flush(cur_h, cur_v, pa);
+          flush(cur_h, cur_v, pa);
           pa = pb;
           pb = 0.f;
         } else {
-          blk.flush(cur_h, cur_v, pa);
-          blk.flush(cur_h, cur_v + 1, pb);
+          flush(cur_h, cur_v, pa);
+          flush(cur_h, cur_v + 1, pb);
           pa = 0.f;
           pb = 0.f;
         }
@@ -132,18 +119,99 @@ __global__ void adjoint_pool_kernel(
       cur_h = h;
       cur_v = v;
     }
-    pa += a0[w];
-    pb += a1[w];
-  }
-  if (cur_v >= 0) {
-    blk.flush(cur_h, cur_v, pa);
-    blk.flush(cur_h, cur_v + 1, pb);
+    pa += w0;
+    pb += w1;
   }
 
-  float* dst = out + static_cast<size_t>(g) * C;
+  __device__ __forceinline__ void finish() {
+    if (cur_v >= 0) {
+      flush(cur_h, cur_v, pa);
+      flush(cur_h, cur_v + 1, pb);
+    }
+  }
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32) adjoint_pool_kernel(
+    const int* __restrict__ order, const int* __restrict__ start,
+    const T* __restrict__ taps, long long sb, long long sc, long long sh,
+    long long sv, const int* __restrict__ v0, const float* __restrict__ a0,
+    const float* __restrict__ a1, float* __restrict__ out, int W, int Ws,
+    int C, int K, int BK, int ncl, int nch) {
+  __shared__ int4 s_pix[kWin];  // h, v0[w], a0[w], a1[w] (float bits)
+  __shared__ long long s_off[kEntries];
+  __shared__ float s_p[kEntries];
+  __shared__ int s_beg[kMaxWarps], s_n[kMaxWarps];
+
+  const int g0 = blockIdx.x * ncl;
+  const int n_lists = min(ncl, BK - g0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cl = warp / nch;  // the warp's list within the block
+  const int c = (blockIdx.y * nch + warp % nch) * kWarpChans +
+                lane * kLaneChans;
+  const bool streams = cl < n_lists && c < C;
+  const int nvalid = C - c;
+  const int g = g0 + cl;
+  const T* base = taps + (streams ? (g / K) * sb + c * sc : 0);
+
+  // lane 0 of warp l < n_lists walks list g0 + l (no two walks share a
+  // warp, so their branches do not serialise each other)
+  const bool walks = lane == 0 && warp < n_lists;
+  Walker<T> wk;
+  int lo = 0, hi = 0;
+  if (walks) {
+    lo = start[g0 + warp];
+    hi = start[g0 + warp + 1];
+    wk.sh = sh;
+    wk.sv = sv;
+    wk.Ws = Ws;
+    wk.cur_h = wk.cur_v = -1;
+    wk.pa = wk.pb = 0.f;
+  }
+
+  float acc[kLaneChans];
 #pragma unroll
-  for (int j = 0; j < kChanPerThread; ++j) {
-    if (blk.ok[j]) dst[c_base + j * kThreads] = blk.acc[j];
+  for (int e = 0; e < kLaneChans; ++e) acc[e] = 0.f;
+
+  const int r0 = start[g0], r1 = start[g0 + n_lists];
+  for (int ws = r0; ws < r1; ws += kWin) {
+    const int n = min(kWin, r1 - ws);
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const int pix = order[ws + t];
+      const int h = pix / W;
+      const int w = pix - h * W;
+      s_pix[t] = make_int4(h, v0[w], __float_as_int(a0[w]),
+                           __float_as_int(a1[w]));
+    }
+    __syncthreads();
+    if (walks) {
+      const int jb = max(lo, ws), je = min(hi, ws + n);
+      // a window of m pixels of this list gives at most 2 m + 2 entries;
+      // lists further on start at least that far on
+      const int at = 2 * max(jb - ws, 0) + 2 * warp;
+      wk.off = s_off + at;
+      wk.p = s_p + at;
+      wk.n = 0;
+#pragma unroll 4
+      for (int j = jb; j < je; ++j) {
+        const int4 px = s_pix[j - ws];  // one 16-byte shared load
+        wk.step(px.x, px.y, __int_as_float(px.z), __int_as_float(px.w));
+      }
+      if (jb < je && je == hi) wk.finish();
+      s_beg[warp] = at;
+      s_n[warp] = wk.n;
+    }
+    __syncthreads();
+    if (streams) {
+      const int at = s_beg[cl];
+      wesup_rows::stream_terms<T, VEC>(base, sc, s_off + at, s_p + at,
+                                       s_n[cl], nvalid, acc);
+    }
+    __syncthreads();
+  }
+  if (streams) {
+    wesup_rows::store_sums<VEC>(out + static_cast<size_t>(g) * C + c, acc,
+                                nvalid);
   }
 }
 
@@ -152,12 +220,28 @@ int launch(const int* order, const int* start, const void* taps,
            long long sb, long long sc, long long sh, long long sv,
            const int* v0, const float* a0, const float* a1, float* out,
            int B, int W, int Ws, int C, int K, cudaStream_t s) {
-  const int per_block = kThreads * kChanPerThread;
-  const dim3 grid(B * K, (C + per_block - 1) / per_block);
+  const wesup_rows::Shape sp = wesup_rows::block_shape(C);
+  const int BK = B * K;
+  const dim3 grid((BK + sp.ncl - 1) / sp.ncl, sp.nch_total > 0
+                      ? (sp.nch_total + sp.nch - 1) / sp.nch : 0);
   if (grid.x == 0 || grid.y == 0) return 0;
-  adjoint_pool_kernel<T><<<grid, kThreads, 0, s>>>(
-      order, start, static_cast<const T*>(taps), sb, sc, sh, sv, v0, a0, a1,
-      out, W, Ws, C, K);
+  const dim3 block(32 * sp.ncl * sp.nch);
+  const T* t = static_cast<const T*>(taps);
+  // 16-byte loads need channel-contiguous rows whose starts are 16-byte
+  // aligned; 16-byte stores need C % 8 == 0 (out is a fresh tensor)
+  const bool vec = sc == 1 && C % kLaneChans == 0 && sb % kLaneChans == 0 &&
+                   sh % kLaneChans == 0 && sv % kLaneChans == 0 &&
+                   reinterpret_cast<size_t>(t) % 16 == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0;
+  if (vec) {
+    adjoint_pool_kernel<T, true><<<grid, block, 0, s>>>(
+        order, start, t, sb, sc, sh, sv, v0, a0, a1, out, W, Ws, C, K, BK,
+        sp.ncl, sp.nch);
+  } else {
+    adjoint_pool_kernel<T, false><<<grid, block, 0, s>>>(
+        order, start, t, sb, sc, sh, sv, v0, a0, a1, out, W, Ws, C, K, BK,
+        sp.ncl, sp.nch);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 """Build ``wesup_tpu_torch/csrc/*.cu`` with nvcc and load it with ctypes.
 
 The library is compiled on first use, for ``sm_90a``, into
-``wesup_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is not.  Each
-source is compiled by its own nvcc process, all started together, and the
-objects are linked into one shared library.  The kernels have a plain C
+``wesup_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+their shared header (``csrc/rows.cuh``) and the flags, so an edited source
+is rebuilt and an unchanged one is not.  Each source is compiled by its own
+nvcc process, all started together, and the objects are linked into one
+shared library.  The kernels have a plain C
 interface (pointers and the stream as ``void*``), so the build needs no
 PyTorch headers and takes seconds.  Nothing here runs at import time: only
 the CUDA branch of a wrapper calls :func:`library`.
@@ -68,7 +69,8 @@ def build() -> Path:
     """Compile the sources (if this hash was not built yet); return the .so."""
     sources = sorted(SOURCE_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    # headers too: an edited csrc/*.cuh rebuilds the sources that include it
+    for src in sorted(SOURCE_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libwesup_cuda_{digest.hexdigest()[:16]}.so"

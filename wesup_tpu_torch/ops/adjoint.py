@@ -19,9 +19,12 @@ On a CUDA tensor :func:`adjoint_pool_stage` launches the hand-written
 kernel in ``csrc/adjoint.cu`` (or raises); on a CPU tensor it takes
 :func:`adjoint_pool_stage_plain`, which follows the TPU kernel's math and
 which the tests and ``chip_smoke.py`` hold the kernel against.  The
-kernel walks the per-segment pixel lists of ``ops/pooling.py``; it reads
-``tapsH_T`` through its strides, so a channels-last (B, H, Ws, C) tensor
-viewed as (B, C, H, Ws) is read without a copy.  The card's result is a
+kernel compacts each segment's nonzero ``p_h`` terms from the per-segment
+pixel lists of ``ops/pooling.py`` once, then streams the tap rows they
+meet; it reads ``tapsH_T`` through its strides and makes no copy.  A
+channels-last (B, H, Ws, C) tensor viewed as (B, C, H, Ws), as the forward
+passes it, is read 16 bytes at a time; any other layout element by element
+(right, but slow).  The card's result is a
 (B, C, K) view of a (B, K, C) tensor.  ``LAUNCHES`` counts the kernel
 launches.
 """

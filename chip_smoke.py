@@ -18,14 +18,16 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
 6. serving: a ``Predictor`` answering GlaS-sized requests at scale 0.5,
    and the HTTP server's health endpoint;
 7. per-kernel times against the plain version, a library call and the
-   card's bound (for K2 also the achieved share of the HBM rate);
+   card's bound (for K1 and K2 also the achieved share of the HBM rate);
 8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
    against their plain versions at the main-path shapes; one f32
    forward + backward on the card against the CPU; SLIC on the card
    against the CPU at 288x416; ``make_train_step`` at B=8 on the 288x416
    canvas in bf16 with full-width WESUP (point supervision), launch counts
    per step, step time, peak memory, a per-phase breakdown and a profiler
-   window; two mask-supervised steps (elastic path); K3/K4 times;
+   window; two mask-supervised steps (elastic path); K3/K4 times (K4
+   per stage and over stages 1-4, with its share of the HBM rate and the
+   bytes of dsums rows its stream re-reads, and their rate);
 9. the adjoint, fullres and fused-pool paths: K5 (``segment_sum``), K6
    (``adjoint_pool_stage``) and K7 (``fused_relu_pool_pad``, and its
    gradient) against their plain versions at the main-path shapes; the f32
@@ -459,7 +461,8 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         "library_ms": t_l})
 
     e9 = cellgrid.offset_masks(plan, seg, valid, cd)
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0,
+           "reread": 0.0}
     for s, C in stage_c.items():
         spp = cellgrid.make_stage_pool_plan(plan, *stage_hw[s], True)
         Hs, Ws = stage_hw[s]
@@ -469,6 +472,9 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         Md = cellgrid.expand_window_weights(spp, mc)   # (B, Hs, Kh, Ws, Kw)
         Mq = Md.permute(0, 1, 3, 2, 4).reshape(BATCH, Hs * Ws, K).contiguous()
         del Md
+        # the kernel's terms: nonzero weights of clusters in the grid; the
+        # stream reads one bf16 dsums row per term (from L2)
+        terms = int((Mq != 0).sum().item())
         t_k = cuda_ms(torch, lambda: cellpool.cell_pool_stage_bwd(spp, mc,
                                                                   dsums))
         t_p = cuda_ms(torch, lambda: cellpool.cell_pool_stage_bwd_plain(
@@ -477,16 +483,27 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         del Mq
         nbytes = mc.numel() * 2 + dsums.numel() * 4 + BATCH * Hs * Ws * C * 2
         flops = 2.0 * int((mc != 0).sum().item()) * C
+        reread = terms * C * 2.0
+        per_pix = terms / (BATCH * Hs * Ws)
         b_ms, b_by = bound(nbytes, flops, cd)
         log(f"[K4 time] stage {s} {Hs}x{Ws}x{C}: kernel {t_k:.4f} ms, plain "
             f"{t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} ({b_by}, "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"{share(nbytes, t_k)}; the stream re-reads "
+            f"{reread / 1e6:.1f} MB of dsums rows ({per_pix:.2f} terms per "
+            f"stage pixel) at {reread / (t_k * 1e-3) / 1e12:.3f} TB/s")
         tot["ms"] += t_k
         tot["plain"] += t_p
         tot["lib"] += t_l
         tot["bytes"] += nbytes
         tot["flops"] += flops
+        tot["reread"] += reread
     b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    log(f"[K4 time] stages 1-4: kernel {tot['ms']:.4f} ms, bmm "
+        f"{tot['lib']:.4f}, bound {b_ms:.4f}; "
+        f"{share(tot['bytes'], tot['ms'])}; the stream re-reads "
+        f"{tot['reread'] / 1e6:.1f} MB at "
+        f"{tot['reread'] / (tot['ms'] * 1e-3) / 1e12:.3f} TB/s")
     out.append({
         "name": "cell_pool_stage_bwd (K4, stages 1-4 summed)", "route": "cuda",
         "source": "wesup_tpu_torch/csrc/cellpool.cu",
@@ -1151,7 +1168,8 @@ def main() -> int:
     nbytes = seg_m.numel() * 4 + n_valid * C0 * 2 + BATCH * K * C0 * 4
     b_ms, b_by = bound(nbytes, n_valid * C0, cd)
     log(f"[K1 time] kernel {t_k:.4f} ms, plain {t_p:.4f}, bmm {t_l:.4f}, "
-        f"bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+        f"bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB); "
+        f"{share(nbytes, t_k)}")
     kernels.append({
         "name": "cell_pool0 (K1)", "route": "cuda",
         "source": "wesup_tpu_torch/csrc/cellpool.cu",

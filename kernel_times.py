@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time kernels K2 and K6 at the main-path shapes, to compare two trees of
-the port on one card.
+"""Time kernels K1, K2, K4 and K6 at the main-path shapes, to compare two
+trees of the port on one card.
 
     python3 kernel_times.py [--repo DIR] [--label NAME]
 
 ``DIR`` holds a ``wesup_tpu_torch/`` package (a checkout, or an unpacked
 ``git archive`` of another commit); the default is this checkout.  On
 bench.py's images (B=8, 288x416, SLIC seg, WESUPConfig defaults, bf16) it
-times, per stage 1-4, K2 (``cell_pool_stage``) and K6
-(``adjoint_pool_stage``) as the mean of 20 launches between CUDA events,
-after 3 warm-up launches (``chip_smoke.cuda_ms``), and the host's time to
-launch one call of each wrapper, and prints one JSON line with the card's
-name and power limit.  To compare two trees, run them in turns in one call
-on one card: parent, change, change, parent.
+times K1 (``cell_pool0``, C=128) and, per stage 1-4, K2
+(``cell_pool_stage``), K4 (``cell_pool_stage_bwd``, its cast of dsums to
+bf16 included) and K6 (``adjoint_pool_stage``) as the mean of 20 launches
+between CUDA events, after 3 warm-up launches (``chip_smoke.cuda_ms``), and
+the host's time to launch one call of each wrapper, and prints one JSON
+line with the card's name and power limit.  To compare two trees, run them
+in turns in one call on one card: parent, change, change, parent.
+
+With ``--check FILE`` it also runs K1 and K4 (every stage, bf16 and f32) on
+one set of inputs: the first tree to run saves the inputs and its outputs
+to FILE, and each later tree prints whether its outputs equal them bitwise
+(``"bitwise"`` in the JSON line).
 """
 
 from __future__ import annotations
@@ -42,10 +48,48 @@ def host_ms(torch, fn, n=20) -> float:
     return (t1 - t0) * 1e3 / n
 
 
+def check_outputs(torch, path: Path, plan, seg, valid, gen) -> dict:
+    """K1's and K4's outputs on the inputs saved in ``path`` (made and
+    saved, with these outputs, when it does not exist yet): per output,
+    whether it equals the saved one bitwise."""
+    from wesup_tpu_torch.ops import cellgrid, cellpool
+
+    H, W = plan.H, plan.W
+    saved = torch.load(path) if path.exists() else None
+    if saved is None:
+        inputs = {"seg": seg, "valid": valid, "taps0": torch.randn(
+            seg.shape + (128,), generator=gen, device=seg.device)}
+        for s, C in {1: 256, 2: 768, 3: 1536, 4: 1536}.items():
+            inputs[f"dsums{s}"] = torch.randn(
+                (seg.shape[0], plan.n_clusters, C), generator=gen,
+                device=seg.device)
+    else:
+        inputs = saved["inputs"]
+    seg, valid = inputs["seg"], inputs["valid"]
+    seg_m = torch.where(valid, seg, -1).contiguous()
+    outs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        outs[f"k1 {dt}"] = cellpool.cell_pool0(plan, seg_m,
+                                               inputs["taps0"].to(dt))
+        e9 = cellgrid.offset_masks(plan, seg, valid, dt)
+        for s in range(1, 5):
+            spp = cellgrid.make_stage_pool_plan(plan, H >> s, W >> s, True)
+            mc = cellgrid.stage_window_weights(spp, e9)
+            outs[f"k4 stage {s} {dt}"] = cellpool.cell_pool_stage_bwd(
+                spp, mc, inputs[f"dsums{s}"])
+    torch.cuda.synchronize()
+    if saved is None:
+        torch.save({"inputs": inputs, "outs": outs}, path)
+        return {key: "saved" for key in outs}
+    return {key: bool(torch.equal(got, saved["outs"][key]))
+            for key, got in outs.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default="")
+    ap.add_argument("--check", type=Path, default=None)
     args = ap.parse_args()
 
     import torch
@@ -77,25 +121,39 @@ def main() -> int:
     e9 = cellgrid.offset_masks(plan, seg, valid, cd)
     lists = pooling.segment_lists(seg_m, K)
     gen = torch.Generator(device=dev).manual_seed(1)
-    out = {"label": args.label, "card": chip_smoke.card_line(),
-           "k2_ms": {}, "k6_ms": {}, "k2_host_ms": {}, "k6_host_ms": {}}
+    out = {"label": args.label, "card": chip_smoke.card_line()}
+    if args.check is not None:
+        gen7 = torch.Generator(device=dev).manual_seed(7)
+        out["bitwise"] = check_outputs(torch, args.check, plan, seg, valid,
+                                       gen7)
+    for name in ("k2", "k4", "k6"):
+        out[f"{name}_ms"], out[f"{name}_host_ms"] = {}, {}
+
+    taps0 = torch.randn((B, H, W, 128), generator=gen, device=dev).to(cd)
+    k1 = lambda: cellpool.cell_pool0(plan, seg_m, taps0)  # noqa: E731
+    out["k1_ms"] = chip_smoke.cuda_ms(torch, k1)
+    out["k1_host_ms"] = host_ms(torch, k1)
+    del taps0
     for s, C in {1: 256, 2: 768, 3: 1536, 4: 1536}.items():
         Hs, Ws = H >> s, W >> s
         spp = cellgrid.make_stage_pool_plan(plan, Hs, Ws, True)
         mc = cellgrid.stage_window_weights(spp, e9)
         taps = torch.randn((B, Hs, Ws, C), generator=gen, device=dev).to(cd)
+        dsums = torch.randn((B, K, C), generator=gen, device=dev)
         tapsH_T = wesup._upsample_h(taps, H).permute(0, 3, 1, 2)
         A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
         table = adjoint.column_table(A_wT, cd, dev)
         for name, fn in (
                 ("k2", lambda: cellpool.cell_pool_stage(spp, mc, taps)),
+                ("k4", lambda: cellpool.cell_pool_stage_bwd(spp, mc, dsums)),
                 ("k6", lambda: adjoint.adjoint_pool_stage(
                     seg_m, tapsH_T, A_wT, K, lists, table))):
             out[f"{name}_ms"][s] = chip_smoke.cuda_ms(torch, fn)
             out[f"{name}_host_ms"][s] = host_ms(torch, fn)
-        del mc, taps, tapsH_T
-    out["k2_total_ms"] = float(np.sum(list(out["k2_ms"].values())))
-    out["k6_total_ms"] = float(np.sum(list(out["k6_ms"].values())))
+        del mc, taps, dsums, tapsH_T
+    for name in ("k2", "k4", "k6"):
+        out[f"{name}_total_ms"] = float(np.sum(list(
+            out[f"{name}_ms"].values())))
     print(json.dumps(out))
     return 0
 

@@ -405,6 +405,118 @@ def test_adjoint_pool_stage_kernel_ragged(cuda, C, dtype, kind,
             assert not got.any()
 
 
+# ---------------------------------------------------------------------------
+# K1 and K4 at ragged shapes: the compacted pixel lists (K1, in rounds when
+# longer than the kernel's 128-pixel buffer) and term lists (K4), the masked
+# channel tail and all-invalid images.  Limits as above; two launches agree
+# bitwise; in bf16 K4 also equals an ordered replay of its arithmetic.
+# ---------------------------------------------------------------------------
+
+def _pool0_seg(dev, kind):
+    """(plan, seg_m) on a 96x128 canvas: SLIC with ragged validity
+    ("slic"), SLIC at sp_area 1500, whose clusters hold many rounds of K1's
+    pixels ("big"), or an image whose pixels are all invalid."""
+    if kind == "big":
+        plan, seg, valid = _seg(dev, 1, 96, 128, 1500, seed=7)
+    else:
+        plan, seg, valid = _seg(dev, 2, 96, 128, 150, seed=7)
+    if kind == "invalid":
+        valid = torch.zeros_like(valid)
+    return plan, torch.where(valid, seg, -1).contiguous()
+
+
+@pytest.mark.parametrize("C", [5, 40, 128, 136])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 0.02)])
+@pytest.mark.parametrize("kind", ["slic", "big", "invalid"])
+def test_cell_pool0_kernel_ragged(cuda, C, dtype, tol, kind):
+    plan, seg_m = _pool0_seg(cuda, kind)
+    if kind == "big":
+        sizes = torch.bincount(seg_m[seg_m >= 0].long())
+        assert sizes.max().item() > 4 * 128   # five rounds of the kernel
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    taps = torch.randn(seg_m.shape + (C,), generator=gen,
+                       device=cuda).to(dtype)
+    before = cellpool.LAUNCHES["cell_pool0"]
+    got = cellpool.cell_pool0(plan, seg_m, taps)
+    assert cellpool.LAUNCHES["cell_pool0"] == before + 1
+    want = cellpool.cell_pool0_plain(plan, seg_m, taps)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    assert torch.equal(got, cellpool.cell_pool0(plan, seg_m, taps))
+    if kind == "invalid":
+        assert not got.any()
+
+
+def _k4_replay(spp, mc, dsums):
+    """K4's arithmetic in torch: per stage pixel, w * T(dsums[k]) over the
+    nonzero weights of clusters in the grid, added in (i, j) order, each add
+    rounded to f32, the sum rounded to T.  In bf16 each product is exact in
+    f32, so this is the kernel's fmaf sequence."""
+    B, Hs, Ih, Ws, Jw = mc.shape
+    ds = dsums.to(mc.dtype).float()
+    dev = mc.device
+    ay = torch.as_tensor(spp.anchor_y, device=dev).long() + spp.rmin_y
+    ax = torch.as_tensor(spp.anchor_x, device=dev).long() + spp.rmin_x
+    acc = torch.zeros((B, Hs, Ws, ds.shape[-1]), device=dev)
+    for i in range(Ih):
+        ky = ay + i
+        in_y = (ky >= 0) & (ky < spp.Kh)
+        for j in range(Jw):
+            kx = ax + j
+            in_grid = in_y[:, None] & ((kx >= 0) & (kx < spp.Kw))[None, :]
+            w = mc[:, :, i, :, j].float() * in_grid
+            k = (ky.clamp(0, spp.Kh - 1)[:, None] * spp.Kw
+                 + kx.clamp(0, spp.Kw - 1)[None, :])
+            x = ds[:, k.reshape(-1)].reshape(acc.shape)
+            acc = torch.where((w != 0)[..., None], acc + w[..., None] * x,
+                              acc)
+    return acc.to(mc.dtype)
+
+
+@pytest.mark.parametrize("C", [5, 37, 72, 256, 1544])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["masks", "invalid"])
+def test_cell_pool_stage_bwd_kernel_ragged(cuda, C, dtype, kind):
+    """K4 at every stage of the main-path plan (stage 4: Ih = Jw = 7), with
+    the forward's window weights ("masks") or those of an image whose
+    pixels are all invalid (every weight 0, so every gradient 0)."""
+    B, H, W = 1, 288, 416
+    plan, seg, valid = _seg(cuda, B, H, W, 200, seed=8)
+    if kind == "invalid":
+        valid = torch.zeros_like(valid)
+    e9 = cellgrid.offset_masks(plan, seg, valid, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for s in range(1, 5):
+        spp = cellgrid.make_stage_pool_plan(plan, H >> s, W >> s, True)
+        if s == 4:
+            assert (spp.Ih, spp.Jw) == (7, 7)
+        mc = cellgrid.stage_window_weights(spp, e9)
+        dsums = torch.randn((B, plan.n_clusters, C), generator=gen,
+                            device=cuda)
+        before = cellpool.LAUNCHES["cell_pool_stage_bwd"]
+        got = cellpool.cell_pool_stage_bwd(spp, mc, dsums)
+        assert cellpool.LAUNCHES["cell_pool_stage_bwd"] == before + 1
+        want = cellpool.cell_pool_stage_bwd_plain(spp, mc, dsums, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            lim = 1e-5 * max(1.0, want.abs().max().item())
+            assert err.max().item() <= lim, s
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -126))) - 7)
+            mass = cellpool.cell_pool_stage_bwd_plain(
+                spp, mc.abs(), dsums.abs(), torch.float32)
+            assert (err <= ulp + 1e-5 * mass).all(), s
+            assert torch.equal(got, _k4_replay(spp, mc, dsums)), s
+        assert torch.equal(got, cellpool.cell_pool_stage_bwd(spp, mc,
+                                                             dsums)), s
+        if kind == "invalid":
+            assert not got.any()
+
+
 @pytest.mark.parametrize("B,H,W,C,cout", [(2, 32, 64, 64, 128),
                                           (2, 32, 64, 64, 64),
                                           (1, 33, 65, 64, 128),

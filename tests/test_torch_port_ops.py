@@ -385,6 +385,70 @@ def test_k2_compaction_walk_matches_plain_and_jax(seg_setup, hs_ws, cap):
     np.testing.assert_allclose(got, want_j, atol=lim, rtol=0)
 
 
+# ---------------------------------------------------------------------------
+# K1's compaction and stream, replayed on the host
+# ---------------------------------------------------------------------------
+#
+# K1 compacts each cluster's pixels from an (h, w) scan of its +-1-cell
+# window, 32 positions per warp step, exactly as K2 compacts its weights
+# (a seg match in place of a nonzero weight), into a buffer of ``cap``
+# pixels (128 in the kernel), in rounds when a cluster holds more; each
+# channel then adds the listed rows in list order.
+
+def _k1_walk(plan, seg_m, taps, cap=128):
+    """Python replay of K1: per cluster, the rounds of compacted pixels, then
+    the f32 adds in their order.  Returns the sums and the most rounds any
+    cluster took."""
+    rl, rh, cl, ch = (t.numpy() for t in cellpool._pool0_tables(plan, "cpu"))
+    B, H, W, C = taps.shape
+    out = np.zeros((B, plan.n_clusters, C), np.float32)
+    most = 0
+    for b in range(B):
+        rows = taps[b].reshape(H * W, C)
+        seg_b = seg_m[b].reshape(-1)
+        for ky in range(plan.Kh):
+            for kx in range(plan.Kw):
+                k = ky * plan.Kw + kx
+                hh, ww = np.meshgrid(np.arange(rl[ky], rh[ky]),
+                                     np.arange(cl[kx], ch[kx]), indexing="ij")
+                pix = (hh * W + ww).reshape(-1)                # (h, w) order
+                hit = seg_b[pix] == k
+                rounds = _k2_compact(hit.astype(np.float32), cap)
+                assert all(len(r) <= cap for r in rounds)
+                flat = [pix[pos] for r in rounds for pos, _ in r]
+                assert flat == list(pix[hit])
+                most = max(most, len(rounds))
+                acc = np.zeros(C, np.float32)
+                for p in flat:
+                    acc = acc + rows[p]          # one f32 rounding per add
+                out[b, k] = acc
+    return out, most
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap", [128, 256, 7])  # the kernel's; one round; many
+def test_k1_compaction_walk_matches_plain_and_jax(seg_setup, dtype, cap):
+    """The replay against the plain version (to 1e-5 of the largest value:
+    both sum the same f32 values, in other orders) and the JAX Pallas
+    kernel in interpret mode (K1's limits: 1e-5 of the largest value in
+    f32, 0.02 in bf16)."""
+    tp, jp, seg, valid = seg_setup
+    seg_m = np.where(valid, seg, -1).astype(np.int32)
+    jt = jnp.asarray(np.random.default_rng(10).standard_normal(
+        seg.shape + (6,)).astype(np.float32)).astype(getattr(jnp, dtype))
+    taps = np.array(jt, np.float32)
+    got, most = _k1_walk(tp, seg_m, taps, cap)
+    assert most > 1 or cap > 7                # cap 7 takes several rounds
+    want = cellpool.cell_pool0_plain(tp, torch.from_numpy(seg_m),
+                                     torch.from_numpy(taps)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(),
+                               rtol=0)
+    want_j = np.asarray(j_cellpool.cell_pool0(jp, jnp.asarray(seg_m), jt))
+    tol = 1e-5 if dtype == "float32" else 0.02
+    np.testing.assert_allclose(got, want_j,
+                               atol=tol * np.abs(want_j).max() + 1e-6, rtol=0)
+
+
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain version; anything else launches the
     kernel or raises (here: a 'meta' tensor, as no card is present)."""

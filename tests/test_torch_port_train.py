@@ -196,6 +196,80 @@ def test_cell_pool_stage_backward_matches_jax(interpret, seg_setup, dtype,
         _assert_within_bf16_ulp(got, want, 1e-5 * mass)
 
 
+def _k4_walk(spp, mc, dsums, dtype):
+    """Python replay of K4: per stage pixel, its list of (cluster, weight)
+    terms, the nonzero weights of clusters in the grid in (i, j) order,
+    then fmaf(w, T(dsums[k]), acc) in that order (the product exact in f64,
+    one rounding) and the sum rounded to T.  Asserts that each list is the
+    pixel's nonzero dense weights in (ky, kx) order."""
+    B, Hs, Ih, Ws, Jw = mc.shape
+    Md = cellgrid.expand_window_weights(spp, torch.from_numpy(mc)).numpy()
+    ds = torch.from_numpy(dsums).to(dtype).float().numpy()     # T(dsums)
+    ay, ax = spp.anchor_y + spp.rmin_y, spp.anchor_x + spp.rmin_x
+    out = np.zeros((B, Hs, Ws, ds.shape[-1]), np.float32)
+    for b in range(B):
+        for p in range(Hs):
+            for q in range(Ws):
+                terms = [((ay[p] + i) * spp.Kw + ax[q] + j, mc[b, p, i, q, j])
+                         for i in range(Ih) if 0 <= ay[p] + i < spp.Kh
+                         for j in range(Jw) if 0 <= ax[q] + j < spp.Kw
+                         if mc[b, p, i, q, j] != 0]
+                dense = Md[b, p, :, q, :].reshape(-1)
+                nz = np.flatnonzero(dense)
+                assert [k for k, _ in terms] == list(nz)
+                assert [w for _, w in terms] == list(dense[nz])
+                acc = np.zeros(ds.shape[-1], np.float32)
+                for k, w in terms:
+                    acc = (np.float64(w) * ds[b, k].astype(np.float64)
+                           + acc).astype(np.float32)
+                out[b, p, q] = acc
+    return torch.from_numpy(out).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hs_ws", [(32, 80), (30, 77)])  # even and ragged
+def test_k4_compaction_walk_matches_plain_and_jax(interpret, seg_setup,
+                                                  dtype, hs_ws):
+    """The replay against the plain version and ``jax.vjp`` of the JAX
+    Pallas kernel (interpret mode), on the JAX kernel's own window weights,
+    within K4's limits: f32 1e-5 of the largest value (1e-5 + 1e-4
+    relative against JAX, as above); bf16 one bf16 ulp plus 1e-5 of the
+    sum of |terms|."""
+    _, valid, seg, jplan, tplan = seg_setup
+    Hs, Ws = hs_ws
+    jdt = getattr(jnp, dtype)
+    e9 = j_cellgrid.offset_masks(jplan, jnp.asarray(seg), jnp.asarray(valid),
+                                 jdt)
+    jspp = j_cellgrid.make_stage_pool_plan(jplan, Hs, Ws, True)
+    tspp = cellgrid.make_stage_pool_plan(tplan, Hs, Ws, True)
+    key = j_cellpool._stage_key(jplan, jspp)
+    j_cellpool._SPP_REG[key] = (jplan, jspp)
+    mc = _port_mc(np.asarray(j_cellpool._mct_from_e9(key, e9, 8), np.float32),
+                  tspp)
+    rng = np.random.default_rng(11)
+    taps = jnp.asarray(rng.standard_normal((B, Hs, Ws, 5)), jdt)
+    dsums = rng.standard_normal((B, jplan.n_clusters, 5)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = _k4_walk(tspp, mc, dsums, tdt)
+    assert got.dtype == tdt
+    tmc = _t(mc).to(tdt)
+    want = cellpool.cell_pool_stage_bwd_plain(tspp, tmc, _t(dsums), tdt)
+    _, vjp = jax.vjp(lambda t: j_cellpool.cell_pool_stage(jplan, jspp, e9, t),
+                     taps)
+    (want_j,) = vjp(jnp.asarray(dsums))
+    got, want = got.float().numpy(), want.float().numpy()
+    want_j = np.asarray(want_j, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(want).max()))
+        np.testing.assert_allclose(got, want_j, atol=1e-5, rtol=1e-4)
+    else:
+        mass = cellpool.cell_pool_stage_bwd_plain(
+            tspp, tmc.abs(), _t(np.abs(dsums)), torch.float32).numpy()
+        _assert_within_bf16_ulp(got, want, 1e-5 * mass)
+        _assert_within_bf16_ulp(got, want_j, 1e-5 * mass)
+
+
 def test_backward_plain_versions_are_the_kernels_math(seg_setup):
     """K3's plain version is the one-hot transpose; K4's is the transpose of
     its forward's dense weights, both rounded as the kernels round."""

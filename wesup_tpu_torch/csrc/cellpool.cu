@@ -34,11 +34,51 @@
 //     are bitwise repeatable.  taps may be f32 or bf16 (mc has taps'
 //     dtype); products of two bf16 values are exact in f32.
 //
-// K1 (simple; making it fast is later work): one thread block per (channel
-// chunk of 32, cluster row ky, 8 cluster columns, image b); one thread per
-// (kx, c).  A warp is one cluster and 32 neighbouring channels, so its
-// reads of taps are one contiguous segment and its reads of seg are
-// broadcasts; each thread walks its window in a fixed order.
+// K1 (compact once per cluster, then stream its pixels' rows).  On the main
+// path (C = 128) a cluster's +-1-cell window holds about 1755 pixels (at
+// most 1936), of which about 175 (at most 268) belong to it, and 8.5% of
+// the clusters lie in the canvas padding and are empty.  So:
+//   - A block owns one cluster (b, k) and nch warps of 128 channels
+//     (rows.cuh's 4-channel lane map: C = 128 -> one warp, 136 -> two;
+//     channels past 1024 go to grid.y).  A block of one cluster ends when
+//     its own list does, where a block of 8 clusters held its slot until
+//     the longest of 8 uneven lists (0-268 pixels) was done.
+//   - Compact: warp 0 scans the cluster's window of seg in (h, w) order,
+//     128 positions per batch of int32 loads (4 per lane in flight; the
+//     lane's window row and column move on without a division), and
+//     ballot / prefix-popc append the pixels with seg == k (as h * W + w)
+//     to the round's list in shared memory, in that order.  seg < 0
+//     matches no cluster.  The windows of neighbouring clusters overlap, so
+//     seg (3.8 MB) is read about 9 times, from L2, against 207 MB of taps
+//     rows streamed from HBM.  The scans cost more than those bytes say:
+//     with the stream left out, the kernel still took a fifth of its time.
+//   - Stream (rows.cuh stream_list): each warp adds the listed taps rows in
+//     list order, a lane 4 consecutive channels (one 8-byte load in bf16,
+//     one 16-byte load in f32), 16 (bf16) or 8 (f32) rows in flight, and
+//     writes its 4 f32 sums with one 16-byte store.  The lane map at
+//     C = 128: rows.cuh's 256-channel warp would idle half its lanes, and
+//     two clusters per warp (16 lanes each) would walk lists of different
+//     lengths in one loop; 4-channel lanes keep the whole warp on one list.
+//   - Rounds of kPool0Cap = 128 pixels: a cluster's scan stops when the
+//     list is full, the list is streamed, and the scan resumes at the first
+//     pixel that did not fit, the sums carrying in registers.  So no size
+//     is refused (a large sp_area or a degenerate seg can make a cluster as
+//     large as its window), and the order is unchanged.  On the main path
+//     (about 175 pixels a cluster) most clusters take two rounds, so a
+//     block's scan is split around its first stream.  Measured: one-
+//     cluster blocks with rounds of 96-192 pixels alike; 256-pixel rounds
+//     (one for most clusters) or 64 took 1.2x as long, and 8-cluster blocks
+//     with 512-pixel rounds 1.23x.
+//   - Each channel's f32 sum adds the cluster's pixels in (h, w) order, as
+//     a thread that walks the window and skips other clusters' pixels
+//     would (the earlier thread-per-channel design, which the kernel stays
+//     bitwise equal to).  An empty cluster writes zeros.  C % 4 != 0 or a
+//     misaligned base takes the scalar form (same order, masked past C).
+//   - Bound: bytes: the valid pixels' taps rows read once, seg, the f32
+//     sums; about 214 MB, 0.064 ms at 3.35 TB/s at the main-path shape.
+//     Tensor cores (wgmma) are not used: one add per 2-byte element is far
+//     below the ~295 operations per byte where they become the limit, and
+//     a one-hot product would also read the windows' other pixels.
 //
 // K2 (compact once, then stream the rows).  A cluster's window at stage 1
 // of the main path (Kh x Kw = 20 x 29, Ih = Jw = 5) has about 1161 (p, q)
@@ -91,66 +131,193 @@
 // banded weight tiles: K3 is a gather and K4 a gather with an Ih x Jw
 // weighted sum.
 //
-// Design (simple first):
-//   - K3: one thread per 4 consecutive channels of one pixel (scalar when C
-//     is not a multiple of 4), grid-stride.  Neighbouring threads write
-//     neighbouring addresses; seg is read as a broadcast by the threads of a
-//     pixel; every output element is written once, no atomics.  A pure
-//     selection: bitwise equal to the plain gather.
-//   - K4: one thread per (b, p, q, c), laid out as K1 (32 channels x 8 stage
-//     columns per block), so a warp's mc reads are broadcasts and its dsums
-//     reads one contiguous row segment.  Each thread walks its Ih x Jw window
-//     in a fixed order and writes once.
+// K3: one thread per 4 consecutive channels of one pixel (scalar when C is
+// not a multiple of 4), grid-stride.  Neighbouring threads write
+// neighbouring addresses; seg is read as a broadcast by the threads of a
+// pixel; every output element is written once, no atomics.  A pure
+// selection: bitwise equal to the plain gather.
+//
+// K4 (compact once per stage pixel, then stream the cotangent rows).  A
+// stage pixel's window (Ih x Jw = 25 weights at stages 1-3 of the main
+// path, 49 at stage 4) holds on average 1.98 / 2.94 / 5.07 / 11.07 nonzero
+// weights (at most 6 / 7 / 11 / 18), and C runs to 1536 channels.  So:
+//   - The wrapper rounds dsums to T once, with a torch cast (dsums.to(T)),
+//     as the JAX backward casts its cotangent window before the Pallas
+//     body; the kernel reads rows of T.  That is bitwise the same as
+//     rounding on every read, and halves the bytes re-read in bf16.
+//   - A block owns a run of consecutive stage pixels (b, p, q0 .. q0 + run)
+//     and ncl pixel slots x nch warps of 256 channels (rows.cuh block shape:
+//     C = 256 -> 8 x 1, 768 -> 2 x 3, 1536 -> 1 x 6; channels past 2048 go
+//     to grid.y).  run = ncl * m, with m (1-32 pixels per slot) set so that
+//     the grid holds about one wave of the card's resident warps, then
+//     balanced over the stage row: stage 1 of the main path takes whole
+//     rows of 208 pixels (26 per slot), stage 4 runs of 2.  Longer runs
+//     pay the block's staging and compaction over more pixels: capped at
+//     8 per slot (two waves) K4 took 1.09x as long.
+//   - Compact once: the block loads the run's Ih slabs mc[b, p, i, q0 ..
+//     q0 + run, :] (contiguous over (q, j)) into shared memory with
+//     coalesced loads; then thread u lists pixel q0 + u's nonzero weights
+//     whose cluster lies in the grid, as (cluster index, f32 weight), in
+//     (i, j) order, the order of a thread that walks the window.  A list
+//     holds at most Ih * Jw terms and the buffer is sized from Ih and Jw
+//     at launch (above 48 KB through cudaFuncSetAttribute), so no plan is
+//     refused.
+//   - Stream (rows.cuh stream_list): the warps of slot l walk pixels l,
+//     l + ncl, ... of the run; a lane loads 8 consecutive channels of each
+//     listed row (one 16-byte load in bf16, two in f32), 8 (bf16) or 4
+//     (f32) rows in flight, the last batch masked, and fmafs them in list
+//     order.  The sum is rounded to T once and written with one 16-byte
+//     store (bf16) or two (f32), each element once, no atomics; a pixel
+//     with no terms writes zeros.  C % 8 != 0 or a misaligned base takes
+//     the scalar form (same order, masked past C).
+//   - In bf16 the product of two bf16 values is exact in f32, so each
+//     element is the ordered sum of w * T(dsums), rounded once per add, as
+//     in the earlier thread-per-channel design; in f32 the fmafs and their
+//     order are that design's too, so the kernel stays bitwise equal to it.
+//   - Bound: bytes: mc and dsums read once, dtaps written once; about 364
+//     MB, 0.109 ms over stages 1-4 at the main-path shape.  The stream
+//     re-reads each dsums row from L2 once per stage pixel that names it
+//     (about 0.87 GB in bf16 over the four stages).  Tensor cores (wgmma)
+//     are not used: at 1-3 operations per byte they cannot raise the rate,
+//     and a dense product would read M's zeros too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 
 #include "rows.cuh"
 
 namespace {
 
-constexpr int kChanPerWarp = 32;   // threadIdx.x: channel within the chunk
-constexpr int kClustPerBlock = 8;  // threadIdx.y: cluster column in block
-
 using wesup_rows::kLaneChans;
 using wesup_rows::kMaxWarps;
 using wesup_rows::kWarpChans;
-using wesup_rows::round_to;
 using wesup_rows::to_f32;
 
-template <typename T>
-__global__ void cell_pool0_kernel(const int* __restrict__ seg,
-                                  const T* __restrict__ taps,
-                                  float* __restrict__ out,
-                                  const int* __restrict__ row_lo,
-                                  const int* __restrict__ row_hi,
-                                  const int* __restrict__ col_lo,
-                                  const int* __restrict__ col_hi, int H, int W,
-                                  int C, int Kh, int Kw) {
-  const int n_kxb = (Kw + kClustPerBlock - 1) / kClustPerBlock;
-  const int ky = blockIdx.y / n_kxb;
-  const int kx = (blockIdx.y % n_kxb) * kClustPerBlock + threadIdx.y;
-  const int c = blockIdx.x * kChanPerWarp + threadIdx.x;
-  const int b = blockIdx.z;
-  if (kx >= Kw || c >= C) return;
+// K1: per block, one cluster k of one image and nch warps of 128 channels.
+// Warp 0 compacts the cluster's pixels; then every warp streams its
+// channels of their rows.
+constexpr int kPool0Cap = 128;     // pixels per round
+constexpr int kPool0Unroll = 4;    // 32-position steps per batch of loads
+constexpr int kPool0LaneChans = 4;
+constexpr int kPool0WarpChans = 32 * kPool0LaneChans;
 
-  const int k = ky * Kw + kx;
-  const int* seg_b = seg + static_cast<size_t>(b) * H * W;
-  const T* taps_b = taps + static_cast<size_t>(b) * H * W * C + c;
-  const int h0 = row_lo[ky], h1 = row_hi[ky];
-  const int w0 = col_lo[kx], w1 = col_hi[kx];
-  float acc = 0.f;
-  for (int h = h0; h < h1; ++h) {
-    const int* seg_row = seg_b + static_cast<size_t>(h) * W;
-    for (int w = w0; w < w1; ++w) {
-      if (seg_row[w] == k) {
-        acc += to_f32(taps_b[(static_cast<size_t>(h) * W + w) * C]);
-      }
-    }
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32) cell_pool0_kernel(
+    const int* __restrict__ seg, const T* __restrict__ taps,
+    float* __restrict__ out, const int* __restrict__ row_lo,
+    const int* __restrict__ row_hi, const int* __restrict__ col_lo,
+    const int* __restrict__ col_hi, int H, int W, int C, int Kh, int Kw,
+    int nch) {
+  __shared__ int s_pix[kPool0Cap];  // the round's pixels h * W + w
+  __shared__ int s_n;
+
+  const int K = Kh * Kw;
+  const int b = blockIdx.x / K;
+  const int k = blockIdx.x - b * K;
+  const int ky = k / Kw, kx = k - ky * Kw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = (blockIdx.y * nch + warp) * kPool0WarpChans +
+                lane * kPool0LaneChans;
+  const bool streams = c < C;
+  const int nvalid = C - c;
+  const T* base = taps + static_cast<size_t>(b) * H * W * C +
+                  (streams ? c : 0);
+
+  // warp 0's window: rows h0 .. h1 x columns w0 .. w0 + nw, positions
+  // idx = (h - h0) * nw + (w - w0), visited in (h, w) order
+  const bool compacts = warp == 0;
+  int h0 = 0, w0 = 0, nw = 1, npos = 0;
+  if (compacts) {
+    h0 = row_lo[ky];
+    w0 = col_lo[kx];
+    nw = col_hi[kx] - w0;
+    npos = (row_hi[ky] - h0) * nw;
+    if (nw <= 0 || npos <= 0) npos = 0, nw = 1;
   }
-  out[(static_cast<size_t>(b) * Kh * Kw + k) * C + c] = acc;
+  const int* seg_b = seg + static_cast<size_t>(b) * H * W;
+  int cursor = 0;
+  // window row and column (dh, dw) of the lane's position cursor + lane,
+  // moved on 32 positions at a time without a division
+  int dh = lane / nw;
+  int dw = lane - dh * nw;
+
+  float acc[kPool0LaneChans];
+#pragma unroll
+  for (int e = 0; e < kPool0LaneChans; ++e) acc[e] = 0.f;
+
+  for (;;) {
+    if (compacts) {
+      // the cluster's pixels from ``cursor`` on, in order, until the
+      // buffer is full: 32 positions per step, ballot + popc
+      int n = 0;
+      bool full = false;
+      while (!full && cursor < npos) {
+        // kPool0Unroll loads of 32 positions in flight, then their ballots
+        // in position order
+        bool hit[kPool0Unroll];
+        int pix[kPool0Unroll];
+#pragma unroll
+        for (int u = 0; u < kPool0Unroll; ++u) {
+          hit[u] = false;
+          pix[u] = 0;
+          if (cursor + u * 32 + lane < npos) {
+            pix[u] = (h0 + dh) * W + w0 + dw;
+            hit[u] = seg_b[pix[u]] == k;
+          }
+          for (dw += 32; dw >= nw; dw -= nw) ++dh;
+        }
+        int step = kPool0Unroll * 32;
+#pragma unroll
+        for (int u = 0; u < kPool0Unroll; ++u) {
+          const unsigned m = __ballot_sync(0xffffffffu, hit[u]);
+          const int slot = n + __popc(m & ((1u << lane) - 1u));
+          if (hit[u] && slot < kPool0Cap) s_pix[slot] = pix[u];
+          const int total = __popc(m);
+          if (n + total > kPool0Cap) {
+            // resume at the first pixel that did not fit
+            const unsigned over = __ballot_sync(0xffffffffu,
+                                                hit[u] && slot == kPool0Cap);
+            step = u * 32 + __ffs(over) - 1;
+            n = kPool0Cap;
+            full = true;
+            break;
+          }
+          n += total;
+          if (n == kPool0Cap) {
+            step = (u + 1) * 32;
+            full = true;
+            break;
+          }
+        }
+        cursor = min(cursor + step, npos);
+        if (step != kPool0Unroll * 32) {
+          // the buffer filled inside the batch: the next round resumes here
+          dh = (cursor + lane) / nw;
+          dw = cursor + lane - dh * nw;
+        }
+      }
+      if (lane == 0) s_n = n;
+    }
+    __syncthreads();
+    if (streams) {
+      // 128 bytes per lane in flight in either dtype
+      constexpr int kDepth = sizeof(T) == 2 ? 16 : 8;
+      using Row = typename std::conditional<
+          VEC, wesup_rows::VecRow4<T>,
+          wesup_rows::ScalarRow<T, kPool0LaneChans>>::type;
+      wesup_rows::stream_list<Row, kDepth, false>(
+          base, s_pix, C, nullptr, s_n, nvalid, acc);
+    }
+    // another round while the cluster has pixels left
+    if (!__syncthreads_or(compacts && cursor < npos)) break;
+  }
+  if (streams) {
+    wesup_rows::store_sums4<VEC>(
+        out + (static_cast<size_t>(b) * K + k) * C + c, acc, nvalid);
+  }
 }
 
 // K2: per block, ncl clusters (ky, kx0 .. kx0 + ncl) of one image and nch
@@ -282,9 +449,33 @@ __global__ void __launch_bounds__(kMaxWarps * 32) cell_pool_stage_kernel(
   }
 }
 
-dim3 pool_grid(int B, int C, int Kh, int Kw) {
-  const int n_kxb = (Kw + kClustPerBlock - 1) / kClustPerBlock;
-  return dim3((C + kChanPerWarp - 1) / kChanPerWarp, Kh * n_kxb, B);
+template <typename T>
+int launch_pool0(const int* seg, const void* taps, float* out,
+                 const int* row_lo, const int* row_hi, const int* col_lo,
+                 const int* col_hi, int B, int H, int W, int C, int Kh,
+                 int Kw, cudaStream_t s) {
+  // one block per (image, cluster); nch warps of 128 channels, more
+  // channels to grid.y
+  const int nch_total = (C + kPool0WarpChans - 1) / kPool0WarpChans;
+  const int nch = std::min(nch_total, kMaxWarps);
+  const dim3 grid(B * Kh * Kw, nch > 0 ? (nch_total + nch - 1) / nch : 0);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  const dim3 block(32 * nch);
+  const T* t = static_cast<const T*>(taps);
+  // 4-channel vector loads (8 or 16 bytes) and 16-byte stores: rows of
+  // C % 4 == 0 from aligned bases
+  const bool vec = C % kPool0LaneChans == 0 &&
+                   reinterpret_cast<size_t>(t) % (kPool0LaneChans *
+                                                  sizeof(T)) == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0;
+  if (vec) {
+    cell_pool0_kernel<T, true><<<grid, block, 0, s>>>(
+        seg, t, out, row_lo, row_hi, col_lo, col_hi, H, W, C, Kh, Kw, nch);
+  } else {
+    cell_pool0_kernel<T, false><<<grid, block, 0, s>>>(
+        seg, t, out, row_lo, row_hi, col_lo, col_hi, H, W, C, Kh, Kw, nch);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- backward ------------------------------------------------------------
@@ -339,42 +530,92 @@ __global__ void cell_pool0_bwd_kernel(const int* __restrict__ seg,
   }
 }
 
-template <typename T>
-__global__ void cell_pool_stage_bwd_kernel(
-    const T* __restrict__ mc, const float* __restrict__ dsums,
+// K4: per block, a run of ``run`` stage pixels (b, p, q0 .. q0 + run) of
+// one stage row, and ncl pixel slots x nch warps of 256 channels.  The
+// block stages the run's window weights, thread u compacts pixel q0 + u,
+// then the warps of slot l stream pixels l, l + ncl, ...
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32) cell_pool_stage_bwd_kernel(
+    const T* __restrict__ mc, const T* __restrict__ dsums,
     T* __restrict__ dtaps, const int* __restrict__ ay,
     const int* __restrict__ ax, int Hs, int Ws, int C, int Ih, int Jw, int Kh,
-    int Kw, int rmin_y, int rmin_x) {
-  const int n_qb = (Ws + kClustPerBlock - 1) / kClustPerBlock;
-  const int p = blockIdx.y / n_qb;
-  const int q = (blockIdx.y % n_qb) * kClustPerBlock + threadIdx.y;
-  const int c = blockIdx.x * kChanPerWarp + threadIdx.x;
-  const int b = blockIdx.z;
-  if (q >= Ws || c >= C) return;
+    int Kw, int rmin_y, int rmin_x, int run, int ncl, int nch) {
+  // the run's weights (Ih slabs of run * Jw), then run lists of Ih * Jw
+  // terms (cluster indices, then weights), then the lists' lengths
+  extern __shared__ float s_mc[];
+  const int cap = Ih * Jw;
+  int* s_k = reinterpret_cast<int*>(s_mc + cap * run);
+  float* s_w = reinterpret_cast<float*>(s_k + cap * run);
+  int* s_n = reinterpret_cast<int*>(s_w + cap * run);
 
-  // mc[b, p, i, q, j] lies at ((b * Hs + p) * Ih + i) * Ws * Jw + q * Jw + j
-  const T* mc_pq = mc + (static_cast<size_t>(b) * Hs + p) * Ih * Ws * Jw +
-                   static_cast<size_t>(q) * Jw;
-  const float* ds_b = dsums + static_cast<size_t>(b) * Kh * Kw * C + c;
-  const int ky0 = ay[p] + rmin_y, kx0 = ax[q] + rmin_x;
-  float acc = 0.f;
-  for (int i = 0; i < Ih; ++i) {
-    const int ky = ky0 + i;
-    if (ky < 0 || ky >= Kh) continue;
-    const T* mc_i = mc_pq + static_cast<size_t>(i) * Ws * Jw;
-    for (int j = 0; j < Jw; ++j) {
-      const int kx = kx0 + j;
-      if (kx < 0 || kx >= Kw) continue;
-      const float wgt = to_f32(mc_i[j]);
-      if (wgt != 0.f) {
-        const float g = ds_b[(static_cast<size_t>(ky) * Kw + kx) * C];
-        // dsums rounded to T, as the reference casts its cotangent window
-        acc = fmaf(wgt, round_to(g, dtaps), acc);
+  const int n_runs = (Ws + run - 1) / run;
+  const int b = blockIdx.x / (Hs * n_runs);
+  const int rem = blockIdx.x - b * Hs * n_runs;
+  const int p = rem / n_runs;
+  const int q0 = (rem - p * n_runs) * run;
+  const int nq = min(run, Ws - q0);
+
+  // mc[b, p, i, q, j] lies at ((b * Hs + p) * Ih + i) * Ws * Jw + q * Jw + j:
+  // for each i the run's (q, j) are one contiguous slab
+  const int span = nq * Jw;
+  const T* mc_p = mc + (static_cast<size_t>(b) * Hs + p) * Ih * Ws * Jw +
+                  static_cast<size_t>(q0) * Jw;
+  for (int idx = threadIdx.x; idx < Ih * span; idx += blockDim.x) {
+    const int i = idx / span;
+    const int r = idx - i * span;
+    s_mc[i * run * Jw + r] =
+        to_f32(mc_p[static_cast<size_t>(i) * Ws * Jw + r]);
+  }
+  __syncthreads();
+
+  const int u = threadIdx.x;
+  if (u < nq) {
+    // pixel q0 + u's nonzero weights of clusters in the grid, (i, j) order
+    const int ky0 = ay[p] + rmin_y, kx0 = ax[q0 + u] + rmin_x;
+    int* my_k = s_k + u * cap;
+    float* my_w = s_w + u * cap;
+    int n = 0;
+    for (int i = 0; i < Ih; ++i) {
+      const int ky = ky0 + i;
+      if (ky < 0 || ky >= Kh) continue;
+      const float* wrow = s_mc + (i * run + u) * Jw;
+      for (int j = 0; j < Jw; ++j) {
+        const int kx = kx0 + j;
+        if (kx < 0 || kx >= Kw) continue;
+        const float wgt = wrow[j];
+        if (wgt != 0.f) {
+          my_k[n] = ky * Kw + kx;
+          my_w[n] = wgt;
+          ++n;
+        }
       }
     }
+    s_n[u] = n;
   }
-  store_f32(dtaps + ((static_cast<size_t>(b) * Hs + p) * Ws + q) * C + c,
-            acc);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = (blockIdx.y * nch + warp % nch) * kWarpChans +
+                lane * kLaneChans;
+  if (c >= C) return;
+  const int nvalid = C - c;
+  // dsums arrives rounded to T (the wrapper's cast)
+  const T* base = dsums + static_cast<size_t>(b) * Kh * Kw * C + c;
+  T* out = dtaps + (static_cast<size_t>(b) * Hs + p) * Ws * C + c;
+  // 128 bytes per lane in flight in either dtype
+  constexpr int kDepth = sizeof(T) == 2 ? 8 : 4;
+  using Row = typename std::conditional<VEC, wesup_rows::VecRow<T>,
+                                        wesup_rows::ScalarRow<T>>::type;
+  for (int v = warp / nch; v < nq; v += ncl) {
+    float acc[kLaneChans];
+#pragma unroll
+    for (int e = 0; e < kLaneChans; ++e) acc[e] = 0.f;
+    wesup_rows::stream_list<Row, kDepth, true>(base, s_k + v * cap, C,
+                                               s_w + v * cap, s_n[v], nvalid,
+                                               acc);
+    wesup_rows::store_rounded<VEC>(out + static_cast<size_t>(q0 + v) * C,
+                                   acc, nvalid);
+  }
 }
 
 template <typename T>
@@ -400,17 +641,65 @@ int launch_pool0_bwd(const int* seg, const float* dsums, void* dtaps, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kBwdPixPerSlot = 32;          // stage pixels per slot, at most
+constexpr size_t kSmemDefault = 48 * 1024;  // above: opt in per kernel
+constexpr size_t kSmemMax = 232448;         // the most a block can take
+
+// shared memory of a K4 block: the run's weights, its lists, their lengths
+size_t stage_bwd_smem(int run, int Ih, int Jw) {
+  const size_t cap = static_cast<size_t>(Ih) * Jw;
+  return (3 * cap * run + run) * sizeof(float);
+}
+
 template <typename T>
-int launch_stage_bwd(const void* mc, const float* dsums, void* dtaps,
+int launch_stage_bwd(const void* mc, const void* dsums, void* dtaps,
                      const int* ay, const int* ax, int B, int Hs, int Ws,
                      int C, int Ih, int Jw, int Kh, int Kw, int rmin_y,
                      int rmin_x, cudaStream_t s) {
-  const int n_qb = (Ws + kClustPerBlock - 1) / kClustPerBlock;
-  const dim3 block(kChanPerWarp, kClustPerBlock);
-  const dim3 grid((C + kChanPerWarp - 1) / kChanPerWarp, Hs * n_qb, B);
-  cell_pool_stage_bwd_kernel<T><<<grid, block, 0, s>>>(
-      static_cast<const T*>(mc), dsums, static_cast<T*>(dtaps), ay, ax, Hs,
-      Ws, C, Ih, Jw, Kh, Kw, rmin_y, rmin_x);
+  const wesup_rows::Shape sp = wesup_rows::block_shape(C);
+  if (B <= 0 || Hs <= 0 || Ws <= 0 || sp.nch_total <= 0) return 0;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // pixels per slot: the grid's warps fill the card's resident warps (64
+  // per SM) about once, and each warp walks up to kBwdPixPerSlot pixels
+  const long long tasks = static_cast<long long>(B) * Hs * Ws * sp.nch_total;
+  const long long m = std::max(1LL, std::min<long long>(
+      kBwdPixPerSlot, tasks / (static_cast<long long>(n_sm) * 64)));
+  int run = static_cast<int>(std::min<long long>(Ws, sp.ncl * m));
+  while (run > 1 && stage_bwd_smem(run, Ih, Jw) > kSmemMax) {
+    run = (run + 1) / 2;
+  }
+  const size_t smem = stage_bwd_smem(run, Ih, Jw);
+  if (smem > kSmemMax) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // runs of even length along the stage row
+  const int n_even = (Ws + run - 1) / run;
+  run = (Ws + n_even - 1) / n_even;
+  const int n_runs = (Ws + run - 1) / run;
+  const dim3 grid(B * Hs * n_runs, (sp.nch_total + sp.nch - 1) / sp.nch);
+  const dim3 block(32 * sp.ncl * sp.nch);
+  const T* ds = static_cast<const T*>(dsums);
+  T* out = static_cast<T*>(dtaps);
+  // 16-byte loads and stores: rows of C % 8 == 0 from aligned bases
+  const bool vec = C % kLaneChans == 0 &&
+                   reinterpret_cast<size_t>(ds) % 16 == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0;
+  auto kernel = vec ? cell_pool_stage_bwd_kernel<T, true>
+                    : cell_pool_stage_bwd_kernel<T, false>;
+  if (smem > kSmemDefault) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, block, smem, s>>>(
+      static_cast<const T*>(mc), ds, out, ay, ax, Hs, Ws, C, Ih, Jw, Kh, Kw,
+      rmin_y, rmin_x, run, sp.ncl, sp.nch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,8 +750,6 @@ extern "C" int wesup_cell_pool0(const void* seg, const void* taps, void* out,
                                 const void* col_lo, const void* col_hi, int B,
                                 int H, int W, int C, int Kh, int Kw, int dtype,
                                 void* stream) {
-  const dim3 block(kChanPerWarp, kClustPerBlock);
-  const dim3 grid = pool_grid(B, C, Kh, Kw);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* sg = static_cast<const int*>(seg);
   auto* o = static_cast<float*>(out);
@@ -471,17 +758,14 @@ extern "C" int wesup_cell_pool0(const void* seg, const void* taps, void* out,
   const auto* cl = static_cast<const int*>(col_lo);
   const auto* ch = static_cast<const int*>(col_hi);
   if (dtype == 0) {
-    cell_pool0_kernel<float><<<grid, block, 0, s>>>(
-        sg, static_cast<const float*>(taps), o, rl, rh, cl, ch, H, W, C, Kh,
-        Kw);
-  } else if (dtype == 1) {
-    cell_pool0_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        sg, static_cast<const __nv_bfloat16*>(taps), o, rl, rh, cl, ch, H, W,
-        C, Kh, Kw);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_pool0<float>(sg, taps, o, rl, rh, cl, ch, B, H, W, C, Kh,
+                               Kw, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_pool0<__nv_bfloat16>(sg, taps, o, rl, rh, cl, ch, B, H, W,
+                                       C, Kh, Kw, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int wesup_cell_pool_stage(
@@ -517,23 +801,23 @@ extern "C" int wesup_cell_pool0_bwd(const void* seg, const void* dsums,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K4: dsums (B, Kh * Kw, C) f32, mc (B, Hs, Ih, Ws, Jw) in T -> dtaps
-// (B, Hs, Ws, C) in T.
+// K4: dsums (B, Kh * Kw, C) already rounded to T, mc (B, Hs, Ih, Ws, Jw) in
+// T -> dtaps (B, Hs, Ws, C) in T.
 extern "C" int wesup_cell_pool_stage_bwd(
     const void* mc, const void* dsums, void* dtaps, const void* ay,
     const void* ax, int B, int Hs, int Ws, int C, int Ih, int Jw, int Kh,
     int Kw, int rmin_y, int rmin_x, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* ds = static_cast<const float*>(dsums);
   const auto* y = static_cast<const int*>(ay);
   const auto* x = static_cast<const int*>(ax);
   if (dtype == 0) {
-    return launch_stage_bwd<float>(mc, ds, dtaps, y, x, B, Hs, Ws, C, Ih, Jw,
-                                   Kh, Kw, rmin_y, rmin_x, s);
+    return launch_stage_bwd<float>(mc, dsums, dtaps, y, x, B, Hs, Ws, C, Ih,
+                                   Jw, Kh, Kw, rmin_y, rmin_x, s);
   }
   if (dtype == 1) {
-    return launch_stage_bwd<__nv_bfloat16>(mc, ds, dtaps, y, x, B, Hs, Ws, C,
-                                           Ih, Jw, Kh, Kw, rmin_y, rmin_x, s);
+    return launch_stage_bwd<__nv_bfloat16>(mc, dsums, dtaps, y, x, B, Hs, Ws,
+                                           C, Ih, Jw, Kh, Kw, rmin_y, rmin_x,
+                                           s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

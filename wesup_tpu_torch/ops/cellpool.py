@@ -13,8 +13,8 @@ Port of ``wesup_tpu/ops/cellpool_pallas.py``'s kernels and custom VJPs:
   compact window weights ``mc`` (B, Hs, Ih, Ws, Jw) from
   :func:`wesup_tpu_torch.ops.cellgrid.stage_window_weights`.  Its backward,
   K4 (:func:`cell_pool_stage_bwd`), is ``dtaps = M dsums`` with ``dsums``
-  rounded to taps' dtype first and the f32 sum rounded at the end, as the
-  JAX backward rounds.
+  rounded to taps' dtype first (one torch cast before the kernel) and the
+  f32 sum rounded at the end, as the JAX backward rounds.
 
 The forwards return (B, K, C) float32.  :func:`cell_pool0` and
 :func:`cell_pool_stage` are ``torch.autograd.Function``s: their backward
@@ -270,7 +270,12 @@ def cell_pool_stage_bwd_plain(spp: StagePoolPlan, mc: torch.Tensor,
 def cell_pool_stage_bwd(spp: StagePoolPlan, mc: torch.Tensor,
                         dsums: torch.Tensor) -> torch.Tensor:
     """K4: (B, Hs, Ws, C) gradient, in ``mc``'s dtype, of
-    :func:`cell_pool_stage`'s taps from the (B, K, C) f32 cotangent."""
+    :func:`cell_pool_stage`'s taps from the (B, K, C) f32 cotangent.
+
+    On the card the cotangent is rounded to ``mc``'s dtype once, here, with
+    a torch cast (``dsums.to(dtype)``; none in f32), as the JAX backward
+    casts its cotangent window before the Pallas body; the kernel then
+    reads those rounded rows."""
     dsums = dsums.contiguous()
     if dsums.device.type == "cpu":
         return cell_pool_stage_bwd_plain(spp, mc, dsums, mc.dtype)
@@ -286,10 +291,11 @@ def cell_pool_stage_bwd(spp: StagePoolPlan, mc: torch.Tensor,
 
     lib = library()
     ay, ax = _stage_tables(spp, dsums.device)[:2]
+    ds = dsums.to(mc.dtype)
     out = torch.empty((B, spp.Hs, spp.Ws, C), dtype=mc.dtype,
                       device=dsums.device)
     err = lib.wesup_cell_pool_stage_bwd(
-        mc.data_ptr(), dsums.data_ptr(), out.data_ptr(), ay.data_ptr(),
+        mc.data_ptr(), ds.data_ptr(), out.data_ptr(), ay.data_ptr(),
         ax.data_ptr(), B, spp.Hs, spp.Ws, C, spp.Ih, spp.Jw, spp.Kh, spp.Kw,
         spp.rmin_y, spp.rmin_x, _DTYPE_CODE[mc.dtype],
         _stream_ptr(dsums.device))

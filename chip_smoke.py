@@ -20,14 +20,16 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
 7. per-kernel times against the plain version, a library call and the
    card's bound (for K1 and K2 also the achieved share of the HBM rate);
 8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
-   against their plain versions at the main-path shapes; one f32
+   against their plain versions at the main-path shapes (K3 also at
+   C = 1024, the width of fullres training's K5 backward); one f32
    forward + backward on the card against the CPU; SLIC on the card
    against the CPU at 288x416; ``make_train_step`` at B=8 on the 288x416
    canvas in bf16 with full-width WESUP (point supervision), launch counts
    per step, step time, peak memory, a per-phase breakdown and a profiler
-   window; two mask-supervised steps (elastic path); K3/K4 times (K4
-   per stage and over stages 1-4, with its share of the HBM rate and the
-   bytes of dsums rows its stream re-reads, and their rate);
+   window; two mask-supervised steps (elastic path); K3/K4 times (K3 at
+   C = 128 and C = 1024, K4 per stage and over stages 1-4, each with its
+   share of the HBM rate; K4's also with the bytes of dsums rows its
+   stream re-reads, and their rate);
 9. the adjoint, fullres and fused-pool paths: K5 (``segment_sum``), K6
    (``adjoint_pool_stage``) and K7 (``fused_relu_pool_pad``, and its
    gradient) against their plain versions at the main-path shapes; the f32
@@ -237,18 +239,22 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     errs = {}
 
     # ---- 8a. K3 / K4 against their plain versions ------------------------
+    # K3 at the main path's C = 128 and at C = 1024, the width at which
+    # fullres training will call it as K5's backward
     C0 = 128
-    for dt in (torch.bfloat16, torch.float32):
-        dsums = torch.randn((BATCH, K, C0), generator=gen, device=dev)
-        got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dt)
-        want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dt)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        log(f"[K3] {tuple(got.shape)} {dt}: max_abs_err {err:.3e} "
-            f"(limit 0: a pure selection)")
-        if not torch.equal(got, want):
-            fail(f"K3 disagrees with its plain version at {dt}")
-        errs[("K3", dt)] = err
+    for C in (C0, 1024):
+        for dt in (torch.bfloat16, torch.float32):
+            dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+            got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dt)
+            want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dt)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"[K3] {tuple(got.shape)} {dt}: max_abs_err {err:.3e} "
+                f"(limit 0: a pure selection)")
+            if not torch.equal(got, want):
+                fail(f"K3 disagrees with its plain version at C={C}, {dt}")
+            errs[("K3", C, dt)] = err
+            del dsums, got, want
     e9 = {dt: cellgrid.offset_masks(plan, seg, valid, dt)
           for dt in (torch.bfloat16, torch.float32)}
     for s, C in stage_c.items():
@@ -435,30 +441,43 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     torch.cuda.empty_cache()
 
     # ---- 8f. K3 / K4 times at the main-path shapes -----------------------
+    # K3 at C = 128 (the train step's) and C = 1024 (fullres training's K5
+    # backward, through the same wrapper and plan); the bmm yardstick is
+    # the one-hot by the bf16 dsums
     cd = torch.bfloat16
     out = []
-    dsums = torch.randn((BATCH, K, C0), generator=gen, device=dev)
     oh = (seg_m[..., None] == torch.arange(K, device=dev, dtype=seg_m.dtype)
           ).to(cd).reshape(BATCH, H * W, K)                     # (B, HW, K)
-    ds_cd = dsums.to(cd)
-    t_k = cuda_ms(torch, lambda: cellpool.cell_pool0_bwd(plan, seg_m, dsums,
-                                                         cd))
-    t_p = cuda_ms(torch, lambda: cellpool.cell_pool0_bwd_plain(
-        plan, seg_m, dsums, cd), n=5, warmup=1)
-    t_l = cuda_ms(torch, lambda: torch.bmm(oh, ds_cd))
+    k3 = {}
+    for C in (C0, 1024):
+        dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+        ds_cd = dsums.to(cd)
+        t_k = cuda_ms(torch, lambda: cellpool.cell_pool0_bwd(plan, seg_m,
+                                                             dsums, cd))
+        t_p = cuda_ms(torch, lambda: cellpool.cell_pool0_bwd_plain(
+            plan, seg_m, dsums, cd), n=3, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(oh, ds_cd))
+        nbytes = seg_m.numel() * 4 + dsums.numel() * 4 + BATCH * H * W * C * 2
+        b_ms, b_by = bound(nbytes, 0.0, cd)
+        log(f"[K3 time] C={C}: kernel {t_k:.4f} ms, plain {t_p:.4f}, bmm "
+            f"{t_l:.4f}, bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB); "
+            f"{share(nbytes, t_k)}; bitwise equal to the plain version: "
+            f"{errs[('K3', C, cd)] == 0.0}")
+        k3[C] = (t_k, t_p, t_l, b_ms, b_by)
+        del dsums, ds_cd
     del oh
-    nbytes = seg_m.numel() * 4 + dsums.numel() * 4 + BATCH * H * W * C0 * 2
-    b_ms, b_by = bound(nbytes, 0.0, cd)
-    log(f"[K3 time] kernel {t_k:.4f} ms, plain {t_p:.4f}, bmm {t_l:.4f}, "
-        f"bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+    t_k, t_p, t_l, b_ms, b_by = k3[C0]
     out.append({
         "name": "cell_pool0_bwd (K3)", "route": "cuda",
         "source": "wesup_tpu_torch/csrc/cellpool.cu",
         "replaces": "wesup_tpu/ops/cellpool_pallas.py:213",
         "launches": launches["cell_pool0_bwd"],
-        "max_abs_err": errs[("K3", cd)],
+        "max_abs_err": errs[("K3", C0, cd)],
         "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": t_l})
+        "library_ms": t_l, "ms_c1024": k3[1024][0],
+        "plain_ms_c1024": k3[1024][1], "library_ms_c1024": k3[1024][2],
+        "bound_ms_c1024": k3[1024][3],
+        "max_abs_err_c1024": errs[("K3", 1024, cd)]})
 
     e9 = cellgrid.offset_masks(plan, seg, valid, cd)
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0,

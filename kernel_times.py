@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time kernels K1, K2, K4 and K6 at the main-path shapes, to compare two
-trees of the port on one card.
+"""Time kernels K1, K2, K3, K4 and K6 at the main-path shapes, to compare
+two trees of the port on one card.
 
-    python3 kernel_times.py [--repo DIR] [--label NAME]
+    python3 kernel_times.py [--repo DIR] [--label NAME] [--check FILE]
 
 ``DIR`` holds a ``wesup_tpu_torch/`` package (a checkout, or an unpacked
 ``git archive`` of another commit); the default is this checkout.  On
 bench.py's images (B=8, 288x416, SLIC seg, WESUPConfig defaults, bf16) it
-times K1 (``cell_pool0``, C=128) and, per stage 1-4, K2
+times K1 (``cell_pool0``, C=128), K3 (``cell_pool0_bwd``, C=128 and
+C=1024, beside a ``zero_()`` of its output: the card's plain store rate)
+and, per stage 1-4, K2
 (``cell_pool_stage``), K4 (``cell_pool_stage_bwd``, its cast of dsums to
 bf16 included) and K6 (``adjoint_pool_stage``) as the mean of 20 launches
 between CUDA events, after 3 warm-up launches (``chip_smoke.cuda_ms``), and
@@ -15,15 +17,17 @@ the host's time to launch one call of each wrapper, and prints one JSON
 line with the card's name and power limit.  To compare two trees, run them
 in turns in one call on one card: parent, change, change, parent.
 
-With ``--check FILE`` it also runs K1 and K4 (every stage, bf16 and f32) on
-one set of inputs: the first tree to run saves the inputs and its outputs
-to FILE, and each later tree prints whether its outputs equal them bitwise
+With ``--check FILE`` it also runs K1, K3 (C=128 and C=1024) and K4
+(every stage), in bf16 and f32, on one set of inputs: the first tree to run
+saves the inputs and its outputs (K3's as the SHA-256 of their bytes) to
+FILE, and each later tree prints whether its outputs equal them bitwise
 (``"bitwise"`` in the JSON line).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -48,8 +52,14 @@ def host_ms(torch, fn, n=20) -> float:
     return (t1 - t0) * 1e3 / n
 
 
+def digest(torch, t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          ).hexdigest()
+
+
 def check_outputs(torch, path: Path, plan, seg, valid, gen) -> dict:
-    """K1's and K4's outputs on the inputs saved in ``path`` (made and
+    """K1's, K3's and K4's outputs on the inputs saved in ``path`` (made and
     saved, with these outputs, when it does not exist yet): per output,
     whether it equals the saved one bitwise."""
     from wesup_tpu_torch.ops import cellgrid, cellpool
@@ -59,6 +69,10 @@ def check_outputs(torch, path: Path, plan, seg, valid, gen) -> dict:
     if saved is None:
         inputs = {"seg": seg, "valid": valid, "taps0": torch.randn(
             seg.shape + (128,), generator=gen, device=seg.device)}
+        for C in (128, 1024):
+            inputs[f"dsums0 {C}"] = torch.randn(
+                (seg.shape[0], plan.n_clusters, C), generator=gen,
+                device=seg.device)
         for s, C in {1: 256, 2: 768, 3: 1536, 4: 1536}.items():
             inputs[f"dsums{s}"] = torch.randn(
                 (seg.shape[0], plan.n_clusters, C), generator=gen,
@@ -67,10 +81,13 @@ def check_outputs(torch, path: Path, plan, seg, valid, gen) -> dict:
         inputs = saved["inputs"]
     seg, valid = inputs["seg"], inputs["valid"]
     seg_m = torch.where(valid, seg, -1).contiguous()
-    outs = {}
+    outs, digests = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         outs[f"k1 {dt}"] = cellpool.cell_pool0(plan, seg_m,
                                                inputs["taps0"].to(dt))
+        for C in (128, 1024):
+            digests[f"k3 C={C} {dt}"] = digest(torch, cellpool.cell_pool0_bwd(
+                plan, seg_m, inputs[f"dsums0 {C}"], dt))
         e9 = cellgrid.offset_masks(plan, seg, valid, dt)
         for s in range(1, 5):
             spp = cellgrid.make_stage_pool_plan(plan, H >> s, W >> s, True)
@@ -79,10 +96,13 @@ def check_outputs(torch, path: Path, plan, seg, valid, gen) -> dict:
                 spp, mc, inputs[f"dsums{s}"])
     torch.cuda.synchronize()
     if saved is None:
-        torch.save({"inputs": inputs, "outs": outs}, path)
-        return {key: "saved" for key in outs}
-    return {key: bool(torch.equal(got, saved["outs"][key]))
+        torch.save({"inputs": inputs, "outs": outs, "digests": digests}, path)
+        return {key: "saved" for key in [*outs, *digests]}
+    same = {key: bool(torch.equal(got, saved["outs"][key]))
             for key, got in outs.items()}
+    same.update({key: got == saved["digests"].get(key)
+                 for key, got in digests.items()})
+    return same
 
 
 def main() -> int:
@@ -134,6 +154,17 @@ def main() -> int:
     out["k1_ms"] = chip_smoke.cuda_ms(torch, k1)
     out["k1_host_ms"] = host_ms(torch, k1)
     del taps0
+    for C in (128, 1024):
+        dsums = torch.randn((B, K, C), generator=gen, device=dev)
+
+        def k3():
+            return cellpool.cell_pool0_bwd(plan, seg_m, dsums, cd)
+
+        out[f"k3_ms C={C}"] = chip_smoke.cuda_ms(torch, k3)
+        out[f"k3_host_ms C={C}"] = host_ms(torch, k3)
+        dtaps = k3()
+        out[f"k3_zero_ms C={C}"] = chip_smoke.cuda_ms(torch, dtaps.zero_)
+        del dsums, dtaps
     for s, C in {1: 256, 2: 768, 3: 1536, 4: 1536}.items():
         Hs, Ws = H >> s, W >> s
         spp = cellgrid.make_stage_pool_plan(plan, Hs, Ws, True)

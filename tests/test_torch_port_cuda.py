@@ -406,10 +406,11 @@ def test_adjoint_pool_stage_kernel_ragged(cuda, C, dtype, kind,
 
 
 # ---------------------------------------------------------------------------
-# K1 and K4 at ragged shapes: the compacted pixel lists (K1, in rounds when
-# longer than the kernel's 128-pixel buffer) and term lists (K4), the masked
-# channel tail and all-invalid images.  Limits as above; two launches agree
-# bitwise; in bf16 K4 also equals an ordered replay of its arithmetic.
+# K1, K3 and K4 at ragged shapes: the compacted pixel lists (K1, in rounds
+# when longer than the kernel's 128-pixel buffer), K3's pixel runs and
+# lane map, the term lists (K4), the masked channel tail and all-invalid
+# images.  Limits as above (K3: equal); two launches agree bitwise; in bf16
+# K4 also equals an ordered replay of its arithmetic.
 # ---------------------------------------------------------------------------
 
 def _pool0_seg(dev, kind):
@@ -444,6 +445,34 @@ def test_cell_pool0_kernel_ragged(cuda, C, dtype, tol, kind):
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
     assert torch.equal(got, cellpool.cell_pool0(plan, seg_m, taps))
+    if kind == "invalid":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("C", [5, 37, 128, 136, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["slic", "big", "invalid"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cell_pool0_bwd_kernel_ragged(cuda, C, dtype, kind, offset):
+    """K3 bitwise equal to the plain gather at channel counts that take its
+    scalar form (5, 37), one or two slots a warp (128, 136) and four
+    256-channel chunks (1024), over SLIC's segments, large segments whose
+    rows the walk reuses over whole runs ("big") and all-invalid images;
+    ``offset`` moves dsums off its 16-byte alignment (the scalar form)."""
+    plan, seg_m = _pool0_seg(cuda, kind)
+    B = seg_m.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n = B * plan.n_clusters * C
+    dsums = torch.randn(n + offset, generator=gen, device=cuda)[
+        offset:].view(B, plan.n_clusters, C)
+    before = cellpool.LAUNCHES["cell_pool0_bwd"]
+    got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dtype)
+    assert cellpool.LAUNCHES["cell_pool0_bwd"] == before + 1
+    want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(got, cellpool.cell_pool0_bwd(plan, seg_m, dsums,
+                                                    dtype))
     if kind == "invalid":
         assert not got.any()
 

@@ -449,6 +449,128 @@ def test_k1_compaction_walk_matches_plain_and_jax(seg_setup, dtype, cap):
                                atol=tol * np.abs(want_j).max() + 1e-6, rtol=0)
 
 
+# ---------------------------------------------------------------------------
+# K3's walk, replayed on the host
+# ---------------------------------------------------------------------------
+#
+# K3 cuts the flat (b, h, w) pixel index into ranges of spw * run <= 32
+# pixels (so ranges and runs cross image rows and images); a warp's task is
+# one range and one 256-channel chunk, and slot j of the warp (g lanes of 8
+# channels) walks pixels j * run .. (j + 1) * run - 1 of its range.  A lane keeps its
+# current cotangent row, already rounded to the output dtype, and loads a
+# row only where the row index b * K + seg changes along the run; a pixel
+# with seg < 0 stores zeros.  The kernel issues a batch's loads before its
+# stores, which changes no value.
+
+def _k3_lane_map(C):
+    """(g, spw, run, nchunk) as launch_pool0_bwd sets them."""
+    lanes = -(-C // 8)
+    g = min(lanes, 32)
+    spw = 32 // g
+    return g, spw, 32 // spw, -(-lanes // 32)
+
+
+def _k3_walk(seg, dsums, dtype):
+    """Python replay of K3.  Returns dtaps, the tasks' pixel ranges and one
+    record per slot that stores: (first pixel, pixels, row loads)."""
+    B, H, W = seg.shape
+    K, C = dsums.shape[1:]
+    g, spw, run, nchunk = _k3_lane_map(C)
+    n_pix, span = B * H * W, spw * run
+    flat = seg.reshape(-1).tolist()
+    rows = dsums.reshape(B * K, C).to(dtype)
+    out = torch.full((n_pix, C), float("nan")).to(dtype)
+    writes = np.zeros((n_pix, C), np.int64)
+    ranges, walks = [], []
+    for task in range(-(-n_pix // span) * nchunk):
+        rng, chunk = divmod(task, nchunk)
+        p0 = rng * span
+        c0 = chunk * 256
+        c1 = min(C, c0 + 8 * g)
+        if chunk == 0:
+            ranges.append((p0, min(span, n_pix - p0)))
+        # lane i's row index: pixel p0 + i's, -1 where seg < 0 or past
+        keys = [(p0 + i) // (H * W) * K + flat[p0 + i]
+                if i < span and p0 + i < n_pix and flat[p0 + i] >= 0 else -1
+                for i in range(32)]
+        for j in range(spw):
+            q0 = j * run
+            n_mine = min(run, n_pix - p0 - q0)
+            cur_key, cur = -1, torch.zeros(c1 - c0, dtype=dtype)
+            loads = 0
+            for t in range(run):
+                key = keys[q0 + t]
+                if key != cur_key:
+                    cur = rows[key, c0:c1] if key >= 0 else torch.zeros(
+                        c1 - c0, dtype=dtype)
+                    loads += key >= 0
+                    cur_key = key
+                if t < n_mine:
+                    out[p0 + q0 + t, c0:c1] = cur
+                    writes[p0 + q0 + t, c0:c1] += 1
+            if n_mine > 0:
+                walks.append((p0 + q0, n_mine, loads))
+    assert (writes == 1).all()               # each element written once
+    return out.reshape(B, H, W, C), ranges, walks
+
+
+def _k3_seg(kind, C, B=3, H=5, W=13, K=8):
+    """seg for the K3 replay: 4-pixel-wide blocks of clusters (W = 13 and
+    H * W = 65 put run and range boundaries inside image rows and
+    images), with invalid pixels at the start and end of every run
+    ("invalid_ends") or an image whose pixels are all invalid
+    ("invalid_image")."""
+    hh, ww = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    seg = np.broadcast_to((hh // 3 * 4 + ww // 4) % K, (B, H, W)).copy()
+    seg[1] = (seg[1] + 3) % K
+    _, spw, run, _ = _k3_lane_map(C)
+    pos = np.arange(B * H * W) % (spw * run) % run
+    if kind == "invalid_ends":
+        seg.reshape(-1)[(pos == 0) | (pos == run - 1)] = -1
+    if kind == "invalid_image":
+        seg[1] = -1
+        seg[2, 0, :5] = -1
+    return seg.astype(np.int32), K
+
+
+@pytest.mark.parametrize("C", [5, 37, 128, 1024])
+@pytest.mark.parametrize("kind", ["rows_images", "invalid_ends",
+                                  "invalid_image"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_walk_matches_plain(kind, C, dtype):
+    """The replay equals the plain gather bitwise, for run and range
+    boundaries inside image rows and images, segment changes inside a run,
+    runs that start or end on invalid pixels and an all-invalid image."""
+    seg, K = _k3_seg(kind, C)
+    B, H, W = seg.shape
+    dsums = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (B, K, C)).astype(np.float32))
+    got, ranges, walks = _k3_walk(seg, dsums, dtype)
+    plan = t_slic.make_plan(H, W, 10)
+    assert plan.n_clusters == K
+    want = cellpool.cell_pool0_bwd_plain(plan, torch.from_numpy(seg), dsums,
+                                         dtype)
+    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(want, cellpool.cell_pool0_bwd(
+        plan, torch.from_numpy(seg), dsums, dtype))
+    # what each case is for
+    last = [p0 + n - 1 for p0, n in ranges]
+    assert any(p // W != q // W for (p, _), q in zip(ranges, last))
+    assert any(p // (H * W) != q // (H * W) for (p, _), q in zip(ranges, last))
+    run = _k3_lane_map(C)[2]
+    flat = seg.reshape(-1)
+    if run > 1:
+        assert any(p // W != (p + n - 1) // W for p, n, _ in walks)
+        # a segment change inside a run, and a row reused along a run
+        assert any(loads >= 2 for _, _, loads in walks)
+        assert any(0 < loads < n for _, n, loads in walks)
+    if kind == "invalid_ends":
+        assert all(flat[p] < 0 and flat[p + n - 1] < 0 for p, n, _ in walks
+                   if n == run)
+    if kind == "invalid_image":
+        assert not got[1].float().any()
+
+
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain version; anything else launches the
     kernel or raises (here: a 'meta' tensor, as no card is present)."""

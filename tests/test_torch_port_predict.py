@@ -106,6 +106,42 @@ def test_predict_multiscale_batch_matches_jax(weights):
         assert (g == w).mean() >= 0.999
 
 
+@pytest.mark.parametrize("env,dispatches", [(None, 1), ("2", 3), ("5", 1)])
+def test_infer_max_batch_env_changes_only_the_chunking(weights, monkeypatch,
+                                                       env, dispatches):
+    """``WESUP_INFER_MAX_BATCH`` sets the chunk size when ``max_batch`` is
+    not given (as ``wesup_tpu.inference.predict_multiscale_batch`` reads
+    it): five same-shaped images go to the device in 1 batch by default,
+    in 3 under 2, and the masks are those of the default run."""
+    _, model = weights
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 255, (40, 56, 3)).astype(np.uint8)
+            for _ in range(5)]
+    predictor = Predictor(model, WESUPConfig(compute_dtype="float32",
+                                             sp_area=100, slic_iters=2),
+                          device="cpu")
+    monkeypatch.delenv("WESUP_INFER_MAX_BATCH", raising=False)
+    want = predict_multiscale_batch(predictor, imgs, scales=(0.5,))
+    if env is not None:
+        monkeypatch.setenv("WESUP_INFER_MAX_BATCH", env)
+    batches = []
+    scaled_step = predictor._scaled_step
+
+    def counting(*args):
+        step = scaled_step(*args)
+
+        def run(model, canvas):
+            batches.append(canvas.shape[0])
+            return step(model, canvas)
+        return run
+
+    monkeypatch.setattr(predictor, "_scaled_step", counting)
+    got = predict_multiscale_batch(predictor, imgs, scales=(0.5,))
+    assert len(batches) == dispatches and sum(batches) == len(imgs)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
 def test_multiscale_opening(weights):
     _, model = weights
     predictor = Predictor(model, WESUPConfig(compute_dtype="float32",

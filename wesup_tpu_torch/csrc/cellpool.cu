@@ -131,11 +131,48 @@
 // banded weight tiles: K3 is a gather and K4 a gather with an Ih x Jw
 // weighted sum.
 //
-// K3: one thread per 4 consecutive channels of one pixel (scalar when C is
-// not a multiple of 4), grid-stride.  Neighbouring threads write
-// neighbouring addresses; seg is read as a broadcast by the threads of a
-// pixel; every output element is written once, no atomics.  A pure
-// selection: bitwise equal to the plain gather.
+// K3 (stream pixel runs, reuse each cotangent row while the segment
+// repeats).  The TPU kernel (_bwd_kernel) selected each 8-row block's rows
+// through a one-hot (L, n) x (n, C) MXU product, because TPU gathers are
+// slow; here it is a plain selection with no products, so no tensor cores.
+// Bound: bytes: seg and dsums read once, dtaps written once; 251.6 MB,
+// 0.075 ms at 3.35 TB/s at the main-path shape (C = 128, bf16), and 1.99
+// GB, 0.593 ms at C = 1024.  The output is 97-99% of those bytes, so the
+// kernel is a store stream, and what it must avoid is a load in front of
+// each store: the earlier one-thread-per-4-channels form loaded seg and
+// then a dsums row before every 8-byte store and took twice its bound,
+// though without those loads its threads stored at the card's rate.  So:
+//   - A lane owns 8 consecutive channels: one 16-byte store per pixel in
+//     bf16, two in f32.  g = ceil(C / 8) lanes make a slot that covers a
+//     pixel's row (C = 128: 16 lanes, two slots per warp); above 256
+//     channels a slot is a whole warp on one 256-channel chunk and the
+//     chunks are separate warp tasks (C = 1024: four).
+//   - A warp owns one task: a range of spw * run <= 32 consecutive pixels
+//     of the flat (b, h, w) index (ranges and runs cross image rows and
+//     images) and one chunk.  Slot j walks pixels j * run .. (j + 1) * run
+//     - 1 of the range (C = 128: runs of 16; C >= 256: 32), so a warp's
+//     store of one pixel is a contiguous 256-512 bytes.  The grid holds
+//     every task: grids of one or two waves of resident blocks striding
+//     over the tasks took longer, and so did ranges of 64 or 128 pixels
+//     at C = 128.
+//   - seg is loaded once per task, coalesced, one pixel per lane, and
+//     turned into the dsums row index b * K + k (-1 where seg < 0) with one
+//     32-bit division by H * W per pixel; the walk takes each pixel's row
+//     index from its lane with __shfl_sync.  No 64-bit division anywhere.
+//   - The lane keeps its 8 channels of the current row in registers,
+//     already rounded to T (__float2bfloat16_rn: torch's rounding of
+//     .to(bfloat16)), and loads a row only when the row index changes
+//     along its run (about once per 14 pixels at sp_area 200).  An invalid
+//     pixel stores zeros and loads nothing.  Rounding in the wrapper (a
+//     torch cast, as K4 does) took longer at C = 128.
+//   - kBwdUnroll pixels per batch: their row loads (where the index
+//     changes) are issued before their stores.  The stores are evict-first
+//     (__stcs): the output streams through the 50 MB L2 once, and dsums
+//     (2.4 MB at C = 128, 19 MB at C = 1024) stays there.
+//   - C % 8 != 0 or a misaligned base takes the scalar form of the same
+//     walk (element loads and stores, masked past C).
+//   - Every output element is written once, no atomics; a pure selection:
+//     bitwise equal to the plain gather.
 //
 // K4 (compact once per stage pixel, then stream the cotangent rows).  A
 // stage pixel's window (Ih x Jw = 25 weights at stages 1-3 of the main
@@ -185,7 +222,9 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstddef>
+#include <type_traits>
 
 #include "rows.cuh"
 
@@ -480,52 +519,149 @@ int launch_pool0(const int* seg, const void* taps, float* out,
 
 // ---- backward ------------------------------------------------------------
 
-__device__ __forceinline__ void store_f32(float* dst, float v) { *dst = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* dst, float v) {
-  *dst = __float2bfloat16_rn(v);
-}
+// K3: a lane's 8 channels of one cotangent row, loaded from f32 and held in
+// the form they are stored in.
+template <typename T, bool VEC>
+struct GradRow;
 
-// four consecutive values; dst is 4-element aligned
-__device__ __forceinline__ void store4_f32(float* dst, float4 v) {
-  *reinterpret_cast<float4*>(dst) = v;
-}
-__device__ __forceinline__ void store4_f32(__nv_bfloat16* dst, float4 v) {
-  auto* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
-  d2[0] = __floats2bfloat162_rn(v.x, v.y);
-  d2[1] = __floats2bfloat162_rn(v.z, v.w);
-}
+// bf16, 16-byte aligned: two 16-byte loads, rounded once to 8 packed bf16,
+// one 16-byte store
+template <>
+struct GradRow<__nv_bfloat16, true> {
+  float4 lo, hi;
+  uint4 u;
+  __device__ __forceinline__ void load(const float* src, int) {
+    lo = __ldg(reinterpret_cast<const float4*>(src));
+    hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  }
+  __device__ __forceinline__ void round() {
+    auto* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    h[0] = __floats2bfloat162_rn(lo.x, lo.y);
+    h[1] = __floats2bfloat162_rn(lo.z, lo.w);
+    h[2] = __floats2bfloat162_rn(hi.x, hi.y);
+    h[3] = __floats2bfloat162_rn(hi.z, hi.w);
+  }
+  __device__ __forceinline__ void zero() { u = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void store(__nv_bfloat16* dst, int) const {
+    __stcs(reinterpret_cast<uint4*>(dst), u);
+  }
+};
 
-constexpr int kBwdThreads = 256;
+// f32, 16-byte aligned: two 16-byte loads, two 16-byte stores
+template <>
+struct GradRow<float, true> {
+  float4 lo, hi;
+  __device__ __forceinline__ void load(const float* src, int) {
+    lo = __ldg(reinterpret_cast<const float4*>(src));
+    hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  }
+  __device__ __forceinline__ void round() {}
+  __device__ __forceinline__ void zero() {
+    lo = make_float4(0.f, 0.f, 0.f, 0.f);
+    hi = lo;
+  }
+  __device__ __forceinline__ void store(float* dst, int) const {
+    __stcs(reinterpret_cast<float4*>(dst), lo);
+    __stcs(reinterpret_cast<float4*>(dst) + 1, hi);
+  }
+};
 
-// V = 4: one thread per 4 channels (C % 4 == 0); V = 1: one per channel.
-template <typename T, int V>
-__global__ void cell_pool0_bwd_kernel(const int* __restrict__ seg,
-                                      const float* __restrict__ dsums,
-                                      T* __restrict__ dtaps, long long n_items,
-                                      int HW, int C, int K) {
-  const int per_pix = C / V;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < n_items; t += stride) {
-    const long long pix = t / per_pix;               // b * HW + h * W + w
-    const int c = static_cast<int>(t - pix * per_pix) * V;
-    const int k = seg[pix];
-    T* out = dtaps + pix * C + c;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k >= 0) {
-      const long long b = pix / HW;
-      const float* src = dsums + (b * K + k) * C + c;
-      if (V == 4) {
-        v = *reinterpret_cast<const float4*>(src);
-      } else {
-        v.x = *src;
+// any C or alignment: element loads and stores, masked past C (nvalid)
+template <typename T>
+struct GradRow<T, false> {
+  float x[kLaneChans];
+  __device__ __forceinline__ void load(const float* src, int nvalid) {
+#pragma unroll
+    for (int e = 0; e < kLaneChans; ++e) x[e] = e < nvalid ? src[e] : 0.f;
+  }
+  __device__ __forceinline__ void round() {}
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < kLaneChans; ++e) x[e] = 0.f;
+  }
+  __device__ __forceinline__ void store(T* dst, int nvalid) const {
+#pragma unroll
+    for (int e = 0; e < kLaneChans; ++e) {
+      if (e < nvalid) {
+        if constexpr (std::is_same<T, float>::value) {
+          dst[e] = x[e];
+        } else {
+          dst[e] = __float2bfloat16_rn(x[e]);
+        }
       }
     }
-    if (V == 4) {
-      store4_f32(out, v);
-    } else {
-      store_f32(out, v.x);
+  }
+};
+
+constexpr int kBwdWarps = 8;    // warps per block
+constexpr int kBwdUnroll = 4;   // pixels per batch of row loads
+
+// K3: per warp, one task: a range of spw * run <= 32 consecutive pixels of
+// the flat (b, h, w) index and one 256-channel chunk; slot j (g lanes of 8
+// channels) walks pixels j * run .. (j + 1) * run - 1 of the range.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdWarps * 32) cell_pool0_bwd_kernel(
+    const int* __restrict__ seg, const float* __restrict__ dsums,
+    T* __restrict__ dtaps, int n_pix, int HW, int C, int K, int g, int spw,
+    int run, int nchunk, int n_tasks) {
+  const int lane = threadIdx.x & 31;
+  const int slot = lane / g;
+  const int lane_c = (lane - slot * g) * kLaneChans;
+  const int task = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  if (task >= n_tasks) return;   // the whole warp
+  const int range = task / nchunk;
+  const int c = (task - range * nchunk) * kWarpChans + lane_c;
+  const int p0 = range * spw * run;
+  const bool stores = slot < spw && c < C;
+  const int nvalid = C - c;
+  // lane i: the dsums row index of pixel p0 + i, -1 where seg < 0 or past
+  // the range
+  int key = -1;
+  if (lane < spw * run && p0 + lane < n_pix) {
+    const int k = seg[p0 + lane];
+    if (k >= 0) key = (p0 + lane) / HW * K + k;
+  }
+  // the slot's first position in the range (idle lanes: clamped), pixels
+  const int q0 = min(slot, spw - 1) * run;
+  const int n_mine = min(run, n_pix - p0 - q0);
+  T* out = dtaps + static_cast<size_t>(p0 + q0) * C + c;
+  const float* src = dsums + c;
+  GradRow<T, VEC> cur;
+  cur.zero();
+  int cur_key = -1;
+  for (int t0 = 0; t0 < run; t0 += kBwdUnroll) {
+    // the batch's row indices; past the run, the last one repeats
+    int kk[kBwdUnroll];
+    int last = cur_key;
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      const int kq = __shfl_sync(0xffffffffu, key, min(q0 + t0 + u, 31));
+      kk[u] = last = t0 + u < run ? kq : last;
+    }
+    // loads where the row changes, then the stores in pixel order
+    GradRow<T, VEC> r[kBwdUnroll];
+    int prev = cur_key;
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (stores && kk[u] != prev && kk[u] >= 0) {
+        r[u].load(src + static_cast<size_t>(kk[u]) * C, nvalid);
+      }
+      prev = kk[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (kk[u] != cur_key) {
+        if (kk[u] >= 0) {
+          r[u].round();
+          cur = r[u];
+        } else {
+          cur.zero();
+        }
+        cur_key = kk[u];
+      }
+      if (stores && t0 + u < n_mine) {
+        cur.store(out + static_cast<size_t>(t0 + u) * C, nvalid);
+      }
     }
   }
 }
@@ -621,23 +757,35 @@ __global__ void __launch_bounds__(kMaxWarps * 32) cell_pool_stage_bwd_kernel(
 template <typename T>
 int launch_pool0_bwd(const int* seg, const float* dsums, void* dtaps, int B,
                      int H, int W, int C, int K, cudaStream_t s) {
+  // pixel and row indices are 32-bit (the wrapper checks B * H * W and
+  // B * K); channel offsets are taken in size_t
   const long long n_pix = static_cast<long long>(B) * H * W;
-  // 16-byte loads of dsums and 4-value stores need aligned rows and bases
-  const bool vec = C % 4 == 0 &&
-                   reinterpret_cast<size_t>(dsums) % 16 == 0 &&
-                   reinterpret_cast<size_t>(dtaps) % (4 * sizeof(T)) == 0;
-  const long long n_items = n_pix * (vec ? C / 4 : C);
-  const long long want = (n_items + kBwdThreads - 1) / kBwdThreads;
-  const int blocks = static_cast<int>(want < (1 << 30) ? want : (1 << 30));
-  if (blocks == 0) return 0;
-  T* out = static_cast<T*>(dtaps);
-  if (vec) {
-    cell_pool0_bwd_kernel<T, 4><<<blocks, kBwdThreads, 0, s>>>(
-        seg, dsums, out, n_items, H * W, C, K);
-  } else {
-    cell_pool0_bwd_kernel<T, 1><<<blocks, kBwdThreads, 0, s>>>(
-        seg, dsums, out, n_items, H * W, C, K);
+  if (n_pix <= 0 || C <= 0) return 0;
+  if (n_pix > INT_MAX - 32 || static_cast<long long>(B) * K > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  // the lane map: g lanes of 8 channels per slot, spw slots per warp, runs
+  // of ``run`` pixels, nchunk chunks of 256 channels
+  const int lanes = (C + kLaneChans - 1) / kLaneChans;
+  const int g = std::min(lanes, 32);
+  const int spw = 32 / g;
+  const int run = 32 / spw;
+  const int nchunk = (lanes + 31) / 32;
+  const long long n_ranges = (n_pix + spw * run - 1) / (spw * run);
+  const long long n_tasks = n_ranges * nchunk;
+  if (n_tasks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  T* out = static_cast<T*>(dtaps);
+  // 16-byte loads and stores: rows of C % 8 == 0 from aligned bases
+  const bool vec = C % kLaneChans == 0 &&
+                   reinterpret_cast<size_t>(dsums) % 16 == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0;
+  auto kernel = vec ? cell_pool0_bwd_kernel<T, true>
+                    : cell_pool0_bwd_kernel<T, false>;
+  // one task per warp
+  const int blocks = static_cast<int>((n_tasks + kBwdWarps - 1) / kBwdWarps);
+  kernel<<<blocks, kBwdWarps * 32, 0, s>>>(
+      seg, dsums, out, static_cast<int>(n_pix), H * W, C, K, g, spw, run,
+      nchunk, static_cast<int>(n_tasks));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,6 +12,7 @@ The tiled path and the pixel-wise head come in a later slice.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -78,14 +79,19 @@ def predict_multiscale(predictor: Predictor, img_u8: np.ndarray,
 
 
 def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
-                             input_size=None, max_batch: int = 8):
+                             input_size=None, max_batch: int | None = None):
     """Multi-scale prediction over a list of images.
 
     Same-shaped images are grouped and pushed through the device in batches
-    of up to ``max_batch``; the output is identical to the per-image path.
-    Each chunk's forwards are enqueued before the previous chunk's results
-    are copied back, so host preparation overlaps device work.
+    of up to ``max_batch``; the output is identical to the per-image path
+    and does not depend on the chunk size.  ``max_batch=None`` reads
+    ``WESUP_INFER_MAX_BATCH`` (default 8), so a caller can rerun an
+    inference with other batch shapes.  Each chunk's forwards are enqueued
+    before the previous chunk's results are copied back, so host
+    preparation overlaps device work.
     """
+    if max_batch is None:
+        max_batch = int(os.environ.get("WESUP_INFER_MAX_BATCH", "8"))
     results = [None] * len(imgs_u8)
     groups = {}
     for idx, img in enumerate(imgs_u8):

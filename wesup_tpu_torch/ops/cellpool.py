@@ -177,6 +177,9 @@ def cell_pool0_bwd(plan: SlicPlan, seg: torch.Tensor, dsums: torch.Tensor,
     _check("dsums", dsums, (B, plan.n_clusters, C), (torch.float32,),
            dsums.device)
     _check("seg", seg, (B, H, W), (torch.int32,), dsums.device)
+    if max(B * H * W + 32, B * plan.n_clusters) >= 2**31:
+        raise ValueError("cell_pool0_bwd: pixel and row indices must fit "
+                         "in int32")
     from ._build import library
 
     lib = library()

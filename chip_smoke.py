@@ -41,7 +41,18 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    K5/K6/K7 times against their plain versions, a library call and the
    bound; K6 beside two ``bmm``s, of the dense P (B, K, H * Ws) by its own
    input tapsH (the library time in the JSON line) and of JAX's dense M by
-   the native-resolution stage taps, and its share of the HBM rate.
+   the native-resolution stage taps, and its share of the HBM rate;
+10. training through the adjoint and fullres pools: K8
+   (``adjoint_pool_stage_bwd``, K6's backward) against its plain version
+   at the four stage shapes and ``segment_sum_bwd`` (K5's backward, on
+   K3's kernel) against the plain gather at C = 128 and C = 1024, in bf16
+   and f32; one f32 forward + backward on the card against the CPU for
+   ``pooling="adjoint"`` (with a plan) and ``"fullres"``;
+   ``make_train_step`` at B=8 on the 288x416 canvas in bf16 with
+   full-width WESUP (point supervision) through each, with launch counts
+   per step, step time, peak memory, a per-phase breakdown and a profiler
+   window; K8's and ``segment_sum_bwd``'s times against their plain
+   versions, a ``bmm`` and the bound, with their share of the HBM rate.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -292,24 +303,10 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     del e9
 
     # ---- 8b. one f32 train step's gradients: card vs CPU -----------------
-    ph, pw = 96, 256
+    tb = parity_train_batch(torch)
+    ph, pw = tb["image"].shape[1:3]
     pplan = make_plan(ph, pw, config.sp_area)
     cfg32 = WESUPConfig(compute_dtype="float32")
-    rng = np.random.default_rng(6)
-    pb = {"image": np.clip(rng.normal(200, 25, (1, ph, pw, 3)), 0,
-                           255).astype(np.uint8),
-          "valid": np.ones((1, ph, pw), bool),
-          "pixel_mask": rng.integers(0, 2, (1, ph, pw)).astype(np.int32),
-          "points": np.stack([rng.integers(0, pw - 13, (1, 16)),
-                              rng.integers(0, ph - 9, (1, 16)),
-                              rng.integers(0, 2, (1, 16))], -1).astype(
-                                  np.int32),
-          "point_valid": np.ones((1, 16), bool),
-          "use_mask_as_points": np.zeros((1,), bool),
-          "sample_valid": np.ones((1,), bool)}
-    pb["valid"][:, -9:] = False
-    pb["valid"][:, :, -13:] = False
-    tb = {k: torch.from_numpy(v) for k, v in pb.items()}
     prep = steps._preprocess_sample(
         None, tb["image"], tb["valid"], tb["pixel_mask"], tb["points"],
         tb["point_valid"], tb["use_mask_as_points"], config=cfg32,
@@ -533,6 +530,27 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": tot["lib"]})
     return out
+
+
+def parity_train_batch(torch) -> dict:
+    """The f32 train parity batch: one 96x256 image with ragged validity, a
+    random mask and 16 valid points, as CPU tensors."""
+    ph, pw = 96, 256
+    rng = np.random.default_rng(6)
+    pb = {"image": np.clip(rng.normal(200, 25, (1, ph, pw, 3)), 0,
+                           255).astype(np.uint8),
+          "valid": np.ones((1, ph, pw), bool),
+          "pixel_mask": rng.integers(0, 2, (1, ph, pw)).astype(np.int32),
+          "points": np.stack([rng.integers(0, pw - 13, (1, 16)),
+                              rng.integers(0, ph - 9, (1, 16)),
+                              rng.integers(0, 2, (1, 16))], -1).astype(
+                                  np.int32),
+          "point_valid": np.ones((1, 16), bool),
+          "use_mask_as_points": np.zeros((1,), bool),
+          "sample_valid": np.ones((1,), bool)}
+    pb["valid"][:, -9:] = False
+    pb["valid"][:, :, -13:] = False
+    return {k: torch.from_numpy(v) for k, v in pb.items()}
 
 
 def parity_inputs(torch, config):
@@ -954,6 +972,274 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
     return out
 
 
+def adjoint_train_phase(torch, card, seg_m, gen) -> list:
+    """Phase 10: training through the adjoint and fullres pools.  Returns
+    the K8 and ``segment_sum_bwd`` entries of the kernels' JSON line."""
+    from wesup_tpu_torch.config import WESUPConfig
+    from wesup_tpu_torch.models import steps, wesup
+    from wesup_tpu_torch.ops import (adjoint, launch_counts, pooling,
+                                     reset_launches)
+    from wesup_tpu_torch.ops.resize import _interp_matrix
+    from wesup_tpu_torch.ops.slic import make_plan
+
+    dev = torch.device("cuda")
+    config = WESUPConfig()
+    H, W = CANVAS
+    P = H * W
+    K = make_plan(H, W, config.sp_area).n_clusters
+    stage_c = {1: 256, 2: 768, 3: 1536, 4: 1536}
+    stage_ws = {s: W >> s for s in stage_c}
+    seg_p = seg_m.reshape(BATCH, P)
+    errs = {}
+
+    def k8_limit(want, mass, dt):
+        """f32: 1e-5 of each element's mass (p_h's weights and the terms
+        are summed in another order); bf16 also 2^-8 of the mass (p_h's
+        sums may round to bf16 values one ulp apart) and one bf16 ulp of
+        the value (the output's rounding)."""
+        lim = 1e-5 * mass
+        if dt == torch.bfloat16:
+            lim = lim + 2.0 ** -8 * mass + bf16_ulp(torch, want)
+        return lim
+
+    # ---- 10a. K8 and segment_sum_bwd against their plain versions --------
+    for s, C in stage_c.items():
+        A_wT = torch.from_numpy(_interp_matrix(stage_ws[s], W, True)).t()
+        for dt in (torch.bfloat16, torch.float32):
+            dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+            got = adjoint.adjoint_pool_stage_bwd(seg_m, dsums, A_wT, K, dt)
+            want = adjoint.adjoint_pool_stage_bwd_plain(seg_m, dsums, A_wT,
+                                                        K, dt)
+            mass = adjoint.adjoint_pool_stage_bwd_plain(
+                seg_m, dsums.abs(), A_wT, K, torch.float32)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            ok = bool((diff <= k8_limit(want, mass, dt)).all())
+            log(f"[K8] stage {s} {tuple(got.shape)} {dt}: max_abs_err "
+                f"{err:.3e} (limit 1e-5 of the mass"
+                + (" + 2^-8 of it + one bf16 ulp)" if dt == torch.bfloat16
+                   else ")"))
+            if not ok or got.dtype != dt:
+                fail(f"K8 disagrees with its plain version at stage {s}, {dt}")
+            errs[("K8", s, dt)] = err
+            del dsums, got, want, mass, diff
+    for C in (128, 1024):
+        for dt in (torch.bfloat16, torch.float32):
+            dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+            got = pooling.segment_sum_bwd(seg_p, dsums, dt)
+            want = pooling.segment_sum_bwd_plain(seg_p, dsums, dt)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"[K5 bwd] {tuple(got.shape)} {dt}: max_abs_err {err:.3e} "
+                f"(limit 0: a pure selection, on K3's kernel)")
+            if not torch.equal(got, want):
+                fail(f"segment_sum_bwd disagrees with its plain version at "
+                     f"C={C}, {dt}")
+            errs[("K5 bwd", C, dt)] = err
+            del dsums, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 10b. one f32 train step's gradients: card vs CPU ----------------
+    cases = [("adjoint", {"segment_sum": 1, "adjoint_pool_stage": 4,
+                          "segment_sum_bwd": 1, "adjoint_pool_stage_bwd": 4}),
+             ("fullres", {"segment_sum": 2, "segment_sum_bwd": 2})]
+    tb = parity_train_batch(torch)
+    ph, pw = tb["image"].shape[1:3]
+    pplan = make_plan(ph, pw, config.sp_area)
+    for pooling_, launches in cases:
+        cfg32 = WESUPConfig(compute_dtype="float32", pooling=pooling_)
+        prep = steps._preprocess_sample(
+            None, tb["image"], tb["valid"], tb["pixel_mask"], tb["points"],
+            tb["point_valid"], tb["use_mask_as_points"], config=cfg32,
+            train=False, point_mode=True)
+        res = {}
+        for d in ("cpu", "cuda"):
+            model = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(
+                d)
+            p = steps.Preprocessed(*(t.to(d) for t in prep))
+            reset_launches()
+            loss, _ = steps._forward_and_loss(model, p, pplan.n_clusters,
+                                              cfg32, tb["sample_valid"].to(d),
+                                              pplan)
+            loss.backward()
+            if d == "cuda":
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            res[d] = (loss.item(), {n: q.grad.cpu()
+                                    for n, q in model.named_parameters()})
+            del model
+        loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        worst = {"backbone": 0.0, "rest": 0.0}
+        for name, want in res["cpu"][1].items():
+            group = "backbone" if name.startswith("backbone.") else "rest"
+            rel = ((res["cuda"][1][name] - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+            worst[group] = max(worst[group], rel)
+        log(f"[train f32 {ph}x{pw}, {pooling_}] loss {res['cuda'][0]:.6f} "
+            f"(card) vs {res['cpu'][0]:.6f} (CPU), rel err {loss_err:.2e} "
+            f"(limit 1e-4); largest grad error / the tensor's max |grad|: "
+            f"backbone {worst['backbone']:.2e} (limit 1e-2), rest "
+            f"{worst['rest']:.2e} (limit 1e-3); launches "
+            + str({k: v for k, v in counts.items() if v}))
+        if not (loss_err <= 1e-4 and worst["backbone"] <= 1e-2
+                and worst["rest"] <= 1e-3):
+            fail(f"the f32 {pooling_} train step on the card disagrees with "
+                 f"the CPU")
+        if counts != expected(launches):
+            fail(f"the f32 {pooling_} forward + backward launched {counts}")
+        del res, prep
+
+    # ---- 10c. the train step at full width through each pool -------------
+    path_launches = {}
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(BATCH).items()}
+    for pooling_, launches in cases:
+        cfg = WESUPConfig(pooling=pooling_)
+        model = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(dev)
+        optimizer = steps.make_optimizer(cfg, model)
+        step = steps.make_train_step(cfg, CANVAS, point_mode=True)
+        tgen = torch.Generator(device=dev).manual_seed(7)
+        holder = [steps.init_metric_acc()]
+
+        def run(mark=None):
+            holder[0] = step(model, optimizer, holder[0], batch, tgen,
+                             mark=mark)
+
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[train {pooling_}] launches in one step: "
+            + str({k: v for k, v in counts.items() if v})
+            + f"; peak {peak:.2f} GiB")
+        if counts != expected(launches):
+            fail(f"the {pooling_} train step launched {counts}")
+        path_launches[pooling_] = counts
+        med, lo, hi = step_times(torch, run, n=15)
+        log(f"[train {pooling_}] train step, point supervision: {med:.3f} "
+            f"ms/step, {BATCH / med * 1e3:.2f} img/s (B={BATCH}, {H}x{W}, "
+            f"bf16, median of 15; min {lo:.3f} max {hi:.3f}; peak "
+            f"{peak:.2f} GiB; {card})")
+        parts = breakdown(torch, run)
+        log(f"[train {pooling_}] breakdown (median ms of 10 marked steps): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.3f}")
+        profile_steps(torch, run, top=8, tag=f"profile train {pooling_}")
+        acc = holder[0]
+        count = acc["count"].item()
+        log(f"[train {pooling_}] metric means over {count:.0f} images: "
+            + ", ".join(f"{k} {v.item() / count:.4f}"
+                        for k, v in acc["sums"].items()))
+        if acc["nan"].item() or not all(
+                np.isfinite(v.item()) for v in acc["sums"].values()):
+            fail(f"the {pooling_} train step's metrics are not finite")
+        if not all(torch.isfinite(q).all() for q in model.parameters()):
+            fail(f"the weights are not finite after {pooling_} training")
+        del model, optimizer, step, holder
+        torch.cuda.empty_cache()
+    del batch
+
+    # ---- 10d. K8 and segment_sum_bwd times at the main-path shapes -------
+    cd = torch.bfloat16
+    out = []
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
+    oh = (seg_m[..., None] == torch.arange(K, device=dev, dtype=seg_m.dtype)
+          ).to(torch.float32)                                    # (B, H, W, K)
+    for s, C in stage_c.items():
+        Ws = stage_ws[s]
+        A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
+        # the cotangent the train path gives K8: f32 rows that are bf16 values
+        dsums = torch.randn((BATCH, K, C), generator=gen, device=dev).to(
+            cd).float()
+        ds_cd = dsums.to(cd)
+        table = adjoint.column_table(A_wT, cd, dev)
+        awt = A_wT.to(device=dev, dtype=cd).float()
+        p_h = torch.einsum("vw,bhwk->bhvk", awt, oh)
+        nnz = int((p_h != 0).sum().item())          # the kernel's terms
+        # the one PyTorch call for the same product: the dense P (B, H * Ws,
+        # K), p_h rounded to bf16 as the kernel rounds it, by dsums
+        Pd = p_h.to(cd).reshape(BATCH, H * Ws, K)
+        del p_h
+        t_k = cuda_ms(torch, lambda: adjoint.adjoint_pool_stage_bwd(
+            seg_m, dsums, A_wT, K, cd, table))
+        t_p = cuda_ms(torch, lambda: adjoint.adjoint_pool_stage_bwd_plain(
+            seg_m, dsums, A_wT, K, cd), n=3, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(Pd, ds_cd))
+        del Pd, ds_cd
+        # each output row written once (zeros too), each dsums row and each
+        # seg id read once, and the column table
+        nbytes = (BATCH * H * Ws * C * 2 + dsums.numel() * 4
+                  + seg_m.numel() * 4 + W * 12 + Ws * 8)
+        flops = 2.0 * nnz * C
+        b_ms, b_by = bound(nbytes, flops, cd)
+        log(f"[K8 time] stage {s} (8, {C}, {H}, {Ws}): kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f}, bmm of the dense P by dsums {t_l:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP over {nnz} nonzero p_h entries); "
+            f"{share(nbytes, t_k)}")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                         ("bytes", nbytes), ("flops", flops)):
+            tot[key] += val
+        del dsums
+    del oh
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], cd)
+    log(f"[K8 time] stages 1-4: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain']:.4f}, bmm of the dense P {tot['lib']:.4f}, bound "
+        f"{b_ms:.4f} ({b_by}, {tot['bytes'] / 1e6:.1f} MB); "
+        f"{share(tot['bytes'], tot['ms'])}")
+    out.append({
+        "name": "adjoint_pool_stage_bwd (K8, backward of K6, stages 1-4 "
+                "summed)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/adjoint.cu",
+        "replaces": "wesup_tpu/models/wesup.py:376",
+        "launches": path_launches["adjoint"]["adjoint_pool_stage_bwd"],
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k[0] == "K8" and k[-1] == cd),
+        "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": tot["lib"]})
+
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0}
+    oh = (seg_p[..., None] == torch.arange(K, device=dev, dtype=seg_p.dtype)
+          ).to(cd)                                                # (B, P, K)
+    for C in (128, 1024):
+        dsums = torch.randn((BATCH, K, C), generator=gen, device=dev)
+        ds_cd = dsums.to(cd)
+        t_k = cuda_ms(torch, lambda: pooling.segment_sum_bwd(seg_p, dsums,
+                                                             cd))
+        t_p = cuda_ms(torch, lambda: pooling.segment_sum_bwd_plain(
+            seg_p, dsums, cd), n=3, warmup=1)
+        t_l = cuda_ms(torch, lambda: torch.bmm(oh, ds_cd))
+        nbytes = seg_p.numel() * 4 + dsums.numel() * 4 + BATCH * P * C * 2
+        b_ms, b_by = bound(nbytes, 0.0, cd)
+        log(f"[K5 bwd time] C={C}: kernel {t_k:.4f} ms (its -1 mapping "
+            f"included), plain {t_p:.4f}, bmm {t_l:.4f}, bound {b_ms:.4f} "
+            f"({b_by}, {nbytes / 1e6:.1f} MB); {share(nbytes, t_k)}")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                         ("bytes", nbytes)):
+            tot[key] += val
+        del dsums, ds_cd
+    del oh
+    b_ms, b_by = bound(tot["bytes"], 0.0, cd)
+    out.append({
+        "name": "segment_sum_bwd (K5's backward on K3's kernel; C=128 and "
+                "C=1024 summed)", "route": "cuda",
+        "source": "wesup_tpu_torch/csrc/cellpool.cu",
+        "replaces": "wesup_tpu/models/wesup.py:438",
+        "launches": (path_launches["adjoint"]["segment_sum_bwd"]
+                     + path_launches["fullres"]["segment_sum_bwd"]),
+        "max_abs_err": max(v for k, v in errs.items()
+                           if k[0] == "K5 bwd" and k[-1] == cd),
+        "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": tot["lib"]})
+    return out
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -1247,6 +1533,9 @@ def main() -> int:
 
     # ---- 9. the adjoint, fullres and fused-pool paths --------------------
     kernels += pooling_phase(torch, card, imgs_u8, valid, seg_m, gen)
+
+    # ---- 10. training through the adjoint and fullres pools --------------
+    kernels += adjoint_train_phase(torch, card, seg_m, gen)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

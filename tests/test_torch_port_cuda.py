@@ -575,10 +575,17 @@ def test_fused_relu_pool_pad_kernel_matches_reference(cuda, B, H, W, C, cout,
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """Bad dtypes and shapes raise; a feature that requires grad is taken,
+    and its gradient comes from K3's kernel (bitwise the plain gather)."""
     plan, seg, valid = _seg(cuda, 1, 64, 160, 200)
     feat = torch.randn((1, 64 * 160, 8), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        pooling.segment_sum(seg.reshape(1, -1), feat, plan.n_clusters)
+    dsums = torch.randn((1, plan.n_clusters, 8), device=cuda)
+    before = pooling.LAUNCHES["segment_sum_bwd"]
+    pooling.segment_sum(seg.reshape(1, -1), feat, plan.n_clusters).backward(
+        dsums)
+    assert pooling.LAUNCHES["segment_sum_bwd"] == before + 1
+    assert torch.equal(feat.grad, pooling.segment_sum_bwd_plain(
+        seg.reshape(1, -1), dsums, torch.float32))
     with pytest.raises(TypeError):
         pooling.segment_sum(seg.reshape(1, -1), feat.detach().half(),
                             plan.n_clusters)
@@ -591,6 +598,142 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             seg, tapsH_T.double(),
             torch.from_numpy(_interp_matrix(80, 160, True)).t(),
             plan.n_clusters)
+
+
+# ---------------------------------------------------------------------------
+# The backward of K5 (K3's kernel through segment_sum_bwd) and of K6 (K8)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,P,C,offset", [(2, 10240, 128, 0),
+                                          (1, 3000, 37, 0),
+                                          (2, 500, 40, 1),
+                                          (1, 777, 1024, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_bwd_kernel_matches_plain(cuda, B, P, C, offset, dtype):
+    """K5's backward on K3's kernel: a selection, bitwise equal to the
+    plain gather, with ids -1 and ids >= K (which add nothing and get a
+    zero gradient).  ``offset`` moves dsums off its 16-byte alignment and
+    C = 37 is not a multiple of 8 (K3's scalar form)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    K = 37
+    seg = torch.randint(-1, K + 4, (B, P), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    assert (seg >= K).any() and (seg < 0).any()
+    dsums = torch.randn(B * K * C + offset, generator=gen, device=cuda)[
+        offset:].view(B, K, C)
+    before = pooling.LAUNCHES["segment_sum_bwd"]
+    got = pooling.segment_sum_bwd(seg, dsums, dtype)
+    assert pooling.LAUNCHES["segment_sum_bwd"] == before + 1
+    want = pooling.segment_sum_bwd_plain(seg, dsums, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, P, C)
+    assert torch.equal(got, want)
+    assert not got[(seg < 0) | (seg >= K)].any()
+    assert torch.equal(got, pooling.segment_sum_bwd(seg, dsums, dtype))
+
+
+def _dsums(dev, B, K, C, layout, gen):
+    """A (B, K, C) f32 cotangent: contiguous, off its 16-byte alignment
+    ("offset"), or a transposed (B, C, K) tensor ("strided", channels not
+    contiguous); the last two take K8's scalar form."""
+    if layout == "strided":
+        return torch.randn((B, C, K), generator=gen, device=dev).transpose(
+            1, 2)
+    off = 1 if layout == "offset" else 0
+    return torch.randn(B * K * C + off, generator=gen, device=dev)[
+        off:].view(B, K, C)
+
+
+@pytest.mark.parametrize("C", RAGGED_C)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["slic", "big", "invalid"])
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "strided"])
+def test_adjoint_pool_stage_bwd_kernel_matches_plain(cuda, C, dtype, kind,
+                                                     layout):
+    """K8 against its plain version at every stage of a 64x160 canvas and
+    at ragged (Ws, W): f32 to 1e-5 of each element's mass (the sum of its
+    |terms|: p_h's weights and the terms are summed in another order);
+    bf16 also 2^-8 of the mass (p_h's f32 weight sums may round to bf16
+    values one ulp apart, as for K6) and one bf16 ulp of the value (the
+    output's rounding).  Two launches agree bitwise; the result is a view
+    of a channels-last (B, H, Ws, C) tensor."""
+    B, H, W = 2, 64, 160
+    seg, K = _adjoint_seg(cuda, kind, B, H, W)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for Ws, Wc in [(W >> s, W) for s in range(1, 5)] + [(7, 150), (1, 20)]:
+        sg = seg[..., :Wc].contiguous()
+        A_wT = torch.from_numpy(_interp_matrix(Ws, Wc, True)).t()
+        dsums = _dsums(cuda, B, K, C, layout, gen)
+        before = adjoint.LAUNCHES["adjoint_pool_stage_bwd"]
+        got = adjoint.adjoint_pool_stage_bwd(sg, dsums, A_wT, K, dtype)
+        assert adjoint.LAUNCHES["adjoint_pool_stage_bwd"] == before + 1
+        want = adjoint.adjoint_pool_stage_bwd_plain(sg, dsums, A_wT, K, dtype)
+        mass = adjoint.adjoint_pool_stage_bwd_plain(sg, dsums.abs(), A_wT, K,
+                                                    torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, C, H, Ws)
+        assert got.permute(0, 2, 3, 1).is_contiguous()
+        lim = 1e-5 * mass
+        if dtype == torch.bfloat16:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -126))) - 7)
+            lim = lim + 2.0 ** -8 * mass + ulp
+        assert ((got.float() - want.float()).abs() <= lim).all(), (Ws, Wc)
+        assert torch.equal(got, adjoint.adjoint_pool_stage_bwd(
+            sg, dsums, A_wT, K, dtype)), (Ws, Wc)
+        if kind == "invalid":
+            assert not got.any()
+
+
+@pytest.mark.parametrize("pooling_,launches", [
+    ("adjoint", {"segment_sum": 1, "adjoint_pool_stage": 4,
+                 "segment_sum_bwd": 1, "adjoint_pool_stage_bwd": 4}),
+    ("fullres", {"segment_sum": 2, "segment_sum_bwd": 2})])
+def test_adjoint_and_fullres_train_on_card(cuda, pooling_, launches):
+    """One f32 forward + loss + backward on the same prep, card against
+    CPU, with the limits of test_train_step_grads_on_card_match_cpu; then
+    the launches of one bf16 train step through make_train_step."""
+    cfg = WESUPConfig(compute_dtype="float32", pooling=pooling_)
+    H, W = 64, 160
+    batch = _train_batch(2, H, W, (58, 141))
+    plan = make_plan(H, W, cfg.sp_area)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    prep = steps._preprocess_sample(
+        None, b["image"], b["valid"], b["pixel_mask"], b["points"],
+        b["point_valid"], b["use_mask_as_points"], config=cfg, train=False,
+        point_mode=True)
+    grads, losses = {}, {}
+    for dev in ("cpu", cuda):
+        model = wesup.WESUP(fc_width=64,
+                            generator=torch.Generator().manual_seed(0)).to(dev)
+        p = steps.Preprocessed(*(t.to(dev) for t in prep))
+        reset_launches()
+        loss, _ = steps._forward_and_loss(model, p, plan.n_clusters, cfg,
+                                          b["sample_valid"].to(dev), plan)
+        loss.backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert launch_counts() == _expected(launches)
+        losses[str(dev)] = loss.item()
+        grads[str(dev)] = {n: q.grad.cpu() for n, q in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for name, want in grads["cpu"].items():
+        rel = 1e-2 if name.startswith("backbone.") else 1e-3
+        err = (grads["cuda"][name] - want).abs().max().item()
+        assert err <= rel * want.abs().max().item() + 1e-12, name
+
+    cfg = WESUPConfig(pooling=pooling_)
+    model = wesup.WESUP(fc_width=64,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    step = steps.make_train_step(cfg, (H, W), point_mode=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    reset_launches()
+    acc = step(model, steps.make_optimizer(cfg, model),
+               steps.init_metric_acc(), batch, gen)
+    torch.cuda.synchronize()
+    assert launch_counts() == _expected(launches)
+    assert not acc["nan"].item()
+    assert all(torch.isfinite(q).all() for q in model.parameters())
 
 
 CONFIGS = [

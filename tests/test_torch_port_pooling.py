@@ -1,13 +1,15 @@
-"""The port's adjoint and fullres pooling paths and the fused stage-1 pool
-against the JAX package, on the CPU.
+"""The port's adjoint and fullres pooling paths, their backward, and the
+fused stage-1 pool against the JAX package, on the CPU.
 
 The JAX Pallas kernels run in interpret mode, as the JAX suite runs them
 (``tests/test_adjoint_pallas.py``); the port's wrappers take their plain
-versions, as they do for every CPU tensor.  The CUDA walks of K5 and K6
-are emulated in Python on the pixel lists and column tables the wrappers
-build, so the lists, the tables and the kernels' loop logic are held here
-too (the kernels themselves run in ``tests/test_torch_port_cuda.py`` and
-``chip_smoke.py``).
+versions, as they do for every CPU tensor.  The CUDA walks of K5, K6 and
+K8 (K6's backward) are emulated in Python on the pixel lists and column
+tables the wrappers build, so the lists, the tables and the kernels' loop
+logic are held here too (the kernels themselves run in
+``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``).  JAX has no
+kernel for either backward: it differentiates its einsums, which
+``jax.vjp`` replays here.
 
 Tolerances (max abs):
 - K5 plain vs ``segment_sum_pallas``: 1e-3 + 1e-5 relative, the JAX test's
@@ -19,6 +21,14 @@ Tolerances (max abs):
   2^-8 of each element's mass (the sum of its |terms|) + that 1e-5: the
   f32 sums of the weights of p_h are formed in another order and may round
   to bf16 values one ulp apart, which moves a term by up to 2^-8 of it.
+- K5's backward (``segment_sum_bwd``) vs ``jax.vjp`` of the dense one-hot
+  sum: bitwise (a selection).
+- K8's plain version vs torch.autograd of K6's plain version: f32 1e-6 of
+  the largest value, bf16 one bf16 ulp (f32 sums of the same rounded p_h in
+  another order); vs ``jax.vjp`` of JAX's einsum form of a stage, f32, 1e-5
+  of the largest value.  K8's walk: its p_h bitwise K6's; its result vs
+  the plain version 1e-6 of each element's sum of |terms| (+ one bf16 ulp
+  in bf16).
 - K7 and its gradient vs ``pool_pallas``: bitwise (max and zero-padding
   round nothing; the backward replays the same composition).
 - Gated backbone vs JAX: the taps' tolerance of
@@ -251,7 +261,7 @@ def _k6_walk(seg, tapsH_T, A_wT, K, dtype):
     tdt = getattr(torch, dtype)
     lists = pooling.segment_lists(torch.from_numpy(seg), K)
     v0, a0, a1 = (t.numpy() for t in adjoint.column_table(
-        torch.from_numpy(A_wT), tdt, torch.device("cpu")))
+        torch.from_numpy(A_wT), tdt, torch.device("cpu"))[:3])
     order, start = lists.order.numpy(), lists.start.numpy()
     B, H, W = seg.shape
     C, Ws = tapsH_T.shape[1], tapsH_T.shape[3]
@@ -324,7 +334,7 @@ def _k6_entries(seg, A_wT, K, dtype, ncl, win):
     tdt = getattr(torch, dtype)
     lists = pooling.segment_lists(torch.from_numpy(seg), K)
     v0, a0, a1 = (t.numpy() for t in adjoint.column_table(
-        torch.from_numpy(A_wT), tdt, torch.device("cpu")))
+        torch.from_numpy(A_wT), tdt, torch.device("cpu"))[:3])
     order, start = lists.order.numpy(), lists.start.numpy()
     B, H, W = seg.shape
     Ws = A_wT.shape[0]
@@ -405,7 +415,7 @@ def test_adjoint_two_phase_walk_equals_the_walk(dtype, Ws, ncl, win):
 def test_adjoint_column_table_rejects_other_matrices():
     A = j_resize._interp_matrix(6, 20, True).T.copy()      # (6, 20)
     v0, a0, a1 = adjoint.column_table(torch.from_numpy(A), torch.float32,
-                                       torch.device("cpu"))
+                                       torch.device("cpu"))[:3]
     assert (np.diff(v0.numpy()) >= 0).all()
     np.testing.assert_allclose((a0 + a1).numpy(), 1.0, rtol=1e-6)
     bad = A.copy()
@@ -416,6 +426,228 @@ def test_adjoint_column_table_rejects_other_matrices():
     with pytest.raises(ValueError):                           # decreasing rows
         adjoint.column_table(torch.from_numpy(A[:, ::-1].copy()),
                               torch.float32, torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the backward of K5 (on K3's kernel) and of K6 (K8)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segment_sum_bwd_plain_matches_jax(dtype):
+    """K5's backward against ``jax.vjp`` of the dense one-hot form that
+    JAX's fullres pooling differentiates (``pool_one``), with ids -1 and
+    ids >= K present: a selection, so bitwise in either dtype.  Through
+    the autograd Function too."""
+    seg, feat, K = _k5_inputs(dtype, P=3000, C=24)
+    seg[:, 5::23] = K + 3                                   # ids past K
+    dsums = np.random.default_rng(1).standard_normal(
+        (2, K, 24)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+
+    def dense(f, s):
+        oh = (s[:, None] == jnp.arange(K)).astype(jdt)
+        return jnp.einsum("pk,pc->kc", oh, f,
+                          preferred_element_type=jnp.float32)
+
+    want = np.stack([np.asarray(jax.vjp(
+        lambda f: dense(f, jnp.asarray(seg[b])),
+        jnp.asarray(feat[b], jdt))[1](jnp.asarray(dsums[b]))[0], np.float32)
+        for b in range(2)])
+    tdt = getattr(torch, dtype)
+    got = pooling.segment_sum_bwd(torch.from_numpy(seg),
+                                  torch.from_numpy(dsums), tdt)
+    assert got.dtype == tdt and got.shape == feat.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    f = torch.from_numpy(feat).to(tdt).requires_grad_(True)
+    pooling.segment_sum(torch.from_numpy(seg), f, K).backward(
+        torch.from_numpy(dsums))
+    assert torch.equal(f.grad, got)
+
+
+def _k6_stage(jax_dtype, taps, A_h, A_w, seg, K):
+    """JAX's einsum form of one adjoint stage (models/wesup.py's
+    ``t_cat``, ``M`` and sums), as a function of the native taps."""
+    oh = (seg[..., None] == jnp.arange(K)).astype(jax_dtype)
+    t_cat = jnp.einsum("hu,bhwk->buwk", jnp.asarray(A_h, jax_dtype), oh)
+    M = jnp.einsum("wv,buwk->buvk", jnp.asarray(A_w, jax_dtype), t_cat)
+    return jnp.einsum("buvk,buvc->bkc", M, taps,
+                      preferred_element_type=jnp.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Ws,W", [(24, 48), (7, 48), (1, 20)])
+def test_adjoint_pool_stage_bwd_plain_matches_autograd_and_jax(dtype, Ws, W):
+    """K8's plain version against torch.autograd of K6's plain version (the
+    same rounded p_h, f32 sums in another order: f32 to 1e-6 of the largest
+    value, bf16 within one bf16 ulp), through the autograd Function
+    (bitwise: the same plain version), and in f32 against ``jax.vjp`` of
+    JAX's einsum form of the stage, composed with the H-upsample, to 1e-5
+    of the largest value (sums in other orders)."""
+    H, Hs, C, K = 6, 3, 5, 9
+    seg, _, _, _ = _k6_inputs(dtype, B=2, H=H, W=W, K=K, Hs=Hs, Ws=Ws, C=C,
+                              seed=Ws)
+    rng = np.random.default_rng(W + Ws)
+    taps = _round(rng.standard_normal((2, Hs, Ws, C)), dtype)
+    dsums = rng.standard_normal((2, K, C)).astype(np.float32)
+    A_h = j_resize._interp_matrix(Hs, H, True)
+    A_w = j_resize._interp_matrix(Ws, W, True)
+    A_wT = torch.from_numpy(A_w.T.copy())
+    tdt = getattr(torch, dtype)
+    tseg = torch.from_numpy(seg)
+    tapsH_T = torch.einsum("hu,buvc->bchv", torch.from_numpy(A_h),
+                           torch.from_numpy(taps)).to(tdt)
+
+    got = adjoint.adjoint_pool_stage_bwd_plain(tseg, torch.from_numpy(dsums),
+                                               A_wT, K, tdt)
+    assert got.dtype == tdt and got.shape == (2, C, H, Ws)
+    assert got.permute(0, 2, 3, 1).is_contiguous()
+    x = tapsH_T.detach().requires_grad_(True)
+    adjoint.adjoint_pool_stage_plain(tseg, x, A_wT, K).backward(
+        torch.from_numpy(dsums).transpose(1, 2))
+    err = (got.float() - x.grad.float()).abs()
+    if dtype == "float32":
+        assert err.max().item() <= 1e-6 * x.grad.abs().max().item()
+    else:
+        ulp = torch.from_numpy(_bf16_ulp(x.grad.float().numpy()))
+        assert (err <= ulp).all()
+    y = tapsH_T.detach().requires_grad_(True)
+    adjoint.adjoint_pool_stage(tseg, y, A_wT, K).backward(
+        torch.from_numpy(dsums).transpose(1, 2))
+    assert torch.equal(y.grad, got)
+
+    if dtype == "float32":
+        _, vjp = jax.vjp(lambda t: _k6_stage(jnp.float32, t, A_h, A_w,
+                                             jnp.asarray(seg), K),
+                         jnp.asarray(taps))
+        want = np.asarray(vjp(jnp.asarray(dsums))[0])         # (B, Hs, Ws, C)
+        mine = np.einsum("hu,bchv->buvc", A_h, got.numpy())
+        np.testing.assert_allclose(mine, want,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits)."""
+    x = np.maximum(np.abs(np.asarray(x, np.float32)), np.float32(2.0 ** -126))
+    return (2.0 ** (np.floor(np.log2(x)) - 7)).astype(np.float32)
+
+
+def _k8_walk(seg, dsums, A_wT, K, dtype):
+    """Python replay of the K8 kernel: per output row (b, h, v), phase 1
+    walks the column range [lo[v], hi[v]) of the table in ascending w,
+    merges the weights of equal ids into terms (first appearance order),
+    rounds each merged p_h to ``dtype`` and drops the zeros; phase 2 sums
+    p * dsums[b, k] over the terms in order in f32 and rounds to
+    ``dtype``.  Returns ((B, H, Ws, C) output, {(b, k): [(h, v, p)]})."""
+    tdt = getattr(torch, dtype)
+    table = adjoint.column_table(torch.from_numpy(A_wT), tdt,
+                                 torch.device("cpu"))
+    v0, a0, a1, lo, hi = (t.numpy() for t in table[:5])
+    B, H, W = seg.shape
+    Ws, C = A_wT.shape[0], dsums.shape[-1]
+
+    def rnd(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(
+            tdt).float().numpy()
+
+    out = np.zeros((B, H, Ws, C), np.float32)
+    by_list = {}
+    for b in range(B):
+        for h in range(H):
+            for v in range(Ws):
+                assert hi[v] - lo[v] <= table.cap
+                ks, ps = [], []
+                for w in range(lo[v], hi[v]):
+                    k = int(seg[b, h, w])
+                    if k < 0 or k >= K:
+                        continue
+                    wgt = a0[w] if v0[w] == v else a1[w]
+                    if k not in ks:
+                        ks.append(k)
+                        ps.append(np.float32(0))
+                    j = ks.index(k)
+                    ps[j] = np.float32(ps[j] + wgt)
+                acc = np.zeros(C, np.float32)
+                for k, p in zip(ks, rnd(ps)):
+                    if p != 0:
+                        acc = acc + np.float32(p) * dsums[b, k]
+                        by_list.setdefault((b, k), []).append((h, v, float(p)))
+                out[b, h, v] = rnd(acc)
+    return out, by_list
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Ws,W", [(24, 48), (7, 48), (1, 20)])
+def test_k8_walk_p_is_the_forward_p(dtype, Ws, W):
+    """K8's walk finds, for every (b, k), exactly the (h, v, T(p_h)) terms
+    that K6's phase 1 streams (``_k6_entries``), bitwise: each p_h is the
+    sum from 0 of its pixels' weights in ascending w in both.  Against the
+    plain version it is not bitwise: the dense einsums sum p_h's weights
+    and the terms in another order (about one f32 output in eight differs,
+    by up to 3.3e-6 of itself), so f32 is held to 1e-6 of each element's
+    mass (the sum of its |terms|, 1-4 of them) and bf16 within one bf16
+    ulp plus that (the f32 sums may round to neighbouring bf16 values)."""
+    H, K = 6, 9
+    rng = np.random.default_rng(W + 7 * Ws)
+    seg = (np.arange(W)[None, None, :] * 3 // W
+           + 3 * (np.arange(H)[None, :, None] // 2)).astype(np.int32)
+    seg = np.broadcast_to(seg, (2, H, W)).copy()
+    seg = np.where(rng.random(seg.shape) < 0.2,
+                   rng.integers(-1, K + 2, seg.shape), seg).astype(np.int32)
+    dsums = rng.standard_normal((2, K, 5)).astype(np.float32)
+    A_wT = j_resize._interp_matrix(Ws, W, True).T.copy()
+    got, by_list = _k8_walk(seg, dsums, A_wT, K, dtype)
+    entries = _k6_entries(np.where(seg < K, seg, -1).astype(np.int32), A_wT,
+                          K, dtype, 8, 1024)
+    for g, es in enumerate(entries):
+        assert sorted(by_list.get(divmod(g, K), [])) == sorted(es), g
+    def plain(ds, dt):
+        return adjoint.adjoint_pool_stage_bwd_plain(
+            torch.from_numpy(seg), torch.from_numpy(ds),
+            torch.from_numpy(A_wT), K, dt).permute(0, 2, 3, 1).float().numpy()
+
+    want = plain(dsums, getattr(torch, dtype))
+    lim = 1e-6 * plain(np.abs(dsums), torch.float32)
+    if dtype == "bfloat16":
+        lim = lim + _bf16_ulp(want)
+    assert (np.abs(got - want) <= lim).all()
+
+
+def test_adjoint_bwd_receives_bf16_cotangents(weights, batch, monkeypatch):
+    """The forward casts each stage's sums to the compute dtype before the
+    projection, so in bf16 the cotangent K8 receives is bf16-representable
+    (no cast is needed before the kernel).  The backward of the adjoint
+    forward calls K8 once per stage 1-4 and K5's backward once; fullres
+    calls K5's backward twice."""
+    _, model = weights
+    img, valid, seg = batch
+    K = make_plan(*img.shape[1:3], 200).n_clusters
+    seen = {"k8": [], "k5": []}
+    real_k8, real_k5 = adjoint.adjoint_pool_stage_bwd, pooling.segment_sum_bwd
+
+    def k8(seg_, dsums, *args, **kwargs):
+        seen["k8"].append(dsums.clone())
+        return real_k8(seg_, dsums, *args, **kwargs)
+
+    def k5(seg_, dsums, dtype):
+        seen["k5"].append(dtype)
+        return real_k5(seg_, dsums, dtype)
+
+    monkeypatch.setattr(adjoint, "adjoint_pool_stage_bwd", k8)
+    monkeypatch.setattr(pooling, "segment_sum_bwd", k5)
+    for pooling_, n_k8, n_k5 in (("adjoint", 4, 1), ("fullres", 0, 2)):
+        seen["k8"].clear()
+        seen["k5"].clear()
+        model.zero_grad(set_to_none=True)
+        out = wesup.forward_superpixel(
+            model, torch.from_numpy(img), torch.from_numpy(seg), K,
+            torch.from_numpy(valid), torch.bfloat16, pooling=pooling_)
+        (out.sp_pred[..., 1].sum() + out.sp_features.sum()).backward()
+        assert len(seen["k8"]) == n_k8 and seen["k5"] == [torch.bfloat16] * n_k5
+        for d in seen["k8"]:
+            assert d.dtype == torch.float32
+            assert torch.equal(d, d.to(torch.bfloat16).float())
+        assert all(torch.isfinite(q.grad).all() for q in model.parameters())
+    model.zero_grad(set_to_none=True)
 
 
 # ---------------------------------------------------------------------------

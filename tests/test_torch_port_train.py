@@ -36,7 +36,21 @@ Tolerances, each with its reason:
   position's gradient passes in one package and stops in the other, and
   every conv below it sees the difference, most at the coarse stages,
   where one position is a large share of a weight's gradient.  Max-pool
-  ties are broken alike (first maximum) in both;
+  ties are broken alike (first maximum) in both.  The same limits hold for
+  every pooling ("local", "adjoint", "fullres");
+- the bf16 train step's first gradients, in units of r = 2^-8 (a value
+  that one package rounds to bf16 at a point where the other rounds
+  another value, or sums in f32 in another order before rounding, moves
+  by at most half a bf16 ulp, <= 2^-8 of it): a head gradient (side
+  convs, fc layers, classifier) crosses 5 such points in the forward (the
+  stage taps; the pooled terms: K1/K2's window sums, the port's
+  tapsH = A_h taps against JAX's t_cat = A_h^T onehot, or fullres's
+  resized maps; p_h against JAX's M = A_w^T t_cat; the sums cast before
+  the projection; the head's activations) and the 5 cotangents at them in
+  the backward: 10 r = 0.039 of the tensor's largest |grad|.  A backbone
+  gradient also crosses the 13 convs' rounded outputs and their rounded
+  cotangents: 36 r = 0.141.  Measured worst on this problem: head 0.028
+  (adjoint), backbone 0.083 (fullres);
 - SLIC after augmentation: >= 99.9% of pixels in the same superpixel.
 """
 
@@ -652,10 +666,21 @@ def _model(params):
     return model
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_loss_and_sgd_match_jax(train_problem, dtype):
+# the pooling paths; "local" keeps the ids the test had before it took
+# the others
+SGD_CASES = [pytest.param(p, d, id=d if p == "local" else f"{p}-{d}")
+             for p in ("local", "adjoint", "fullres")
+             for d in ("float32", "bfloat16")]
+# bf16 gradient limits, in units of r = 2^-8 of the tensor's largest
+# |grad| (see the module docstring)
+BF16_GRAD_HEAD = 10 * 2.0 ** -8
+BF16_GRAD_BACKBONE = 36 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("pooling_,dtype", SGD_CASES)
+def test_forward_loss_and_sgd_match_jax(train_problem, pooling_, dtype):
     prep, params, thr, K, jplan, tplan = train_problem
-    kw = dict(compute_dtype=dtype, propagate_threshold=thr)
+    kw = dict(compute_dtype=dtype, propagate_threshold=thr, pooling=pooling_)
     jcfg, tcfg = JConfig(**kw), WESUPConfig(**kw)
     sv = np.ones((B,), bool)
 
@@ -691,12 +716,16 @@ def test_forward_loss_and_sgd_match_jax(train_problem, dtype):
                                        atol=5e-3)
         else:
             np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
-        if dtype == "float32" and it == 0:
+        if it == 0:
             # gradients on identical weights (later steps start from
             # weights that differ by the steps before)
             want = from_jax_params(jax.tree.map(np.asarray, jgrads))
             for name, p in model.named_parameters():
-                rel = 5e-3 if name.startswith("backbone.") else 1e-3
+                bb = name.startswith("backbone.")
+                if dtype == "float32":
+                    rel = 5e-3 if bb else 1e-3
+                else:
+                    rel = BF16_GRAD_BACKBONE if bb else BF16_GRAD_HEAD
                 lim = rel * want[name].abs().max().item() + 1e-12
                 err = (p.grad - want[name]).abs().max().item()
                 assert err <= lim, (name, err, lim)
@@ -830,14 +859,18 @@ def test_train_metrics_match_jax_on_the_same_prep(jax_prep):
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("point_mode", [True, False], ids=["points", "mask"])
-def test_train_step_runs_on_cpu(point_mode):
+@pytest.mark.parametrize("pooling_,point_mode", [
+    pytest.param("local", True, id="points"),
+    pytest.param("local", False, id="mask"),
+    pytest.param("adjoint", True, id="adjoint-points"),
+    pytest.param("fullres", True, id="fullres-points")])
+def test_train_step_runs_on_cpu(pooling_, point_mode):
     batch = _batch(seed=18)
     if point_mode:  # the trainer's wire format: extents, int8 mask
         batch["content_hw"] = np.full((B, 2), (58, 141), np.int32)
         del batch["valid"]
         batch["pixel_mask"] = batch["pixel_mask"].astype(np.int8)
-    cfg = WESUPConfig(**_CFG)
+    cfg = WESUPConfig(**_CFG, pooling=pooling_)
     model = wesup.WESUP(fc_width=FC_WIDTH,
                         generator=torch.Generator().manual_seed(0))
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -882,25 +915,31 @@ def test_eval_step_matches_jax():
 def test_predict_then_train_in_one_process():
     """Constants first cached under the predict step's inference mode must
     be normal tensors, so that a train step in the same process (the
-    trainer validates between epochs) can use them under autograd."""
+    trainer validates between epochs) can use them under autograd: the
+    "local" path's plan tables and the "adjoint" path's upsample matrices
+    and column tables alike."""
     cellgrid._const_cache.clear()
     t_slic._GRID_CACHE.clear()
     batch = _batch(seed=20)
-    cfg = WESUPConfig(**_CFG)
+    cfgs = [WESUPConfig(**_CFG, pooling=p) for p in ("local", "adjoint")]
     model = wesup.WESUP(fc_width=FC_WIDTH)
-    steps.make_predict_step(cfg, (H, W), device="cpu")(
-        model, batch["image"], batch["valid"])
+    for cfg in cfgs:
+        steps.make_predict_step(cfg, (H, W), device="cpu")(
+            model, batch["image"], batch["valid"])
     cached = [t for v in list(cellgrid._const_cache.values())
               + list(t_slic._GRID_CACHE.values())
               for t in (v if isinstance(v, tuple) else (v,))
               for t in (t if isinstance(t, tuple) else (t,))
               if isinstance(t, torch.Tensor)]
     assert cached and not any(t.is_inference() for t in cached)
-    step = steps.make_train_step(cfg, (H, W), point_mode=True, device="cpu")
-    acc = step(model, steps.make_optimizer(cfg, model),
-               steps.init_metric_acc(device="cpu"), batch,
-               torch.Generator().manual_seed(1))
-    assert np.isfinite(acc["sums"]["loss"].item())
+    assert any(k[0] == "adjoint_table" for k in cellgrid._const_cache)
+    for cfg in cfgs:
+        step = steps.make_train_step(cfg, (H, W), point_mode=True,
+                                     device="cpu")
+        acc = step(model, steps.make_optimizer(cfg, model),
+                   steps.init_metric_acc(device="cpu"), batch,
+                   torch.Generator().manual_seed(1))
+        assert np.isfinite(acc["sums"]["loss"].item()), cfg.pooling
 
 
 def test_later_slice_wire_formats_raise():

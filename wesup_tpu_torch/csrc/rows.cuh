@@ -1,13 +1,13 @@
 // Streaming of short (weighted) sums of rows, shared by kernels K1, K2, K4
-// (csrc/cellpool.cu) and K6 (csrc/adjoint.cu), and the dtype helpers of
+// (csrc/cellpool.cu) and K6, K8 (csrc/adjoint.cu), and the dtype helpers of
 // those files.
 //
 // Each kernel reduces, per output row, a list of terms (a row of its input,
-// and for K2, K4 and K6 an f32 weight) that a block has compacted in shared
-// memory:  out[c] = fmaf(w_t, rows[off_t + c], ...) over t in list order
-// (K1: out[c] += rows[off_t + c]).  Two lane maps:
-//   - 8 channels per lane, 256 per warp (K2, K4, K6): one 16-byte load per
-//     row in bf16, two in f32 (VecRow, ScalarRow);
+// and for K2, K4, K6 and K8 an f32 weight) that a block has compacted in
+// shared memory:  out[c] = fmaf(w_t, rows[off_t + c], ...) over t in list
+// order (K1: out[c] += rows[off_t + c]).  Two lane maps:
+//   - 8 channels per lane, 256 per warp (K2, K4, K6, K8): one 16-byte load
+//     per row in bf16, two in f32 (VecRow, ScalarRow);
 //   - 4 channels per lane, 128 per warp (K1, whose rows are 128 channels
 //     on the main path): one 8-byte load in bf16, one 16-byte load in f32
 //     (VecRow4, ScalarRow<T, 4>).  A full warp per list keeps every lane
@@ -16,9 +16,10 @@
 // Loads are issued kDepth terms ahead into registers, then the adds run in
 // list order, so every channel's f32 sum has the order of the list.
 // stream_terms (K2, K6) takes the terms after its last full batch one at a
-// time; stream_list (K1, K4) issues that last batch whole with the rows
+// time; stream_list (K1, K4, K8) issues that last batch whole with the rows
 // past the end masked off, so a list shorter than kDepth (K4's lists hold
-// 2-11 terms) still has all its loads in flight.
+// 2-11 terms, K8's 1.5-4.1 on average) still has all its loads in
+// flight.
 //
 // Why registers and not a cp.async / TMA ring in shared memory: a term is
 // one 8- or 16-byte load per lane (256-512 B per warp), lists are 2-270
@@ -178,19 +179,21 @@ __device__ __forceinline__ void stream_terms(const T* base, long long cs,
 }
 
 // The same sums over rows named by an index list: row t starts at
-// base + idx[t] * stride.  Weighted (K4): acc = fmaf(w[t], row, acc);
-// unweighted (K1): acc += row.  Batches of kDepth loads, then the adds in
-// list order; the last batch is issued whole, its rows past n masked off
-// (n is uniform across the warp, so the masks do not diverge).
+// base + idx[t] * stride, its channels ``cs`` apart (1 but for K8's scalar
+// form).  Weighted (K4, K8): acc = fmaf(w[t], row, acc); unweighted (K1):
+// acc += row.  Batches of kDepth loads, then the adds in list order; the
+// last batch is issued whole, its rows past n masked off (n is uniform
+// across the warp, so the masks do not diverge).
 template <typename Row, int kDepth, bool WEIGHTED, typename T>
 __device__ __forceinline__ void stream_list(const T* base, const int* idx,
                                             long long stride, const float* w,
-                                            int n, int nvalid, float* acc) {
+                                            int n, int nvalid, float* acc,
+                                            long long cs = 1) {
   for (int t = 0; t < n; t += kDepth) {
     Row r[kDepth];
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
-      if (t + d < n) r[d].load(base + idx[t + d] * stride, 1, nvalid);
+      if (t + d < n) r[d].load(base + idx[t + d] * stride, cs, nvalid);
     }
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
@@ -237,8 +240,8 @@ __device__ __forceinline__ void store_sums4(float* dst, const float* acc,
   }
 }
 
-// the lane's 8 sums rounded to T and written once (K4): one 16-byte store
-// in bf16, two in f32 when VEC
+// the lane's 8 sums rounded to T and written once (K4, and K8's scalar
+// form): one 16-byte store in bf16, two in f32 when VEC
 template <bool VEC>
 __device__ __forceinline__ void store_rounded(float* dst, const float* acc,
                                               int nvalid) {
@@ -264,7 +267,7 @@ __device__ __forceinline__ void store_rounded(__nv_bfloat16* dst,
   }
 }
 
-// Block shape shared by K2, K4 and K6: ``nch`` warps of 256 channels per
+// Block shape shared by K2, K4, K6 and K8: ``nch`` warps of 256 channels per
 // list (at most 8; more channels go to grid.y) and ``ncl`` lists per block,
 // so that ncl * nch <= 8 warps stream at once and no warp idles:
 // C = 256 -> 8 lists x 1 warp; 768 -> 2 x 3; 1536 -> 1 x 6.

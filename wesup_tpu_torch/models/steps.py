@@ -3,18 +3,17 @@
 Port of ``wesup_tpu.models.steps``:
 
 - ``make_train_step``: augmentation -> point rasterization -> SLIC ->
-  superpixel stats -> hypercolumn forward (pooling kernels K1, K2) ->
-  WESUP loss -> backward (K3, K4 and cuDNN) -> SGD update -> metrics
-  accumulated on the device;
+  superpixel stats -> hypercolumn forward (pooling kernels K1, K2 for
+  "local"; K5, K6 for "adjoint"; K5 for "fullres") -> WESUP loss ->
+  backward (K3, K4; K5's backward on K3's kernel and K8; cuDNN) -> SGD
+  update -> metrics accumulated on the device;
 - ``make_eval_step``: the same without augmentation and gradients;
 - ``make_predict_step`` and ``make_scaled_predict_step`` in superpixel
   mode: uint8 (or float) canvas -> SLIC -> forward -> painted foreground.
 
-The predict, scaled-predict and eval steps take every ``config.pooling``
-("local", "adjoint", "fullres"); the train step takes only "local" for now,
-as the adjoint and fullres pools (kernels K5, K6) have no backward kernel
-yet.  All steps honour ``WESUP_FUSED_POOL1`` (kernel K7 in the backbone,
-whose backward replays the plain composition).
+Every step takes every ``config.pooling`` ("local", "adjoint",
+"fullres").  All steps honour ``WESUP_FUSED_POOL1`` (kernel K7 in the
+backbone, whose backward replays the plain composition).
 
 PyTorch runs eagerly, so a "step" is a plain function closed over the
 static shapes and plans; it takes the model as its first argument, as the
@@ -423,11 +422,6 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
     augmentation is drawn.  ``mark(name)`` is called after each phase:
     augment, slic, forward, loss, backward, optimizer.
     """
-    if config.pooling != "local":
-        raise NotImplementedError(
-            f"training with pooling={config.pooling!r} needs the backward "
-            "of kernels K5 and K6, which comes with a later slice of the "
-            "port; train with pooling='local'")
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
     K = n_clusters(H, W, config.sp_area)

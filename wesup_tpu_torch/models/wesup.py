@@ -25,6 +25,10 @@ resolution and projected after pooling.  Three poolings, as in JAX:
   resolution, W-resized and H-upsampled into one full-resolution map,
   which K5 pools beside stage 0's taps.
 
+Every path is differentiable in the weights: the kernels are autograd
+Functions whose backward bodies are kernels too (K3, K4; K5's on K3's
+kernel; K6's is K8), and the rest is plain torch.
+
 bf16 casts follow the reference: taps are in the compute dtype, pooled
 sums are f32 and are cast to the compute dtype before the projection (the
 product then accumulates in f32), projections are built in f32 and cast,

@@ -1,6 +1,7 @@
 """Tensor ops of the port: colour space, SLIC, resizes, cell-grid pooling,
 label vote, CLAHE, augmentation and the CUDA kernels' wrappers (K1-K4
-``cellpool``, K5 ``pooling``, K6 ``adjoint``, K7 ``pool``)."""
+``cellpool``, K5 and its backward ``pooling``, K6 and its backward K8
+``adjoint``, K7 ``pool``)."""
 
 
 def _kernel_modules():

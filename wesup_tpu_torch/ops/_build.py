@@ -29,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the kernels' launch functions: K1, K2 and their backward
-# bodies K3, K4 (csrc/cellpool.cu), K5 (csrc/pooling.cu), K6
-# (csrc/adjoint.cu), K7 (csrc/pool.cu)
+# bodies K3, K4 (csrc/cellpool.cu), K5 (csrc/pooling.cu), K6 and its
+# backward K8 (csrc/adjoint.cu), K7 (csrc/pool.cu)
 _SIGNATURES = {
     "wesup_cell_pool0": [_P] * 7 + [_I] * 7 + [_P],
     "wesup_cell_pool_stage": [_P] * 9 + [_I] * 11 + [_P],
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "wesup_segment_sum": [_P] * 4 + [_I] * 5 + [_P],
     "wesup_adjoint_pool_stage": [_P] * 3 + [_L] * 4 + [_P] * 4 + [_I] * 6
     + [_P],
+    "wesup_adjoint_pool_stage_bwd": [_P] * 2 + [_L] * 3 + [_P] * 6
+    + [_I] * 8 + [_P],
     "wesup_fused_relu_pool_pad": [_P] * 2 + [_I] * 6 + [_P],
 }
 

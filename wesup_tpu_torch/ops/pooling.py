@@ -14,6 +14,12 @@ tests and ``chip_smoke.py`` hold the kernel against.  The kernel walks
 per-segment pixel lists (:func:`segment_lists`), built in the wrapper with
 one stable sort of the ids; the adjoint stage kernel K6
 (``ops/adjoint.py``) walks the same lists, so a forward builds them once.
+
+:func:`segment_sum` is a ``torch.autograd.Function``: its backward,
+:func:`segment_sum_bwd`, is ``dfeat[b, p] = T(dsums[b, seg[b, p]])`` in the
+features' dtype T, 0 where the id lies outside [0, K), and launches K3's
+kernel (``csrc/cellpool.cu``, ``wesup_cell_pool0_bwd``), which computes
+exactly that over a flat pixel axis.  The ids get no gradient.
 ``LAUNCHES`` counts the kernel launches.
 """
 
@@ -22,11 +28,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"segment_sum": 0}
+LAUNCHES = {"segment_sum": 0, "segment_sum_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -71,18 +78,12 @@ def segment_sum_plain(seg: torch.Tensor, feat: torch.Tensor,
     return torch.einsum("bpk,bpc->bkc", oh, feat.to(torch.float32))
 
 
-def segment_sum(seg: torch.Tensor, feat: torch.Tensor, K: int,
-                lists: SegmentLists | None = None) -> torch.Tensor:
-    """K5: (B, K, C) float32 sums of (B, P, C) features by (B, P) int32
-    ids; ids outside [0, K) add nothing.  ``lists`` may pass the
-    :func:`segment_lists` of ``seg`` when the caller has built them."""
+def _segment_sum_fwd(seg: torch.Tensor, feat: torch.Tensor, K: int,
+                     lists: SegmentLists | None) -> torch.Tensor:
     if feat.device.type == "cpu":
         return segment_sum_plain(seg, feat, K)
     if feat.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {feat.device}")
-    if feat.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("K5 has no backward kernel yet: train "
-                                  "with pooling='local'")
     B, P, C = feat.shape
     _check("feat", feat, (B, P, C), _DTYPE_CODE, feat.device)
     _check("seg", seg, (B, P), (torch.int32,), feat.device)
@@ -101,6 +102,81 @@ def segment_sum(seg: torch.Tensor, feat: torch.Tensor, K: int,
     _raise_on_error("segment_sum", err)
     LAUNCHES["segment_sum"] += 1
     return out
+
+
+def segment_sum_bwd_plain(seg: torch.Tensor, dsums: torch.Tensor,
+                          dtype) -> torch.Tensor:
+    """Plain version of K5's backward: gather each pixel's cotangent row, in
+    ``dtype``, zero where the id lies outside [0, K)."""
+    B, P = seg.shape
+    K, C = dsums.shape[1:]
+    ok = (seg >= 0) & (seg < K)
+    idx = torch.where(ok, seg, 0).long()[..., None].expand(B, P, C)
+    rows = torch.gather(dsums.to(dtype), 1, idx)
+    return rows.masked_fill(~ok[..., None], 0)
+
+
+def segment_sum_bwd(seg: torch.Tensor, dsums: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """K5's backward: the (B, P, C) gradient in ``dtype`` of
+    :func:`segment_sum`'s features from the (B, K, C) float32 cotangent.
+
+    On the card it launches K3's kernel with the flat pixel axis as one
+    image row, (H, W) = (1, P), so that a pixel's image stays its flat
+    index over P.  That kernel drops only ids < 0 and would read another
+    image's row for an id >= K, so the ids outside [0, K) are set to -1
+    first (one elementwise op)."""
+    dsums = dsums.contiguous()
+    if dsums.device.type == "cpu":
+        return segment_sum_bwd_plain(seg, dsums, dtype)
+    if dsums.device.type != "cuda":
+        raise ValueError(f"segment_sum_bwd: unsupported device "
+                         f"{dsums.device}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"segment_sum_bwd: unsupported dtype {dtype}")
+    B, P = seg.shape
+    K, C = dsums.shape[1:]
+    _check("dsums", dsums, (B, K, C), (torch.float32,), dsums.device)
+    _check("seg", seg, (B, P), (torch.int32,), dsums.device)
+    if max(B * P + 32, B * K) >= 2**31:
+        raise ValueError("segment_sum_bwd: pixel and row indices must fit "
+                         "in int32")
+    from ._build import library
+
+    lib = library()
+    ids = torch.where((seg >= 0) & (seg < K), seg, -1)
+    out = torch.empty((B, P, C), dtype=dtype, device=dsums.device)
+    err = lib.wesup_cell_pool0_bwd(
+        ids.data_ptr(), dsums.data_ptr(), out.data_ptr(), B, 1, P, C, K,
+        _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
+    _raise_on_error("segment_sum_bwd", err)
+    LAUNCHES["segment_sum_bwd"] += 1
+    return out
+
+
+class _SegmentSumFn(torch.autograd.Function):
+    """K5 forward, K3's kernel backward; ids and lists get no gradient."""
+
+    @staticmethod
+    def forward(ctx, seg, feat, K, lists):
+        ctx.dtype = feat.dtype
+        ctx.save_for_backward(seg)
+        return _segment_sum_fwd(seg, feat, K, lists)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsums):
+        (seg,) = ctx.saved_tensors
+        return None, segment_sum_bwd(seg, dsums, ctx.dtype), None, None
+
+
+def segment_sum(seg: torch.Tensor, feat: torch.Tensor, K: int,
+                lists: SegmentLists | None = None) -> torch.Tensor:
+    """K5: (B, K, C) float32 sums of (B, P, C) features by (B, P) int32
+    ids; ids outside [0, K) add nothing.  ``lists`` may pass the
+    :func:`segment_lists` of ``seg`` when the caller has built them.
+    Differentiable in ``feat`` (through :func:`segment_sum_bwd`)."""
+    return _SegmentSumFn.apply(seg, feat, K, lists)
 
 
 def segment_mean(seg: torch.Tensor, feat: torch.Tensor, K: int,

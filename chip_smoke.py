@@ -52,7 +52,22 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    full-width WESUP (point supervision) through each, with launch counts
    per step, step time, peak memory, a per-phase breakdown and a profiler
    window; K8's and ``segment_sum_bwd``'s times against their plain
-   versions, a ``bmm`` and the bound, with their share of the HBM rate.
+   versions, a ``bmm`` and the bound, with their share of the HBM rate;
+11. training from a dataset directory: a synthetic GlaS-shaped dataset
+   (85 train and 8 val 522x775 PNGs whose rows cycle through the five
+   filters, masks, point CSVs; made from ``--seed``) trained by
+   ``wesup_tpu_torch.train.fit`` at full width for 2 epochs at B=8 with
+   the defaults (device resize, bucketed canvases), then resumed for 1
+   epoch from ``ckpt.0002.pth``: every batch of every phase stepped and
+   none raised or logged an error, epoch numbering, latest-only
+   retention, 3 history rows and the per-batch generator seeds of all
+   three epochs in a straight schedule's order; decode ms, epoch seconds
+   (the trainer's ``phase_stats``), epoch 2's img/s against the step-only
+   rate, val seconds, bytes per batch (device against host resize), the
+   device resize's time and its bitwise equality with the CPU, launches
+   per train step (K1-K4), device busy share over epoch 3 (the trainer's
+   ``profile_dir`` trace), peak memory; one bucketed train step's K1-K4
+   outputs against their plain versions on the step's own inputs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -63,7 +78,9 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -72,6 +89,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -170,12 +188,25 @@ class PhaseTimer:
         return out
 
 
+def device_busy(prof):
+    """(kernel records, busy us, span us) of a profiler window: the span
+    runs from the first kernel's start to the last one's end."""
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return kern, 0.0, 0.0
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    return kern, busy, span
+
+
 def profile_steps(torch, run_step, n=5, top=12, tag="profile") -> None:
     """Device busy share and top kernels over ``n`` steps, from the
     profiler's kernel records (the span runs from the first kernel's start
     to the last one's end; host work under the profiler is slower than
     without it, so the idle share is an upper bound)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run_step()
@@ -185,13 +216,10 @@ def profile_steps(torch, run_step, n=5, top=12, tag="profile") -> None:
         for _ in range(n):
             run_step()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern, busy, span = device_busy(prof)
     if not kern:
         log(f"[{tag}] no device kernels recorded: busy share not measured")
         return
-    busy = sum(e.time_range.elapsed_us() for e in kern)
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern))
     log(f"[{tag}] {n} steps: {len(kern) / n:.0f} kernels/step, device busy "
         f"{busy / n / 1e3:.3f} ms/step of a {span / n / 1e3:.3f} ms/step "
         f"span, idle share {1 - busy / span:.3f}")
@@ -1240,6 +1268,361 @@ def adjoint_train_phase(torch, card, seg_m, gen) -> list:
     return out
 
 
+# GlaS-shaped synthetic training data for phase 11: GlaS's 85 train images
+# at its 522x775 size; its 80 test images cut to 8 val images
+GLAS_SPLITS = {"train": 85, "val": 8}
+
+
+def write_glas_dataset(root: Path, seed: int) -> None:
+    """A synthetic GlaS-shaped dataset under ``root``: 522x775 RGB PNGs
+    (their rows cycle through the five PNG filters), gland masks, and
+    ``points/*.csv`` (3 points per class) for the train split, made with
+    numpy from ``seed``."""
+    from wesup_tpu_torch.data.codec import write_png
+
+    rng = np.random.default_rng(seed)
+    H, W = GLAS_HW
+    yy, xx = np.mgrid[:H, :W]
+    for split, n in GLAS_SPLITS.items():
+        dirs = {d: root / split / d for d in ("images", "masks", "points")}
+        for d, path in dirs.items():
+            if d != "points" or split == "train":
+                path.mkdir(parents=True)
+        for i in range(n):
+            mask = np.zeros((H, W), np.uint8)
+            for _ in range(int(rng.integers(4, 9))):
+                cy, cx = rng.integers(0, H), rng.integers(0, W)
+                ry, rx = rng.integers(30, 90, 2)
+                mask[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = 1
+            tone = np.where(mask[..., None] == 1, rng.normal(
+                [160, 110, 170], 8), rng.normal([225, 205, 220], 6))
+            img = np.clip(tone + rng.normal(0, 12, (H, W, 3)), 0,
+                          255).astype(np.uint8)
+            name = f"{split}_{i:02d}"
+            write_png(dirs["images"] / f"{name}.png", img)
+            write_png(dirs["masks"] / f"{name}.png", mask)
+            if split == "train":
+                rows = []
+                for cls in (0, 1):
+                    ys, xs = np.nonzero(mask == cls)
+                    for j in rng.choice(len(ys), 3, replace=False):
+                        rows.append(f"{xs[j]},{ys[j]},{cls}\n")
+                (dirs["points"] / f"{name}.csv").write_text("".join(rows))
+
+
+def hold_step_kernels(torch, run_step, tag) -> None:
+    """K1-K4 as one train step calls them, against their plain versions on
+    the same inputs, with phases 2, 3 and 8a's limits; ``run_step()``
+    runs the step."""
+    from wesup_tpu_torch.ops import cellpool as cp
+
+    calls = []
+
+    def recording(name, fn):
+        def run(*args):
+            out = fn(*args)
+            calls.append((name, args, out))
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name, attr in (("K1", "_pool0_fwd"), ("K2", "_stage_fwd"),
+                           ("K3", "cell_pool0_bwd"),
+                           ("K4", "cell_pool_stage_bwd")):
+            stack.enter_context(mock.patch.object(
+                cp, attr, new=recording(name, getattr(cp, attr))))
+        run_step()
+        torch.cuda.synchronize()
+    counts = {k: sum(c[0] == k for c in calls) for k in ("K1", "K2", "K3",
+                                                          "K4")}
+    if counts != {"K1": 1, "K2": 4, "K3": 1, "K4": 4}:
+        fail(f"the bucketed train step called {counts}")
+    errs = {}
+    for name, args, got in calls:
+        if name == "K1":
+            want = cp.cell_pool0_plain(*args)
+            err = (got - want).abs().max().item()
+            ok = err <= 0.02 * want.abs().max().item()
+        elif name == "K2":
+            want = cp.cell_pool_stage_plain(*args)
+            err = (got - want).abs().max().item()
+            ok = err <= 1e-4 * max(1.0, want.abs().max().item())
+        elif name == "K3":
+            want = cp.cell_pool0_bwd_plain(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want)
+        else:
+            spp, mc, dsums = args
+            want = cp.cell_pool_stage_bwd_plain(spp, mc, dsums, mc.dtype)
+            mass = cp.cell_pool_stage_bwd_plain(spp, mc.abs(), dsums.abs(),
+                                                torch.float32)
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            ok = bool((diff <= bf16_ulp(torch, want) + 1e-5 * mass).all())
+        if not ok:
+            fail(f"{name} disagrees with its plain version in the bucketed "
+                 f"train step ({tuple(got.shape)})")
+        errs[name] = max(errs.get(name, 0.0), err)
+    shape = tuple(calls[0][1][2].shape)
+    log(f"[{tag}] one bucketed train step's K1-K4 (stage-0 taps {shape}, "
+        f"{calls[0][1][2].dtype}) against their plain versions on the "
+        "step's own inputs: max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in sorted(errs.items()))
+        + " (limits of phases 2, 3, 8a: K1 0.02 of the max, K2 1e-4 of the "
+        "max, K3 equal, K4 one bf16 ulp + 1e-5 of the sum of |terms|)")
+
+
+def trace_busy(path):
+    """(kernel count, busy us, span us) of the device kernels in a Chrome
+    trace of ``torch.profiler``: the span runs from the first kernel's
+    start to the last one's end."""
+    with open(path) as fp:
+        kern = [e for e in json.load(fp)["traceEvents"]
+                if e.get("cat") == "kernel"]
+    if not kern:
+        return 0, 0.0, 0.0
+    busy = sum(e["dur"] for e in kern)
+    span = (max(e["ts"] + e["dur"] for e in kern)
+            - min(e["ts"] for e in kern))
+    return len(kern), busy, span
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps the records at ERROR and above of the logger ``name`` (and its
+    children), on the root logger, which they reach by propagation."""
+
+    def __init__(self, name):
+        super().__init__(logging.ERROR)
+        self.addFilter(logging.Filter(name))
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def trainer_phase(torch, card, seed) -> None:
+    """Phase 11: ``fit`` on a synthetic GlaS-shaped dataset made from
+    ``seed``, at full width, 2 epochs and a resume, with the trainer's
+    figures."""
+    import tempfile
+
+    from wesup_tpu_torch.data import codec
+    from wesup_tpu_torch.models import steps
+    from wesup_tpu_torch.models.trainer import WESUPTrainer
+    from wesup_tpu_torch.ops import launch_counts, train_resize
+    from wesup_tpu_torch.train import fit
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tag = "trainer"
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase11_")
+    root = Path(tmp.name) / "glas"
+    t0 = time.perf_counter()
+    write_glas_dataset(root, seed)
+    log(f"[{tag}] wrote {sum(GLAS_SPLITS.values())} synthetic GlaS images "
+        f"({GLAS_HW[0]}x{GLAS_HW[1]} PNG, all five row filters) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    files = sorted((root / "train" / "images").iterdir())[:4]
+    t0 = time.perf_counter()
+    for f in files:
+        codec.imread_rgb(f)
+        codec.imread_mask(root / "train" / "masks" / f.name)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    log(f"[{tag}] decode (data/codec.py, host): {dec_ms:.1f} ms per "
+        f"{GLAS_HW[0]}x{GLAS_HW[1]} image + mask (mean of {len(files)}); "
+        f"{card}")
+
+    # every train step the trainer runs: its epoch, canvas, CUDA events
+    # around it, the kernels it launched and its device batch
+    step_log = []
+    real_get = WESUPTrainer._get_step
+
+    def get_step(self, kind, hw):
+        step = real_get(self, kind, hw)
+        if kind != "train":
+            return step
+
+        def run(model, optimizer, acc, batch, *args, **kwargs):
+            before = launch_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(model, optimizer, acc, batch, *args, **kwargs)
+            b.record()
+            after = launch_counts()
+            step_log.append((self._epoch_idx, hw, a, b, {
+                k: after[k] - before[k] for k in after}, dict(batch)))
+            return out
+        return run
+
+    # a step that raises is logged and skipped by the trainer: catch it
+    errors = ErrorRecords("Train")
+    old_root = os.environ.get("RECORD_ROOT")
+    os.environ["RECORD_ROOT"] = str(Path(tmp.name) / "records")
+    logging.getLogger().addHandler(errors)
+    try:
+        with mock.patch.object(WESUPTrainer, "_get_step", new=get_step), \
+                mock.patch.object(steps, "batch_seed",
+                                  wraps=steps.batch_seed) as seeds:
+            torch.cuda.reset_peak_memory_stats()
+            trainer = fit(root, epochs=2, batch_size=BATCH, seed=seed)
+            peak_fit = torch.cuda.max_memory_allocated() / 2**30
+            cache = trainer._resize_cache
+            if not all(c is not None and c["imgs"].is_cuda
+                       for c in cache.values()):
+                fail("the device-resize cache is not on the card")
+            ckpt_dir = trainer.record_dir / "checkpoints"
+            if sorted(p.name for p in ckpt_dir.iterdir()) != [
+                    "ckpt.0002.pth"]:
+                fail(f"checkpoints after 2 epochs: {list(ckpt_dir.iterdir())}")
+            n_first = len(seeds.call_args_list)
+            # the trainer's own profile_dir hook traces the resumed run's
+            # first train phase, epoch 3
+            resumed = fit(root, epochs=1, batch_size=BATCH, seed=seed,
+                          checkpoint=str(ckpt_dir / "ckpt.0002.pth"),
+                          profile_dir=str(Path(tmp.name) / "trace"))
+            seed_args = [c.args for c in seeds.call_args_list]
+    finally:
+        logging.getLogger().removeHandler(errors)
+        if old_root is None:
+            os.environ.pop("RECORD_ROOT", None)
+        else:
+            os.environ["RECORD_ROOT"] = old_root
+
+    # ---- 11a. every step ran; numbering, retention, history, seeds -------
+    stats = {**trainer.phase_stats, **resumed.phase_stats}
+    if sorted(stats) != [(e, p) for e in (1, 2, 3) for p in ("train", "val")]:
+        fail(f"the fits ran the phases {sorted(stats)}")
+    for (e, phase), st in sorted(stats.items()):
+        n_steps = sum(s[0] == e for s in step_log)
+        if (st["batches"] == 0 or st["failed"]
+                or phase == "train" and n_steps != st["batches"]):
+            fail(f"epoch {e} {phase}: {st['batches']} batches, "
+                 f"{st['failed']} failed, {n_steps} train steps recorded")
+    if errors.records:
+        fail(f"the trainer logged {len(errors.records)} errors, the first: "
+             f"{errors.records[0].getMessage()}")
+    log(f"[{tag}] every batch of epochs 1-3 stepped, none raised: train "
+        + ", ".join(f"{stats[(e, 'train')]['batches']}" for e in (1, 2, 3))
+        + " batches, val " + ", ".join(
+            f"{stats[(e, 'val')]['batches']}" for e in (1, 2, 3))
+        + "; no error logged")
+    names = sorted(p.name for p in ckpt_dir.iterdir())
+    with open(trainer.record_dir / "history.csv") as fp:
+        rows = list(csv.reader(fp))
+    log(f"[{tag}] resumed at epoch {resumed.initial_epoch}; checkpoints "
+        f"{names}; history.csv {len(rows) - 1} rows, columns {rows[0]}")
+    if (resumed.initial_epoch != 3 or names != ["ckpt.0003.pth"]
+            or len(rows) != 4):
+        fail("the resume did not continue at epoch 3 with latest-only "
+             "checkpoints and 3 history rows")
+    if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
+        fail("history.csv holds values that are not finite")
+    # the schedule a straight 3-epoch run follows: (base, epoch, train
+    # phase 0, batch i) for each train batch (tests/test_torch_port_
+    # trainer.py holds the resumed seeds against a straight run's own)
+    base = seed + 1
+    want = [(base, e, 0, i) for e in (1, 2, 3)
+            for i in range(stats[(e, "train")]["batches"])]
+    log(f"[{tag}] per-batch generator seeds: epochs 1-2 and the resumed "
+        f"epoch 3 derived from (seed + 1, epoch, 0, batch) in a straight "
+        f"3-epoch schedule's order: {seed_args == want} ({n_first} + "
+        f"{len(seed_args) - n_first} batches)")
+    if seed_args != want:
+        fail("the resumed run's generator seeds leave the straight "
+             "3-epoch schedule")
+
+    # ---- 11b. the epochs' figures ----------------------------------------
+    torch.cuda.synchronize()
+    for e in (1, 2, 3):
+        what = {1: "warm-up", 2: "untraced", 3: "resumed, under the "
+                "profiler's host and device tracing, its export included"}[e]
+        tr, va = stats[(e, "train")]["seconds"], stats[(e, "val")]["seconds"]
+        log(f"[{tag}] epoch {e} ({what}): train {tr:.3f} s, val {va:.3f} s "
+            f"({stats[(e, 'val')]['samples']} images at B=1), epoch "
+            f"{tr + va:.3f} s; {card}")
+    st2 = stats[(2, "train")]
+    steps2 = [(a.elapsed_time(b), n, hw) for e, hw, a, b, n, _ in step_log
+              if e == 2]
+    step_ms = [t for t, _, _ in steps2]
+    seen1 = {hw for e, hw, *_ in step_log if e == 1}
+    cold = sum(hw not in seen1 for *_, hw in steps2)
+    rate = st2["samples"] / st2["seconds"]
+    step_rate = st2["samples"] / (sum(step_ms) * 1e-3)
+    shapes = sorted({hw for *_, hw in steps2})
+    log(f"[{tag}] epoch 2 train phase: {st2['samples']} images in "
+        f"{st2['batches']} batches at {len(shapes)} bucketed canvases "
+        f"{shapes} ({cold} steps at a canvas epoch 1 did not see): "
+        f"{rate:.2f} img/s (valid samples / wall s); train step median "
+        f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}), step-only {step_rate:.2f} img/s; ratio "
+        f"{rate / step_rate:.3f}; {card}")
+    bad = [n for _, n, _ in steps2 if n != expected({
+        "cell_pool0": 1, "cell_pool_stage": 4, "cell_pool0_bwd": 1,
+        "cell_pool_stage_bwd": 4})]
+    log(f"[{tag}] launches per train step over epoch 2: "
+        + str({k: v for k, v in steps2[0][1].items() if v})
+        + f"; steps with other counts: {len(bad)}; {card}")
+    if bad:
+        fail(f"train steps launched other kernels than K1-K4: {bad[:2]}")
+    n_kern, busy, span = trace_busy(Path(tmp.name) / "trace"
+                                    / "trace.epoch3.json")
+    if n_kern:
+        log(f"[{tag}] device busy over epoch 3's train phase (the trainer's "
+            f"profile_dir trace, host ops recorded too): {busy / 1e3:.3f} ms "
+            f"of a {span / 1e3:.3f} ms span (first kernel to last), busy "
+            f"share {busy / span:.3f}, {n_kern} kernels, "
+            f"{n_kern / stats[(3, 'train')]['batches']:.0f} per step; {card}")
+    else:
+        log(f"[{tag}] the profiler recorded no device kernels: busy share "
+            "not measured")
+    log(f"[{tag}] peak memory over the 2-epoch fit: {peak_fit:.2f} GiB; "
+        f"{card}")
+
+    # ---- 11c. wire bytes, device resize: card vs CPU and its time --------
+    gpu_batch = next(
+        ({k: v for k, v in b.items() if isinstance(v, torch.Tensor)}
+         for *_, b in step_log if bool(b["sample_valid"].all())), None)
+    if gpu_batch is None:
+        fail("no train step had a full batch")
+    cache = resumed._resize_cache["train"]
+    img_d, mask_d = train_resize.apply_resize(cache, gpu_batch)
+    img_c, mask_c = train_resize.apply_resize(
+        {k: v.cpu() for k, v in cache.items()},
+        {k: v.cpu() for k, v in gpu_batch.items()})
+    same = torch.equal(img_d.cpu(), img_c) and torch.equal(mask_d.cpu(),
+                                                           mask_c)
+    # the same samples in the host-resize wire format: canvas and mask
+    host = {k: v.cpu().numpy() for k, v in gpu_batch.items()
+            if k != "img_idx" and not k.startswith("rsz_")}
+    host.update(image=img_c.numpy(), pixel_mask=mask_c.numpy())
+    dev_bytes = sum(v.nbytes for v in gpu_batch.values())
+    host_bytes = sum(np.asarray(v).nbytes
+                     for v in WESUPTrainer.wire(host).values())
+    hw = tuple(img_d.shape[1:3])
+    log(f"[{tag}] host-to-device bytes per B={BATCH} batch at {hw}: device "
+        f"resize {dev_bytes} B, host resize {host_bytes} B "
+        f"({host_bytes / dev_bytes:.1f}x); {card}")
+    rs_ms = cuda_ms(torch, lambda: train_resize.apply_resize(cache,
+                                                             gpu_batch))
+    log(f"[{tag}] device resize of one batch ({tuple(img_d.shape)}): "
+        f"{rs_ms:.4f} ms on the card; bitwise equal to the CPU's: {same}; "
+        f"{card}")
+    if not same:
+        fail("the device resize on the card differs from the CPU's")
+
+    # ---- 11d. one bucketed train step's K1-K4 against plain -------------
+    step = resumed._get_step("train", hw)
+    hold_step_kernels(torch, lambda: step(
+        resumed.model, resumed.optimizer, steps.init_metric_acc(device=dev),
+        dict(gpu_batch, rng_idx=(4, 0)), resumed._base_seed, cache=cache),
+        tag)
+    del trainer, resumed, cache, gpu_batch, step, step_log
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -1256,7 +1639,14 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=11,
+                        help="seed of phase 11's synthetic dataset, weights "
+                             "and shuffles")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1536,6 +1926,9 @@ def main() -> int:
 
     # ---- 10. training through the adjoint and fullres pools --------------
     kernels += adjoint_train_phase(torch, card, seg_m, gen)
+
+    # ---- 11. training from a dataset directory ---------------------------
+    trainer_phase(torch, card, args.seed)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

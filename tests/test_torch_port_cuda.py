@@ -12,9 +12,13 @@ has only PyTorch; there, skip the JAX suite's conftest:
 The shapes cover what chip_smoke.py does not: small and ragged canvases,
 channel counts that are not a multiple of the kernels' 32-channel chunk
 or 16-byte vector, misaligned bases, odd pooling windows, and a cluster
-grid narrower than one 8-cluster block.
+grid narrower than one 8-cluster block.  The trainer's slice is held here
+too: the device resize bitwise against the CPU, the per-batch generators'
+seeds on both devices, bucketed train and eval steps in the trainer's wire
+formats with their launches, and a one-epoch ``fit`` on the card.
 """
 
+import logging
 import sys
 from pathlib import Path
 
@@ -790,3 +794,145 @@ def test_gated_train_step_on_card(cuda, monkeypatch):
         "cell_pool_stage_bwd": 4, "fused_relu_pool_pad": 1})
     assert not acc["nan"].item()
     assert all(torch.isfinite(q).all() for q in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# the trainer's slice: device resize, per-batch generators, bucketed steps,
+# fit
+# ---------------------------------------------------------------------------
+
+def _resize_case(seed, n=4, full=(200, 300), scale=0.3, canvases=((64, 96),
+                                                                  (96, 128))):
+    """A device-resize cache and one B=2 batch (plus a blank) per canvas."""
+    from wesup_tpu_torch.data.loader import (CanvasSpec, _blank_meta_item,
+                                             place_meta_on_canvas)
+
+    rng = np.random.default_rng(seed)
+    cache = {"imgs": rng.integers(0, 256, (n,) + full + (3,), np.uint8),
+             "masks": rng.integers(0, 2, (n,) + full).astype(np.int8)}
+    batches = []
+    for H, W in canvases:
+        spec = CanvasSpec(H, W)
+        items = []
+        for i in range(2):
+            th = min(H, int(np.ceil(scale * full[0])) + 8 * i)
+            tw = min(W, int(np.ceil(scale * full[1])) + 8 * i)
+            pts = np.stack([rng.integers(0, tw, 6), rng.integers(0, th, 6),
+                            rng.integers(0, 2, 6)], -1)
+            items.append(place_meta_on_canvas(
+                {"img_idx": i + 1, "full_hw": full, "target_hw": (th, tw),
+                 "points": pts, "use_mask_as_points": False}, spec))
+        items.append(_blank_meta_item(spec))
+        batches.append({k: np.stack([it[k] for it in items])
+                        for k in items[0]})
+    return cache, batches
+
+
+def test_device_resize_on_card_matches_cpu(cuda):
+    from wesup_tpu_torch.ops import train_resize
+
+    cache, batches = _resize_case(0)
+    for batch in batches:
+        outs = []
+        for dev in ("cpu", cuda):
+            outs.append(train_resize.apply_resize(
+                {k: torch.from_numpy(v).to(dev) for k, v in cache.items()},
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}))
+        for got, want in zip(outs[1], outs[0]):
+            assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_batch_generators_seed_alike_on_both_devices(cuda):
+    for rng_idx in ((1, 0), (3, 7), np.array([[2, 5]] * 4, np.int32)):
+        gens = [steps.batch_generator(12, {"rng_idx": rng_idx}, "train", d)
+                for d in ("cpu", cuda)]
+        pair = np.asarray(rng_idx).reshape(-1, 2)[0]
+        want = steps.batch_seed(12, int(pair[0]), 0, int(pair[1]))
+        assert [g.initial_seed() for g in gens] == [want, want]
+        assert gens[1].device.type == "cuda"
+    with pytest.raises(ValueError, match="host"):
+        steps.batch_generator(12, {"rng_idx": torch.zeros(2, 2,
+                                                         device=cuda)},
+                              "train", cuda)
+
+
+def test_bucketed_train_and_eval_steps_on_card(cuda):
+    """The trainer's wire formats (img_idx with the cache, rng_idx) at two
+    bucket canvases: K1-K4 per train step, K1/K2 per eval step."""
+    cache, batches = _resize_case(1)
+    dcache = {k: torch.from_numpy(v).to(cuda) for k, v in cache.items()}
+    cfg = WESUPConfig()
+    model = wesup.WESUP(fc_width=64,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    optimizer = steps.make_optimizer(cfg, model)
+    for i, batch in enumerate(batches):
+        hw = (batch["rsz_iy"].shape[1], batch["rsz_ix"].shape[1])
+        train = steps.make_train_step(cfg, hw, point_mode=True)
+        evaluate = steps.make_eval_step(cfg, hw)
+        b = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+        acc = steps.init_metric_acc()
+        reset_launches()
+        acc = train(model, optimizer, acc, dict(b, rng_idx=(1, i)), 5,
+                    cache=dcache)
+        torch.cuda.synchronize()
+        assert launch_counts() == _expected({
+            "cell_pool0": 1, "cell_pool_stage": 4, "cell_pool0_bwd": 1,
+            "cell_pool_stage_bwd": 4})
+        assert acc["count"].item() == 2 and not acc["nan"].item()
+        reset_launches()
+        pred, eacc = evaluate(model, steps.init_metric_acc(
+            steps.EVAL_METRIC_KEYS), b, cache=dcache)
+        torch.cuda.synchronize()
+        assert launch_counts() == _expected({"cell_pool0": 1,
+                                             "cell_pool_stage": 4})
+        assert tuple(pred.shape) == (3,) + hw
+        assert torch.isfinite(pred).all() and eacc["count"].item() == 2
+
+
+def _write_dataset(root, seed=0, hw=(96, 128)):
+    """A small dataset written with the port's own PNG writer (no cv2):
+    3 train images with masks and points, 2 val images with masks."""
+    from wesup_tpu_torch.data.codec import write_png
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+    for split, n in (("train", 3), ("val", 2)):
+        for d in ("images", "masks") + (("points",) if split == "train"
+                                        else ()):
+            (root / split / d).mkdir(parents=True)
+        for i in range(n):
+            mask = (((yy - rng.integers(20, 70)) ** 2
+                     + (xx - rng.integers(20, 100)) ** 2) < 600).astype(
+                         np.uint8)
+            img = np.clip(np.where(mask[..., None] == 1, 150, 215)
+                          + rng.normal(0, 10, hw + (3,)), 0,
+                          255).astype(np.uint8)
+            write_png(root / split / "images" / f"{i}.png", img)
+            write_png(root / split / "masks" / f"{i}.png", mask)
+            if split == "train":
+                ys, xs = np.nonzero(mask >= 0)
+                pick = rng.choice(len(ys), 6, replace=False)
+                (root / split / "points" / f"{i}.csv").write_text("".join(
+                    f"{xs[j]},{ys[j]},{mask[ys[j], xs[j]]}\n" for j in pick))
+
+
+def test_fit_one_epoch_on_card(cuda, tmp_path, monkeypatch, caplog):
+    from wesup_tpu_torch.train import fit
+
+    _write_dataset(tmp_path / "ds")
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "records"))
+    with caplog.at_level(logging.ERROR, logger="Train"):
+        trainer = fit(tmp_path / "ds", epochs=1, batch_size=2, fc_width=64)
+    # the trainer logs and skips a step that raises: none may have
+    assert not [r for r in caplog.records if r.levelno >= logging.ERROR]
+    for phase in ("train", "val"):
+        stats = trainer.phase_stats[(1, phase)]
+        assert stats["batches"] > 0 and stats["failed"] == 0, (phase, stats)
+    assert trainer.device.type == "cuda"
+    assert all(c["imgs"].is_cuda for c in trainer._resize_cache.values())
+    rd = trainer.record_dir
+    assert [p.name for p in (rd / "checkpoints").iterdir()] == [
+        "ckpt.0001.pth"]
+    rows = (rd / "history.csv").read_text().splitlines()
+    assert len(rows) == 2
+    assert all(np.isfinite(float(v)) for v in rows[1].split(","))

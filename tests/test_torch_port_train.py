@@ -943,12 +943,17 @@ def test_predict_then_train_in_one_process():
 
 
 def test_later_slice_wire_formats_raise():
+    """The trainer's wire formats, taken since the trainer slice, raise
+    where they are misused: ``img_idx`` without the device-resize cache,
+    ``rng_idx`` with a generator in place of the int base seed
+    (tests/test_torch_port_trainer.py holds their results)."""
     cfg = WESUPConfig(**_CFG)
     model = wesup.WESUP(fc_width=FC_WIDTH)
     step = steps.make_train_step(cfg, (H, W), point_mode=True, device="cpu")
-    for key in ("img_idx", "rng_idx"):
+    for key, error, match in (("img_idx", ValueError, "cache"),
+                              ("rng_idx", TypeError, "int base seed")):
         batch = dict(_batch(), **{key: np.zeros((B, 2), np.int32)})
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(error, match=match):
             step(model, steps.make_optimizer(cfg, model),
                  steps.init_metric_acc(device="cpu"), batch,
                  torch.Generator())

@@ -1,0 +1,443 @@
+"""The port's trainer, checkpoints and per-batch generators, on the CPU.
+
+- history.csv is byte-equal to the JAX package's for the same metrics;
+- a JAX trainer's msgpack checkpoint loads into the port (weights bitwise
+  ``from_jax_params``; one SGD step from the loaded momentum equals
+  optax's update on the same gradient within 1e-6: both compute
+  ``m = 0.9 m + g + wd p; p -= lr m`` in f32, in another order), and the
+  port's ``.pth`` loads into the JAX trainer bitwise;
+- ``python -m wesup_tpu_torch.train``'s ``fit`` writes the reference
+  record layout and resumes: epoch numbering continues, the resumed
+  epoch's per-batch seeds are the straight run's, and the restored
+  weights and momentum are bitwise what was saved;
+- the steps take ``rng_idx`` (a batch's draws do not depend on the batches
+  that ran before it) and ``img_idx`` with ``cache=`` (bitwise the host
+  wire format's result);
+- the NaN abort and the refusal of the unported host metrics;
+- the slice against JAX: one epoch of both trainers from one JAX
+  checkpoint with ``lr=0`` (the weights cannot move, so augmentation and
+  the packages' different random bits cannot matter) gives the same
+  validation metrics within the tolerance derived in
+  :func:`test_one_epoch_matches_jax_trainer`.
+
+Sizes follow tests/test_train_smoke.py: 64x80 images, canvas 48x64, 3
+SLIC iterations, sp_area 100, f32.
+"""
+
+import csv
+import shutil
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import optax
+
+sys.path.insert(0, str(Path(__file__).parent))
+sys.path.insert(0, str(Path(__file__).parent.parent))
+from make_dataset import make_dataset  # noqa: E402
+
+from wesup_tpu.config import WESUPConfig as JConfig  # noqa: E402
+from wesup_tpu.models import initialize_trainer as j_init  # noqa: E402
+from wesup_tpu.models import steps as j_steps  # noqa: E402
+from wesup_tpu.utils.history import HistoryTracker as JTracker  # noqa: E402
+from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
+from wesup_tpu_torch.data import datasets as t_datasets  # noqa: E402
+from wesup_tpu_torch.data import loader as t_loader  # noqa: E402
+from wesup_tpu_torch.models import convert, steps, wesup  # noqa: E402
+from wesup_tpu_torch.models import initialize_trainer  # noqa: E402
+from wesup_tpu_torch.ops import train_resize  # noqa: E402
+from wesup_tpu_torch.ops.slic import slic  # noqa: E402
+from wesup_tpu_torch.train import fit  # noqa: E402
+from wesup_tpu_torch.utils.history import HistoryTracker  # noqa: E402
+
+CFG = dict(canvas_size=(48, 64), slic_iters=3, compute_dtype="float32",
+           sp_area=100)
+PKG = Path(__file__).parent.parent / "wesup_tpu_torch"
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    return make_dataset(tmp_path_factory.mktemp("port_trainer_ds"),
+                        n_train=3, n_val=2, hw=(64, 80))
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _rows(path):
+    with open(path) as fp:
+        return list(csv.reader(fp))
+
+
+# ---------------------------------------------------------------------------
+# history
+# ---------------------------------------------------------------------------
+
+def test_history_bytes_equal_jax(tmp_path):
+    rng = np.random.default_rng(0)
+    paths = {"port": tmp_path / "p.csv", "jax": tmp_path / "j.csv"}
+    trackers = {"port": HistoryTracker(paths["port"]),
+                "jax": JTracker(paths["jax"])}
+    logs = {k: [] for k in trackers}
+    for epoch in range(3):
+        for name, tr in trackers.items():
+            tr.start_new_epoch(5e-5)
+        for phase, keys in (("train", steps.TRAIN_METRIC_KEYS),
+                            ("eval", steps.EVAL_METRIC_KEYS)):
+            for _ in range(4):
+                metrics = {k: float(rng.random()) for k in keys}
+                for name, tr in trackers.items():
+                    getattr(tr, phase)()
+                    logs[name].append(tr.step(metrics))
+                    logs[name].append(tr.log())
+        for tr in trackers.values():
+            tr.save()
+    assert logs["port"] == logs["jax"]
+    assert paths["port"].read_bytes() == paths["jax"].read_bytes()
+    assert trackers["port"].report() == trackers["jax"].report()
+
+
+# ---------------------------------------------------------------------------
+# checkpoints in and out
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_ckpt(tmp_path_factory):
+    """A JAX trainer's checkpoint with a nonzero momentum trace (one optax
+    update on a seeded gradient), epoch 0."""
+    jt = j_init("wesup", **CFG)
+    rng = np.random.default_rng(1)
+    g = jax.tree.map(lambda p: rng.normal(size=p.shape).astype(np.float32),
+                     _np_tree(jt.params))
+    _, jt.opt_state = jt.tx.update(g, jt.opt_state, jt.params)
+    path = (tmp_path_factory.mktemp("jax_ckpt") / "rec" / "checkpoints"
+            / "ckpt.0000.msgpack")
+    jt.save_checkpoint(path, epoch=0)
+    return path, _np_tree(jt.params), jt.opt_state
+
+
+def _copy_ckpt(path, root):
+    dst = Path(root) / "rec" / "checkpoints" / path.name
+    dst.parent.mkdir(parents=True)
+    shutil.copy(path, dst)
+    return dst
+
+
+def test_jax_checkpoint_loads_into_the_port(jax_ckpt, tmp_path):
+    path, params, opt_state = jax_ckpt
+    lr = 1.0   # an update of order one, so 1e-6 is a tight bound
+    pt = initialize_trainer("wesup", device="cpu", lr=lr, **CFG)
+    pt.load_checkpoint(_copy_ckpt(path, tmp_path))
+    assert pt.initial_epoch == 1
+    want = convert.from_jax_params(params)
+    got = pt.model.state_dict()
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+    # one step on a seeded gradient: optax's chain at lr vs torch SGD
+    rng = np.random.default_rng(2)
+    g = jax.tree.map(lambda p: rng.normal(size=p.shape).astype(np.float32),
+                     params)
+    tx = j_steps.make_optimizer(JConfig(lr=lr))
+    updates, _ = tx.update(g, opt_state, params)
+    new = convert.from_jax_params(_np_tree(optax.apply_updates(params,
+                                                               updates)))
+    grads = convert.from_jax_params(g)
+    for name, p in pt.model.named_parameters():
+        p.grad = grads[name].clone()
+    pt.optimizer.step()
+    for name, p in pt.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), new[name].numpy(),
+                                   atol=1e-6, rtol=0, err_msg=name)
+
+
+def test_port_checkpoint_loads_into_jax(tmp_path):
+    pt = initialize_trainer("wesup", device="cpu", **CFG)
+    path = tmp_path / "ckpt.0003.pth"
+    pt.save_checkpoint(path, epoch=3)
+    payload = torch.load(path, weights_only=True)
+    assert set(payload) == {"epoch", "model_state_dict",
+                            "optimizer_state_dict"}
+    jt = j_init("wesup", **CFG)
+    jt._load_torch_checkpoint(path)
+    assert jt.initial_epoch == 4
+    back = convert.from_jax_params(_np_tree(jt.params))
+    for name, t in pt.model.state_dict().items():
+        assert torch.equal(back[name], t), name
+
+    # a reference checkpoint without the port's optimizer state loads too
+    ref = tmp_path / "rec" / "checkpoints" / "ref.pth"
+    ref.parent.mkdir(parents=True)
+    torch.save({"epoch": 5, "model_state_dict": pt.model.state_dict()}, ref)
+    other = initialize_trainer("wesup", device="cpu", **CFG)
+    other.load_checkpoint(ref)
+    assert other.initial_epoch == 6 and not other.optimizer.state
+    for name, t in pt.model.state_dict().items():
+        assert torch.equal(other.model.state_dict()[name], t), name
+
+
+# ---------------------------------------------------------------------------
+# fit: record layout, checkpoints, resume
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def seed_log():
+    """Every per-batch seed the steps derive: (epoch, phase, batch) ->
+    seed, in order."""
+    calls = []
+    real = steps.batch_seed
+
+    def recording(base, epoch, phase, idx):
+        seed = real(base, epoch, phase, idx)
+        calls.append(((epoch, phase, idx), seed))
+        return seed
+
+    steps.batch_seed = recording
+    yield calls
+    steps.batch_seed = real
+
+
+@pytest.fixture(scope="module")
+def fitted(dataset, tmp_path_factory, seed_log):
+    """A 2-epoch fit on the CPU (with a stand-in kernel build directory in
+    the package, which the source snapshot must leave out)."""
+    root = tmp_path_factory.mktemp("port_fit")
+    build = PKG / "_build"
+    made = not build.exists()
+    build.mkdir(exist_ok=True)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("RECORD_ROOT", str(root / "records"))
+    try:
+        trainer = fit(dataset, epochs=2, device="cpu",
+                      profile_dir=str(root / "trace"), **CFG)
+    finally:
+        mp.undo()
+        if made:
+            shutil.rmtree(build)
+    return trainer, list(seed_log)
+
+
+def test_fit_smoke(fitted):
+    trainer, _ = fitted
+    rd = trainer.record_dir
+    for name in ("history.csv", "train.log", "params/0.json"):
+        assert (rd / name).exists(), name
+    assert (rd / "source" / "wesup_tpu_torch" / "ops" / "slic.py").exists()
+    assert not (rd / "source" / "wesup_tpu_torch" / "_build").exists()
+    assert not list((rd / "source").rglob("__pycache__"))
+    ckpts = sorted(p.name for p in (rd / "checkpoints").iterdir())
+    assert ckpts == ["ckpt.0002.pth"]   # latest-only retention
+    # profile_dir=: the first epoch's train phase, as a Chrome trace
+    assert (Path(trainer.kwargs["profile_dir"]) / "trace.epoch1.json").exists()
+    rows = _rows(rd / "history.csv")
+    assert len(rows) == 3
+    assert rows[0] == ["accuracy", "dice", "labeled_sp_ratio", "loss",
+                       "propagate_loss", "propagated_labels", "val_accuracy",
+                       "val_dice", "lr"]
+    assert all(np.isfinite(float(v)) for r in rows[1:] for v in r)
+    # every batch of every phase stepped, none raised
+    assert sorted(trainer.phase_stats) == [(e, p) for e in (1, 2)
+                                           for p in ("train", "val")]
+    for key, stats in trainer.phase_stats.items():
+        assert stats["batches"] > 0 and stats["failed"] == 0, key
+        assert stats["samples"] > 0 and stats["seconds"] > 0, key
+    assert trainer.phase_stats[(1, "train")]["batches"] == 3
+
+
+def test_resume_continues_and_reproduces_the_seeds(fitted, dataset,
+                                                   tmp_path, seed_log,
+                                                   monkeypatch):
+    trainer, first = fitted
+    ckpt = trainer.record_dir / "checkpoints" / "ckpt.0002.pth"
+    saved = torch.load(ckpt, weights_only=True)
+    restored = initialize_trainer("wesup", device="cpu", **CFG)
+    restored.load_checkpoint(ckpt)
+    assert restored.initial_epoch == 3
+    for name, t in saved["model_state_dict"].items():
+        assert torch.equal(restored.model.state_dict()[name], t), name
+    state = restored.optimizer.state_dict()["state"]
+    assert state.keys() == saved["optimizer_state_dict"]["state"].keys()
+    for k, v in saved["optimizer_state_dict"]["state"].items():
+        assert torch.equal(state[k]["momentum_buffer"], v["momentum_buffer"])
+
+    del seed_log[:]
+    fit(dataset, epochs=1, device="cpu", checkpoint=str(ckpt), **CFG)
+    resumed = [c for c in seed_log if c[0][0] == 3]
+    ckpts = sorted(p.name for p in (trainer.record_dir
+                                    / "checkpoints").iterdir())
+    assert ckpts == ["ckpt.0003.pth"]
+    assert len(_rows(trainer.record_dir / "history.csv")) == 4
+
+    del seed_log[:]
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "straight"))
+    fit(dataset, epochs=3, device="cpu", **CFG)
+    straight = [c for c in seed_log if c[0][0] == 3]
+    assert resumed and resumed == straight
+    # only train batches draw, each from its own (epoch, batch) seed
+    assert [c[0] for c in first] == [(e, 0, i) for e in (1, 2)
+                                     for i in range(3)]
+    assert len({s for _, s in first + straight}) == len(first + straight)
+
+
+# ---------------------------------------------------------------------------
+# the steps' wire formats
+# ---------------------------------------------------------------------------
+
+def _host_batches(dataset, device_resize, n=2):
+    ds = t_datasets.PointSupervisionDataset(
+        dataset / "train", multiscale_range=(0.3, 0.6), seed=3)
+    ds.device_resize = device_resize
+    bat = t_loader.CanvasBatcher(ds, t_loader.CanvasSpec(48, 64),
+                                 batch_size=2)
+    cache = None
+    if device_resize:
+        cache = {k: torch.from_numpy(v)
+                 for k, v in train_resize.build_cache(ds).items()}
+    return list(bat.epoch_iter(0))[:n], cache
+
+
+def _fresh(model0, cfg):
+    model = wesup.WESUP()
+    model.load_state_dict(model0.state_dict())
+    return model, steps.make_optimizer(cfg, model)
+
+
+@pytest.fixture(scope="module")
+def model0():
+    return wesup.WESUP(generator=torch.Generator().manual_seed(5))
+
+
+def test_rng_idx_draws_do_not_depend_on_earlier_batches(dataset, model0):
+    cfg = WESUPConfig(**CFG)
+    (batch, val_batch), _ = _host_batches(dataset, False)
+    train = steps.make_train_step(cfg, (48, 64), point_mode=True,
+                                  device="cpu")
+    evaluate = steps.make_eval_step(cfg, (48, 64), device="cpu")
+
+    def run(n_before, rng_idx=(2, 1), rng=7):
+        model, opt = _fresh(model0, cfg)
+        acc = steps.init_metric_acc(device="cpu")
+        eacc = steps.init_metric_acc(steps.EVAL_METRIC_KEYS, device="cpu")
+        for i in range(n_before):
+            _, eacc = evaluate(model, eacc, dict(val_batch, rng_idx=(2, i)))
+        b = batch if rng_idx is None else dict(batch, rng_idx=rng_idx)
+        acc = train(model, opt, acc, b, rng)
+        return acc["sums"]["loss"], model.state_dict()
+
+    loss, sd = run(0)
+    for other in (run(3), run(0, rng=torch.Generator().manual_seed(
+            steps.batch_seed(7, 2, 0, 1)), rng_idx=None)):
+        assert torch.equal(other[0], loss)
+        assert all(torch.equal(other[1][k], v) for k, v in sd.items())
+    assert not torch.equal(run(0, rng_idx=(2, 2))[0], loss)
+
+
+def test_img_idx_with_cache_equals_the_host_wire_format(dataset, model0):
+    cfg = WESUPConfig(**CFG)
+    host, _ = _host_batches(dataset, False, n=1)
+    dev, cache = _host_batches(dataset, True, n=1)
+    assert "img_idx" in dev[0] and "image" not in dev[0]
+    train = steps.make_train_step(cfg, (48, 64), point_mode=True,
+                                  device="cpu")
+    evaluate = steps.make_eval_step(cfg, (48, 64), device="cpu")
+    out = []
+    for batch, c in ((host[0], None), (dev[0], cache)):
+        model, opt = _fresh(model0, cfg)
+        pred, eacc = evaluate(model, steps.init_metric_acc(
+            steps.EVAL_METRIC_KEYS, device="cpu"), batch, cache=c)
+        acc = train(model, opt, steps.init_metric_acc(device="cpu"),
+                    dict(batch, rng_idx=(1, 0)), 11, cache=c)
+        out.append((pred, eacc["sums"], acc["sums"], model.state_dict()))
+    (p0, e0, a0, s0), (p1, e1, a1, s1) = out
+    assert torch.equal(p0, p1)
+    for k in a0:
+        assert torch.equal(a0[k], a1[k]), k
+    for k in e0:
+        assert torch.equal(e0[k], e1[k]), k
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+# ---------------------------------------------------------------------------
+# errors
+# ---------------------------------------------------------------------------
+
+def test_nan_abort_and_unported_metrics_raise(dataset, tmp_path,
+                                              monkeypatch):
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path))
+    trainer = initialize_trainer("wesup", device="cpu", **CFG)
+    with torch.no_grad():
+        trainer.model.classifier[0].bias.fill_(float("nan"))
+    with pytest.raises(ValueError, match="Loss is nan"):
+        trainer.train(dataset, epochs=1)
+    for metrics in ("object_dice", ("accuracy", "dice", "detection_f1")):
+        trainer = initialize_trainer("wesup", device="cpu", metrics=metrics,
+                                     **CFG)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            trainer.train(dataset, epochs=1)
+
+
+# ---------------------------------------------------------------------------
+# the slice against the JAX trainer
+# ---------------------------------------------------------------------------
+
+def test_one_epoch_matches_jax_trainer(jax_ckpt, dataset, tmp_path,
+                                       monkeypatch):
+    """One epoch of each trainer from one JAX checkpoint at ``lr=0``.
+
+    The weights do not move, so the val phase of both runs evaluates the
+    same weights on the same canvases (the datasets, loader and device
+    resize are bitwise equal, tests/test_torch_port_data.py).  A val
+    pixel's rounded prediction can then differ only (a) where SLIC gives
+    it another superpixel, which may happen to 1e-3 of the pixels
+    (tests/test_torch_port_ops.py::test_slic_seg_matches_jax; 0 measured
+    there), or (b) where its probability lies within the f32 forward limit
+    2e-4 of 0.5 (PERF.md §2).  The test asserts both empty on these
+    canvases, with JAX's SLIC and the port's on the val batches and the
+    port's probabilities, so every rounded prediction is the same and the
+    two packages' metrics are the same per-image means summed in f32 in
+    another order: they must agree to 1e-6."""
+    import jax.numpy as jnp
+    from wesup_tpu.ops.slic import slic as j_slic
+
+    jpath, _, _ = jax_ckpt
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "records"))
+    jt = j_init("wesup", lr=0.0, **CFG)
+    jt.train(dataset, epochs=1, checkpoint=str(_copy_ckpt(jpath,
+                                                          tmp_path / "j")))
+    pt = initialize_trainer("wesup", device="cpu", lr=0.0, **CFG)
+    pt.train(dataset, epochs=1, checkpoint=str(_copy_ckpt(jpath,
+                                                          tmp_path / "p")))
+    j_rows = _rows(jt.record_dir / "history.csv")
+    p_rows = _rows(pt.record_dir / "history.csv")
+    assert p_rows[0] == j_rows[0] and len(p_rows) == len(j_rows) == 2
+    got = dict(zip(p_rows[0], map(float, p_rows[1])))
+    want = dict(zip(j_rows[0], map(float, j_rows[1])))
+    assert got["lr"] == want["lr"] == 0.0
+
+    cfg = pt.config
+    spec = pt.dataloaders["val"].spec
+    for batch in pt.dataloaders["val"]:
+        image, valid, _ = steps._batch_inputs(
+            {k: torch.from_numpy(v) for k, v in batch.items()},
+            pt._resize_cache["val"], spec.height, spec.width)
+        img = image.to(torch.float32) / 255.0
+        seg = slic(img, valid, sp_area=cfg.sp_area,
+                   compactness=cfg.sp_compactness, n_iters=cfg.slic_iters,
+                   update_stride=cfg.slic_update_stride).numpy()
+        j_seg = jax.vmap(lambda i, v: j_slic(
+            i, v, sp_area=cfg.sp_area, compactness=cfg.sp_compactness,
+            n_iters=cfg.slic_iters, update_stride=cfg.slic_update_stride))(
+            jnp.asarray(img.numpy()), jnp.asarray(valid.numpy()))
+        assert np.array_equal(seg, np.asarray(j_seg))                  # (a)
+    val = t_datasets.SegmentationDataset(dataset / "val", rescale_factor=0.5,
+                                         train=False)
+    for i in range(len(val)):
+        probs = pt.predict_probs(val[i]["image"])
+        assert (np.abs(probs - 0.5) > 2e-4).all()                      # (b)
+    for key in ("val_accuracy", "val_dice"):
+        assert abs(got[key] - want[key]) <= 1e-6, (key, got[key], want[key])

@@ -9,6 +9,7 @@ stage pool and the fused stage-1 pool) are CUDA kernels (``csrc/*.cu``),
 built with ``nvcc`` on first use.
 
 Entry points (``inference.Predictor``, ``serve.create_server``,
+``train.fit`` and ``python -m wesup_tpu_torch.train``,
 ``models.steps.make_predict_step``/``make_scaled_predict_step``/
 ``make_train_step``/``make_eval_step``) run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no CUDA device and no device given they raise

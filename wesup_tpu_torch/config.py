@@ -120,11 +120,12 @@ class WESUPConfig(BaseConfig):
 
     # Where the per-epoch train/val resize runs.  "auto"/"on": ship the
     # full-resolution decode to the device ONCE per run and resize
-    # bit-exactly inside the jitted step (ops/train_resize.py — cv2's
-    # fixed-point algorithm on the MXU; histories stay byte-identical);
+    # bit-exactly inside the step (ops/train_resize.py — cv2's
+    # fixed-point algorithm as integer gathers; histories stay
+    # byte-identical);
     # "auto" falls back to the host path when the dataset can't be cached
     # losslessly (no masks / values beyond int8 / above the size cap).
-    # "off": always resize on host with cv2 (the round-4 behavior).
+    # "off": always resize on the host (the round-4 behavior).
     device_resize: str = "auto"
 
     # Fixed number of SLIC iterations on device (skimage default max_iter=10).
@@ -154,8 +155,7 @@ class WESUPConfig(BaseConfig):
     # (ops/cellgrid.py; kernels K1, K2), exact up to fp reassociation;
     # "adjoint" is the general form that needs no plan (kernels K5, K6; it
     # is what plan-less ``forward_superpixel`` callers get); "fullres" is the
-    # round-1 upsample-then-pool path (ablation baseline; kernel K5).  The
-    # port's train step takes only "local" so far.
+    # round-1 upsample-then-pool path (ablation baseline; kernel K5).
     pooling: str = "local"
 
     # Probability of the coarse-field elastic deformation in the

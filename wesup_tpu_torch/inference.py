@@ -60,6 +60,15 @@ class Predictor:
         self.mode = mode
         self._scaled_cache = {}
 
+    def predict_step(self, canvas_hw):
+        """The cached :func:`steps.make_predict_step` for a (H, W) canvas:
+        ``step(model, image, valid) -> (B, H, W)`` probabilities."""
+        key = ("predict", tuple(canvas_hw))
+        if key not in self._scaled_cache:
+            self._scaled_cache[key] = steps.make_predict_step(
+                self.config, canvas_hw, self.mode, device=self.device)
+        return self._scaled_cache[key]
+
     def _scaled_step(self, content_hw, target_hw, canvas_hw):
         key = (content_hw, target_hw, canvas_hw)
         if key not in self._scaled_cache:

@@ -21,7 +21,11 @@ JAX step takes params.  The train step updates the model and the optimizer
 IN PLACE (the JAX step returns new ones) and returns the metric
 accumulator.  Randomness comes from an explicit ``torch.Generator`` on the
 step's device: the augmentation parameters are drawn from it
-(:func:`sample_augmentation`) and then applied.
+(:func:`sample_augmentation`) and then applied.  The trainer's batches
+carry ``rng_idx`` (epoch, batch index) instead, and the step seeds the
+batch's generator from them (:func:`batch_seed`); device-resize batches
+carry ``img_idx`` and resize vectors, and the step builds their canvases
+from the cache it is given (``ops.train_resize``).
 
 The step factories run on ``cuda`` unless ``device`` says otherwise, and raise
 when no CUDA device is present and none was given.
@@ -31,9 +35,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import augment as aug
+from ..ops import train_resize
 from ..ops.resize import resize_bilinear, resize_nearest
 from ..ops.segments import superpixel_stats
 from ..ops.slic import make_plan, n_clusters, slic
@@ -346,20 +352,9 @@ def _extent_valid(content_hw, H, W):
                < ws[:, None, None]))
 
 
-_WIRE_LATER = {
-    "img_idx": "the device-resize cache (img_idx, ops/train_resize.py)",
-    "rng_idx": "the trainer's key-folding wire format (rng_idx)",
-}
-
-
 def _batch_valid_and_mask(batch, H, W):
     """(valid, int32 pixel_mask) from a batch in either wire format: an
     explicit (B, H, W) ``valid`` mask or (B, 2) ``content_hw`` extents."""
-    for key, what in _WIRE_LATER.items():
-        if key in batch:
-            raise NotImplementedError(
-                f"{what} is not ported yet: it comes with the port's slice 3 "
-                "(trainer and data layer)")
     if "content_hw" in batch:
         valid = _extent_valid(batch["content_hw"], H, W)
     else:
@@ -367,8 +362,84 @@ def _batch_valid_and_mask(batch, H, W):
     return valid, batch["pixel_mask"].to(torch.int32)
 
 
+def _batch_inputs(batch, cache, H, W):
+    """(image_u8, valid, pixel_mask) in any wire format.
+
+    A device-resize batch (``img_idx`` and the vectors of
+    ``ops.train_resize.resize_vectors``) materializes its uint8 canvas and
+    int mask HERE from ``cache``, bit for bit what the host path would have
+    sent; otherwise they come with the batch."""
+    if "img_idx" in batch:
+        if cache is None:
+            raise ValueError("a batch with img_idx needs the device-resize "
+                             "cache (cache=)")
+        image, pixel_mask = train_resize.apply_resize(cache, batch)
+        return image, _extent_valid(batch["content_hw"], H, W), pixel_mask
+    valid, pixel_mask = _batch_valid_and_mask(batch, H, W)
+    return batch["image"], valid, pixel_mask
+
+
 def _batch_on(batch, dev) -> dict:
-    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    """The batch's tensors on ``dev``; ``rng_idx`` stays on the host."""
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+            if k != "rng_idx"}
+
+
+# ---------------------------------------------------------------------------
+# Per-batch generators
+# ---------------------------------------------------------------------------
+
+PHASE_IDS = {"train": 0, "val": 1}
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def batch_seed(base_seed: int, epoch: int, phase: int, batch_idx: int) -> int:
+    """Seed of one batch's ``torch.Generator``: the base seed, then the
+    epoch, the phase (:data:`PHASE_IDS`) and the batch index, each xored
+    into the state and mixed by splitmix64; the top 63 bits.
+
+    The JAX package folds the same (epoch, phase, batch) into a threefry
+    key; torch cannot draw JAX's bits, so the port keeps the properties
+    instead: a batch's draws depend on nothing but these four integers
+    (not on how many batches another phase emitted), a resumed epoch
+    draws what the straight run drew, and the seed is host integer
+    arithmetic, with nothing read back from the device."""
+    s = _splitmix64(int(base_seed) & _MASK64)
+    for v in (epoch, phase, batch_idx):
+        s = _splitmix64(s ^ (int(v) & _MASK64))
+    return s >> 1
+
+
+def _rng_idx(value) -> tuple:
+    """(epoch, batch_idx) of a batch's ``rng_idx``: a host pair, or the
+    JAX wire format's (B, 2) rows (all equal)."""
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        raise ValueError("rng_idx must stay on the host: reading it back "
+                         "from the device would sync every batch")
+    pair = np.asarray(value).reshape(-1, 2)[0]
+    return int(pair[0]), int(pair[1])
+
+
+def batch_generator(rng, batch, phase: str, device) -> torch.Generator:
+    """The generator a step draws from.  With ``rng_idx`` in the batch,
+    ``rng`` is the int base seed and the batch's generator is seeded with
+    :func:`batch_seed`; without it, ``rng`` is that generator."""
+    if "rng_idx" not in batch:
+        return rng
+    if isinstance(rng, bool) or not isinstance(rng, (int, np.integer)):
+        raise TypeError(
+            f"a batch with rng_idx takes the int base seed as rng, not "
+            f"{type(rng).__name__}")
+    epoch, idx = _rng_idx(batch["rng_idx"])
+    seed = batch_seed(rng, epoch, PHASE_IDS[phase], idx)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def init_metric_acc(keys=TRAIN_METRIC_KEYS, device=None) -> dict:
@@ -410,16 +481,21 @@ def _train_metrics(out, losses, prep: Preprocessed) -> dict:
 def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
     """Train step for a (H, W) canvas.
 
-    Returns ``step(model, optimizer, acc, batch, generator, mark=None) ->
-    acc``.  It updates ``model`` and ``optimizer`` (from
+    Returns ``step(model, optimizer, acc, batch, rng, mark=None,
+    cache=None) -> acc``.  It updates ``model`` and ``optimizer`` (from
     :func:`make_optimizer`) in place and returns the new metric
     accumulator (:func:`init_metric_acc`); nothing leaves the device.
     ``batch`` holds ``image`` (B, H, W, 3) uint8, ``valid`` (B, H, W) bool
     or ``content_hw`` (B, 2), ``pixel_mask`` (B, H, W) int (-1 where
     unannotated), ``points`` (B, P, 3) xy-class, ``point_valid`` (B, P),
-    ``use_mask_as_points`` (B,) and ``sample_valid`` (B,).  ``generator``
-    is a ``torch.Generator`` on the step's device, from which the batch's
-    augmentation is drawn.  ``mark(name)`` is called after each phase:
+    ``use_mask_as_points`` (B,) and ``sample_valid`` (B,); in the
+    device-resize wire format ``img_idx`` and the resize vectors take the
+    place of ``image`` and ``pixel_mask``, and ``cache`` holds the
+    dataset's full-resolution tensors (``ops.train_resize``).  ``rng`` is a
+    ``torch.Generator`` on the step's device, from which the batch's
+    augmentation is drawn, or, when the batch carries ``rng_idx`` (epoch,
+    batch index; host integers), the int base seed of
+    :func:`batch_generator`.  ``mark(name)`` is called after each phase:
     augment, slic, forward, loss, backward, optimizer.
     """
     dev = resolve_device(device)
@@ -427,16 +503,17 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
     K = n_clusters(H, W, config.sp_area)
     plan = make_plan(H, W, config.sp_area)
 
-    def step(model, optimizer, acc, batch, generator, mark=None):
+    def step(model, optimizer, acc, batch, rng, mark=None, cache=None):
         _check_model(model, dev)
         mark = mark or (lambda name: None)
+        generator = batch_generator(rng, batch, "train", dev)
         b = _batch_on(batch, dev)
-        valid, pixel_mask = _batch_valid_and_mask(b, H, W)
+        image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
         B = b["sample_valid"].shape[0]
         params = sample_augmentation(config, B, (H, W), point_mode,
                                      generator, dev)
         prep = _preprocess_sample(
-            params, b["image"], valid, pixel_mask, b["points"],
+            params, image, valid, pixel_mask, b["points"],
             b["point_valid"], b["use_mask_as_points"], config=config,
             train=True, point_mode=point_mode, mark=mark)
 
@@ -457,9 +534,11 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
 def make_eval_step(config, canvas_hw, device=None):
     """Validation step: no augmentation, no gradients.
 
-    Returns ``step(model, acc, batch) -> (pred, acc)`` with ``pred`` the
-    (B, H, W) f32 foreground probability and ``acc`` the accumulator of
-    :data:`EVAL_METRIC_KEYS`; ``batch`` as for :func:`make_train_step`."""
+    Returns ``step(model, acc, batch, cache=None) -> (pred, acc)`` with
+    ``pred`` the (B, H, W) f32 foreground probability and ``acc`` the
+    accumulator of :data:`EVAL_METRIC_KEYS`; ``batch`` and ``cache`` as for
+    :func:`make_train_step` (an ``rng_idx`` is accepted and unused: the
+    step draws nothing)."""
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
     K = n_clusters(H, W, config.sp_area)
@@ -467,12 +546,12 @@ def make_eval_step(config, canvas_hw, device=None):
     cdtype = _compute_dtype(config)
 
     @torch.inference_mode()
-    def step(model, acc, batch):
+    def step(model, acc, batch, cache=None):
         _check_model(model, dev)
         b = _batch_on(batch, dev)
-        valid, pixel_mask = _batch_valid_and_mask(b, H, W)
+        image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
         prep = _preprocess_sample(
-            None, b["image"], valid, pixel_mask, b["points"],
+            None, image, valid, pixel_mask, b["points"],
             b["point_valid"], b["use_mask_as_points"], config=config,
             train=False, point_mode=False)
         out = wesup.forward_superpixel(model, prep.image, prep.seg, K,

@@ -17,9 +17,7 @@ API:
 
 from __future__ import annotations
 
-import ast
 import json
-import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -28,6 +26,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from . import cli
 from .config import WESUPConfig, merge_config
 from .inference import Predictor, predict_multiscale
 from .models.convert import load_state_dict_file
@@ -143,22 +142,10 @@ def create_server(checkpoint=None, port=8700, mode="superpixel",
     return server
 
 
-def _parse_value(text: str):
-    try:
-        return ast.literal_eval(text)
-    except (ValueError, SyntaxError):
-        if "," in text:
-            return tuple(_parse_value(p) for p in text.split(",") if p)
-        return text
-
-
 def main(argv=None):
     """``key=value`` arguments, as the repository's fire-style CLIs take."""
-    kwargs = {}
-    for token in (sys.argv[1:] if argv is None else argv):
-        key, _, val = token.lstrip("-").partition("=")
-        kwargs[key.replace("-", "_")] = _parse_value(val) if val else True
-    server = create_server(**kwargs)
+    args, kwargs = cli.parse_argv(argv)
+    server = create_server(*args, **kwargs)
     print(f"[serve] listening on :{server.server_port} "
           f"(device={server.state.device})")
     server.serve_forever()

@@ -67,7 +67,23 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    device resize's time and its bitwise equality with the CPU, launches
    per train step (K1-K4), device busy share over epoch 3 (the trainer's
    ``profile_dir`` trace), peak memory; one bucketed train step's K1-K4
-   outputs against their plain versions on the step's own inputs.
+   outputs against their plain versions on the step's own inputs;
+12. the pixel head and inference: the f32 pixel forward on the card
+   against the CPU (full width, 2x96x128); ``make_predict_step(...,
+   "pixel")`` at B=8 on the 288x416 canvas in bf16, with no kernel launched
+   per step, and under ``WESUP_FUSED_POOL1=1`` with K7 once (on the step's
+   own input bitwise its plain version; the probabilities within 3e-2 of
+   the ungated step's), step times in two rounds, img/s, peak memory,
+   breakdowns (backbone, proj, upsample, head) and the device busy share;
+   the five CLIs (``test_glas`` at its five scales, ``infer_tile`` at
+   patch 464, ``pixel_infer`` at 0.5, ``pixel_infer_tile`` at patch 400)
+   from a random-weight ``.pth`` on a synthetic GlaS-shaped test set
+   (testA and testB of 8 522x775 BMPs each, made from ``--seed``): every
+   mask written with the right name, format and shape in {0, 255}, ms per
+   image, K1 once and K2 four times per superpixel forward (the first
+   forward's K1/K2 held against their plain versions on its inputs) and no
+   kernel in the pixel CLIs; ``POST /predict`` of a PNG to a superpixel and
+   a pixel server, which must answer with masks (and a JPEG with 400).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -87,6 +103,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 from unittest import mock
@@ -1273,6 +1290,23 @@ def adjoint_train_phase(torch, card, seg_m, gen) -> list:
 GLAS_SPLITS = {"train": 85, "val": 8}
 
 
+def glas_image(rng):
+    """One synthetic 522x775 GlaS-like (RGB image, gland mask), drawn from
+    ``rng``: 4-8 elliptic glands, purple on pink, with noise."""
+    H, W = GLAS_HW
+    yy, xx = np.mgrid[:H, :W]
+    mask = np.zeros((H, W), np.uint8)
+    for _ in range(int(rng.integers(4, 9))):
+        cy, cx = rng.integers(0, H), rng.integers(0, W)
+        ry, rx = rng.integers(30, 90, 2)
+        mask[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = 1
+    tone = np.where(mask[..., None] == 1, rng.normal([160, 110, 170], 8),
+                    rng.normal([225, 205, 220], 6))
+    img = np.clip(tone + rng.normal(0, 12, (H, W, 3)), 0, 255).astype(
+        np.uint8)
+    return img, mask
+
+
 def write_glas_dataset(root: Path, seed: int) -> None:
     """A synthetic GlaS-shaped dataset under ``root``: 522x775 RGB PNGs
     (their rows cycle through the five PNG filters), gland masks, and
@@ -1281,23 +1315,13 @@ def write_glas_dataset(root: Path, seed: int) -> None:
     from wesup_tpu_torch.data.codec import write_png
 
     rng = np.random.default_rng(seed)
-    H, W = GLAS_HW
-    yy, xx = np.mgrid[:H, :W]
     for split, n in GLAS_SPLITS.items():
         dirs = {d: root / split / d for d in ("images", "masks", "points")}
         for d, path in dirs.items():
             if d != "points" or split == "train":
                 path.mkdir(parents=True)
         for i in range(n):
-            mask = np.zeros((H, W), np.uint8)
-            for _ in range(int(rng.integers(4, 9))):
-                cy, cx = rng.integers(0, H), rng.integers(0, W)
-                ry, rx = rng.integers(30, 90, 2)
-                mask[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = 1
-            tone = np.where(mask[..., None] == 1, rng.normal(
-                [160, 110, 170], 8), rng.normal([225, 205, 220], 6))
-            img = np.clip(tone + rng.normal(0, 12, (H, W, 3)), 0,
-                          255).astype(np.uint8)
+            img, mask = glas_image(rng)
             name = f"{split}_{i:02d}"
             write_png(dirs["images"] / f"{name}.png", img)
             write_png(dirs["masks"] / f"{name}.png", mask)
@@ -1623,6 +1647,325 @@ def trainer_phase(torch, card, seed) -> None:
     log(f"[{tag}] phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# GlaS-shaped synthetic test set for phase 12: GlaS's testA (60 images)
+# and testB (20) cut to 8 each, at its 522x775 size, BMP as GlaS ships them
+GLAS_TEST = {"testA": 8, "testB": 8}
+GLAS_SCALES = (0.6, 0.55, 0.5, 0.45, 0.4)
+
+
+def write_glas_test_set(root: Path, seed: int) -> None:
+    """``testA/images`` and ``testB/images`` of 522x775 BMPs under
+    ``root``, made with numpy from ``seed``."""
+    from wesup_tpu_torch.data.codec import write_bmp
+
+    rng = np.random.default_rng(seed)
+    for split, n in GLAS_TEST.items():
+        (root / split / "images").mkdir(parents=True)
+        for i in range(n):
+            write_bmp(root / split / "images" / f"{split}_{i:02d}.bmp",
+                      glas_image(rng)[0])
+
+
+@contextlib.contextmanager
+def recorded(module, attr, limit):
+    """Record (args, output) of the first ``limit`` calls of
+    ``module.attr`` in the block (later calls run unrecorded)."""
+    calls = []
+    real = getattr(module, attr)
+
+    def run(*args):
+        out = real(*args)
+        if len(calls) < limit:
+            calls.append((args, out))
+        return out
+
+    with mock.patch.object(module, attr, new=run):
+        yield calls
+
+
+def hold_pool_kernels(torch, k1_calls, k2_calls, tag) -> None:
+    """K1 and K2 as a forward called them, against their plain versions
+    on the same inputs, with phases 2-3's limits."""
+    from wesup_tpu_torch.ops import cellpool as cp
+
+    if len(k1_calls) != 1 or len(k2_calls) != 4:
+        fail(f"{tag}: recorded {len(k1_calls)} K1 and {len(k2_calls)} K2 "
+             "calls of one forward")
+    errs = []
+    for (args, got), plain, rel in (
+            [(c, cp.cell_pool0_plain, 0.02) for c in k1_calls]
+            + [(c, cp.cell_pool_stage_plain, 1e-4) for c in k2_calls]):
+        want = plain(*args)
+        err = (got - want).abs().max().item()
+        lim = rel * (want.abs().max().item() if plain is cp.cell_pool0_plain
+                     else max(1.0, want.abs().max().item()))
+        if not err <= lim:
+            fail(f"{tag}: {plain.__name__} disagrees on the forward's own "
+                 f"inputs ({tuple(args[2].shape)}): {err:.3e} > {lim:.3e}")
+        errs.append(f"{tuple(args[2].shape)} {err:.3e}")
+    log(f"[{tag}] the first forward's K1 and K2 against their plain "
+        "versions on its own inputs (limits of phases 2-3): max_abs_err "
+        + ", ".join(errs))
+
+
+def post(url, body: bytes):
+    """(status, reply bytes, seconds, the server's X-Inference-Seconds or
+    None) of ``POST url`` with ``body``."""
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            reply = resp.read()
+            return (resp.status, reply, time.perf_counter() - t0,
+                    resp.headers.get("X-Inference-Seconds"))
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0, None
+
+
+def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
+    """Phase 12: the pixel head, the five inference CLIs on a synthetic
+    GlaS-shaped test set made from ``seed``, and ``POST /predict`` to a
+    superpixel and a pixel server."""
+    import tempfile
+
+    from wesup_tpu_torch import (infer_tile, pixel_infer, pixel_infer_tile,
+                                 test_glas)
+    from wesup_tpu_torch.config import WESUPConfig
+    from wesup_tpu_torch.data import codec
+    from wesup_tpu_torch.models import initialize_trainer, steps, wesup
+    from wesup_tpu_torch.ops import cellpool, launch_counts, pool, \
+        reset_launches
+    from wesup_tpu_torch.serve import create_server
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    H, W = CANVAS
+
+    # ---- 12a. f32 pixel forward: card vs CPU -----------------------------
+    prng = np.random.default_rng(seed)
+    pimg = torch.from_numpy(prng.random((2, 96, 128, 3), dtype=np.float32))
+    model_cpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).eval()
+    model_gpu = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(
+        dev).eval()
+    with torch.inference_mode():
+        ref = wesup.forward_pixel(model_cpu, pimg)
+        reset_launches()
+        out = wesup.forward_pixel(model_gpu, pimg.to(dev))
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    err = (out.cpu() - ref).abs().max().item()
+    log(f"[pixel f32 2x96x128] probabilities: max_abs_err {err:.3e} (limit "
+        f"2e-4); launches {({k: v for k, v in counts.items() if v})}")
+    if not (tuple(out.shape) == (2, 96, 128, 2) and err <= 2e-4):
+        fail("the f32 pixel forward on the card disagrees with the CPU")
+    if counts != expected({}):
+        fail(f"the pixel forward launched {counts}")
+    del model_cpu, model_gpu, ref, out
+
+    # ---- 12b. the pixel predict step at full width -----------------------
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(
+        dev).eval()
+    imgs_dev = torch.from_numpy(imgs_u8).to(dev)
+    step = steps.make_predict_step(WESUPConfig(), CANVAS, "pixel")
+    gated = make_gated(step, True)
+    for run in (step, gated):
+        for _ in range(2):
+            run(model, imgs_dev, valid)
+    probs, peaks = {}, {}
+    for label, run, launches in (
+            ("pixel", step, {}),
+            ("pixel, WESUP_FUSED_POOL1=1", gated,
+             {"fused_relu_pool_pad": 1})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with recorded(pool, "_kernel", 1) as k7_calls:
+            prob = run(model, imgs_dev, valid)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[step {label}] launches in one step: "
+            + str({k: v for k, v in counts.items() if v})
+            + f"; peak {peaks[label]:.2f} GiB")
+        if counts != expected(launches):
+            fail(f"the {label} predict step launched {counts}")
+        if not (tuple(prob.shape) == (BATCH,) + CANVAS
+                and torch.isfinite(prob).all() and prob.min() >= 0
+                and prob.max() <= 1):
+            fail(f"the {label} step's probabilities are not finite in "
+                 "[0, 1]")
+        probs[label] = prob
+        for (pre, oc), got in k7_calls:
+            want = pool.reference(pre, oc)
+            log(f"[step {label}] K7 on the step's own input "
+                f"{tuple(pre.shape)}: equal to its plain version "
+                f"{torch.equal(got, want)}")
+            if not torch.equal(got, want):
+                fail("K7 disagrees with its plain version in the pixel step")
+    err = (probs["pixel"] - probs["pixel, WESUP_FUSED_POOL1=1"]).abs().max()
+    log(f"[step pixel] gated against ungated probabilities: max_abs_err "
+        f"{err.item():.3e} (bf16 limit 3e-2)")
+    if not err.item() <= 3e-2:
+        fail("the gated pixel step disagrees with the ungated one")
+    del probs, prob
+    # two rounds in turns (ungated, gated, gated, ungated) on one card
+    fns = {"pixel": step, "pixel, WESUP_FUSED_POOL1=1": gated}
+    times = {label: [] for label in fns}
+    for order in (list(fns), list(reversed(fns))):
+        for label in order:
+            times[label].append(step_times(
+                torch, lambda: fns[label](model, imgs_dev, valid)))
+    for label, rounds in times.items():
+        ms = statistics.mean(r[0] for r in rounds)
+        log(f"[step {label}] {' / '.join(f'{m:.3f}' for m, _, _ in rounds)} "
+            f"ms/step (median of 25, two rounds; min "
+            f"{min(r[1] for r in rounds):.3f} max "
+            f"{max(r[2] for r in rounds):.3f}), {BATCH / ms * 1e3:.2f} img/s "
+            f"(B={BATCH}, {H}x{W}, bf16; peak {peaks[label]:.2f} GiB; "
+            f"{card})")
+    for label, run in fns.items():
+        parts = breakdown(torch, lambda mark: run(model, imgs_dev, valid,
+                                                  mark=mark))
+        log(f"[step {label}] breakdown (median ms of 10 marked steps): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.3f}")
+        profile_steps(torch, lambda: run(model, imgs_dev, valid), top=6,
+                      tag=f"profile {label}")
+    del model, step, gated, fns
+    torch.cuda.empty_cache()
+
+    # ---- 12c. the five CLIs on a GlaS-shaped test set --------------------
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase12_")
+    root = Path(tmp.name)
+    data = root / "glas"
+    write_glas_test_set(data, seed)
+    ckpt = root / "rec" / "checkpoints" / "ckpt.0001.pth"
+    initialize_trainer("wesup", seed=seed).save_checkpoint(ckpt, epoch=1)
+    names = {split: sorted(p.name for p in (data / split / "images").iterdir())
+             for split in GLAS_TEST}
+    tile_dir = root / "tile"
+
+    def check_masks(out_dir, want_names, magic):
+        got = sorted(p.name for p in out_dir.iterdir())
+        if got != want_names:
+            fail(f"{out_dir.name}: wrote {got[:3]}..., expected "
+                 f"{want_names[:3]}...")
+        for name in got:
+            body = (out_dir / name).read_bytes()
+            mask = codec.decode(body, gray=True, name=name)
+            if not (body.startswith(magic) and mask.shape == GLAS_HW
+                    and set(np.unique(mask).tolist()) <= {0, 255}):
+                fail(f"{out_dir / name}: {body[:4]!r}, {mask.shape}, "
+                     f"values {np.unique(mask)[:4]}")
+
+    def stems_png(split):
+        return sorted(Path(n).stem + ".png" for n in names[split])
+
+    clis = [
+        ("test_glas, 5 scales", True, lambda: test_glas.test(
+            ckpt, scales=GLAS_SCALES, data_root=data),
+         [(root / "rec" / "results-5scale" / split, stems_png(split),
+           b"\x89PNG") for split in GLAS_TEST]),
+        ("infer_tile, patch 464", True, lambda: infer_tile.main(
+            str(data / "testA"), patch_size=464, checkpoint=str(ckpt),
+            output_dir=str(tile_dir)),
+         [(tile_dir, names["testA"], b"BM")]),
+        ("pixel_infer, scale 0.5", False, lambda: pixel_infer.main(
+            str(data / "testA"), checkpoint=str(ckpt), scales=0.5),
+         [(root / "rec" / "results-pixel-0.5" / "testA", names["testA"],
+           b"BM")]),
+        ("pixel_infer_tile, patch 400", False, lambda: pixel_infer_tile.main(
+            str(data / "testA"), checkpoint=str(ckpt), patch_size=400),
+         [(root / "rec" / "results-pixel-tile-400" / "testA",
+           names["testA"], b"BM")]),
+    ]
+    for label, superpixel, run, outputs in clis:
+        forward = "forward_superpixel" if superpixel else "forward_pixel"
+        n_images = sum(len(o[1]) for o in outputs)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(wesup, forward,
+                               wraps=getattr(wesup, forward)) as fwd, \
+                recorded(cellpool, "_pool0_fwd", 1) as k1_calls, \
+                recorded(cellpool, "_stage_fwd", 4) as k2_calls:
+            run()
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = launch_counts()
+        n = fwd.call_count
+        want = ({"cell_pool0": n, "cell_pool_stage": 4 * n} if superpixel
+                else {})
+        log(f"[cli {label}] {n_images} masks in {sec:.2f} s, "
+            f"{sec * 1e3 / n_images:.1f} ms per 522x775 image (wall: "
+            f"decode, predict, write); {n} forwards, launches "
+            + str({k: v for k, v in counts.items() if v})
+            + (f" = K1 {counts['cell_pool0'] / max(n, 1):g} and K2 "
+               f"{counts['cell_pool_stage'] / max(n, 1):g} per forward"
+               if superpixel else "")
+            + f"; {card}")
+        if n == 0 or counts != expected(want):
+            fail(f"{label}: {n} forwards launched {counts}")
+        for out_dir, want_names, magic in outputs:
+            check_masks(out_dir, want_names, magic)
+        if superpixel:
+            hold_pool_kernels(torch, k1_calls, k2_calls, f"cli {label}")
+        del k1_calls, k2_calls
+
+    # ---- 12d. POST /predict to a superpixel and a pixel server -----------
+    # the same image as a PNG (decoded by the numpy PNG decoder) and as a
+    # BMP (a copy); the server's X-Inference-Seconds is its predict alone
+    request_img = codec.imread_rgb(data / "testA" / "images"
+                                   / names["testA"][0])
+    bodies = {"PNG": codec.encode_png(request_img),
+              "BMP": codec.encode_bmp(request_img)}
+    for mode, per_request in (("superpixel", {"cell_pool0": 1,
+                                              "cell_pool_stage": 4}),
+                              ("pixel", {})):
+        server = create_server(port=0, host="127.0.0.1", mode=mode,
+                               seed=seed)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_port}/predict"
+            reset_launches()
+            replies = {kind: [post(url, body) for _ in range(3)]
+                       for kind, body in bodies.items()}
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            bad = post(url, b"\xff\xd8\xff\xe0 a JPEG")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        n_requests = 0
+        for kind, kind_replies in replies.items():
+            for status, reply, _, _ in kind_replies:
+                mask = (codec.decode(reply, gray=True) if status == 200
+                        else np.zeros(0))
+                if not (status == 200 and mask.shape == GLAS_HW
+                        and set(np.unique(mask).tolist()) <= {0, 255}):
+                    fail(f"POST /predict ({mode}, {kind}): {status} "
+                         f"{reply[:200]!r}")
+                n_requests += 1
+            log(f"[serve {mode}] POST /predict of a 522x775 {kind} (scale "
+                f"0.5): {len(kind_replies)} masks {GLAS_HW[0]}x{GLAS_HW[1]} "
+                "in {0, 255}; latency ms (the server's predict ms) "
+                + ", ".join(f"{r[2] * 1e3:.1f} ({float(r[3]) * 1e3:.0f})"
+                            for r in kind_replies) + f"; {card}")
+        log(f"[serve {mode}] launches over {n_requests} requests "
+            + str({k: v for k, v in counts.items() if v})
+            + f"; a JPEG body: {bad[0]}")
+        if counts != expected({k: v * n_requests
+                               for k, v in per_request.items()}):
+            fail(f"the {mode} server launched {counts}")
+        if bad[0] != 400:
+            fail(f"the {mode} server answered a JPEG with {bad[0]}")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[pixel] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -1644,8 +1987,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=11,
-                        help="seed of phase 11's synthetic dataset, weights "
-                             "and shuffles")
+                        help="seed of phases 11-12's synthetic datasets, "
+                             "weights and shuffles")
     args = parser.parse_args(argv)
     import torch
 
@@ -1929,6 +2272,9 @@ def main(argv=None) -> int:
 
     # ---- 11. training from a dataset directory ---------------------------
     trainer_phase(torch, card, args.seed)
+
+    # ---- 12. the pixel head, the inference CLIs and /predict -------------
+    inference_phase(torch, card, imgs_u8, valid, args.seed)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

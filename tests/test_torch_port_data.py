@@ -3,7 +3,9 @@
 - ``data/codec.py`` decodes byte-equal to ``cv2.imread`` (colour, then
   BGR -> RGB, and grayscale) on PNGs that cv2 writes, on PNGs that
   ``write_png`` writes with each row filter, on palette and gray + alpha
-  PNGs, and on BMPs that cv2 and numpy write;
+  PNGs, and on BMPs that cv2 and numpy write; its PNG and BMP encoders
+  give files that cv2 reads back as the image (the BMP byte-equal to
+  cv2's), and ``imwrite`` picks the format from the suffix;
 - ``ops/train_resize.py`` is bitwise equal to ``cv2.resize`` (INTER_LINEAR
   on uint8, INTER_NEAREST on masks) and, as ``apply_resize``, to the JAX
   package's ``apply_resize`` and to ``place_on_canvas`` of the cv2 resize;
@@ -154,6 +156,41 @@ def test_codec_refuses_what_it_cannot_decode(tmp_path):
     with pytest.raises(FileNotFoundError):
         codec.imread_rgb(tmp_path / "missing.png")
     assert codec.image_size(tmp_path / "a.jpg") is None
+
+
+@pytest.mark.parametrize("hw", [(37, 53), (1, 1), (6, 8)])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_codec_encodes_like_cv2(hw, channels):
+    """encode_png and encode_bmp decode under cv2.imread to the image they
+    were given (colour as RGB); the BMP's bytes are cv2.imwrite's."""
+    img = _image(seed=4, hw=hw) if min(hw) > 8 else np.random.default_rng(
+        4).integers(0, 256, hw + (3,), np.uint8)
+    arr = img[..., 0] if channels == 1 else img
+    as_cv2 = arr if channels == 1 else cv2.cvtColor(arr, cv2.COLOR_RGB2BGR)
+    for data in (codec.encode_png(arr), codec.encode_bmp(arr)):
+        got = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(got, as_cv2)
+        np.testing.assert_array_equal(codec.decode(data, gray=channels == 1),
+                                      arr)
+    assert codec.encode_bmp(arr) == cv2.imencode(".bmp", as_cv2)[1].tobytes()
+
+
+def test_imwrite_picks_the_format_from_the_suffix(tmp_path):
+    mask = (_image(seed=5)[..., 0] > 127).astype(np.uint8) * 255
+    for name, magic in (("m.png", b"\x89PNG"), ("m.bmp", b"BM"),
+                        ("M.BMP", b"BM"), ("m.PNG", b"\x89PNG")):
+        codec.imwrite(tmp_path / name, mask)
+        assert (tmp_path / name).read_bytes()[:len(magic)] == magic
+        np.testing.assert_array_equal(
+            cv2.imread(str(tmp_path / name), cv2.IMREAD_GRAYSCALE), mask)
+    for name in ("m.jpg", "m.tif", "m"):
+        with pytest.raises(ValueError, match="only .png and .bmp"):
+            codec.imwrite(tmp_path / name, mask)
+        assert not (tmp_path / name).exists()
+    with pytest.raises(ValueError, match="uint8"):
+        codec.encode_bmp(mask.astype(np.int32))
+    with pytest.raises(ValueError, match="corrupt or truncated"):
+        codec.decode(codec.encode_bmp(mask)[:20], name="cut")
 
 
 # ---------------------------------------------------------------------------

@@ -213,11 +213,75 @@ def test_server_errors(server):
     assert _request(server + "/nope")[0] == 404
 
 
+_NO_CV2_SERVER = """
+import sys, threading, urllib.error, urllib.request
+sys.modules["cv2"] = None            # any import of OpenCV now fails
+import numpy as np
+from wesup_tpu_torch import serve
+from wesup_tpu_torch.data import codec
+
+def post(url, data):
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=data, method="POST"), timeout=120) as resp:
+            return resp.status, resp.read(), resp.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers["Content-Type"]
+
+img = np.random.default_rng(0).integers(0, 255, (40, 56, 3)).astype(np.uint8)
+for mode in ("superpixel", "pixel"):
+    srv = serve.create_server(port=0, host="127.0.0.1", device="cpu",
+                              mode=mode, scales=(0.5,), slic_iters=2,
+                              sp_area=100, compute_dtype="float32",
+                              fc_width=32)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_port}/predict"
+    try:
+        for body in (codec.encode_png(img), codec.encode_bmp(img),
+                     codec.encode_bmp(img[..., 0])):
+            status, reply, kind = post(url, body)
+            assert status == 200 and kind == "image/png", (status, reply)
+            mask = codec.decode(reply, gray=True)
+            assert mask.shape == (40, 56), mask.shape
+            assert set(np.unique(mask)) <= {0, 255}
+            print(mode, "ok")
+        status, reply, _ = post(url, b"\\xff\\xd8\\xff\\xe0 JPEG")
+        assert status == 400 and b"ROADMAP" in reply, (status, reply)
+        status, reply, _ = post(url, codec.encode_png(img)[:40])
+        assert status == 400 and b"request body" in reply, (status, reply)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+assert "cv2" not in [m for m in sys.modules if sys.modules[m] is not None]
+"""
+
+
+def test_server_answers_without_opencv():
+    """POST /predict in superpixel and pixel mode, with OpenCV blocked: the
+    server decodes PNG and BMP and encodes the mask with ``data/codec.py``,
+    and answers 400 with the codec's message for a JPEG or a truncated
+    PNG."""
+    out = subprocess.run([sys.executable, "-c", _NO_CV2_SERVER], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("superpixel ok") == 3
+    assert out.stdout.count("pixel ok") == 6
+
+
 # ---------------------------------------------------------------------------
 # rules of the package
 # ---------------------------------------------------------------------------
 
+CLI_MODULES = ("infer", "infer_tile", "pixel_infer", "pixel_infer_tile",
+               "test_glas", "serve", "train")
+
+
 def test_port_imports_no_jax():
+    """Every module of the port (the CLIs among them) and chip_smoke.py
+    import neither jax, ``wesup_tpu`` nor OpenCV, and no source file of the
+    port imports cv2, even inside a function."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import wesup_tpu_torch\n"
@@ -226,14 +290,24 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'wesup_tpu' or m.startswith('wesup_tpu.')]\n"
+        " or m == 'wesup_tpu' or m.startswith('wesup_tpu.')"
+        " or m == 'cv2' or m.startswith('cv2.')]\n"
         "assert not bad, bad\n"
+        f"missing = [n for n in {CLI_MODULES!r}"
+        " if 'wesup_tpu_torch.' + n not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('wesup_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 20
+    import re
+
+    cv2_import = re.compile(r"^\s*(import\s+cv2|from\s+cv2\b)", re.M)
+    sources = list((REPO / "wesup_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    assert not [str(f) for f in sources if cv2_import.search(f.read_text())]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, weights):
@@ -241,23 +315,36 @@ def test_entry_points_raise_without_cuda(monkeypatch, weights):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = WESUPConfig()
     for device in (None, "cuda"):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            steps.make_predict_step(cfg, (64, 160), "superpixel", device)
-        with pytest.raises(RuntimeError, match="CUDA"):
-            steps.make_scaled_predict_step(cfg, (50, 70), (25, 35), (64, 96),
-                                           "superpixel", device)
-        with pytest.raises(RuntimeError, match="CUDA"):
-            Predictor(model, cfg, device=device)
+        for mode in ("superpixel", "pixel"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                steps.make_predict_step(cfg, (64, 160), mode, device)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                steps.make_scaled_predict_step(cfg, (50, 70), (25, 35),
+                                               (64, 96), mode, device)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                Predictor(model, cfg, mode=mode, device=device)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.create_server(port=0, host="127.0.0.1", fc_width=8)
 
 
 def test_pixel_mode_is_a_later_slice(weights):
+    """The pixel mode, once refused, is taken by every entry point (its
+    parity with JAX is tests/test_torch_port_infer.py's); an unknown mode
+    raises ``ValueError``."""
     _, model = weights
-    with pytest.raises(NotImplementedError, match="slice"):
-        steps.make_predict_step(WESUPConfig(), (64, 160), "pixel", "cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        Predictor(model, WESUPConfig(), mode="pixel", device="cpu")
+    step = steps.make_predict_step(WESUPConfig(compute_dtype="float32"),
+                                   (32, 48), "pixel", "cpu")
+    prob = step(model, np.zeros((1, 32, 48, 3), np.uint8),
+                np.ones((1, 32, 48), bool))
+    assert prob.shape == (1, 32, 48) and torch.isfinite(prob).all()
+    assert Predictor(model, WESUPConfig(), mode="pixel",
+                     device="cpu").mode == "pixel"
+    for make in (lambda: steps.make_predict_step(WESUPConfig(), (64, 160),
+                                                 "patch", "cpu"),
+                 lambda: Predictor(model, WESUPConfig(), mode="patch",
+                                   device="cpu")):
+        with pytest.raises(ValueError, match="unknown predict mode"):
+            make()
 
 
 def test_step_rejects_model_on_other_device(weights):

@@ -8,10 +8,13 @@ kernels and their backward bodies, the general segment sum, the adjoint
 stage pool and the fused stage-1 pool) are CUDA kernels (``csrc/*.cu``),
 built with ``nvcc`` on first use.
 
-Entry points (``inference.Predictor``, ``serve.create_server``,
-``train.fit`` and ``python -m wesup_tpu_torch.train``,
-``models.steps.make_predict_step``/``make_scaled_predict_step``/
-``make_train_step``/``make_eval_step``) run on ``cuda`` unless the caller
+Entry points (``inference.Predictor`` and ``predict_*``,
+``serve.create_server``, ``train.fit`` and ``python -m
+wesup_tpu_torch.train``, the inference CLIs ``python -m
+wesup_tpu_torch.{infer,infer_tile,pixel_infer,pixel_infer_tile,
+test_glas}``, ``models.steps.make_predict_step``/
+``make_scaled_predict_step``/``make_train_step``/``make_eval_step``) run
+on ``cuda`` unless the caller
 passes ``device="cpu"``; with no CUDA device and no device given they raise
 instead of falling back to the CPU.
 """

@@ -20,8 +20,14 @@ BMP) raises ``ValueError`` naming the file: JPEG decode waits for ROADMAP
 Queue 1 item 12.  There is one route on every machine, whether OpenCV is
 installed or not.
 
-:func:`write_png` writes 8-bit gray, RGB and RGBA PNGs with a chosen row
-filter (by default the five filters in turn), for synthetic datasets.
+Encoding, for synthetic datasets and for the masks that the inference
+entry points and the server write: :func:`encode_png` (8-bit gray, RGB and
+RGBA, with a chosen row filter, by default the five filters in turn) and
+:func:`encode_bmp` (uncompressed 8-bit gray with a 256-entry gray palette,
+or 24-bit colour, laid out byte for byte as ``cv2.imwrite`` writes them).
+:func:`imwrite` picks the format from the file's suffix, as ``cv2.imwrite``
+does.  Colour images are RGB throughout, as :func:`imread_rgb` returns
+them.
 """
 
 from __future__ import annotations
@@ -168,7 +174,18 @@ def _decode_bmp(data: bytes, name: str, gray: bool) -> np.ndarray:
 
 def decode(data: bytes, gray: bool = False, name: str = "<bytes>"):
     """(H, W, 3) RGB uint8, or (H, W) uint8 with ``gray``; ``cv2.imdecode``
-    with ``IMREAD_COLOR`` (then BGR -> RGB) or ``IMREAD_GRAYSCALE``."""
+    with ``IMREAD_COLOR`` (then BGR -> RGB) or ``IMREAD_GRAYSCALE``.
+
+    Raises ``ValueError`` naming ``name`` for anything it cannot decode,
+    a PNG or BMP whose fields run past its bytes included."""
+    try:
+        return _decode(bytes(data), gray, name)
+    except (struct.error, zlib.error, IndexError) as ex:
+        raise ValueError(f"{name}: corrupt or truncated image data "
+                         f"({ex})") from ex
+
+
+def _decode(data: bytes, gray: bool, name: str):
     if data[:8] == _PNG_SIG:
         pix, ctype = _decode_png(data, name)
         if ctype in (0, 4):                       # gray, gray + alpha
@@ -219,15 +236,13 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write_png(path, image: np.ndarray, row_filter: int | None = None) -> None:
-    """Write an 8-bit (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA PNG.
+def encode_png(image: np.ndarray, row_filter: int | None = None) -> bytes:
+    """An 8-bit (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA PNG.
 
     ``row_filter`` (0-4: none, sub, up, average, Paeth) filters every row
     alike; ``None`` gives row ``i`` filter ``i % 5``, so one file holds
     all five."""
-    img = np.asarray(image)
-    if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8, got {img.dtype}")
+    img = _uint8(image, "encode_png")
     if img.ndim == 2:
         img = img[..., None]
     h, w, bpp = img.shape
@@ -245,8 +260,70 @@ def write_png(path, image: np.ndarray, row_filter: int | None = None) -> None:
     pred = np.choose(ftype[:, None, None], preds)
     rows = ((x - pred) & 255).astype(np.uint8).reshape(h, w * bpp)
     raw = np.concatenate([ftype[:, None].astype(np.uint8), rows], axis=1)
-    Path(path).write_bytes(
-        _PNG_SIG
-        + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
-        + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-        + _chunk(b"IEND", b""))
+    return (_PNG_SIG
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
+                                          0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray, row_filter: int | None = None) -> None:
+    """Write :func:`encode_png` of ``image`` to ``path``."""
+    Path(path).write_bytes(encode_png(image, row_filter))
+
+
+_GRAY_PALETTE = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+_GRAY_PALETTE[:, 3] = 0
+
+
+def encode_bmp(image: np.ndarray) -> bytes:
+    """An uncompressed BMP of an (H, W) gray or (H, W, 3) RGB uint8 image,
+    as ``cv2.imwrite`` writes one: an 8-bit image with a 256-entry gray
+    palette, or a 24-bit BGR one; rows bottom-up, each padded with zeros
+    to 4 bytes; resolution, image size and colour counts 0."""
+    img = _uint8(image, "encode_bmp")
+    if img.ndim == 3 and img.shape[-1] == 3:
+        bits, pixels = 24, img[..., ::-1]                     # RGB -> BGR
+        palette = b""
+    elif img.ndim == 2:
+        bits, pixels = 8, img
+        palette = _GRAY_PALETTE.tobytes()
+    else:
+        raise ValueError(f"encode_bmp takes (H, W) or (H, W, 3), got "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    stride = (w * bits // 8 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * bits // 8] = pixels.reshape(h, -1)
+    offset = 14 + 40 + len(palette)
+    size = offset + rows.size
+    return (struct.pack("<2sIHHI", b"BM", size, 0, 0, offset)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, 0, 0, 0, 0, 0,
+                          0)
+            + palette + rows[::-1].tobytes())
+
+
+def write_bmp(path, image: np.ndarray) -> None:
+    """Write :func:`encode_bmp` of ``image`` to ``path``."""
+    Path(path).write_bytes(encode_bmp(image))
+
+
+_WRITERS = {".png": write_png, ".bmp": write_bmp}
+
+
+def imwrite(path, image: np.ndarray) -> None:
+    """Write ``image`` in the format its suffix names (``.png`` or ``.bmp``,
+    in any case), as ``cv2.imwrite`` picks it; other suffixes raise
+    ``ValueError``."""
+    suffix = Path(path).suffix.lower()
+    if suffix not in _WRITERS:
+        raise ValueError(f"{path}: cannot write {suffix or 'a file without a '
+                         'suffix'}; only .png and .bmp are written")
+    _WRITERS[suffix](path, image)
+
+
+def _uint8(image, who: str) -> np.ndarray:
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{who} takes uint8, got {img.dtype}")
+    return img

@@ -8,8 +8,9 @@ Port of ``wesup_tpu.models.steps``:
   backward (K3, K4; K5's backward on K3's kernel and K8; cuDNN) -> SGD
   update -> metrics accumulated on the device;
 - ``make_eval_step``: the same without augmentation and gradients;
-- ``make_predict_step`` and ``make_scaled_predict_step`` in superpixel
-  mode: uint8 (or float) canvas -> SLIC -> forward -> painted foreground.
+- ``make_predict_step`` and ``make_scaled_predict_step``: in superpixel
+  mode uint8 (or float) canvas -> SLIC -> forward -> painted foreground;
+  in pixel mode canvas -> the pixel head's foreground probability.
 
 Every step takes every ``config.pooling`` ("local", "adjoint",
 "fullres").  All steps honour ``WESUP_FUSED_POOL1`` (kernel K7 in the
@@ -49,14 +50,9 @@ from ..utils.metrics import device_accuracy, device_dice
 from . import wesup
 from .objectives import wesup_loss
 
-_PIXEL_LATER = ("mode='pixel' (the pixel-wise head) is not ported yet: it "
-                "comes with the port's inference-and-pixel-head slice")
-
 
 def _check_mode(mode: str) -> None:
-    if mode == "pixel":
-        raise NotImplementedError(_PIXEL_LATER)
-    if mode != "superpixel":
+    if mode not in ("superpixel", "pixel"):
         raise ValueError(f"unknown predict mode: {mode}")
 
 
@@ -86,16 +82,28 @@ def make_predict_step(config, canvas_hw, mode: str = "superpixel",
     Returns ``step(model, image, valid, mark=None) -> (B, H, W) f32`` fg
     probability; ``image`` is (B, H, W, 3) uint8 or float, ``valid``
     (B, H, W) bool (tensors or arrays; they are moved to the device).
-    ``mark`` is passed on to :func:`wesup.forward_superpixel` (after a
-    ``"slic"`` mark of its own) for phase timing; the phases it marks
-    depend on ``config.pooling``.
+    ``mode="superpixel"`` runs SLIC and :func:`wesup.forward_superpixel`
+    (reference WESUP.forward); ``mode="pixel"`` runs
+    :func:`wesup.forward_pixel` (reference WESUPPixelInference), which
+    takes no SLIC and no ``valid``.  ``mark`` is passed on to the forward
+    (after a ``"slic"`` mark of its own in superpixel mode) for phase
+    timing; the phases it marks depend on the mode and
+    ``config.pooling``.
     """
     _check_mode(mode)
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
+    cdtype = _compute_dtype(config)
+    if mode == "pixel":
+        @torch.inference_mode()
+        def pixel_step(model, image, valid, mark=None):
+            _check_model(model, dev)
+            img = _to_float(torch.as_tensor(image, device=dev))
+            return wesup.forward_pixel(model, img, cdtype, mark=mark)[..., 1]
+
+        return pixel_step
     K = n_clusters(H, W, config.sp_area)
     plan = make_plan(H, W, config.sp_area)
-    cdtype = _compute_dtype(config)
 
     @torch.inference_mode()
     def step(model, image, valid, mark=None):
@@ -119,10 +127,13 @@ def make_scaled_predict_step(config, content_hw, target_hw, canvas_hw,
 
     Takes (B, Hc, Wc, 3) images at ORIGINAL resolution placed on
     ``canvas_hw``, resizes the (Ho, Wo) content to ``target_hw``
-    (bilinear, align_corners=False, as the reference's F.interpolate),
-    pads it up to a 32-aligned compute canvas by edge replication, runs
+    (bilinear; align_corners=False in superpixel mode, as the reference's
+    F.interpolate, True in pixel mode, as pixel_infer.py) and pads it up to
+    a 32-aligned compute canvas by edge replication.  Superpixel mode runs
     SLIC and the superpixel forward, rounds the prediction and
-    nearest-resizes it back.  Returns (B, Ho, Wo) uint8 in {0, 1}.
+    nearest-resizes it back: (B, Ho, Wo) uint8 in {0, 1}.  Pixel mode runs
+    the pixel head and resizes the f32 foreground probability back
+    (bilinear, align_corners=True), unrounded: (B, Ho, Wo) f32.
     """
     _check_mode(mode)
     dev = resolve_device(device)
@@ -131,8 +142,10 @@ def make_scaled_predict_step(config, content_hw, target_hw, canvas_hw,
     # scaled content padded up to a 32-aligned compute canvas
     Hs = -(-th // 32) * 32
     Ws = -(-tw // 32) * 32
-    K = n_clusters(Hs, Ws, config.sp_area)
-    plan = make_plan(Hs, Ws, config.sp_area)
+    sp_mode = mode == "superpixel"
+    if sp_mode:
+        K = n_clusters(Hs, Ws, config.sp_area)
+        plan = make_plan(Hs, Ws, config.sp_area)
     cdtype = _compute_dtype(config)
     # edge padding as index clamps (exact copies of the last row / column)
     iy = torch.arange(Hs, device=dev).clamp_max(th - 1)
@@ -143,8 +156,12 @@ def make_scaled_predict_step(config, content_hw, target_hw, canvas_hw,
         _check_model(model, dev)
         image = torch.as_tensor(image, device=dev)
         img = _to_float(image[:, :Ho, :Wo])
-        scaled = resize_bilinear(img, (th, tw), align_corners=False)
+        scaled = resize_bilinear(img, (th, tw), align_corners=not sp_mode)
         scaled = scaled[:, iy][:, :, ix]
+        if not sp_mode:
+            prob = wesup.forward_pixel(model, scaled, cdtype)[:, :th, :tw, 1]
+            return resize_bilinear(prob[..., None], (Ho, Wo),
+                                   align_corners=True)[..., 0]
         B = scaled.shape[0]
         valid = torch.zeros((B, Hs, Ws), dtype=torch.bool, device=dev)
         valid[:, :th, :tw] = True

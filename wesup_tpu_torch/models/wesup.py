@@ -1,6 +1,6 @@
 """WESUP: VGG16 hypercolumn -> superpixel MLP classifier, in PyTorch.
 
-Port of ``wesup_tpu.models.wesup`` (the superpixel forwards).  The
+Port of ``wesup_tpu.models.wesup`` (the superpixel and pixel forwards).  The
 parameters live in :class:`WESUP`, an ``nn.Module`` whose state-dict keys
 are the reference's (``backbone.{i}``, ``side_conv{cum}``,
 ``fc_layers.{0,2,4}``, ``classifier.0``), so a reference ``.pth`` loads
@@ -25,6 +25,14 @@ resolution and projected after pooling.  Three poolings, as in JAX:
   resolution, W-resized and H-upsampled into one full-resolution map,
   which K5 pools beside stage 0's taps.
 
+The pixel head (:func:`forward_pixel`, the reference's
+WESUPPixelInference) classifies every pixel: each stage's taps are
+projected at native resolution and W-resized, and ONE contraction against
+the stacked H-interpolation matrices upsamples and sums all five stages
+(stage 0's block is the identity) into the (B, H, W, 1024) pre-ReLU fc1
+map, which the head reads in the compute dtype.  It runs no pooling
+kernel; the backbone's K7 under ``WESUP_FUSED_POOL1`` is its only one.
+
 Every path is differentiable in the weights: the kernels are autograd
 Functions whose backward bodies are kernels too (K3, K4; K5's on K3's
 kernel; K6's is K8), and the rest is plain torch.
@@ -32,8 +40,9 @@ kernel; K6's is K8), and the rest is plain torch.
 bf16 casts follow the reference: taps are in the compute dtype, pooled
 sums are f32 and are cast to the compute dtype before the projection (the
 product then accumulates in f32), projections are built in f32 and cast,
-the head runs in its input's dtype (f32 here, as the pooled features are
-f32) with the softmax in f32, and ``pred`` is painted in the compute dtype
+the head runs in its input's dtype (f32 on the superpixel paths, as the
+pooled features are f32; the compute dtype on the pixel path) with the
+softmax in f32, and ``pred`` is painted in the compute dtype
 and returned as f32.  One-hot counts are exact f32 sums rounded to the
 compute dtype, as the JAX one-hot sum rounds them.
 """
@@ -348,3 +357,58 @@ def forward_superpixel_fullres(model: WESUP, img: torch.Tensor,
     fg = _onehot_paint(seg, sp_pred[..., 1].to(compute_dtype), K).float()
     mark("paint")
     return SuperpixelForward(sp_pred, sp_feats, fg)
+
+
+def hypercolumn_projection_parts(model: WESUP, img: torch.Tensor,
+                                 compute_dtype=torch.float32, mark=None):
+    """The shared pre-ReLU fc1 map WITHOUT its bias, and the bias:
+    ((B, H, W, width) in the compute dtype, (width,) f32).
+
+    Each stage's concatenated taps are projected with one matmul at native
+    resolution and W-resized; then ONE contraction against the stacked
+    H-interpolation matrices upsamples and sums all five stages, stage 0
+    (whose block is the identity) included, so bf16 rounds where it does in
+    JAX.  ``mark``, if given, is called with ``"backbone"``, ``"proj"``
+    (the stage projections and W-resizes) and ``"upsample"`` after each
+    phase."""
+    mark = mark or (lambda name: None)
+    H, W = img.shape[1:3]
+    taps = vgg.backbone_features(model.backbone, img, compute_dtype, mark)
+    w1_blocks = _fc1_blocks(model)
+    bias = _fused_bias(model, w1_blocks)
+    mark("backbone")
+    stage_maps = []
+    for s in range(5):
+        stage_taps, proj = _stage_taps_and_proj(model, taps, w1_blocks, s,
+                                                compute_dtype)
+        stage_maps.append(resize_w_only(stage_taps @ proj, W))
+    del taps, stage_taps
+    mark("proj")
+    z = fused_upsample_sum(stage_maps, H)
+    mark("upsample")
+    return z, bias
+
+
+def hypercolumn_projection(model: WESUP, img: torch.Tensor,
+                           compute_dtype=torch.float32) -> torch.Tensor:
+    """The biased pre-ReLU fc1 map (B, H, W, width) in f32."""
+    z, bias = hypercolumn_projection_parts(model, img, compute_dtype)
+    return z.float() + bias
+
+
+def forward_pixel(model: WESUP, img: torch.Tensor,
+                  compute_dtype=torch.float32, mark=None) -> torch.Tensor:
+    """Pixel-wise forward (reference WESUPPixelInference.forward): every
+    pixel's hypercolumn through the head.  Returns the (B, H, W, C) f32
+    softmax probabilities.
+
+    The bias is cast to the map's dtype and added there, so in bf16 the
+    whole head runs in bf16 and only the softmax in f32, as in JAX.
+    ``mark`` is passed to :func:`hypercolumn_projection_parts` and called
+    with ``"head"`` at the end."""
+    z, bias = hypercolumn_projection_parts(model, img, compute_dtype, mark)
+    z = z + bias.to(z.dtype)
+    probs, _ = _mlp_head(model, z)
+    if mark is not None:
+        mark("head")
+    return probs

@@ -6,13 +6,18 @@ one forward at a time.
 
 Usage:
     python -m wesup_tpu_torch.serve [checkpoint=<.pth>] [port=8700]
-                                    [scales=0.5] [warmup_hw=522,775]
-                                    [device=cuda] [seed=0] [<config>=<value>]
+                                    [mode=superpixel|pixel] [scales=0.5]
+                                    [warmup_hw=522,775] [device=cuda]
+                                    [seed=0] [<config>=<value>]
 
 API:
     GET  /healthz            -> {"status": "ok", "device": ...}
     POST /predict            -> binary PNG mask ({0,255})
-         body: image file (PNG/JPEG/BMP); query args: ?scales=0.5,0.4
+         body: image file (PNG or uncompressed BMP, ``data/codec.py``;
+         anything else is answered with 400); query args: ?scales=0.5,0.4
+
+The codecs are the port's own, so the server runs where OpenCV is not
+installed.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from . import cli
 from .config import WESUPConfig, merge_config
+from .data import codec
 from .inference import Predictor, predict_multiscale
 from .models.convert import load_state_dict_file
 from .models.wesup import WESUP
@@ -67,10 +73,6 @@ class Handler(BaseHTTPRequestHandler):
             self._json(404, {"error": "unknown path"})
 
     def do_POST(self):
-        # OpenCV only for the codecs, and only here: the card's machine has
-        # none, and the predict path does not need it
-        import cv2
-
         parsed = urlparse(self.path)
         if parsed.path != "/predict":
             self._json(404, {"error": "unknown path"})
@@ -78,11 +80,11 @@ class Handler(BaseHTTPRequestHandler):
         try:
             length = int(self.headers.get("Content-Length", 0))
             data = self.rfile.read(length)
-            arr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-            if arr is None:
-                self._json(400, {"error": "could not decode image"})
+            try:
+                img = codec.decode(data, name="request body")
+            except ValueError as ex:
+                self._json(400, {"error": str(ex)})
                 return
-            img = cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
 
             qs = parse_qs(parsed.query)
             scales = self.state.scales
@@ -95,13 +97,13 @@ class Handler(BaseHTTPRequestHandler):
                                           scales=scales)
             dt = time.time() - t0
 
-            ok, png = cv2.imencode(".png", (pred * 255).astype(np.uint8))
+            png = codec.encode_png((pred * 255).astype(np.uint8))
             self.send_response(200)
             self.send_header("Content-Type", "image/png")
             self.send_header("X-Inference-Seconds", f"{dt:.3f}")
             self.send_header("Content-Length", str(len(png)))
             self.end_headers()
-            self.wfile.write(png.tobytes())
+            self.wfile.write(png)
         except Exception as exc:  # noqa: BLE001 - report to the client
             self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
 
@@ -112,9 +114,10 @@ def create_server(checkpoint=None, port=8700, mode="superpixel",
     """Build the model, its predictor and the HTTP server (without serving).
 
     ``checkpoint`` is a reference-format ``.pth`` (or None for weights drawn
-    from ``seed``); other keyword arguments override ``WESUPConfig``
-    fields.  ``device=None`` means the card.  The server's ``state``
-    attribute holds the :class:`ServerState`.
+    from ``seed``); ``mode`` is "superpixel" or "pixel" (the pixel head);
+    other keyword arguments override ``WESUPConfig`` fields.
+    ``device=None`` means the card.  The server's ``state`` attribute holds
+    the :class:`ServerState`.
     """
     if not isinstance(scales, (tuple, list)):
         scales = (scales,)
@@ -147,7 +150,8 @@ def main(argv=None):
     args, kwargs = cli.parse_argv(argv)
     server = create_server(*args, **kwargs)
     print(f"[serve] listening on :{server.server_port} "
-          f"(device={server.state.device})")
+          f"(mode={server.state.predictor.mode}, "
+          f"device={server.state.device})")
     server.serve_forever()
 
 

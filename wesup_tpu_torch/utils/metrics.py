@@ -2,7 +2,8 @@
 
 Port of the device part of ``wesup_tpu.utils.metrics`` (``device_accuracy``
 and ``device_dice``), which the train and eval steps accumulate without
-leaving the device.  The host-side GlaS metrics come with a later slice.
+leaving the device.  The host-side GlaS metrics are not ported
+(ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations

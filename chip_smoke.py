@@ -83,7 +83,26 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    image, K1 once and K2 four times per superpixel forward (the first
    forward's K1/K2 held against their plain versions on its inputs) and no
    kernel in the pixel CLIs; ``POST /predict`` of a PNG to a superpixel and
-   a pixel server, which must answer with masks (and a JPEG with 400).
+   a pixel server, which must answer with masks (and a JPEG with 400);
+13. the GlaS protocol as a user runs it on this machine: a raw set in
+   GlaS's own layout (85 train images, testA and testB cut to 8 + 8,
+   522x775 BMPs with gland-id annotations, ``Grade.csv`` with two grades;
+   made from ``--seed``) through ``python -m wesup_tpu_torch.prepare_glas``
+   (split counts held) and ``scripts.generate_points -p 1e-4 --seed 0``;
+   ``train.fit`` for 1 epoch at B=8 with ``metrics=accuracy,dice,
+   detection_f1,object_dice,object_hausdorff`` (every batch stepped, the
+   host metrics finite in history.csv, one read-back per val batch, K1 1
+   and K2 4 launches per val batch, the first val step's K1/K2 held
+   against their plain versions); ``test_glas`` at its five scales from
+   that checkpoint and ``scripts.evaluate_glas`` on its masks and on the
+   ground truths shifted by (5, -4) px with 0.2% of pixels flipped: every
+   CSV value equal to the plain versions' (scipy labelling,
+   ``directed_hausdorff``; 1e-12, object Hausdorff 1e-6), the native
+   region flip equal to scipy's, and each metric's ms per image native
+   against plain; the val phase three ways
+   (``scripts.measure_eval_metrics``: default, deferred and eager reads;
+   the deferred and eager host metrics equal); seconds per step. Its
+   lines start with ``[protocol``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -1292,19 +1311,11 @@ GLAS_SPLITS = {"train": 85, "val": 8}
 
 def glas_image(rng):
     """One synthetic 522x775 GlaS-like (RGB image, gland mask), drawn from
-    ``rng``: 4-8 elliptic glands, purple on pink, with noise."""
-    H, W = GLAS_HW
-    yy, xx = np.mgrid[:H, :W]
-    mask = np.zeros((H, W), np.uint8)
-    for _ in range(int(rng.integers(4, 9))):
-        cy, cx = rng.integers(0, H), rng.integers(0, W)
-        ry, rx = rng.integers(30, 90, 2)
-        mask[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = 1
-    tone = np.where(mask[..., None] == 1, rng.normal([160, 110, 170], 8),
-                    rng.normal([225, 205, 220], 6))
-    img = np.clip(tone + rng.normal(0, 12, (H, W, 3)), 0, 255).astype(
-        np.uint8)
-    return img, mask
+    ``rng``: 4-8 elliptic glands, purple on pink, with noise
+    (``scripts.measure_eval_metrics.synthetic_pair``)."""
+    from wesup_tpu_torch.scripts.measure_eval_metrics import synthetic_pair
+
+    return synthetic_pair(rng, GLAS_HW)
 
 
 def write_glas_dataset(root: Path, seed: int) -> None:
@@ -1966,6 +1977,322 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
     log(f"[pixel] phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# GlaS's raw layout for phase 13: its 85 train images with two grades,
+# its testA (60) and testB (20) cut to 8 + 8, 522x775 BMPs
+GLAS_RAW = {"train": 85, "testA": 8, "testB": 8}
+HOST_METRICS = ("accuracy", "dice", "detection_f1", "object_dice",
+                "object_hausdorff")
+OBJECT_METRICS = ("detection_f1", "object_dice", "object_hausdorff")
+
+
+def write_raw_glas(root: Path, seed: int) -> None:
+    """GlaS as it ships, under ``root``: ``<split>_<i>.bmp`` images,
+    ``<split>_<i>_anno.bmp`` masks holding a gland id per gland, and
+    ``Grade.csv`` (name, patient ID, two grade columns; the last one has
+    the grades "adenomatous" and "healthy"), made with numpy from ``seed``."""
+    from scipy import ndimage
+
+    from wesup_tpu_torch.data.codec import write_bmp
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    lines = ["name,patient ID,grade (GlaS),grade (Sirinukunwattana et al. "
+             "2015)"]
+    for split, n in GLAS_RAW.items():
+        for i in range(1, n + 1):
+            img, mask = glas_image(rng)
+            ids, _ = ndimage.label(mask)
+            write_bmp(root / f"{split}_{i}.bmp", img)
+            write_bmp(root / f"{split}_{i}_anno.bmp",
+                      np.minimum(ids, 255).astype(np.uint8))
+            grade = ("adenomatous", "healthy")[int(rng.random() < 0.44)]
+            lines.append(f"{split}_{i},{i % 16},"
+                         f"{'malignant' if grade[0] == 'a' else 'benign'},"
+                         f"{grade}")
+    (root / "Grade.csv").write_text("\n".join(lines) + "\n")
+
+
+def run_module(args, tag, timeout=600) -> tuple:
+    """(stdout, seconds) of ``python -m <args>`` from the repository root,
+    as a user runs the port's scripts; a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{tag}: python -m {args[0]} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return out.stdout, sec
+
+
+def plain_score(raw, gt, threshold):
+    """One (prediction in [0, 1], ground truth) pair as ``evaluate_glas``
+    scores it, timed: the region flip by the native library and by scipy
+    (they must agree), then each object metric with the native library and
+    with its plain versions (scipy labelling, ``directed_hausdorff``).
+    Returns (flip equal, {metric: (native value, plain value)}, {name:
+    (native ms, plain ms)}).  Run in worker processes of
+    ``scripts._common.pool_map``."""
+    from wesup_tpu_torch import native
+    from wesup_tpu_torch.ops.morphology import flip_small_regions
+    from wesup_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    flipped = native.flip_small_regions(raw, threshold)
+    t1 = time.perf_counter()
+    pred = flip_small_regions(raw, threshold)
+    t2 = time.perf_counter()
+    times = {"flip_small_regions": ((t1 - t0) * 1e3, (t2 - t1) * 1e3)}
+    values = {}
+    for name in OBJECT_METRICS:
+        fn = metrics.HOST_METRICS[name]
+        t0 = time.perf_counter()
+        got = fn(pred, gt)
+        t1 = time.perf_counter()
+        with mock.patch.object(metrics, "_label", native.label8_plain), \
+                mock.patch.object(metrics, "hausdorff",
+                                  native.hausdorff_plain):
+            want = fn(pred, gt)
+        t2 = time.perf_counter()
+        values[name] = (got, want)
+        times[name] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+    return bool(np.array_equal(flipped, pred)), values, times
+
+
+def hold_plain(scored, labels, csv_rows=None) -> dict:
+    """Fail unless each pair's region flips agree and its native object
+    metrics (and the CSV's, where given) equal the plain versions' within
+    1e-12 (detection F1, object Dice) and 1e-6 (object Hausdorff); returns
+    the largest errors."""
+    worst = {k: 0.0 for k in OBJECT_METRICS}
+    for i, (flip_ok, values, _) in enumerate(scored):
+        if not flip_ok:
+            fail(f"{labels[i]}: the native region flip differs from scipy's")
+        for j, k in enumerate(OBJECT_METRICS):
+            got, want = values[k]
+            have = [got] + ([float(csv_rows[i][j + 1])] if csv_rows else [])
+            lim = 1e-6 if k == "object_hausdorff" else 1e-12
+            err = max(abs(v - want) for v in have)
+            if not (err <= lim or all(v == want for v in have)):
+                fail(f"{labels[i]} {k}: native/CSV {have}, plain {want!r}")
+            worst[k] = max(worst[k], err if np.isfinite(err) else 0.0)
+    return worst
+
+
+def protocol_phase(torch, card, seed) -> None:
+    """Phase 13: the GlaS protocol as a user runs it on the card's
+    machine, from GlaS's raw layout to the contest metrics' CSVs."""
+    import tempfile
+
+    from wesup_tpu_torch import native, test_glas
+    from wesup_tpu_torch.data import codec
+    from wesup_tpu_torch.models.trainer import WESUPTrainer
+    from wesup_tpu_torch.ops import cellpool, launch_counts
+    from wesup_tpu_torch.scripts import measure_eval_metrics
+    from wesup_tpu_torch.scripts._common import imread_gray, pool_map
+    from wesup_tpu_torch.train import fit
+
+    t_phase = time.perf_counter()
+    tag = "protocol"
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase13_")
+    raw, data = Path(tmp.name) / "GlaS", Path(tmp.name) / "data_glas"
+    secs = {}
+
+    # ---- 13a. raw GlaS -> prepare_glas -> generate_points ----------------
+    t0 = time.perf_counter()
+    write_raw_glas(raw, seed)
+    secs["write raw set"] = time.perf_counter() - t0
+    _, secs["prepare_glas"] = run_module(
+        ["wesup_tpu_torch.prepare_glas", raw, "-o", data, "--seed", seed],
+        tag)
+    counts = {split: len(list((data / split / "masks").iterdir()))
+              for split in ("train", "val", "testA", "testB")}
+    # 85 train images, val_size 0.1: ceil(8.5) = 9 val
+    if counts != {"train": 76, "val": 9, "testA": 8, "testB": 8}:
+        fail(f"prepare_glas split the raw set into {counts}")
+    _, secs["generate_points"] = run_module(
+        ["wesup_tpu_torch.scripts.generate_points", data / "train", "-p",
+         "1e-4", "--seed", "0"], tag)
+    (data / "train" / "points-0.0001").rename(data / "train" / "points")
+    points = sorted((data / "train" / "points").iterdir())
+    if len(points) != counts["train"] or not all(
+            p.stat().st_size for p in points):
+        fail(f"generate_points wrote {len(points)} files, some empty")
+    log(f"[{tag}] raw GlaS layout ({sum(GLAS_RAW.values())} 522x775 BMPs "
+        f"+ annotations, Grade.csv) -> prepare_glas {counts} -> "
+        f"generate_points -p 1e-4: {len(points)} CSVs")
+
+    # ---- 13b. train one epoch with the host metrics ----------------------
+    reads, val_steps, host_s = [], [], []
+    real_get, real_fetch = WESUPTrainer._get_step, WESUPTrainer._fetch_pred
+    real_eval = WESUPTrainer.evaluate_host
+
+    def get_step(self, kind, hw):
+        step = real_get(self, kind, hw)
+        if kind != "eval":
+            return step
+
+        def run(*args, **kwargs):
+            before = launch_counts()
+            with recorded(cellpool, "_pool0_fwd", 1) as k1, \
+                    recorded(cellpool, "_stage_fwd", 4) as k2:
+                out = step(*args, **kwargs)
+                if not val_steps:
+                    torch.cuda.synchronize()
+                    hold_pool_kernels(torch, k1, k2, f"{tag} val step")
+            after = launch_counts()
+            val_steps.append({k: after[k] - before[k] for k in after})
+            return out
+        return run
+
+    def evaluate_host(self, *args):
+        t0 = time.perf_counter()
+        out = real_eval(self, *args)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    errors = ErrorRecords("Train")
+    old_root = os.environ.get("RECORD_ROOT")
+    os.environ["RECORD_ROOT"] = str(Path(tmp.name) / "records")
+    logging.getLogger().addHandler(errors)
+    try:
+        with mock.patch.object(WESUPTrainer, "_get_step", new=get_step), \
+                mock.patch.object(WESUPTrainer, "_fetch_pred", new=lambda
+                                  self, pred: reads.append(1)
+                                  or real_fetch(self, pred)), \
+                mock.patch.object(WESUPTrainer, "evaluate_host",
+                                  new=evaluate_host):
+            t0 = time.perf_counter()
+            trainer = fit(data, epochs=1, batch_size=BATCH, seed=seed,
+                          metrics=HOST_METRICS)
+            secs["train.fit, 1 epoch"] = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(errors)
+        if old_root is None:
+            os.environ.pop("RECORD_ROOT", None)
+        else:
+            os.environ["RECORD_ROOT"] = old_root
+    tr, va = trainer.phase_stats[(1, "train")], trainer.phase_stats[(1, "val")]
+    if (tr["failed"] or va["failed"] or errors.records
+            or tr["samples"] != counts["train"]
+            or va["batches"] != counts["val"]):
+        fail(f"the fit with metrics= ran train {tr} and val {va}; "
+             f"{len(errors.records)} errors logged")
+    with open(trainer.record_dir / "history.csv") as fp:
+        header, row = list(csv.reader(fp))
+    hist = dict(zip(header, map(float, row)))
+    extra = {k: hist.get(f"val_{k}") for k in OBJECT_METRICS}
+    if not all(v is not None and np.isfinite(v) for v in extra.values()):
+        fail(f"history.csv lacks finite host metrics: {header} {row}")
+    want = expected({"cell_pool0": 1, "cell_pool_stage": 4})
+    if len(reads) != va["batches"] or len(val_steps) != va["batches"] or \
+            any(n != want for n in val_steps):
+        fail(f"{len(reads)} reads and {len(val_steps)} val steps for "
+             f"{va['batches']} val batches; launches {val_steps[:2]}")
+    log(f"[{tag}] train.fit 1 epoch, B={BATCH}, metrics="
+        f"{','.join(HOST_METRICS)}: train {tr['batches']} bucketed batches "
+        f"{tr['seconds']:.3f} s, val {va['batches']} images "
+        f"{va['seconds']:.3f} s (host metrics {host_s[0]:.3f} s, "
+        f"{host_s[0] * 1e3 / va['samples']:.1f} ms an image); reads "
+        f"{len(reads)} = val batches; launches per val batch "
+        + str({k: v for k, v in val_steps[0].items() if v})
+        + "; history " + ", ".join(f"val_{k} {v:.6g}" for k, v in
+                                  extra.items()) + f"; {card}")
+
+    # ---- 13c. test_glas, then evaluate_glas, against the plain versions --
+    ckpt = trainer.record_dir / "checkpoints" / "ckpt.0001.pth"
+    t0 = time.perf_counter()
+    results = test_glas.test(ckpt, scales=GLAS_SCALES, data_root=data)
+    torch.cuda.synchronize()
+    secs["test_glas, 5 scales"] = time.perf_counter() - t0
+    stdout, secs["evaluate_glas"] = run_module(
+        ["wesup_tpu_torch.scripts.evaluate_glas", results, "--gt-root",
+         data], tag)
+    means = [line for line in stdout.splitlines() if ": " in line]
+    if len(means) != 10:
+        fail(f"evaluate_glas printed {means}")
+    labels, pairs, rows, gts = [], [], [], []
+    for split in GLAS_TEST:
+        preds = sorted((results / split).glob("*.png"))
+        gt_paths = sorted((data / split / "masks").iterdir())
+        with open(results / f"{split}.csv", newline="") as fp:
+            csv_rows = list(csv.reader(fp))
+        if (csv_rows[0] != ["", *OBJECT_METRICS]
+                or len(preds) != len(gt_paths)
+                or [r[0] for r in csv_rows[1:]] != [p.name for p in preds]):
+            fail(f"{split}.csv: {csv_rows[:2]}")
+        labels += [f"{split}/{p.name}" for p in preds]
+        gts += [imread_gray(g) for g in gt_paths]
+        pairs += [(imread_gray(p) / 255, g) for p, g in zip(preds, gts[-len(
+            preds):])]
+        rows += csv_rows[1:]
+    # GlaS-like predictions, as a trained model's would be (one epoch
+    # from random weights gives near-empty masks): each ground truth
+    # shifted by (5, -4) px with 0.2% of its pixels flipped, scored by
+    # evaluate_glas too
+    rng = np.random.default_rng(seed)
+    noisy, shifted, noisy_rows = [], Path(tmp.name) / "shifted", []
+    for label, g in zip(labels, gts):
+        p = np.roll(g, (5, -4), (0, 1)).astype(np.float64)
+        flip = rng.random(g.shape) < 0.002
+        p[flip] = 1 - p[flip]
+        noisy.append((p, g))
+        (shifted / label).parent.mkdir(parents=True, exist_ok=True)
+        codec.write_png(shifted / label, (p * 255).astype(np.uint8))
+    stdout, secs["evaluate_glas, shifted"] = run_module(
+        ["wesup_tpu_torch.scripts.evaluate_glas", shifted, "--gt-root",
+         data], tag)
+    shifted_means = [line for line in stdout.splitlines() if ": " in line]
+    for split in GLAS_TEST:
+        with open(shifted / f"{split}.csv", newline="") as fp:
+            noisy_rows += [[f"{split}/{r[0]}", *r[1:]]
+                           for r in list(csv.reader(fp))[1:]]
+    if [r[0] for r in noisy_rows] != labels:
+        fail(f"evaluate_glas on the shifted masks wrote {noisy_rows[:2]}")
+    t0 = time.perf_counter()
+    scored = pool_map(plain_score, [(p, g, 2000) for p, g in pairs + noisy])
+    secs["plain check"] = time.perf_counter() - t0
+    for what, part, csv_rows, printed in (
+            ("test_glas's masks", scored[:len(pairs)], rows, means),
+            ("the ground truths shifted by (5, -4) px with 0.2% of pixels "
+             "flipped", scored[len(pairs):], noisy_rows, shifted_means)):
+        worst = hold_plain(part, labels, csv_rows)
+        log(f"[{tag}] evaluate_glas over {len(part)} test images, "
+            f"{what} ({'; '.join(printed[2:5])} ...): CSV values against "
+            "the plain (scipy) versions, max abs err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items())
+            + " (limits 1e-12, 1e-12, 1e-6); region flip equal to scipy's")
+    glands = np.mean([native.label8(g).max() for g in gts])
+    for name in ("flip_small_regions",) + OBJECT_METRICS:
+        ms = np.array([t[name] for _, _, t in scored[len(pairs):]])
+        log(f"[{tag}] {name}: native {ms[:, 0].mean():.1f} ms, plain "
+            f"{ms[:, 1].mean():.1f} ms per 522x775 image (shifted ground "
+            f"truths, {glands:.1f} glands an image, mean of {len(ms)}, max {ms[:, 0].max():.1f} / "
+            f"{ms[:, 1].max():.1f}; {min(len(scored), os.cpu_count() or 1)} "
+            f"worker processes at once on {os.cpu_count()} host cores); "
+            f"{card}")
+
+    # ---- 13d. the val phase three ways -----------------------------------
+    t0 = time.perf_counter()
+    host = {}
+    for label, metrics, eager in measure_eval_metrics.VARIANTS:
+        best, med, host[label], n_reads = measure_eval_metrics.time_val_phase(
+            data, metrics, eager, repeats=1)
+        log(f"[{tag}] val phase, {label}: {best:.3f} s over "
+            f"{counts['val']} images (B=1, after a warm-up run), reads "
+            f"{n_reads}, host metrics {host[label]}; {card}")
+    secs["val phase three ways"] = time.perf_counter() - t0
+    deferred, eager = (host[v[0]] for v in measure_eval_metrics.VARIANTS[1:])
+    if not deferred or deferred != eager:
+        fail(f"deferred and eager host metrics differ: {deferred} {eager}")
+    del trainer
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] seconds per step: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + f"; {card}")
+    log(f"[{tag}] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -1987,7 +2314,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=11,
-                        help="seed of phases 11-12's synthetic datasets, "
+                        help="seed of phases 11-13's synthetic datasets, "
                              "weights and shuffles")
     args = parser.parse_args(argv)
     import torch
@@ -2275,6 +2602,9 @@ def main(argv=None) -> int:
 
     # ---- 12. the pixel head, the inference CLIs and /predict -------------
     inference_phase(torch, card, imgs_u8, valid, args.seed)
+
+    # ---- 13. the GlaS protocol: prepare, points, train, test, evaluate ---
+    protocol_phase(torch, card, args.seed)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

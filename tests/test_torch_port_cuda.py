@@ -936,3 +936,38 @@ def test_fit_one_epoch_on_card(cuda, tmp_path, monkeypatch, caplog):
     rows = (rd / "history.csv").read_text().splitlines()
     assert len(rows) == 2
     assert all(np.isfinite(float(v)) for v in rows[1].split(","))
+
+
+def test_val_phase_host_metrics_on_card(cuda, tmp_path):
+    """The trainer's val phase with ``metrics=object_dice`` on the card: it
+    reads each val batch's map back once, and the rounded masks it scores
+    equal a ``device="cpu"`` run's on at least 0.999 of their pixels (f32,
+    the same seeded weights)."""
+    from wesup_tpu_torch.models import initialize_trainer
+
+    _write_dataset(tmp_path / "ds")
+    masks, reads = {}, {}
+    for dev in ("cuda", "cpu"):
+        trainer = initialize_trainer(
+            "wesup", device=dev, metrics="object_dice", fc_width=64,
+            compute_dtype="float32", seed=0)
+        trainer.setup_dataloaders(tmp_path / "ds" / "train",
+                                  tmp_path / "ds" / "val")
+        seen, fetched = [], []
+        real_eval, real_fetch = trainer.evaluate_host, trainer._fetch_pred
+        trainer.evaluate_host = lambda fns, preds, targets: (
+            seen.extend(preds) or real_eval(fns, preds, targets))
+        trainer._fetch_pred = lambda pred: (fetched.append(pred.device.type)
+                                            or real_fetch(pred))
+        trainer.tracker.start_new_epoch(trainer.current_lr())
+        trainer.tracker.eval()
+        stats = trainer._run_val_phase()
+        assert stats["batches"] == len(trainer.dataloaders["val"]) == 2
+        assert stats["failed"] == 0
+        masks[dev], reads[dev] = seen, fetched
+    assert reads["cuda"] == ["cuda"] * 2 and reads["cpu"] == ["cpu"] * 2
+    assert [m.shape for m in masks["cuda"]] == [m.shape for m in masks["cpu"]]
+    got, want = (np.concatenate([m.ravel() for m in masks[d]])
+                 for d in ("cuda", "cpu"))
+    assert set(np.unique(want)) <= {0, 1}
+    assert (got == want).mean() >= 0.999

@@ -13,12 +13,13 @@
 - the steps take ``rng_idx`` (a batch's draws do not depend on the batches
   that ran before it) and ``img_idx`` with ``cache=`` (bitwise the host
   wire format's result);
-- the NaN abort and the refusal of the unported host metrics;
+- the NaN abort and the refusal of an unknown metric name; the default
+  val phase reads no prediction map back, ``metrics=`` one per batch;
 - the slice against JAX: one epoch of both trainers from one JAX
   checkpoint with ``lr=0`` (the weights cannot move, so augmentation and
   the packages' different random bits cannot matter) gives the same
-  validation metrics within the tolerance derived in
-  :func:`test_one_epoch_matches_jax_trainer`.
+  validation metrics, the host GlaS metrics among them, within the
+  tolerance derived in :func:`test_one_epoch_matches_jax_trainer`.
 
 Sizes follow tests/test_train_smoke.py: 64x80 images, canvas 48x64, 3
 SLIC iterations, sp_area 100, f32.
@@ -56,6 +57,8 @@ from wesup_tpu_torch.utils.history import HistoryTracker  # noqa: E402
 
 CFG = dict(canvas_size=(48, 64), slic_iters=3, compute_dtype="float32",
            sp_area=100)
+METRICS = ("accuracy", "dice", "detection_f1", "object_dice",
+           "object_hausdorff")
 PKG = Path(__file__).parent.parent / "wesup_tpu_torch"
 
 
@@ -119,6 +122,47 @@ def jax_ckpt(tmp_path_factory):
             / "ckpt.0000.msgpack")
     jt.save_checkpoint(path, epoch=0)
     return path, _np_tree(jt.params), jt.opt_state
+
+
+@pytest.fixture(scope="module")
+def balanced_ckpt(jax_ckpt, dataset, tmp_path_factory):
+    """``jax_ckpt`` with a classifier whose val masks hold both classes and
+    no probability near 0.5: its weights and bias scaled so that the val
+    superpixels' logits spread with standard deviation 2, then its
+    foreground bias lowered to the middle of the widest gap between those
+    logits in their middle half.  Unchanged, the random head puts every
+    pixel within about 0.01 of 0.5 and on one side of it, so that the host
+    metrics of an all-background mask (0) would be all they compared."""
+    import jax.numpy as jnp
+
+    path, params, opt_state = jax_ckpt
+    pt = initialize_trainer("wesup", device="cpu", metrics=METRICS, **CFG)
+    pt.model.load_state_dict(convert.from_jax_params(params))
+    pt.setup_dataloaders(dataset / "train", dataset / "val")
+    spec = pt.dataloaders["val"].spec
+    step = pt._get_step("eval", (spec.height, spec.width))
+    logits = []
+    for batch in pt.dataloaders["val"]:
+        pred, _ = step(pt.model, steps.init_metric_acc(
+            steps.EVAL_METRIC_KEYS, "cpu"), pt._put_batch(batch))
+        p = pred.numpy()[batch["valid"]].astype(np.float64)
+        logits.append(np.log(p) - np.log1p(-p))
+    z = np.unique(np.concatenate(logits))
+    scale = 2.0 / z.std()
+    mid = np.sort(z * scale)[len(z) // 4: 3 * len(z) // 4 + 1]
+    i = int(np.argmax(np.diff(mid)))
+    shift = (mid[i] + mid[i + 1]) / 2
+    params = jax.tree.map(np.array, params)
+    params["cls"]["w"] = (params["cls"]["w"] * scale).astype(np.float32)
+    params["cls"]["b"] = (params["cls"]["b"] * scale - np.array(
+        [0.0, shift])).astype(np.float32)
+    jt = j_init("wesup", **CFG)
+    jt.params = jax.tree.map(jnp.asarray, params)
+    jt.opt_state = opt_state
+    out = (tmp_path_factory.mktemp("balanced_ckpt") / "rec" / "checkpoints"
+           / "ckpt.0000.msgpack")
+    jt.save_checkpoint(out, epoch=0)
+    return out
 
 
 def _copy_ckpt(path, root):
@@ -204,12 +248,12 @@ def seed_log():
 
 @pytest.fixture(scope="module")
 def fitted(dataset, tmp_path_factory, seed_log):
-    """A 2-epoch fit on the CPU (with a stand-in kernel build directory in
-    the package, which the source snapshot must leave out)."""
+    """A 2-epoch fit on the CPU (with the package's build directory, which
+    the source snapshot must leave out; it is git-ignored and left in
+    place, as other test processes may be building the native library
+    into it)."""
     root = tmp_path_factory.mktemp("port_fit")
-    build = PKG / "_build"
-    made = not build.exists()
-    build.mkdir(exist_ok=True)
+    (PKG / "_build").mkdir(exist_ok=True)
     mp = pytest.MonkeyPatch()
     mp.setenv("RECORD_ROOT", str(root / "records"))
     try:
@@ -217,8 +261,6 @@ def fitted(dataset, tmp_path_factory, seed_log):
                       profile_dir=str(root / "trace"), **CFG)
     finally:
         mp.undo()
-        if made:
-            shutil.rmtree(build)
     return trainer, list(seed_log)
 
 
@@ -374,18 +416,52 @@ def test_nan_abort_and_unported_metrics_raise(dataset, tmp_path,
         trainer.model.classifier[0].bias.fill_(float("nan"))
     with pytest.raises(ValueError, match="Loss is nan"):
         trainer.train(dataset, epochs=1)
-    for metrics in ("object_dice", ("accuracy", "dice", "detection_f1")):
+    # every host metric of the JAX package is ported: only a name that is
+    # none of them is refused, before any step runs
+    for metrics in ("object_dcie", ("accuracy", "dice", "f1_score")):
         trainer = initialize_trainer("wesup", device="cpu", metrics=metrics,
                                      **CFG)
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="unknown metric"):
             trainer.train(dataset, epochs=1)
+        assert not trainer.phase_stats
+
+
+def test_default_path_fetches_no_predictions(dataset, tmp_path, monkeypatch):
+    """Without host metrics the val phase never reads a prediction map
+    back; with them it reads each val batch's map once, and history.csv
+    gains the metric's column (port of tests/test_train_smoke.py::
+    test_default_path_fetches_no_predictions)."""
+    from wesup_tpu_torch.models.trainer import WESUPTrainer
+
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "records"))
+    calls = []
+    orig = WESUPTrainer._fetch_pred
+    monkeypatch.setattr(WESUPTrainer, "_fetch_pred",
+                        lambda self, pred: calls.append(1) or orig(self, pred))
+
+    trainer = initialize_trainer("wesup", device="cpu", **CFG)
+    trainer.train(dataset, epochs=1)
+    assert calls == [], "default path fetched prediction maps"
+
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "records2"))
+    trainer2 = initialize_trainer("wesup", device="cpu",
+                                  metrics=("object_dice",), **CFG)
+    trainer2.train(dataset, epochs=1)
+    n_val_batches = len(trainer2.dataloaders["val"])
+    assert len(calls) == n_val_batches, (len(calls), n_val_batches)
+    # the host metrics read the host batch: the val phase's device-resize
+    # cache is off
+    assert trainer2._resize_cache["val"] is None
+    header, row = _rows(trainer2.record_dir / "history.csv")
+    assert "val_object_dice" in header
+    assert 0.0 <= float(row[header.index("val_object_dice")]) <= 1.0
 
 
 # ---------------------------------------------------------------------------
 # the slice against the JAX trainer
 # ---------------------------------------------------------------------------
 
-def test_one_epoch_matches_jax_trainer(jax_ckpt, dataset, tmp_path,
+def test_one_epoch_matches_jax_trainer(balanced_ckpt, dataset, tmp_path,
                                        monkeypatch):
     """One epoch of each trainer from one JAX checkpoint at ``lr=0``.
 
@@ -400,16 +476,20 @@ def test_one_epoch_matches_jax_trainer(jax_ckpt, dataset, tmp_path,
     canvases, with JAX's SLIC and the port's on the val batches and the
     port's probabilities, so every rounded prediction is the same and the
     two packages' metrics are the same per-image means summed in f32 in
-    another order: they must agree to 1e-6."""
+    another order: they must agree to 1e-6.  The host metrics
+    (``metrics=``: detection F1, object Dice, object Hausdorff) score
+    those same rounded maps, each through its package's native library,
+    in f64: they must agree to 1e-6 too."""
     import jax.numpy as jnp
     from wesup_tpu.ops.slic import slic as j_slic
 
-    jpath, _, _ = jax_ckpt
+    jpath = balanced_ckpt
     monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "records"))
-    jt = j_init("wesup", lr=0.0, **CFG)
+    jt = j_init("wesup", lr=0.0, metrics=METRICS, **CFG)
     jt.train(dataset, epochs=1, checkpoint=str(_copy_ckpt(jpath,
                                                           tmp_path / "j")))
-    pt = initialize_trainer("wesup", device="cpu", lr=0.0, **CFG)
+    pt = initialize_trainer("wesup", device="cpu", lr=0.0, metrics=METRICS,
+                            **CFG)
     pt.train(dataset, epochs=1, checkpoint=str(_copy_ckpt(jpath,
                                                           tmp_path / "p")))
     j_rows = _rows(jt.record_dir / "history.csv")
@@ -439,5 +519,18 @@ def test_one_epoch_matches_jax_trainer(jax_ckpt, dataset, tmp_path,
     for i in range(len(val)):
         probs = pt.predict_probs(val[i]["image"])
         assert (np.abs(probs - 0.5) > 2e-4).all()                      # (b)
-    for key in ("val_accuracy", "val_dice"):
+    # (b) on the val phase's own maps, which hold both classes
+    step = pt._get_step("eval", (spec.height, spec.width))
+    for batch in pt.dataloaders["val"]:
+        pred, _ = step(pt.model, steps.init_metric_acc(
+            steps.EVAL_METRIC_KEYS, "cpu"), pt._put_batch(batch))
+        probs = pred.numpy()[batch["valid"]]
+        assert (np.abs(probs - 0.5) > 2e-4).all()                      # (b)
+        assert 0.05 < (probs > 0.5).mean() < 0.95
+    assert {"val_detection_f1", "val_object_dice",
+            "val_object_hausdorff"} <= set(got)
+    assert got["val_object_dice"] > 0 and got["val_object_hausdorff"] > 0
+    for key in ("val_accuracy", "val_dice", "val_detection_f1",
+                "val_object_dice", "val_object_hausdorff"):
+        assert np.isfinite(got[key]), key
         assert abs(got[key] - want[key]) <= 1e-6, (key, got[key], want[key])

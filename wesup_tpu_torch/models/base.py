@@ -24,6 +24,7 @@ import time
 from abc import ABC, abstractmethod
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..utils import record, underline
@@ -249,6 +250,19 @@ class BaseTrainer(ABC):
     @abstractmethod
     def setup_dataloaders(self, train_path, val_path, proportion=1.0):
         ...
+
+    # ------------------------------------------------------------------
+    # evaluation helper (parity with models/base.py:335-360)
+    # ------------------------------------------------------------------
+
+    def evaluate_host(self, metric_funcs, preds, targets) -> dict:
+        """Each host metric's mean over the (prediction, target) pairs,
+        keyed by the function's name."""
+        metrics = {}
+        for func in metric_funcs:
+            vals = [func(p, g) for p, g in zip(preds, targets)]
+            metrics[func.__name__] = float(np.mean(vals))
+        return metrics
 
 
 def timed_phase(logger, name):

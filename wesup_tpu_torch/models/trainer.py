@@ -15,6 +15,14 @@ read back per batch: the metric sums stay on the device until the end of
 the phase.  Each train batch carries ``rng_idx`` = (epoch, batch index),
 from which the step seeds its generator (``steps.batch_seed``).
 
+``metrics=`` (names from ``utils.metrics.HOST_METRICS`` or functions)
+adds host metrics to the val phase: accuracy and dice stay on the device;
+for any other metric each val batch's probability map is read back, at
+most ``_PENDING_WINDOW`` steps behind the step in flight, cropped to its
+content, rounded and scored on the host, and ``history.csv`` gains a
+``val_<name>`` column per metric.  Without such a name nothing is read
+back per batch.
+
 The port runs on one device: there is no mesh, so ``num_devices`` and
 ``model_parallel`` do nothing yet (data parallelism is ROADMAP Queue 1
 item 10).
@@ -135,24 +143,33 @@ class WESUPTrainer(BaseTrainer):
         return SegmentationDataset(
             root_dir, rescale_factor=self.config.rescale_factor, train=False)
 
-    def _check_metrics(self):
-        """accuracy and dice run on the device in the eval step; the host
-        GlaS metrics behind other names are not ported yet."""
+    def _resolve_extra_metric_fns(self):
+        """The host metrics of ``metrics=`` (reference train.py:26-27 and
+        models/base.py:335-360 take metric functions; the CLI passes names,
+        e.g. ``metrics=accuracy,dice,object_dice``).
+
+        accuracy and dice already run on the device in the eval step, so
+        they are dropped; any other name must be one of
+        ``utils.metrics.HOST_METRICS``, or this raises ``ValueError``."""
+        from ..utils.metrics import HOST_METRICS
+
         spec = self.kwargs.get("metrics")
         if spec is None:
-            return
+            return []
         if isinstance(spec, str) or callable(spec):
             spec = [spec]
+        fns = []
         for m in spec:
-            name = m.__name__ if callable(m) else str(m)
-            if name not in ("accuracy", "dice"):
-                raise NotImplementedError(
-                    f"metrics={name!r}: the port evaluates accuracy and dice "
-                    "only; the host GlaS metrics come with ROADMAP Queue 1 "
-                    "item 11")
+            fn = m if callable(m) else HOST_METRICS.get(str(m))
+            if fn is None:
+                raise ValueError(f"unknown metric: {m!r} (known: "
+                                 f"{', '.join(HOST_METRICS)})")
+            if fn.__name__ not in ("accuracy", "dice"):
+                fns.append(fn)
+        return fns
 
     def setup_dataloaders(self, train_path, val_path, proportion=1.0):
-        self._check_metrics()
+        self._resolve_extra_metric_fns()  # an unknown name fails here
         bs = int(self.kwargs.get("batch_size", self.config.batch_size))
 
         train_ds = self.get_default_dataset(train_path, proportion=proportion)
@@ -206,6 +223,10 @@ class WESUPTrainer(BaseTrainer):
         mode = str(self.config.device_resize).lower()
         self._resize_cache[phase] = None
         if mode in ("off", "false", "0", "none"):
+            return
+        if phase == "val" and self.kwargs.get("metrics"):
+            # the host metrics read each sample's mask and validity from
+            # the host batch (_collect_host_eval); keep the host wire format
             return
         from ..ops.train_resize import build_cache
 
@@ -350,23 +371,70 @@ class WESUPTrainer(BaseTrainer):
         self._track_acc(acc)
         return counts
 
+    # device prediction maps kept in flight on the host-metrics path:
+    # reading step i's map back only after step i + W is queued keeps the
+    # card busy while the host waits for it, and holds W extra maps
+    _PENDING_WINDOW = 2
+
+    def _fetch_pred(self, pred):
+        """Read one batch's probability map back to the host (host-metrics
+        path only: the default path never calls this per step,
+        tests/test_torch_port_trainer.py::
+        test_default_path_fetches_no_predictions)."""
+        return pred.cpu().numpy()
+
+    def _collect_host_eval(self, pred_np, batch, host_preds, host_targets):
+        """Crop one fetched batch to each sample's valid content, rounded,
+        for the host metrics; samples without a mask are skipped."""
+        for b in range(pred_np.shape[0]):
+            if not batch["sample_valid"][b]:
+                continue
+            if not (batch["pixel_mask"][b] >= 0).any():
+                continue
+            h = int(batch["valid"][b].any(axis=1).sum())
+            w = int(batch["valid"][b].any(axis=0).sum())
+            host_preds.append(
+                np.round(pred_np[b, :h, :w]).astype(np.int32))
+            host_targets.append(batch["pixel_mask"][b, :h, :w])
+
+    def _drain_one(self, pending, host_preds, host_targets):
+        pred, batch = pending.pop(0)
+        try:
+            pred_np = self._fetch_pred(pred)
+        except RuntimeError as ex:  # the step loop's per-batch swallow
+            self.logger.exception(ex)
+            return
+        self._collect_host_eval(pred_np, batch, host_preds, host_targets)
+
     def _run_val_phase(self):
         loader = self.dataloaders["val"]
         spec = loader.spec
         step = self._get_step("eval", (spec.height, spec.width))
         acc = steps.init_metric_acc(steps.EVAL_METRIC_KEYS, self.device)
         cache = self._resize_cache.get("val")
+        extra_fns = self._resolve_extra_metric_fns()
+        pending = []  # (device map, host batch), at most W + 1 long
+        host_preds, host_targets = [], []
         counts = _counts()
         for batch in loader:
             counts["batches"] += 1
             counts["samples"] += int(batch["sample_valid"].sum())
             try:
-                _, acc = step(self.model, acc, self._put_batch(batch),
-                              cache=cache if "img_idx" in batch else None)
+                pred, acc = step(self.model, acc, self._put_batch(batch),
+                                 cache=cache if "img_idx" in batch else None)
+                if extra_fns:
+                    pending.append((pred, batch))
+                    if len(pending) > self._PENDING_WINDOW:
+                        self._drain_one(pending, host_preds, host_targets)
             except RuntimeError as ex:  # parity: swallow per-iteration errors
                 counts["failed"] += 1
                 self.logger.exception(ex)
+        while pending:
+            self._drain_one(pending, host_preds, host_targets)
         self._track_acc(acc)
+        if extra_fns and host_preds:
+            self.tracker.step(
+                self.evaluate_host(extra_fns, host_preds, host_targets))
         return counts
 
     def _track_acc(self, acc):

@@ -5,15 +5,20 @@ Usage:
     python -m wesup_tpu_torch.train /path/to/dataset [model=wesup]
         [epochs=300] [batch_size=1] [lr=5e-5] [checkpoint=<ckpt>]
         [checkpoint_period=1] [proportion=1] [smoke=True] [device=cpu]
-        [<any WESUPConfig field>=...]
+        [metrics=accuracy,dice,object_dice] [<any WESUPConfig field>=...]
 
 ``device=`` takes the place of the JAX CLI's ``platform=``: by default the
 run trains on the card (and stops when there is none); ``device=cpu``
 trains on the host.  ``checkpoint=`` resumes from a ``.pth`` of this
-trainer or the reference, or from a JAX trainer's ``.msgpack``.  Only the
-accuracy and dice metrics are evaluated (``metrics=`` with other names
-raises until the host GlaS metrics are ported).  ``smoke=True`` deletes
-the record directory at the end.
+trainer or the reference, or from a JAX trainer's ``.msgpack``.
+``smoke=True`` deletes the record directory at the end.
+
+``metrics=`` selects evaluation metrics by name (reference train.py:26-27
+passes the functions [accuracy, dice], which stay the effective default
+and run on the device inside the eval step).  Other names
+(``detection_f1``, ``object_dice``, ``hausdorff``, ``object_hausdorff``)
+are evaluated on the host on the validation predictions and land in
+history.csv as ``val_<name>``; an unknown name raises ``ValueError``.
 
 The dataset directory must contain ``train/`` (and optionally ``val/``) with
 ``images/``, ``masks/`` and optionally ``points/`` subdirectories; images

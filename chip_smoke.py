@@ -102,7 +102,20 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    against plain; the val phase three ways
    (``scripts.measure_eval_metrics``: default, deferred and eager reads;
    the deferred and eager host metrics equal); seconds per step. Its
-   lines start with ``[protocol``.
+   lines start with ``[protocol``;
+14. the quality protocol on the card: ``python -m
+   wesup_tpu_torch.scripts.quality_protocol`` at its defaults (the easy
+   synthetic task drawn without OpenCV from data seed 0: 20 train, 4 val,
+   6 + 6 test 522x775 images; points; 150 epochs of the trainer at the
+   defaults; ``test_glas`` at five scales; ``evaluate_glas``), run in this
+   process: the first train step's K1-K4 held against their plain
+   versions, K1-K4 and no other kernel launched, no error logged, the
+   summary's keys; gates: best val Dice >= 0.95 and a breakthrough (val
+   Dice > 0.9) within the 150 epochs; per-split Accuracy, Dice, Detection
+   F1, Object Dice and Object Hausdorff beside the JAX package's (README),
+   train seconds per epoch, the device busy share over epoch 2 (profiler)
+   and the seconds of each protocol step.  Its lines start with
+   ``[quality``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -2293,6 +2306,181 @@ def protocol_phase(torch, card, seed) -> None:
     log(f"[{tag}] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# The JAX package's easy-protocol result on a TPU v5e (README's table, 150
+# epochs at the defaults); its figures are the reference, not the card's
+JAX_EASY = {
+    "testA": {"Accuracy": 0.998, "Dice": 0.994, "Detection F1": 0.95,
+              "Object Dice": 0.93},
+    "testB": {"Accuracy": 0.999, "Dice": 0.995, "Detection F1": 1.00,
+              "Object Dice": 0.995},
+}
+QUALITY_METRICS = ("Accuracy", "Dice", "Detection F1", "Object Dice",
+                   "Object Hausdorff")
+
+
+def quality_phase(torch, card) -> None:
+    """Phase 14: ``scripts.quality_protocol`` at its defaults (the easy
+    task, 150 epochs, data seed 0) on the card, with its gates."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from wesup_tpu_torch import native
+    from wesup_tpu_torch.models.trainer import WESUPTrainer
+    from wesup_tpu_torch.ops import launch_counts, reset_launches
+    from wesup_tpu_torch.scripts import quality_protocol as qp
+    from wesup_tpu_torch.scripts._common import imread_gray, pool_map
+
+    t_phase = time.perf_counter()
+    tag = "quality"
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase14_")
+    args = qp.parse_args(["--root", str(Path(tmp.name) / "easy"),
+                          "--out", str(Path(tmp.name) / "easy.json")])
+    trainers, busy, held = [], {}, []
+    real_get = WESUPTrainer._get_step
+    real_epoch = WESUPTrainer.train_one_epoch
+
+    def get_step(self, kind, hw):
+        step = real_get(self, kind, hw)
+        if kind != "train" or held:
+            return step
+
+        def run(*a, **k):
+            if held:
+                return step(*a, **k)
+            # the first train step of the run, held against plain
+            out = []
+            held.append(hw)
+            hold_step_kernels(torch, lambda: out.append(step(*a, **k)), tag)
+            return out[0]
+        return run
+
+    def train_one_epoch(self, no_val=False):
+        if not trainers:
+            trainers.append(self)
+        if self._epoch_idx != 2:
+            return real_epoch(self, no_val)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            real_epoch(self, no_val)
+            torch.cuda.synchronize()
+        busy["kern"], busy["busy"], busy["span"] = device_busy(prof)
+
+    errors = ErrorRecords("Train")
+    old_root = os.environ.get("RECORD_ROOT")
+    logging.getLogger().addHandler(errors)
+    try:
+        with mock.patch.object(WESUPTrainer, "_get_step", new=get_step), \
+                mock.patch.object(WESUPTrainer, "train_one_epoch",
+                                  new=train_one_epoch):
+            reset_launches()
+            summary, secs = qp.run(args)
+            launches = launch_counts()
+    finally:
+        logging.getLogger().removeHandler(errors)
+        if old_root is None:
+            os.environ.pop("RECORD_ROOT", None)
+        else:
+            os.environ["RECORD_ROOT"] = old_root
+    if errors.records:
+        fail(f"the trainer logged {len(errors.records)} errors, the first: "
+             f"{errors.records[0].getMessage()}")
+    if not held:
+        fail("no train step's K1-K4 were held against their plain versions")
+    want_keys = {"variant", "epochs", "best_val_dice", "final_val_dice",
+                 "splits", "wall_s", "record_dir", "card"}
+    if set(summary) != want_keys:
+        fail(f"the protocol's summary has the keys {sorted(summary)}")
+    log(f"[{tag}] launches over the protocol (train, val, test_glas): "
+        f"{launches}")
+    on_path = {"cell_pool0", "cell_pool_stage", "cell_pool0_bwd",
+               "cell_pool_stage_bwd"}
+    if {k for k, v in launches.items() if v} != on_path:
+        fail(f"the protocol launched {launches}; K1-K4 and no other kernel "
+             "were expected")
+
+    # ---- 14a. the gates: best val Dice, a breakthrough -------------------
+    with open(Path(summary["record_dir"]) / "history.csv") as fp:
+        dice = [float(r["val_dice"]) for r in csv.DictReader(fp)]
+    if len(dice) != args.epochs:
+        fail(f"history.csv holds {len(dice)} epochs, not {args.epochs}")
+    through = next((e + 1 for e, d in enumerate(dice) if d > 0.9), None)
+    log(f"[{tag}] easy protocol, {args.epochs} epochs: best val Dice "
+        f"{max(dice):.4f} at epoch {dice.index(max(dice)) + 1}, final "
+        f"{dice[-1]:.4f}, breakthrough (val Dice > 0.9) at epoch {through} "
+        "(JAX on a TPU v5e: best 0.993 at epoch 65, final 0.908; gates: "
+        f"best >= 0.95, a breakthrough within {args.epochs} epochs); {card}")
+    if not max(dice) >= 0.95:
+        fail(f"best val Dice {max(dice):.4f} < 0.95")
+    if through is None:
+        fail(f"no breakthrough (val Dice > 0.9) in {args.epochs} epochs")
+
+    # ---- 14b. the test protocol's metrics beside the JAX package's -------
+    for split in ("testA", "testB"):
+        got = summary["splits"].get(split, {})
+        if set(got) != set(QUALITY_METRICS) or not all(
+                np.isfinite(v) for v in got.values()):
+            fail(f"{split}: evaluate_glas reported {got}")
+        log(f"[{tag}] {split} ({args.n_test} images): " + ", ".join(
+            f"{m} {got[m]:.4f} (JAX {JAX_EASY[split][m]})"
+            if m in JAX_EASY[split] else f"{m} {got[m]:.4f} (JAX: not in "
+            "README)" for m in QUALITY_METRICS) + f"; {card}")
+
+    # ---- 14c. the host metrics on the trained model's masks --------------
+    results = Path(summary["record_dir"]) / "results-5scale"
+    labels, pairs, rows = [], [], []
+    for split in GLAS_TEST:
+        preds = sorted((results / split).glob("*.png"))
+        with open(results / f"{split}.csv", newline="") as fp:
+            rows += list(csv.reader(fp))[1:]
+        labels += [p.name for p in preds]
+        pairs += [(imread_gray(p) / 255, imread_gray(
+            Path(args.root) / split / "masks" / p.name), 2000) for p in preds]
+    t0 = time.perf_counter()
+    scored = pool_map(plain_score, pairs)
+    worst = hold_plain(scored, labels, rows)
+    glands = np.mean([native.label8(g).max() for _, g, _ in pairs])
+    log(f"[{tag}] evaluate_glas's CSVs on the trained masks ({len(pairs)} "
+        "images) against the plain (scipy) versions, max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (limits 1e-12, 1e-12, 1e-6); {time.perf_counter() - t0:.2f} s")
+    for name in ("flip_small_regions",) + OBJECT_METRICS:
+        ms = np.array([t[name] for _, _, t in scored])
+        log(f"[{tag}] {name} on the trained masks: native "
+            f"{ms[:, 0].mean():.1f} ms, plain {ms[:, 1].mean():.1f} ms per "
+            f"{args.hw[0]}x{args.hw[1]} image ({glands:.1f} glands an "
+            f"image, mean of {len(ms)}, max {ms[:, 0].max():.1f} / "
+            f"{ms[:, 1].max():.1f}; {min(len(ms), os.cpu_count() or 1)} "
+            f"worker processes at once on {os.cpu_count()} host cores); "
+            f"{card}")
+
+    # ---- 14d. times: per epoch, per step, device busy --------------------
+    stats = trainers[0].phase_stats
+    train_s = [stats[(e, "train")]["seconds"] for e in range(1, args.epochs + 1)]
+    val_s = [stats[(e, "val")]["seconds"] for e in range(1, args.epochs + 1)]
+    n_img = stats[(2, "train")]["samples"]
+    med = statistics.median(train_s[2:])
+    log(f"[{tag}] train seconds per epoch ({n_img} images at B="
+        f"{trainers[0].config.batch_size}): median {med:.3f} "
+        f"({n_img / med:.1f} img/s), epoch 1 {train_s[0]:.3f}, max "
+        f"{max(train_s[2:]):.3f}; val {statistics.median(val_s):.3f} s "
+        f"({stats[(2, 'val')]['samples']} images); {card}")
+    if busy.get("span"):
+        log(f"[{tag}] epoch 2 (train + val) under the profiler: "
+            f"{len(busy['kern'])} kernels, device busy "
+            f"{busy['busy'] / 1e3:.1f} ms of a {busy['span'] / 1e3:.1f} ms "
+            f"span, busy share {busy['busy'] / busy['span']:.3f}; {card}")
+    else:
+        log(f"[{tag}] no device kernels recorded: busy share not measured")
+    log(f"[{tag}] seconds per protocol step: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; wall {summary['wall_s']} s; {card}")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -2605,6 +2793,9 @@ def main(argv=None) -> int:
 
     # ---- 13. the GlaS protocol: prepare, points, train, test, evaluate ---
     protocol_phase(torch, card, args.seed)
+
+    # ---- 14. the quality protocol: a model the port trains, scored -------
+    quality_phase(torch, card)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

@@ -971,3 +971,103 @@ def test_val_phase_host_metrics_on_card(cuda, tmp_path):
                  for d in ("cuda", "cpu"))
     assert set(np.unique(want)) <= {0, 1}
     assert (got == want).mean() >= 0.999
+
+
+def test_quality_protocol_runs_on_card(cuda, tmp_path, monkeypatch):
+    """``scripts.quality_protocol`` on the card at 2 epochs and 64x80 (the
+    easy generator, which draws no raster): the summary holds the JAX
+    script's keys, the card's line and both splits' five metrics."""
+    from wesup_tpu_torch.scripts import quality_protocol as qp
+
+    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "unused"))
+    summary = qp.main(["--epochs", "2", "--hw", "64", "80", "--n-train", "2",
+                       "--n-val", "1", "--n-test", "1", "--root",
+                       str(tmp_path / "qp"), "--out",
+                       str(tmp_path / "qp.json")])
+    assert set(summary) == {"variant", "epochs", "best_val_dice",
+                            "final_val_dice", "splits", "wall_s",
+                            "record_dir", "card"}
+    assert (summary["variant"], summary["epochs"]) == ("easy", 2)
+    assert summary["card"].startswith(torch.cuda.get_device_name(0))
+    for split in ("testA", "testB"):
+        got = summary["splits"][split]
+        assert set(got) == {"Accuracy", "Dice", "Detection F1",
+                            "Object Dice", "Object Hausdorff"}
+        assert all(np.isfinite(v) for v in got.values())
+    rows = (Path(summary["record_dir"]) / "history.csv").read_text()
+    assert len(rows.splitlines()) == 3
+
+
+def _to(x, dev):
+    """A NamedTuple of tensors (nested, None kept) on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return type(x)(*(_to(v, dev) for v in x))
+
+
+@pytest.mark.parametrize("point_mode", [True, False], ids=["points", "mask"])
+def test_train_augmentation_on_card_matches_cpu(cuda, point_mode):
+    """The train step's preprocessing (appearance with CLAHE and blur,
+    warps, elastic, point rasterisation, SLIC and the supervision) on the
+    card against the CPU, on the same drawn parameters and gland-like
+    images: the masks, seg and supervision equal on at least 0.999 of the
+    pixels, as JAX's prep is held on the CPU (tests/test_torch_port_train.py).
+    Each image that CLAHE does not touch is within 1e-4 on at least 0.999
+    of its samples, the same hold.  CLAHE quantises L into 256 bins: where
+    the two devices round a colour's L to either side of a bin edge, every
+    pixel of that colour moves by up to one bin's step of the equalised
+    map, about the clip limit 4 over 256 bins (0.016), so an image that
+    CLAHE touches may differ on a whole colour's share of its samples (one
+    of this batch's does on 4.7%, by at most 0.0052 after the warp); it is
+    held within 0.02 everywhere, and the batch within 1e-4 on at least
+    0.98 of its samples."""
+    from wesup_tpu_torch.scripts.make_dataset import make_image
+
+    B, H, W = 4, 96, 128
+    rng = np.random.default_rng(3)
+    imgs, masks = zip(*(make_image(rng, H, W) for _ in range(B)))
+    image = torch.from_numpy(np.stack(imgs))
+    pixel_mask = torch.from_numpy(np.stack(masks).astype(np.int32))
+    valid = torch.ones((B, H, W), dtype=torch.bool)
+    valid[:, -9:] = False
+    pixel_mask[~valid] = -1
+    points = torch.zeros((B, 16, 3), dtype=torch.int32)
+    point_valid = torch.zeros((B, 16), dtype=torch.bool)
+    for b in range(B):
+        ys, xs = np.nonzero(masks[b][:H - 9] >= 0)
+        pick = rng.choice(len(ys), 8, replace=False)
+        points[b, :8] = torch.from_numpy(np.stack(
+            [xs[pick], ys[pick], masks[b][ys[pick], xs[pick]]], -1))
+        point_valid[b, :8] = True
+    use_mask = torch.zeros((B,), dtype=torch.bool)
+    cfg = WESUPConfig(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    params = steps.sample_augmentation(cfg, B, (H, W), point_mode, gen, "cpu")
+    # every appearance branch taken by some image
+    params = params._replace(appearance=params.appearance._replace(
+        clahe=torch.tensor([True, False, True, False]),
+        blur=torch.tensor([True, True, False, False])))
+    if not point_mode:
+        params = params._replace(elastic=params.elastic._replace(
+            apply=torch.tensor([True, False, True, True])))
+    out = {}
+    for dev in ("cpu", cuda):
+        args = [t.to(dev) for t in (image, valid, pixel_mask, points,
+                                    point_valid, use_mask)]
+        out[str(dev)] = steps._preprocess_sample(
+            _to(params, dev), *args, config=cfg, train=True,
+            point_mode=point_mode)
+    want, got = out["cpu"], out[str(torch.device(cuda))]
+    diff = (got.image.cpu() - want.image).abs()
+    close = (diff <= 1e-4).flatten(1).float().mean(1)
+    for b, clahe in enumerate(params.appearance.clahe.tolist()):
+        if not clahe:
+            assert close[b].item() >= 0.999, (b, close.tolist())
+    assert close.mean().item() >= 0.98, close.tolist()
+    assert diff.max().item() <= 0.02
+    for name in ("valid", "target", "seg", "sup_mask"):
+        same = getattr(got, name).cpu() == getattr(want, name)
+        assert same.float().mean().item() >= 0.999, name
+    assert want.sup_mask.sum() > 0

@@ -474,7 +474,9 @@ NEW_MODULES = ("native", "utils.metrics", "ops.morphology", "models.base",
                "scripts._common", "scripts.generate_points",
                "scripts.generate_area", "scripts.evaluate_glas",
                "scripts.evaluate_crag", "scripts.evaluate_pdl1",
-               "scripts.measure_eval_metrics")
+               "scripts.measure_eval_metrics", "data.draw",
+               "scripts.make_dataset", "scripts.quality_protocol",
+               "scripts.quality_ablation", "scripts.quality_sweep")
 BLOCKED = ("jax", "wesup_tpu", "cv2", "pandas", "joblib", "sklearn")
 
 
@@ -482,7 +484,7 @@ def test_new_modules_run_without_jax_opencv_pandas_joblib_sklearn(
         eval_tree, raw_glas, mask_root, tmp_path):
     """Each new module imports with those packages blocked, and
     prepare_glas, generate_points and evaluate_glas (with forked
-    workers) and the metrics run there."""
+    workers), the metrics and make_dataset (easy and hard) run there."""
     shutil.copytree(eval_tree / "preds", tmp_path / "preds")
     shutil.copytree(mask_root, tmp_path / "pts")
     code = f"""
@@ -503,6 +505,10 @@ prepare_glas.main([{str(raw_glas)!r}, "-o", {str(tmp_path / 'data')!r},
 generate_points.main([{str(tmp_path / 'pts')!r}, "--seed", "0"])
 evaluate_glas.main([{str(tmp_path / 'preds')!r}, "--gt-root",
                     {str(eval_tree / 'gt')!r}, "--threshold", "50"])
+from wesup_tpu_torch.scripts.make_dataset import make_dataset
+for hard in (False, True):
+    make_dataset({str(tmp_path / 'synth')!r} + str(hard), n_train=1, n_val=1,
+                 hw=(48, 64), hard=hard, n_testA=1)
 bad = [m for m in sys.modules if sys.modules[m] is not None
        and m.split(".")[0] in {BLOCKED!r}]
 assert not bad, bad
@@ -516,6 +522,9 @@ print("done")
     assert (tmp_path / "preds" / "testB.csv").exists()
     assert len(list((tmp_path / "pts" / "points-0.0001").iterdir())) == 5
     assert len(list((tmp_path / "data" / "val" / "masks").iterdir())) == 2
+    for hard in ("False", "True"):
+        assert len(list(Path(f"{tmp_path / 'synth'}{hard}").rglob(
+            "*.png"))) == 6
 
 
 # ---------------------------------------------------------------------------

@@ -83,7 +83,8 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    image, K1 once and K2 four times per superpixel forward (the first
    forward's K1/K2 held against their plain versions on its inputs) and no
    kernel in the pixel CLIs; ``POST /predict`` of a PNG to a superpixel and
-   a pixel server, which must answer with masks (and a JPEG with 400);
+   a pixel server, which must answer with masks (and a malformed JPEG with
+   400);
 13. the GlaS protocol as a user runs it on this machine: a raw set in
    GlaS's own layout (85 train images, testA and testB cut to 8 + 8,
    522x775 BMPs with gland-id annotations, ``Grade.csv`` with two grades;
@@ -115,7 +116,28 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    F1, Object Dice and Object Hausdorff beside the JAX package's (README),
    train seconds per epoch, the device busy share over epoch 2 (profiler)
    and the seconds of each protocol step.  Its lines start with
-   ``[quality``.
+   ``[quality``;
+15. JPEG and the DigestPath2019 pipeline: the port's JPEG library
+   (``csrc/jpeg.cpp``, built with the host's C++ compiler) against its
+   plain versions (``data/jpeg.py``) on files made from integer
+   arithmetic in every sampling mode (4:4:4, 4:2:2, 4:2:0, 4:4:0, gray)
+   and the eight EXIF orientations in both byte orders, colour and gray
+   reads, and by SHA-256 against ``cv2.imdecode``'s decodes of the same
+   files (constants computed with OpenCV 5.0.0); the library's and the
+   plain version's decode and encode ms per 1000x1000 patch; ``python -m
+   wesup_tpu_torch.test_dp2019_pipeline`` (run in this process, so its
+   launches are counted) on two synthetic 2300x3100 JPEG slides
+   (``make_image_hard`` from ``--seed``), patch 1000, superpixel at
+   400x400 (K1 once and K2 four times per forward, the first forward's
+   held against their plain versions) and ``--pixel`` at 0.4 under
+   ``WESUP_FUSED_POOL1=1`` (K7 once per forward, bitwise its plain
+   version), each from a checkpoint of a fresh trainer (the seconds of
+   its JAX-bit weight draw timed) whose classifier reads one fc3 feature
+   against a threshold, so that every combined mask is 5-95% foreground;
+   every combined mask equal to its patch masks stitched in numpy, and
+   the printed Accuracy and Dice equal to numpy's on them; one JPEG
+   ``POST /predict`` (200, K1 1 and K2 4) and the same JPEG cut in half
+   (400).  Its lines start with ``[jpeg`` and ``[serve jpeg``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -129,6 +151,7 @@ import contextlib
 import csv
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -1979,12 +2002,13 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
                             for r in kind_replies) + f"; {card}")
         log(f"[serve {mode}] launches over {n_requests} requests "
             + str({k: v for k, v in counts.items() if v})
-            + f"; a JPEG body: {bad[0]}")
+            + f"; a malformed JPEG body: {bad[0]}")
         if counts != expected({k: v * n_requests
                                for k, v in per_request.items()}):
             fail(f"the {mode} server launched {counts}")
         if bad[0] != 400:
-            fail(f"the {mode} server answered a JPEG with {bad[0]}")
+            fail(f"the {mode} server answered a malformed JPEG with "
+                 f"{bad[0]}")
     tmp.cleanup()
     torch.cuda.empty_cache()
     log(f"[pixel] phase 12 took {time.perf_counter() - t_phase:.1f} s")
@@ -2481,6 +2505,391 @@ def quality_phase(torch, card) -> None:
     log(f"[{tag}] phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 15: JPEG images made from arithmetic alone (no RNG stream, so any
+# numpy makes the same pixels), encoded by the plain encoder in each
+# sampling mode (its bytes are cv2.imencode's with that
+# IMWRITE_JPEG_SAMPLING_FACTOR), and the SHA-256 of cv2.imdecode's
+# colour (RGB) and gray reads of them, computed with OpenCV 5.0.0
+# (libjpeg-turbo 3.1.2), which the card's machine does not have
+JPEG_HW = (97, 131)
+JPEG_ORIENT_HW = (37, 53)
+JPEG_SAMPLINGS = {"444": (1, 1), "422": (2, 1), "420": (2, 2),
+                  "440": (1, 2), "gray": None}
+JPEG_CV2_SHA256 = {
+    "bytes":
+        "cb70fd63828fcf610d8ff69d0a70f305a5cde2c058ebbf6bf0c49cd52a011af2",
+    "444":
+        "6f2b1d35eaae0b0accccbacd0c6109110175a068c1e3e00fe86ac7b9f6de4b6d",
+    "422":
+        "73251fb8660b2adc7e39b0aac5ebb456df5580cc210c3458605532efd336495b",
+    "420":
+        "4caa1b96ab4d134d9d37e6e48f3946f72901329c51b7661260b43e2138cf4d57",
+    "440":
+        "54efa629f85fa77b5543a7ef0788ff8690a03caff8370dce0efbed9d9f8781e2",
+    "gray":
+        "7bcef6ca792b01d47753b06d7c840c34a83edbc4f1834279251d503e40e67c73",
+    "orientations":
+        "f3edf190a6ac164d7c2d6b486da626eda373751204c03af6ee99cb2e77b0d7d9",
+}
+# DigestPath2019's colonoscopy slides are JPEG, tiled at 1000: two
+# synthetic slides whose sides are not multiples of the patch
+DP_SLIDE_HW = (2300, 3100)
+DP_PATCH = 1000
+
+
+def smoke_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(h, w, 3) uint8: gradients under a hashed texture, integer
+    arithmetic only."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.uint32)
+    c = np.arange(3, dtype=np.uint32)
+    hsh = ((x[..., None] * np.uint32(73856093))
+           ^ (y[..., None] * np.uint32(19349663))
+           ^ (c * np.uint32(83492791) + np.uint32(seed * 2654435761 % 2**32)))
+    hsh = hsh * np.uint32(2246822519)
+    tex = (hsh >> np.uint32(26)).astype(np.int64) - 32          # -32..31
+    base = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                     (x + y) * 127 // max(h + w - 2, 1)], -1).astype(np.int64)
+    return np.clip(base + tex, 0, 255).astype(np.uint8)
+
+
+def with_orientation(data: bytes, value: int, order: str) -> bytes:
+    """``data`` with an Exif APP1 (IFD0: Orientation = ``value``, byte
+    order ``order``, "II" or "MM") after its JFIF APP0."""
+    import struct
+
+    e = "<" if order == "II" else ">"
+    tiff = (order.encode() + struct.pack(e + "HI", 42, 8)
+            + struct.pack(e + "H", 1)
+            + struct.pack(e + "HHIHH", 0x0112, 3, 1, value, 0)
+            + struct.pack(e + "I", 0))
+    body = b"Exif\0\0" + tiff
+    return (data[:20] + b"\xff\xe1" + struct.pack(">H", len(body) + 2)
+            + body + data[20:])
+
+
+def jpeg_cases():
+    """{group: [JPEG bytes, ...]}: one file per sampling mode at
+    ``JPEG_HW``, and the eight orientations in both byte orders on a
+    4:2:0 and a gray file at ``JPEG_ORIENT_HW``."""
+    from wesup_tpu_torch.data.jpeg import encode_plain
+
+    img = smoke_image(*JPEG_HW)
+    cases = {}
+    for name, sampling in JPEG_SAMPLINGS.items():
+        cases[name] = [encode_plain(img[..., 0]) if sampling is None
+                       else encode_plain(img, sampling)]
+    small = smoke_image(*JPEG_ORIENT_HW, seed=1)
+    bases = [encode_plain(small), encode_plain(small[..., 0])]
+    cases["orientations"] = [with_orientation(b, v, order) for b in bases
+                             for v in range(1, 9) for order in ("II", "MM")]
+    return cases
+
+
+def decodes_sha256(decode, files) -> str:
+    """SHA-256 over the colour then gray decode of each file."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for data in files:
+        for gray in (False, True):
+            out = np.ascontiguousarray(decode(data, gray))
+            h.update(str(out.shape).encode() + out.tobytes())
+    return h.hexdigest()
+
+
+def stitch(patch_dir: Path, index: int, hw) -> np.ndarray:
+    """Slide ``index``'s patch masks laid side by side in numpy (the
+    grid from the file names), cropped to ``hw``."""
+    from wesup_tpu_torch.data import codec
+
+    cells = {}
+    for p in patch_dir.glob(f"{index}-*.png"):
+        _, x, y = p.stem.split("-")
+        cells[int(y), int(x)] = codec.imread_mask(p)
+    ys, xs = sorted({k[0] for k in cells}), sorted({k[1] for k in cells})
+    return np.block([[cells[y, x] for x in xs] for y in ys])[:hw[0], :hw[1]]
+
+
+def jpeg_pipeline_phase(torch, card, seed) -> None:
+    """Phase 15: the JPEG library against its plain versions and cv2's
+    decodes, its times per 1000x1000 patch, the DigestPath2019 pipeline
+    on two JPEG slides through both routes, and a JPEG ``POST
+    /predict``."""
+    import io
+    import tempfile
+
+    from wesup_tpu_torch import native
+    from wesup_tpu_torch import test_dp2019_pipeline as dp
+    from wesup_tpu_torch.data import codec
+    from wesup_tpu_torch.data import jpeg as plain
+    from wesup_tpu_torch.inference import Predictor, predict_multiscale_batch
+    from wesup_tpu_torch.models import initialize_trainer, jax_init, wesup
+    from wesup_tpu_torch.ops import cellpool, launch_counts, pool, \
+        reset_launches
+    from wesup_tpu_torch.scripts.make_dataset import make_image_hard
+    from wesup_tpu_torch.serve import create_server
+
+    t_phase = time.perf_counter()
+    tag = "jpeg"
+
+    # ---- 15a. the library against its plain versions and cv2 ------------
+    t0 = time.perf_counter()
+    native.jpeg_library()
+    log(f"[{tag}] {native.JPEG_SOURCE.name} loaded (built with the host's "
+        f"C++ compiler on first use) in {time.perf_counter() - t0:.2f} s")
+    cases = jpeg_cases()
+    enc = plain.encode_plain
+    img = smoke_image(*JPEG_HW)
+    for label, arr in (("420", img), ("gray", img[..., 0])):
+        if native.jpeg_encode(arr) != enc(arr):
+            fail(f"{tag}: the library's {label} encode differs from the "
+                 "plain encoder's")
+    got_bytes = decodes_sha256(lambda d, g: np.frombuffer(d, np.uint8),
+                               [f for fs in cases.values() for f in fs])
+    if got_bytes != JPEG_CV2_SHA256["bytes"]:
+        fail(f"{tag}: the plain encoder's files differ from cv2.imencode's")
+    for group, files in cases.items():
+        for data in files:
+            for gray in (False, True):
+                a = native.jpeg_decode(data, gray)
+                b = plain.decode_plain(data, gray)
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    fail(f"{tag}: {group}: the library's decode (gray "
+                         f"{gray}) differs from the plain version's")
+        digest = decodes_sha256(native.jpeg_decode, files)
+        if digest != JPEG_CV2_SHA256[group]:
+            fail(f"{tag}: {group}: decodes differ from cv2.imdecode's "
+                 f"({digest} != {JPEG_CV2_SHA256[group]})")
+    n_files = sum(len(f) for f in cases.values())
+    log(f"[{tag}] {n_files} JPEGs (4:4:4, 4:2:2, 4:2:0, 4:4:0 and gray at "
+        f"{JPEG_HW[0]}x{JPEG_HW[1]}; 8 EXIF orientations x II/MM x 4:2:0/"
+        f"gray at {JPEG_ORIENT_HW[0]}x{JPEG_ORIENT_HW[1]}): the library's "
+        "colour and gray decodes equal the plain versions' and, by SHA-256, "
+        "cv2.imdecode's; its 4:2:0 and gray encodes equal the plain "
+        "encoder's, whose files are cv2.imencode's")
+
+    # times per 1000x1000 patch, on the host
+    patch = smoke_image(DP_PATCH, DP_PATCH, seed=2)
+    data = native.jpeg_encode(patch)
+    times = {}
+    for label, fn, n in (
+            ("decode, library", lambda: native.jpeg_decode(data), 10),
+            ("decode, plain", lambda: plain.decode_plain(data), 1),
+            ("encode, library", lambda: native.jpeg_encode(patch), 10),
+            ("encode, plain", lambda: plain.encode_plain(patch), 1)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times[label] = (time.perf_counter() - t0) * 1e3 / n
+    log(f"[{tag}] a {DP_PATCH}x{DP_PATCH} 4:2:0 patch ({len(data)} bytes), "
+        "ms on the card's host: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in times.items()) + f"; {card}")
+
+    # ---- 15b. the DigestPath2019 pipeline on two JPEG slides -------------
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase15_")
+    root = Path(tmp.name) / "dp"
+    (root / "images").mkdir(parents=True)
+    (root / "masks").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for stem in ("negative-00", "positive-00"):
+        slide, mask = make_image_hard(rng, *DP_SLIDE_HW)
+        codec.imwrite(root / "images" / f"{stem}.jpg", slide)
+        codec.imwrite(root / "masks" / f"{stem}.png", mask * 255)
+    log(f"[{tag}] two {DP_SLIDE_HW[0]}x{DP_SLIDE_HW[1]} synthetic slides "
+        f"(make_image_hard, seed {seed}) written as JPEG in "
+        f"{time.perf_counter() - t0:.1f} s")
+    draws = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        jax_init.init_params(seed)
+        draws.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    trainer = initialize_trainer("wesup", seed=seed)
+    # a fresh head's logit margin varies little across a slide, so its
+    # masks come out (nearly) one class, and a patch put in the wrong
+    # place would stitch to the same mask.  So each route gets a
+    # checkpoint whose classifier reads one fc3 feature: logit 0 is 0,
+    # logit 1 the feature less one of its own values over the slides'
+    # patches as the route sees them (so the difference is exact in
+    # bf16), the feature and value that leave nearest half of the values
+    # above.  The rest of the model is the fresh trainer's.
+    probe = []      # the patches as the pipeline reads them back
+    for stem in ("negative-00", "positive-00"):
+        img = codec.imread_rgb(root / "images" / f"{stem}.jpg")
+        img = np.pad(img, ((0, -img.shape[0] % DP_PATCH),
+                           (0, -img.shape[1] % DP_PATCH), (0, 0)))
+        probe += [codec.decode(codec.encode_jpeg(
+            img[y:y + DP_PATCH, x:x + DP_PATCH]))
+            for y in range(0, img.shape[0], DP_PATCH)
+            for x in range(0, img.shape[1], DP_PATCH)]
+    cls = trainer.model.classifier[0]
+    fresh = {k: v.detach().clone() for k, v in cls.state_dict().items()}
+    feats, head = [], wesup._mlp_head
+
+    def spy(model, x):
+        probs, f = head(model, x)
+        feats.append(f.reshape(-1, f.shape[-1]))
+        return probs, f
+
+    ckpts, picked = {}, {}
+    for mode, size in (("superpixel", {"input_size": (400, 400)}),
+                       ("pixel", {"scales": (0.4,)})):
+        cls.load_state_dict(fresh)
+        predictor = Predictor(trainer.model, trainer.config, mode=mode)
+        feats.clear()
+        with mock.patch.object(wesup, "_mlp_head", spy), \
+                fused_pool1(mode == "pixel"):
+            predict_multiscale_batch(predictor, probe, **size)
+        fc3 = torch.cat(feats)
+        best = None
+        for c in range(fc3.shape[1]):
+            lv, n = torch.unique(fc3[:, c], return_counts=True)
+            up = (n.sum() - n.cumsum(0)).double() / n.sum()
+            at = int((up - 0.5).abs().argmin())
+            if best is None or abs(up[at] - 0.5) < abs(best[2] - 0.5):
+                best = (c, lv, float(up[at]), at)
+        j, levels, share, k = best
+        picked[mode] = (j, len(levels), round(share, 4))
+        with torch.no_grad():
+            cls.weight.zero_()
+            cls.weight[1, j] = 1.0
+            cls.bias.copy_(torch.stack([torch.zeros_like(levels[k]),
+                                        -levels[k]]))
+        ckpts[mode] = (Path(tmp.name) / "rec" / "checkpoints"
+                       / f"ckpt.{mode}.pth")
+        trainer.save_checkpoint(ckpts[mode], epoch=1)
+    del trainer, predictor, probe, feats, fc3
+    log(f"[{tag}] the initial weights drawn from JAX's bits "
+        f"(jax_init.init_params, full width) in "
+        + " / ".join(f"{d:.2f}" for d in draws) + " s on the card's host; "
+        f"a fresh WESUPTrainer's checkpoint for each route, its classifier "
+        f"reading one fc3 feature (feature, bf16 levels over the patches, "
+        f"share above the threshold: "
+        + ", ".join(f"{m} {v}" for m, v in picked.items())
+        + f") in {time.perf_counter() - t0:.1f} s")
+    gts = {stem: codec.imread_mask(root / "masks" / f"{stem}.png")
+           for stem in ("positive-00", "negative-00")}
+    grid = [-(-s // DP_PATCH) for s in DP_SLIDE_HW]
+    n_patches = 2 * grid[0] * grid[1]
+    for route, flags, gated, forward, ckpt in (
+            ("superpixel, 400x400", [], False, "forward_superpixel",
+             ckpts["superpixel"]),
+            ("pixel, scale 0.4, WESUP_FUSED_POOL1=1", ["--pixel"], True,
+             "forward_pixel", ckpts["pixel"])):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch.object(wesup, forward,
+                               wraps=getattr(wesup, forward)) as fwd, \
+                recorded(cellpool, "_pool0_fwd", 1) as k1_calls, \
+                recorded(cellpool, "_stage_fwd", 4) as k2_calls, \
+                recorded(pool, "_kernel", 1) as k7_calls, \
+                fused_pool1(gated), contextlib.redirect_stdout(out):
+            dp.main([str(root), "-c", str(ckpt)] + flags)
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = launch_counts()
+        n = fwd.call_count
+        want = ({"fused_relu_pool_pad": n} if gated
+                else {"cell_pool0": n, "cell_pool_stage": 4 * n})
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("Accuracy:", "Dice:"))]
+        results = Path(tmp.name) / "rec" / f"results-for-{ckpt.name}"
+        combined = results.parent / (
+            ("combined-results-pixel" if gated else "combined-results")
+            + f"-for-{ckpt.name}")
+        fg = {stem: round(float((codec.imread_mask(
+            combined / f"{stem}.png") > 0).mean()), 4)
+            for stem in ("negative-00", "positive-00")}
+        log(f"[{tag} {route}] python -m wesup_tpu_torch.test_dp2019_pipeline "
+            f"on 2 slides ({n_patches} patches of {DP_PATCH}): {sec:.1f} s; "
+            f"foreground shares {fg}; {n} forwards, launches "
+            + str({k: v for k, v in counts.items() if v})
+            + "; " + " | ".join(lines) + f"; {card}")
+        if n == 0 or counts != expected(want):
+            fail(f"{tag} {route}: {n} forwards launched {counts}")
+        if not all(0.05 <= v <= 0.95 for v in fg.values()):
+            fail(f"{tag} {route}: foreground shares {fg}: a one-class mask "
+                 "cannot show a patch out of place")
+        # the printed scores against numpy's on the combined masks
+        want_lines = []
+        for stem in ("positive-00", "negative-00"):
+            P = codec.imread_mask(combined / f"{stem}.png")
+            G = gts[stem]
+            if stem.startswith("negative"):
+                P, G = 255 - P, 255 - G
+            S, T = P > 0, G > 0
+            want_lines += [
+                ("Accuracy:", float((P == G).mean())),
+                ("Dice:", float(2 * (S & T).sum()
+                                / (T.sum() + S.sum() + 1e-7)))]
+        if len(lines) != 4 or not all(
+                ln.split()[0] == name
+                and math.isclose(float(ln.split()[-1]), v, rel_tol=1e-12)
+                for ln, (name, v) in zip(lines, want_lines)):
+            fail(f"{tag} {route}: printed {lines}, numpy gives {want_lines}")
+        if gated:
+            for (pre, oc), got in k7_calls:
+                if not torch.equal(got, pool.reference(pre, oc)):
+                    fail(f"{tag}: K7 disagrees with its plain version on "
+                         "the pipeline's input")
+            if len(k7_calls) != 1:
+                fail(f"{tag}: recorded {len(k7_calls)} K7 calls")
+        else:
+            hold_pool_kernels(torch, k1_calls, k2_calls, f"{tag} {route}")
+        del k1_calls, k2_calls, k7_calls
+        patches = sorted((root.parent / "dp-patches" / "images").glob("*"))
+        if len(patches) != n_patches or not all(
+                p.read_bytes()[:2] == b"\xff\xd8" for p in patches):
+            fail(f"{tag}: {len(patches)} image patches written")
+        for index, stem in enumerate(("negative-00", "positive-00")):
+            got = codec.imread_mask(combined / f"{stem}.png")
+            want_mask = stitch(results, index, DP_SLIDE_HW)
+            if got.shape != DP_SLIDE_HW or not np.array_equal(got, want_mask):
+                fail(f"{tag} {route}: the combined {stem} is not its patch "
+                     "masks stitched")
+    log(f"[{tag}] each combined mask holds both classes, equals its patch "
+        "masks stitched in numpy, and scores as numpy scores it")
+
+    # ---- 15c. a JPEG POST /predict ----------------------------------------
+    request = codec.encode_jpeg(glas_image(np.random.default_rng(seed))[0])
+    server = create_server(port=0, host="127.0.0.1", seed=seed)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_port}/predict"
+        post(url, request)
+        torch.cuda.synchronize()
+        reset_launches()
+        status, reply, sec, _ = post(url, request)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        bad = post(url, request[:len(request) // 2])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    mask = codec.decode(reply, gray=True) if status == 200 else np.zeros(0)
+    log(f"[serve jpeg] POST /predict of a {GLAS_HW[0]}x{GLAS_HW[1]} JPEG "
+        f"({len(request)} bytes): {status}, mask {mask.shape}, "
+        f"{sec * 1e3:.1f} ms, launches "
+        + str({k: v for k, v in counts.items() if v})
+        + f"; the JPEG cut in half: {bad[0]} {bad[1][:80]!r}; {card}")
+    if not (status == 200 and mask.shape == GLAS_HW
+            and set(np.unique(mask).tolist()) <= {0, 255}):
+        fail(f"POST /predict of a JPEG: {status} {reply[:200]!r}")
+    if counts != expected({"cell_pool0": 1, "cell_pool_stage": 4}):
+        fail(f"the JPEG request launched {counts}")
+    if bad[0] != 400 or b"request body" not in bad[1]:
+        fail(f"a cut JPEG was answered {bad[0]}")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -2796,6 +3205,9 @@ def main(argv=None) -> int:
 
     # ---- 14. the quality protocol: a model the port trains, scored -------
     quality_phase(torch, card)
+
+    # ---- 15. JPEG, and the DigestPath2019 pipeline -----------------------
+    jpeg_pipeline_phase(torch, card, args.seed)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

@@ -220,7 +220,7 @@ def protocol(draws_dir, argv, init=None):
 
     import torch
 
-    from wesup_tpu_torch.models import wesup
+    from wesup_tpu_torch.models import jax_init
     from wesup_tpu_torch.scripts import quality_protocol as qp
 
     draws_dir = Path(draws_dir)
@@ -228,12 +228,9 @@ def protocol(draws_dir, argv, init=None):
     state = {k: torch.from_numpy(v)
              for k, v in np.load(init or draws_dir / "init.npz").items()}
 
-    def reset_parameters(model, generator):
-        model.load_state_dict(state)
-
     args = qp.parse_args(argv)
-    with mock.patch.object(wesup.WESUP, "reset_parameters",
-                           reset_parameters), replaying(draws):
+    with mock.patch.object(jax_init, "init_params",
+                           lambda *a, **k: dict(state)), replaying(draws):
         summary, _ = qp.run(args)
     Path(args.out).write_text(json.dumps(summary, indent=2))
     return summary

@@ -1,11 +1,11 @@
 """The port's data layer against cv2 and the JAX package, on the CPU.
 
 - ``data/codec.py`` decodes byte-equal to ``cv2.imread`` (colour, then
-  BGR -> RGB, and grayscale) on PNGs that cv2 writes, on PNGs that
-  ``write_png`` writes with each row filter, on palette and gray + alpha
-  PNGs, and on BMPs that cv2 and numpy write; its PNG and BMP encoders
-  give files that cv2 reads back as the image (the BMP byte-equal to
-  cv2's), and ``imwrite`` picks the format from the suffix;
+  BGR -> RGB, and grayscale) on PNGs that cv2 writes, on PNGs written
+  with each row filter (``tests/torch_png_writer.py``), on palette and
+  gray + alpha PNGs, and on BMPs that cv2 and numpy write; its PNG and
+  BMP encoders write cv2's bytes, and ``imwrite`` picks the format from
+  the suffix;
 - ``ops/train_resize.py`` is bitwise equal to ``cv2.resize`` (INTER_LINEAR
   on uint8, INTER_NEAREST on masks) and, as ``apply_resize``, to the JAX
   package's ``apply_resize`` and to ``place_on_canvas`` of the cv2 resize;
@@ -34,6 +34,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).parent))
 sys.path.insert(0, str(Path(__file__).parent.parent))
 from make_dataset import make_dataset  # noqa: E402
+from torch_png_writer import png  # noqa: E402
 
 from wesup_tpu.data import datasets as j_datasets  # noqa: E402
 from wesup_tpu.data import loader as j_loader  # noqa: E402
@@ -67,23 +68,10 @@ def _assert_reads_like_cv2(path):
     np.testing.assert_array_equal(got_gray, want_gray)
 
 
-def _png_chunk(kind, body):
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body)))
-
-
 def _raw_png(path, pix, ctype, palette=None):
     """An unfiltered PNG of ``pix`` ((H, W, C) uint8) at colour type
-    ``ctype``: the kinds that neither cv2 nor write_png produce."""
-    h, w = pix.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), pix.reshape(h, -1)], 1)
-    body = _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
-                                           0))
-    if palette is not None:
-        body += _png_chunk(b"PLTE", palette.tobytes())
-    body += _png_chunk(b"IDAT", zlib.compress(raw.tobytes()))
-    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + body
-                           + _png_chunk(b"IEND", b""))
+    ``ctype``: the kinds that neither cv2 nor the port's encoder write."""
+    Path(path).write_bytes(png(pix, 8, ctype, palette=palette, row_filter=0))
 
 
 def _bmp32(path, rgb, top_down):
@@ -113,7 +101,7 @@ def test_codec_reads_write_png(tmp_path, row_filter, channels):
     img = _image(seed=1)
     arr = {1: img[..., 1], 3: img, 4: np.dstack([img, img[..., 2:]])}[channels]
     path = tmp_path / "w.png"
-    codec.write_png(path, arr, row_filter)
+    path.write_bytes(png(arr, row_filter=row_filter))
     _assert_reads_like_cv2(path)
     if channels != 4:
         np.testing.assert_array_equal(
@@ -144,25 +132,32 @@ def test_codec_reads_bmps(tmp_path):
 
 
 def test_codec_refuses_what_it_cannot_decode(tmp_path):
+    """JPEG and 16-bit PNG, once refused, now read as cv2 reads them; a
+    progressive JPEG is still refused, naming the file and the ROADMAP
+    item that plans it, and a missing file is not found."""
     cv2.imwrite(str(tmp_path / "a.jpg"), _image())
-    with pytest.raises(ValueError, match="a.jpg.*ROADMAP"):
-        codec.imread_rgb(tmp_path / "a.jpg")
-    _raw_png(tmp_path / "16.png", np.zeros((4, 4, 2), np.uint8), 0)
+    _assert_reads_like_cv2(tmp_path / "a.jpg")
+    cv2.imwrite(str(tmp_path / "p.jpg"), _image(),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="p.jpg.*progressive.*ROADMAP"):
+        codec.imread_rgb(tmp_path / "p.jpg")
+    _raw_png(tmp_path / "16.png", _image()[..., :2], 0)
     data = bytearray((tmp_path / "16.png").read_bytes())
     data[24] = 16                                   # bit depth 16
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
     (tmp_path / "16.png").write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="bit depth 16"):
-        codec.imread_mask(tmp_path / "16.png")
+    _assert_reads_like_cv2(tmp_path / "16.png")
     with pytest.raises(FileNotFoundError):
         codec.imread_rgb(tmp_path / "missing.png")
-    assert codec.image_size(tmp_path / "a.jpg") is None
+    assert codec.image_size(tmp_path / "a.jpg") == _image().shape[:2]
+    assert codec.image_size(tmp_path / "16.png") == (61, 83)
 
 
 @pytest.mark.parametrize("hw", [(37, 53), (1, 1), (6, 8)])
 @pytest.mark.parametrize("channels", [1, 3])
 def test_codec_encodes_like_cv2(hw, channels):
     """encode_png and encode_bmp decode under cv2.imread to the image they
-    were given (colour as RGB); the BMP's bytes are cv2.imwrite's."""
+    were given (colour as RGB), and their bytes are cv2.imencode's."""
     img = _image(seed=4, hw=hw) if min(hw) > 8 else np.random.default_rng(
         4).integers(0, 256, hw + (3,), np.uint8)
     arr = img[..., 0] if channels == 1 else img
@@ -173,6 +168,7 @@ def test_codec_encodes_like_cv2(hw, channels):
         np.testing.assert_array_equal(codec.decode(data, gray=channels == 1),
                                       arr)
     assert codec.encode_bmp(arr) == cv2.imencode(".bmp", as_cv2)[1].tobytes()
+    assert codec.encode_png(arr) == cv2.imencode(".png", as_cv2)[1].tobytes()
 
 
 def test_imwrite_picks_the_format_from_the_suffix(tmp_path):
@@ -183,8 +179,12 @@ def test_imwrite_picks_the_format_from_the_suffix(tmp_path):
         assert (tmp_path / name).read_bytes()[:len(magic)] == magic
         np.testing.assert_array_equal(
             cv2.imread(str(tmp_path / name), cv2.IMREAD_GRAYSCALE), mask)
-    for name in ("m.jpg", "m.tif", "m"):
-        with pytest.raises(ValueError, match="only .png and .bmp"):
+    for name in ("m.jpg", "M.JPEG"):
+        codec.imwrite(tmp_path / name, mask)
+        assert ((tmp_path / name).read_bytes()
+                == cv2.imencode(".jpg", mask)[1].tobytes())
+    for name in ("m.tif", "m"):
+        with pytest.raises(ValueError, match="only .png, .bmp, .jpg"):
             codec.imwrite(tmp_path / name, mask)
         assert not (tmp_path / name).exists()
     with pytest.raises(ValueError, match="uint8"):

@@ -239,15 +239,18 @@ for mode in ("superpixel", "pixel"):
     url = f"http://127.0.0.1:{srv.server_port}/predict"
     try:
         for body in (codec.encode_png(img), codec.encode_bmp(img),
-                     codec.encode_bmp(img[..., 0])):
+                     codec.encode_bmp(img[..., 0]), codec.encode_jpeg(img),
+                     codec.encode_jpeg(img[..., 0])):
             status, reply, kind = post(url, body)
             assert status == 200 and kind == "image/png", (status, reply)
             mask = codec.decode(reply, gray=True)
             assert mask.shape == (40, 56), mask.shape
             assert set(np.unique(mask)) <= {0, 255}
             print(mode, "ok")
-        status, reply, _ = post(url, b"\\xff\\xd8\\xff\\xe0 JPEG")
-        assert status == 400 and b"ROADMAP" in reply, (status, reply)
+        jpeg = codec.encode_jpeg(img)
+        status, reply, _ = post(url, jpeg[:len(jpeg) // 2])
+        assert (status == 400 and b"request body" in reply
+                and b"truncated" in reply), (status, reply)
         status, reply, _ = post(url, codec.encode_png(img)[:40])
         assert status == 400 and b"request body" in reply, (status, reply)
     finally:
@@ -260,14 +263,15 @@ assert "cv2" not in [m for m in sys.modules if sys.modules[m] is not None]
 
 def test_server_answers_without_opencv():
     """POST /predict in superpixel and pixel mode, with OpenCV blocked: the
-    server decodes PNG and BMP and encodes the mask with ``data/codec.py``,
-    and answers 400 with the codec's message for a JPEG or a truncated
-    PNG."""
+    server decodes PNG, BMP and JPEG (the port's encoder's, colour and
+    gray) and encodes the mask with ``data/codec.py``, and answers 400
+    with the codec's message, naming the request body, for a cut JPEG or
+    a truncated PNG."""
     out = subprocess.run([sys.executable, "-c", _NO_CV2_SERVER], cwd=REPO,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.count("superpixel ok") == 3
-    assert out.stdout.count("pixel ok") == 6
+    assert out.stdout.count("superpixel ok") == 5
+    assert out.stdout.count("pixel ok") == 10
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +279,7 @@ def test_server_answers_without_opencv():
 # ---------------------------------------------------------------------------
 
 CLI_MODULES = ("infer", "infer_tile", "pixel_infer", "pixel_infer_tile",
-               "test_glas", "serve", "train")
+               "test_glas", "serve", "train", "test_dp2019_pipeline")
 
 
 def test_port_imports_no_jax():

@@ -12,7 +12,7 @@ Entry points (``inference.Predictor`` and ``predict_*``,
 ``serve.create_server``, ``train.fit`` and ``python -m
 wesup_tpu_torch.train``, the inference CLIs ``python -m
 wesup_tpu_torch.{infer,infer_tile,pixel_infer,pixel_infer_tile,
-test_glas}``, ``models.steps.make_predict_step``/
+test_glas,test_dp2019_pipeline}``, ``models.steps.make_predict_step``/
 ``make_scaled_predict_step``/``make_train_step``/``make_eval_step``) run
 on ``cuda`` unless the caller
 passes ``device="cpu"``; with no CUDA device and no device given they raise

@@ -6,7 +6,8 @@ Usage:
         [scales=0.6,0.55,0.5,0.45,0.4] [input_size=H,W] [output_dir=...]
         [device=cpu] [<any WESUPConfig field>=...]
 
-``data_dir`` holds ``images/`` (PNG or uncompressed BMP, ``data/codec.py``).
+``data_dir`` holds ``images/`` (PNG, uncompressed BMP or baseline JPEG,
+``data/codec.py``).
 ``checkpoint=`` is a ``.pth`` of the port or the reference, or a JAX
 trainer's ``.msgpack``; without ``output_dir=`` the masks go to
 ``<record dir>/results``.  Each image gives ``{stem}.png``, a {0, 255}

@@ -7,6 +7,10 @@ SGD(lr=5e-5, momentum, weight_decay) over trainable params, loss = CE +
 labeled_sp_ratio/propagated_labels/propagate_loss), per-epoch history +
 checkpoints.
 
+The initial weights are the JAX trainer's for the same ``seed``, drawn
+from JAX's bits on the host (``models/jax_init.py``) at the model's first
+use, so that a trainer that loads a checkpoint first draws none.
+
 Preprocessing (device resize, augmentation, SLIC) runs inside the steps
 on the device.  The loader's prefetch thread builds numpy batches; the
 main thread copies each batch to the device (from pinned memory, without
@@ -40,7 +44,7 @@ from ..data.datasets import Digest2019PointDataset, SegmentationDataset
 from ..data.loader import (CanvasBatcher, CanvasSpec, infer_canvas,
                            place_on_canvas)
 from ..runtime import resolve_device
-from . import steps, wesup
+from . import jax_init, steps, wesup
 from .base import BaseTrainer, timed_phase
 
 
@@ -72,12 +76,12 @@ class WESUPTrainer(BaseTrainer):
         self.kwargs = {**self.config.to_dict(), **self.kwargs}
         self.device = resolve_device(kwargs.get("device"))
 
-        self.model = wesup.WESUP(
-            n_classes=self.config.n_classes, D=self.config.sp_feature_dim,
-            fc_width=self.config.fc_width,
-            generator=torch.Generator().manual_seed(self.config.seed)
-        ).to(self.device)
-        self.optimizer = steps.make_optimizer(self.config, self.model)
+        # undrawn until `model` is first read or a state is loaded
+        self._model = wesup.empty(
+            self.device, n_classes=self.config.n_classes,
+            D=self.config.sp_feature_dim, fc_width=self.config.fc_width)
+        self._drawn = False
+        self.optimizer = steps.make_optimizer(self.config, self._model)
         # base of the per-batch seeds (the JAX trainer's PRNGKey(seed + 1))
         self._base_seed = self.config.seed + 1
         self._epoch_idx = 0  # set per epoch by BaseTrainer.train
@@ -95,13 +99,28 @@ class WESUPTrainer(BaseTrainer):
     # state management
     # ------------------------------------------------------------------
 
+    @property
+    def model(self):
+        """The module; read first, it gets the JAX trainer's starting
+        weights, so that seed s names the same model in both packages."""
+        if not self._drawn:
+            c = self.config
+            self._load_weights(jax_init.init_params(
+                c.seed, n_classes=c.n_classes, D=c.sp_feature_dim,
+                fc_width=c.fc_width))
+        return self._model
+
+    def _load_weights(self, state_dict):
+        self._model.load_state_dict(state_dict)
+        self._drawn = True
+
     def state_dict(self):
         return {"model_state_dict": _host_copy(self.model.state_dict()),
                 "optimizer_state_dict": _host_copy(
                     self.optimizer.state_dict())}
 
     def load_state_dict(self, state):
-        self.model.load_state_dict(state["model_state_dict"])
+        self._load_weights(state["model_state_dict"])
         self.optimizer = steps.make_optimizer(self.config, self.model)
         if "optimizer_state_dict" in state:
             try:
@@ -113,7 +132,7 @@ class WESUPTrainer(BaseTrainer):
         """Weights and optax's momentum trace from a JAX checkpoint: the
         trace is SGD's ``momentum_buffer`` (both update
         ``buf = momentum * buf + g + weight_decay * p; p -= lr * buf``)."""
-        self.model.load_state_dict(state_dict)
+        self._load_weights(state_dict)
         self.optimizer = steps.make_optimizer(self.config, self.model)
         trained = {p for g in self.optimizer.param_groups for p in g["params"]}
         for name, p in self.model.named_parameters():

@@ -113,6 +113,15 @@ class WESUP(nn.Module):
             layer.bias.uniform_(-bound, bound, generator=generator)
 
 
+def empty(device, **kwargs) -> WESUP:
+    """A :class:`WESUP` on ``device`` with its weights left undrawn
+    (uninitialised memory), for a caller that loads a state into it before
+    its first use: built on the meta device, where no draw runs."""
+    with torch.device("meta"):
+        model = WESUP(**kwargs)
+    return model.to_empty(device=device)
+
+
 # ---------------------------------------------------------------------------
 # Forward pieces (the JAX package's names)
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""ctypes bindings for the host kernels of ``wesup_tpu_torch/csrc/wesup_native.cpp``.
+"""ctypes bindings for the port's host libraries: the evaluation kernels of
+``wesup_tpu_torch/csrc/wesup_native.cpp`` and the JPEG codec of
+``wesup_tpu_torch/csrc/jpeg.cpp``.
 
-A copy of ``wesup_tpu.native`` whose library is built by the port itself:
-on first use, with the host's C++ compiler (``$CXX``, else ``g++``) and
-the flags of ``csrc/Makefile`` (``$CXXFLAGS``, else ``-O3 -march=native
--fPIC -std=c++17 -Wall``), into ``wesup_tpu_torch/_build/`` under a name
-keyed by a hash of the compiler, the flags and the source; the finished
-file is moved into place atomically, so processes that build at once
-never load half a file.  A failed build raises ``RuntimeError`` with the
-compiler's log: there is no quiet fallback.
+The first is a copy of ``wesup_tpu.native``.  Each library is built by
+the port itself: on first use, with the host's C++ compiler (``$CXX``,
+else ``g++``) and the flags of ``csrc/Makefile`` (``$CXXFLAGS``, else
+``-O3 -march=native -fPIC -std=c++17 -Wall``), into
+``wesup_tpu_torch/_build/`` under a name keyed by a hash of the
+compiler, the flags and the source; the finished file is moved into
+place atomically, so processes that build at once never load half a
+file.  A failed build raises ``RuntimeError`` with the compiler's log:
+there is no quiet fallback.
 
 Provided:
     label8(mask)             -- 8-connectivity CCL (skimage.label semantics),
@@ -19,7 +22,16 @@ Provided:
 and their plain scipy versions ``label8_plain``, ``edt_sq_plain`` and
 ``hausdorff_plain`` (the plain ``flip_small_regions`` is
 ``ops.morphology.flip_small_regions``), against which the tests and
-``chip_smoke.py`` hold the library.
+``chip_smoke.py`` hold the library.  From the JPEG library:
+
+    jpeg_decode(data, gray)  -- (H, W, 3) RGB or (H, W) uint8, as
+                                cv2.imdecode, EXIF orientation applied
+    jpeg_size(data)          -- (H, W) of jpeg_decode from the headers
+    jpeg_encode(image)       -- the bytes of cv2.imencode(".jpg") at its
+                                defaults
+
+whose plain versions are ``data/jpeg.py``'s ``decode_plain`` and
+``encode_plain``.  They raise ``ValueError`` with the library's reason.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "wesup_native.cpp"
+JPEG_SOURCE = _PKG / "csrc" / "jpeg.cpp"
 BUILD_DIR = _PKG / "_build"
 DEFAULT_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17 -Wall"
 
@@ -49,54 +62,75 @@ _SIGNATURES = {
     "hausdorff_dist": (ctypes.c_double, [_U8P, _U8P, _I32, _I32]),
     "flip_small_regions": (None, [_U8P, _I32, _I32, ctypes.c_int64]),
 }
+_U8PP = ctypes.POINTER(_U8P)
+_JPEG_SIGNATURES = {
+    "jpeg_size": (_I32, [ctypes.c_char_p, ctypes.c_size_t, _I32P, _I32P,
+                         _I32P, ctypes.c_char_p, _I32]),
+    "jpeg_decode": (_I32, [ctypes.c_char_p, ctypes.c_size_t, _I32, _U8PP,
+                           _I32P, _I32P, ctypes.c_char_p, _I32]),
+    "jpeg_encode": (ctypes.c_size_t, [_U8P, _I32, _I32, _I32, _U8PP]),
+    "jpeg_free": (None, [_U8P]),
+}
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
-def _command(out: Path) -> list:
+def _command(out: Path, source: Path = SOURCE) -> list:
     cxx = shlex.split(os.environ.get("CXX") or "g++")
     flags = shlex.split(os.environ.get("CXXFLAGS") or DEFAULT_CXXFLAGS)
-    return [*cxx, *flags, "-shared", "-o", str(out), str(SOURCE)]
+    return [*cxx, *flags, "-shared", "-o", str(out), str(source)]
 
 
-def build() -> Path:
-    """Compile the library if this source, compiler and flags were not
-    built yet; return its path."""
-    probe = _command(Path("OUT"))
+def build(source: Path = SOURCE) -> Path:
+    """Compile the library of ``source`` if this source, compiler and
+    flags were not built yet; return its path."""
+    probe = _command(Path("OUT"), source)
     digest = hashlib.sha256(" ".join(probe).encode())
-    digest.update(SOURCE.read_bytes())
-    out = BUILD_DIR / f"libwesup_native_{digest.hexdigest()[:16]}.so"
+    digest.update(source.read_bytes())
+    stem = "wesup_native" if source == SOURCE else source.stem
+    out = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp.so"
     try:
-        proc = subprocess.run(_command(tmp), capture_output=True, text=True)
+        proc = subprocess.run(_command(tmp, source), capture_output=True,
+                              text=True)
     except OSError as ex:  # the compiler itself is missing
-        raise RuntimeError(f"cannot build {SOURCE.name}: {ex}") from ex
+        raise RuntimeError(f"cannot build {source.name}: {ex}") from ex
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"building {SOURCE.name} failed (exit {proc.returncode}): "
-            f"{' '.join(_command(tmp))}\n{proc.stdout}{proc.stderr}")
+            f"building {source.name} failed (exit {proc.returncode}): "
+            f"{' '.join(_command(tmp, source))}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded library, built on first call."""
-    global _lib
-    if _lib is None:
+def _load(source: Path, signatures: dict) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is None:
         with _lock:
-            if _lib is None:
-                lib = ctypes.CDLL(str(build()))
-                for name, (restype, argtypes) in _SIGNATURES.items():
+            lib = _libs.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(source)))
+                for name, (restype, argtypes) in signatures.items():
                     fn = getattr(lib, name)
                     fn.restype = restype
                     fn.argtypes = argtypes
-                _lib = lib
-    return _lib
+                _libs[source] = lib
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded evaluation library, built on first call."""
+    return _load(SOURCE, _SIGNATURES)
+
+
+def jpeg_library() -> ctypes.CDLL:
+    """The loaded JPEG library, built on first call."""
+    return _load(JPEG_SOURCE, _JPEG_SIGNATURES)
 
 
 def _as_u8(mask) -> np.ndarray:
@@ -150,6 +184,62 @@ def flip_small_regions(mask, threshold: int) -> np.ndarray:
     h, w = m.shape
     lib.flip_small_regions(_ptr(m, _U8P), h, w, int(threshold))
     return m
+
+
+# ---------------------------------------------------------------------------
+# JPEG
+# ---------------------------------------------------------------------------
+
+def jpeg_size(data: bytes):
+    """(H, W) that :func:`jpeg_decode` gives, from the markers before the
+    first scan (the orientation tag swaps them)."""
+    lib = jpeg_library()
+    h, w, o = _I32(), _I32(), _I32()
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_size(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                     ctypes.byref(o), err, 256):
+        raise ValueError(err.value.decode())
+    return (w.value, h.value) if o.value >= 5 else (h.value, w.value)
+
+
+def jpeg_decode(data: bytes, gray: bool = False) -> np.ndarray:
+    """(H, W, 3) RGB or, with ``gray``, (H, W) uint8 samples of a JPEG,
+    as ``cv2.imdecode`` gives them (``IMREAD_COLOR`` then BGR -> RGB, or
+    ``IMREAD_GRAYSCALE``), the EXIF orientation applied."""
+    lib = jpeg_library()
+    out, h, w = _U8P(), _I32(), _I32()
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_decode(data, len(data), int(bool(gray)), ctypes.byref(out),
+                       ctypes.byref(h), ctypes.byref(w), err, 256):
+        raise ValueError(err.value.decode())
+    try:
+        shape = (h.value, w.value) if gray else (h.value, w.value, 3)
+        return np.ctypeslib.as_array(out, shape=shape).copy()
+    finally:
+        lib.jpeg_free(out)
+
+
+def jpeg_encode(image) -> bytes:
+    """The JPEG of an (H, W) gray or (H, W, 3) RGB uint8 image, byte-equal
+    to ``cv2.imencode(".jpg", image[..., ::-1])`` at its defaults."""
+    img = np.ascontiguousarray(image)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (1, 3))):
+        raise ValueError("jpeg_encode takes (H, W) or (H, W, 3) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"JPEG sides are 1-65535 pixels, got {h}x{w}")
+    lib = jpeg_library()
+    out = _U8P()
+    size = lib.jpeg_encode(_ptr(img, _U8P), h, w, ch, ctypes.byref(out))
+    if not size:
+        raise ValueError("JPEG encode failed")
+    try:
+        return ctypes.string_at(out, size)
+    finally:
+        lib.jpeg_free(out)
 
 
 # ---------------------------------------------------------------------------

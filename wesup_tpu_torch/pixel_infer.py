@@ -5,9 +5,10 @@ Usage:
     python -m wesup_tpu_torch.pixel_infer <data_root> [checkpoint=<ckpt>]
         [scales=0.5] [output=...] [device=cpu] [<any WESUPConfig field>=...]
 
-Every image of ``<data_root>/images`` goes through the pixel head at each
-scale; the probabilities are averaged and rounded.  The mask keeps the
-image's name with ``.jpg`` renamed ``.png`` (so a ``.bmp`` image gives a
+Every image of ``<data_root>/images`` (PNG, uncompressed BMP or baseline
+JPEG, ``data/codec.py``) goes through the pixel head at each scale; the
+probabilities are averaged and rounded.  The mask keeps the image's
+name with ``.jpg`` renamed ``.png`` (so a ``.bmp`` image gives a
 BMP mask).  Without ``output=``, masks go to
 ``<record dir>/results-pixel-<scales>/<data_root name>`` when a
 checkpoint is given, else to ``predictions/``.  ``checkpoint=`` and

@@ -1,9 +1,9 @@
 """Shared helpers of the port's offline tools.
 
-Copy of ``scripts/_common.py``'s image helpers on ``data/codec.py`` (PNG
-and uncompressed BMP, as ``cv2.imread`` / ``cv2.imwrite`` read and write
-them) and its scipy ``label8``, plus :func:`pool_map`, the process pool
-that takes joblib's place.
+Copy of ``scripts/_common.py``'s image helpers on ``data/codec.py`` (PNG,
+uncompressed BMP and JPEG, as ``cv2.imread`` / ``cv2.imwrite`` read and
+write them) and its scipy ``label8``, plus :func:`pool_map`, the process
+pool that takes joblib's place.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def imread_gray(path):
 
 def imsave(path, img):
     """Write an (H, W) gray or (H, W, 3) RGB uint8 image as its suffix
-    (``.png`` or ``.bmp``) names."""
+    (``.png``, ``.bmp``, ``.jpg`` or ``.jpeg``) names."""
     codec.imwrite(path, np.asarray(img))
 
 

@@ -13,8 +13,10 @@ Usage:
 API:
     GET  /healthz            -> {"status": "ok", "device": ...}
     POST /predict            -> binary PNG mask ({0,255})
-         body: image file (PNG or uncompressed BMP, ``data/codec.py``;
-         anything else is answered with 400); query args: ?scales=0.5,0.4
+         body: image file (PNG, uncompressed BMP or baseline JPEG,
+         ``data/codec.py``; anything it cannot decode, a progressive or
+         cut JPEG included, is answered with 400 and the codec's
+         reason); query args: ?scales=0.5,0.4
 
 The codecs are the port's own, so the server runs where OpenCV is not
 installed.
@@ -36,7 +38,7 @@ from .config import WESUPConfig, merge_config
 from .data import codec
 from .inference import Predictor, predict_multiscale
 from .models.convert import load_state_dict_file
-from .models.wesup import WESUP
+from .models import wesup
 
 
 class ServerState:
@@ -122,11 +124,14 @@ def create_server(checkpoint=None, port=8700, mode="superpixel",
     if not isinstance(scales, (tuple, list)):
         scales = (scales,)
     config = merge_config(WESUPConfig(), **kwargs)
-    model = WESUP(n_classes=config.n_classes, D=config.sp_feature_dim,
-                  fc_width=config.fc_width,
-                  generator=torch.Generator().manual_seed(int(seed)))
+    shape = dict(n_classes=config.n_classes, D=config.sp_feature_dim,
+                 fc_width=config.fc_width)
     if checkpoint is not None:
+        model = wesup.empty("cpu", **shape)
         model.load_state_dict(load_state_dict_file(checkpoint))
+    else:
+        model = wesup.WESUP(
+            **shape, generator=torch.Generator().manual_seed(int(seed)))
     predictor = Predictor(model, config, mode=mode, device=device)
     dev = predictor.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"

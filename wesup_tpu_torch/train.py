@@ -22,7 +22,7 @@ history.csv as ``val_<name>``; an unknown name raises ``ValueError``.
 
 The dataset directory must contain ``train/`` (and optionally ``val/``) with
 ``images/``, ``masks/`` and optionally ``points/`` subdirectories; images
-are PNG or BMP (``data/codec.py``).
+are PNG, BMP or JPEG (``data/codec.py``).
 """
 
 import logging

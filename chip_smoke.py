@@ -23,7 +23,9 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    against their plain versions at the main-path shapes (K3 also at
    C = 1024, the width of fullres training's K5 backward); one f32
    forward + backward on the card against the CPU; SLIC on the card
-   against the CPU at 288x416; ``make_train_step`` at B=8 on the 288x416
+   against the CPU at 288x416; the augmentation drawn from one key (JAX's
+   bits, on the host) equal for the card and the CPU, in both supervision
+   modes; ``make_train_step`` at B=8 on the 288x416
    canvas in bf16 with full-width WESUP (point supervision), launch counts
    per step, step time, peak memory, a per-phase breakdown and a profiler
    window; two mask-supervised steps (elastic path); K3/K4 times (K3 at
@@ -60,8 +62,8 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    the defaults (device resize, bucketed canvases), then resumed for 1
    epoch from ``ckpt.0002.pth``: every batch of every phase stepped and
    none raised or logged an error, epoch numbering, latest-only
-   retention, 3 history rows and the per-batch generator seeds of all
-   three epochs in a straight schedule's order; decode ms, epoch seconds
+   retention, 3 history rows and the per-batch keys of all three epochs
+   in a straight schedule's order; decode ms, epoch seconds
    (the trainer's ``phase_stats``), epoch 2's img/s against the step-only
    rate, val seconds, bytes per batch (device against host resize), the
    device resize's time and its bitwise equality with the CPU, launches
@@ -138,6 +140,22 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    the printed Accuracy and Dice equal to numpy's on them; one JPEG
    ``POST /predict`` (200, K1 1 and K2 4) and the same JPEG cut in half
    (400).  Its lines start with ``[jpeg`` and ``[serve jpeg``.
+
+16. the tools of slice 9: ``scripts.profile_train_step`` at B=8 on the
+   288x416 canvas in train, predict and pixel (under
+   ``WESUP_FUSED_POOL1=1``) modes, each with its top-10 table, busy share
+   and K1-K8 launches per step (train K1 1, K2 4, K3 1, K4 4; predict K1
+   1, K2 4; pixel K7 1; else it fails); ``scripts.profile_epoch`` for 2
+   epochs at B=8 on 16 synthetic 522x775 images, with the ``rng`` stage's
+   ms a batch (the host key chain and draws); ``scripts.
+   generate_spl_masks`` and ``scripts.measure_connectivity`` on 4
+   synthetic images on the card against their CPU runs, the latter with
+   phase 14's trained model (masks and segs equal on >= 0.999 of their
+   values; where the segs are equal, the island statistics equal, both
+   probability maps of the A/B within 3e-2, the CPU's A/B moving a pixel
+   by more than 6e-2, and the mean move within 10% of the CPU's; K5 once
+   and K6 four times per adjoint forward).  Its lines start with
+   ``[tools``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -260,45 +278,23 @@ class PhaseTimer:
         return out
 
 
-def device_busy(prof):
-    """(kernel records, busy us, span us) of a profiler window: the span
-    runs from the first kernel's start to the last one's end."""
-    from torch.autograd import DeviceType
-
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        return kern, 0.0, 0.0
-    busy = sum(e.time_range.elapsed_us() for e in kern)
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern))
-    return kern, busy, span
-
-
 def profile_steps(torch, run_step, n=5, top=12, tag="profile") -> None:
-    """Device busy share and top kernels over ``n`` steps, from the
-    profiler's kernel records (the span runs from the first kernel's start
-    to the last one's end; host work under the profiler is slower than
+    """Device busy share and top kernels over ``n`` steps, from
+    ``scripts/profile_ops``: the span runs from the first kernel's start
+    to the last one's end (host work under the profiler is slower than
     without it, so the idle share is an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
+    from wesup_tpu_torch.scripts import profile_ops
 
-    run_step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run_step()
-        torch.cuda.synchronize()
-    kern, busy, span = device_busy(prof)
-    if not kern:
+    events = profile_ops.profile(run_step, n)
+    kern, _ = profile_ops.device_events(events)
+    if not any(e["cat"] == profile_ops.KERNEL for e in kern):
         log(f"[{tag}] no device kernels recorded: busy share not measured")
         return
-    log(f"[{tag}] {n} steps: {len(kern) / n:.0f} kernels/step, device busy "
+    count, busy, span = profile_ops.busy_share(kern)
+    log(f"[{tag}] {n} steps: {count / n:.0f} kernels/step, device busy "
         f"{busy / n / 1e3:.3f} ms/step of a {span / n / 1e3:.3f} ms/step "
         f"span, idle share {1 - busy / span:.3f}")
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+    for name, (us, _) in list(profile_ops.op_table(kern).items())[:top]:
         log(f"[{tag}]   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
 
 
@@ -339,6 +335,7 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     from wesup_tpu_torch.models import steps, wesup
     from wesup_tpu_torch.ops import cellgrid, cellpool
     from wesup_tpu_torch.ops.slic import make_plan, slic
+    from wesup_tpu_torch.utils import prng
 
     dev = torch.device("cuda")
     config = WESUPConfig()
@@ -459,14 +456,33 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     step = steps.make_train_step(config, CANVAS, point_mode=True)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in train_batch(BATCH).items()}
-    tgen = torch.Generator(device=dev).manual_seed(7)
+    tkey = prng.PRNGKey(7)
+    # the draws are host arithmetic: the same key draws the same
+    # parameters for the card as for the CPU (the affine matrices are
+    # computed from them on each device)
+    for point_mode in (True, False):
+        drawn = [steps.sample_augmentation(config, BATCH, CANVAS, point_mode,
+                                           tkey, d) for d in (dev, "cpu")]
+        same = all(torch.equal(getattr(drawn[0].appearance, f).cpu(),
+                               getattr(drawn[1].appearance, f))
+                   for f in drawn[1].appearance._fields)
+        if not point_mode:
+            same = same and all(torch.equal(a.cpu(), b) for a, b in zip(
+                drawn[0].elastic, drawn[1].elastic))
+        a_err = (drawn[0].affine.cpu() - drawn[1].affine).abs().max().item()
+        log(f"[train] augmentation drawn from one key for the card and the "
+            f"CPU ({'points' if point_mode else 'masks'}, B={BATCH}): "
+            f"parameters equal {same}, affine matrices max_abs_err "
+            f"{a_err:.3e} (limit 1e-4)")
+        if not same or not a_err <= 1e-4:
+            fail("the card's augmentation draws differ from the CPU's")
     acc = steps.init_metric_acc()
     for _ in range(3):
-        acc = step(model, optimizer, acc, batch, tgen)
+        acc = step(model, optimizer, acc, batch, tkey)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cellpool.reset_launches()
-    acc = step(model, optimizer, acc, batch, tgen)
+    acc = step(model, optimizer, acc, batch, tkey)
     torch.cuda.synchronize()
     launches = dict(cellpool.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -480,7 +496,7 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        acc = step(model, optimizer, acc, batch, tgen)
+        acc = step(model, optimizer, acc, batch, tkey)
         b.record()
         torch.cuda.synchronize()
         step_ms.append(a.elapsed_time(b))
@@ -493,7 +509,7 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     phases = []
     for _ in range(10):
         timer.start()
-        acc = step(model, optimizer, acc, batch, tgen, mark=timer)
+        acc = step(model, optimizer, acc, batch, tkey, mark=timer)
         phases.append(timer.durations())
     breakdown = {k: statistics.median(p[k] for p in phases)
                  for k in phases[0]}
@@ -503,7 +519,7 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     holder = [acc]
 
     def run_step():
-        holder[0] = step(model, optimizer, holder[0], batch, tgen)
+        holder[0] = step(model, optimizer, holder[0], batch, tkey)
 
     profile_steps(torch, run_step)
     acc = holder[0]
@@ -525,7 +541,7 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     cellpool.reset_launches()
     t0 = time.perf_counter()
     for _ in range(2):
-        macc = mstep(model, optimizer, macc, mbatch, tgen)
+        macc = mstep(model, optimizer, macc, mbatch, tkey)
     torch.cuda.synchronize()
     mlaunch = dict(cellpool.LAUNCHES)
     log(f"[train mask] 2 steps in {(time.perf_counter() - t0) * 1e3:.1f} ms "
@@ -728,6 +744,7 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
                                      reset_launches)
     from wesup_tpu_torch.ops.resize import _interp_matrix
     from wesup_tpu_torch.ops.slic import make_plan
+    from wesup_tpu_torch.utils import prng
 
     dev = torch.device("cuda")
     config = WESUPConfig()
@@ -928,7 +945,7 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
              for k, v in train_batch(BATCH).items()}
     reset_launches()
     acc = tstep(tmodel, optimizer, steps.init_metric_acc(), batch,
-                torch.Generator(device=dev).manual_seed(7))
+                prng.PRNGKey(7))
     torch.cuda.synchronize()
     counts = launch_counts()
     finite = all(torch.isfinite(q.grad).all() for q in tmodel.parameters()
@@ -1081,6 +1098,7 @@ def adjoint_train_phase(torch, card, seg_m, gen) -> list:
                                      reset_launches)
     from wesup_tpu_torch.ops.resize import _interp_matrix
     from wesup_tpu_torch.ops.slic import make_plan
+    from wesup_tpu_torch.utils import prng
 
     dev = torch.device("cuda")
     config = WESUPConfig()
@@ -1199,11 +1217,11 @@ def adjoint_train_phase(torch, card, seg_m, gen) -> list:
         model = wesup.WESUP(generator=torch.Generator().manual_seed(0)).to(dev)
         optimizer = steps.make_optimizer(cfg, model)
         step = steps.make_train_step(cfg, CANVAS, point_mode=True)
-        tgen = torch.Generator(device=dev).manual_seed(7)
+        tkey = prng.PRNGKey(7)
         holder = [steps.init_metric_acc()]
 
         def run(mark=None):
-            holder[0] = step(model, optimizer, holder[0], batch, tgen,
+            holder[0] = step(model, optimizer, holder[0], batch, tkey,
                              mark=mark)
 
         for _ in range(3):
@@ -1445,17 +1463,12 @@ def hold_step_kernels(torch, run_step, tag) -> None:
 
 def trace_busy(path):
     """(kernel count, busy us, span us) of the device kernels in a Chrome
-    trace of ``torch.profiler``: the span runs from the first kernel's
-    start to the last one's end."""
-    with open(path) as fp:
-        kern = [e for e in json.load(fp)["traceEvents"]
-                if e.get("cat") == "kernel"]
-    if not kern:
-        return 0, 0.0, 0.0
-    busy = sum(e["dur"] for e in kern)
-    span = (max(e["ts"] + e["dur"] for e in kern)
-            - min(e["ts"] for e in kern))
-    return len(kern), busy, span
+    trace of ``torch.profiler`` (``scripts/profile_ops``)."""
+    from wesup_tpu_torch.scripts import profile_ops
+
+    events = profile_ops.load_trace(path)
+    return profile_ops.busy_share(
+        [e for e in events if e.get("cat") == profile_ops.KERNEL])
 
 
 class ErrorRecords(logging.Handler):
@@ -1533,8 +1546,8 @@ def trainer_phase(torch, card, seed) -> None:
     logging.getLogger().addHandler(errors)
     try:
         with mock.patch.object(WESUPTrainer, "_get_step", new=get_step), \
-                mock.patch.object(steps, "batch_seed",
-                                  wraps=steps.batch_seed) as seeds:
+                mock.patch.object(steps, "batch_key",
+                                  wraps=steps.batch_key) as keys:
             torch.cuda.reset_peak_memory_stats()
             trainer = fit(root, epochs=2, batch_size=BATCH, seed=seed)
             peak_fit = torch.cuda.max_memory_allocated() / 2**30
@@ -1546,13 +1559,14 @@ def trainer_phase(torch, card, seed) -> None:
             if sorted(p.name for p in ckpt_dir.iterdir()) != [
                     "ckpt.0002.pth"]:
                 fail(f"checkpoints after 2 epochs: {list(ckpt_dir.iterdir())}")
-            n_first = len(seeds.call_args_list)
+            n_first = len(keys.call_args_list)
             # the trainer's own profile_dir hook traces the resumed run's
             # first train phase, epoch 3
             resumed = fit(root, epochs=1, batch_size=BATCH, seed=seed,
                           checkpoint=str(ckpt_dir / "ckpt.0002.pth"),
                           profile_dir=str(Path(tmp.name) / "trace"))
-            seed_args = [c.args for c in seeds.call_args_list]
+            key_args = [(tuple(int(v) for v in c.args[0]),) + c.args[1:]
+                        for c in keys.call_args_list]
     finally:
         logging.getLogger().removeHandler(errors)
         if old_root is None:
@@ -1560,7 +1574,7 @@ def trainer_phase(torch, card, seed) -> None:
         else:
             os.environ["RECORD_ROOT"] = old_root
 
-    # ---- 11a. every step ran; numbering, retention, history, seeds -------
+    # ---- 11a. every step ran; numbering, retention, history, keys --------
     stats = {**trainer.phase_stats, **resumed.phase_stats}
     if sorted(stats) != [(e, p) for e in (1, 2, 3) for p in ("train", "val")]:
         fail(f"the fits ran the phases {sorted(stats)}")
@@ -1589,19 +1603,20 @@ def trainer_phase(torch, card, seed) -> None:
              "checkpoints and 3 history rows")
     if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
         fail("history.csv holds values that are not finite")
-    # the schedule a straight 3-epoch run follows: (base, epoch, train
-    # phase 0, batch i) for each train batch (tests/test_torch_port_
-    # trainer.py holds the resumed seeds against a straight run's own)
-    base = seed + 1
+    # the schedule a straight 3-epoch run follows: the base key
+    # PRNGKey(seed + 1), epoch, train phase 0, batch i for each train batch
+    # (tests/test_torch_port_trainer_fit.py holds the keys against the JAX
+    # trainer's own)
+    base = (0, seed + 1)
     want = [(base, e, 0, i) for e in (1, 2, 3)
             for i in range(stats[(e, "train")]["batches"])]
-    log(f"[{tag}] per-batch generator seeds: epochs 1-2 and the resumed "
-        f"epoch 3 derived from (seed + 1, epoch, 0, batch) in a straight "
-        f"3-epoch schedule's order: {seed_args == want} ({n_first} + "
-        f"{len(seed_args) - n_first} batches)")
-    if seed_args != want:
-        fail("the resumed run's generator seeds leave the straight "
-             "3-epoch schedule")
+    log(f"[{tag}] per-batch keys: epochs 1-2 and the resumed epoch 3 "
+        f"folded from (PRNGKey(seed + 1), epoch, 0, batch) in a straight "
+        f"3-epoch schedule's order: {key_args == want} ({n_first} + "
+        f"{len(key_args) - n_first} batches)")
+    if key_args != want:
+        fail("the resumed run's batch keys leave the straight 3-epoch "
+             "schedule")
 
     # ---- 11b. the epochs' figures ----------------------------------------
     torch.cuda.synchronize()
@@ -1686,7 +1701,7 @@ def trainer_phase(torch, card, seed) -> None:
     step = resumed._get_step("train", hw)
     hold_step_kernels(torch, lambda: step(
         resumed.model, resumed.optimizer, steps.init_metric_acc(device=dev),
-        dict(gpu_batch, rng_idx=(4, 0)), resumed._base_seed, cache=cache),
+        dict(gpu_batch, rng_idx=(4, 0)), resumed._rng, cache=cache),
         tag)
     del trainer, resumed, cache, gpu_batch, step, step_log
     tmp.cleanup()
@@ -2342,9 +2357,12 @@ QUALITY_METRICS = ("Accuracy", "Dice", "Detection F1", "Object Dice",
                    "Object Hausdorff")
 
 
-def quality_phase(torch, card) -> None:
+def quality_phase(torch, card):
     """Phase 14: ``scripts.quality_protocol`` at its defaults (the easy
-    task, 150 epochs, data seed 0) on the card, with its gates."""
+    task, 150 epochs, data seed 0) on the card, with its gates.  Returns a
+    temporary directory that holds the trained model's last checkpoint as
+    a record dir (``checkpoints/ckpt.*.pth``), for phase 16."""
+    import shutil
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2352,6 +2370,7 @@ def quality_phase(torch, card) -> None:
     from wesup_tpu_torch import native
     from wesup_tpu_torch.models.trainer import WESUPTrainer
     from wesup_tpu_torch.ops import launch_counts, reset_launches
+    from wesup_tpu_torch.scripts import profile_ops
     from wesup_tpu_torch.scripts import quality_protocol as qp
     from wesup_tpu_torch.scripts._common import imread_gray, pool_map
 
@@ -2389,7 +2408,9 @@ def quality_phase(torch, card) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             real_epoch(self, no_val)
             torch.cuda.synchronize()
-        busy["kern"], busy["busy"], busy["span"] = device_busy(prof)
+        busy["kern"], busy["busy"], busy["span"] = profile_ops.busy_share(
+            [e for e in profile_ops.events_from_profiler(prof)
+             if e["cat"] == profile_ops.KERNEL])
 
     errors = ErrorRecords("Train")
     old_root = os.environ.get("RECORD_ROOT")
@@ -2492,7 +2513,7 @@ def quality_phase(torch, card) -> None:
         f"({stats[(2, 'val')]['samples']} images); {card}")
     if busy.get("span"):
         log(f"[{tag}] epoch 2 (train + val) under the profiler: "
-            f"{len(busy['kern'])} kernels, device busy "
+            f"{busy['kern']} kernels, device busy "
             f"{busy['busy'] / 1e3:.1f} ms of a {busy['span'] / 1e3:.1f} ms "
             f"span, busy share {busy['busy'] / busy['span']:.3f}; {card}")
     else:
@@ -2500,9 +2521,15 @@ def quality_phase(torch, card) -> None:
     log(f"[{tag}] seconds per protocol step: " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items())
         + f"; wall {summary['wall_s']} s; {card}")
+    trained = tempfile.TemporaryDirectory(prefix="wesup_trained_")
+    last = sorted((Path(summary["record_dir"]) / "checkpoints").glob(
+        "ckpt.*.pth"))[-1]
+    (Path(trained.name) / "checkpoints").mkdir()
+    shutil.copy(last, Path(trained.name) / "checkpoints" / last.name)
     tmp.cleanup()
     torch.cuda.empty_cache()
     log(f"[{tag}] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return trained
 
 
 # Phase 15: JPEG images made from arithmetic alone (no RNG stream, so any
@@ -2890,6 +2917,168 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
     log(f"[{tag}] phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# the K1-K8 launches per step that phase 16 expects of each of
+# profile_train_step's modes (pixel under WESUP_FUSED_POOL1=1)
+PROFILE_MODES = (("train", {}, {"K1": 1, "K2": 4, "K3": 1, "K4": 4}),
+                 ("predict", {}, {"K1": 1, "K2": 4}),
+                 ("pixel", {"WESUP_FUSED_POOL1": "1"}, {"K7": 1}))
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` with ``values`` set, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept off this script's (the
+    result lines must end it) and returned beside its result."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue().splitlines()
+
+
+def tools_phase(torch, card, seed, trained) -> None:
+    """Phase 16: the profiling tools and the small tools on the card.
+    ``trained`` is phase 14's record dir, whose model
+    ``measure_connectivity`` runs."""
+    import tempfile
+
+    from wesup_tpu_torch.ops import launch_counts, reset_launches
+    from wesup_tpu_torch.scripts import (generate_spl_masks,
+                                         measure_connectivity, profile_epoch,
+                                         profile_train_step)
+    from wesup_tpu_torch.scripts.make_dataset import make_dataset
+
+    t_phase = time.perf_counter()
+    tag = "tools"
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase16_")
+    H, W = CANVAS
+
+    # ---- 16a. profile_train_step: train, predict, pixel ------------------
+    for mode, env, want in PROFILE_MODES:
+        with environ(WESUP_PROF_MODE=mode, WESUP_PROF_STEPS="2", **env):
+            out, _ = quiet(profile_train_step.main,
+                           [str(BATCH), str(H), str(W), "10"])
+        for line in out["lines"]:
+            log(f"[{tag} profile {mode}] {line}")
+        got = {k: v for k, v in out["launches"].items() if v}
+        log(f"[{tag} profile {mode}] B={BATCH} {H}x{W}: steady "
+            f"{out['ms']:.3f} ms/step; K1-K8 launches per step {got} "
+            f"(expected {want}); {card}")
+        if got != want:
+            fail(f"profile_train_step {mode} launched {got}, not {want}")
+
+    # ---- 16b. profile_epoch: 2 epochs at B=8 on 16 images ----------------
+    with environ(TMPDIR=tmp.name):
+        tempfile.tempdir = None
+        try:
+            report, _ = quiet(profile_epoch.main,
+                              ["2", str(BATCH), "16", "fixed", "both"])
+        finally:
+            tempfile.tempdir = None
+    for ep in report["epochs"]:
+        log(f"[{tag} epoch] " + ", ".join(f"{k} {v}" for k, v in ep.items()))
+    rng = [ep["rng_ms_per_batch"] for ep in report["epochs"]
+           if ep["loop"] == "instrument"]
+    log(f"[{tag} epoch] rng stage (the key chain and the augmentation "
+        f"draws on the host) {rng[-1]:.4f} ms a batch of {BATCH} (epoch 1 "
+        f"{rng[0]:.4f}); step-only {report['step_only']['ms_per_step']} "
+        f"ms at {report['step_only']['canvas']}, "
+        f"{report['step_only']['img_per_s']} img/s; wall over step "
+        f"{report.get('wall_over_step')}; {card}")
+
+    # ---- 16c. generate_spl_masks and measure_connectivity ----------------
+    root = Path(tmp.name) / "spl"
+    make_dataset(root, n_train=4, n_val=0, hw=GLAS_HW, seed=seed)
+    data = root / "train"
+    spl = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reset_launches()
+        quiet(generate_spl_masks.main, [str(data), "--device", dev])
+        n = sum(launch_counts().values())
+        out_dir = data / "spl-masks"
+        spl[dev] = {p.name: np.load(p) for p in sorted(out_dir.iterdir())}
+        out_dir.rename(data / f"spl-masks-{dev}")
+        log(f"[{tag} spl] generate_spl_masks on the {dev}: "
+            f"{len(spl[dev])} masks in {time.perf_counter() - t0:.2f} s; "
+            f"kernel launches {n}")
+    eq = [float((spl["cuda"][k] == spl["cpu"][k]).mean()) for k in spl["cpu"]]
+    log(f"[{tag} spl] card against CPU: {sum(e == 1.0 for e in eq)} of "
+        f"{len(eq)} masks equal, the least share of equal values "
+        f"{min(eq):.6f} (limit 0.999: SLIC on the card against the CPU)")
+    if sorted(spl["cuda"]) != sorted(spl["cpu"]) or min(eq) < 0.999:
+        fail("generate_spl_masks on the card differs from the CPU")
+
+    conn = {}
+    for dev in ("cuda", "cpu"):
+        args = measure_connectivity.parse_args([
+            "--n", "4", "--device", dev, "--root", str(Path(tmp.name)
+                                                      / "conn"),
+            "--ckpt", trained.name,
+            "--out", str(Path(tmp.name) / f"conn_{dev}.json")])
+        t0 = time.perf_counter()
+        reset_launches()
+        (report, segs, preds), _ = quiet(measure_connectivity.run, args)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        conn[dev] = (report, segs, preds)
+        log(f"[{tag} connectivity] {dev}: 4 images in "
+            f"{time.perf_counter() - t0:.2f} s; launches {counts}; mean "
+            + json.dumps(report["mean"]))
+        if dev == "cuda" and counts != {"segment_sum": 8,
+                                        "adjoint_pool_stage": 32}:
+            fail(f"measure_connectivity's 8 adjoint forwards launched "
+                 f"{counts}, not K5 once and K6 four times each")
+    (rc, sc, pc), (rp, sp, pp) = conn["cuda"], conn["cpu"]
+    seg_eq = [float((a == b).mean()) for a, b in zip(sc, sp)]
+    same = [i for i, e in enumerate(seg_eq) if e == 1.0]
+    stats_eq = all(rc["images"][i][k] == rp["images"][i][k] for i in same
+                   for k in rc["images"][i]
+                   if not k.startswith(("pred", "dice")))
+    # where the segs are equal: both probability maps of the A/B within
+    # the superpixel forward's bf16 limit, the CPU's A/B moving some pixel
+    # by more than twice that (so a forward that ignored the enforced seg
+    # fails), and the mean move within 10% of the CPU's
+    map_err = max((float(np.abs(a - b).max()) for i in same
+                   for a, b in zip(pc[i], pp[i])), default=np.inf)
+    moved = [float(np.abs(pp[i][0] - pp[i][1]).max()) for i in same]
+    dc = [rc["images"][i]["pred_mean_abs_delta"] for i in same]
+    dp = [rp["images"][i]["pred_mean_abs_delta"] for i in same]
+    rel = [abs(a - b) / max(b, 1e-12) for a, b in zip(dc, dp)]
+    log(f"[{tag} connectivity] card against CPU, phase 14's trained model: "
+        f"seg equal share per image {[round(e, 6) for e in seg_eq]} (limit "
+        f"0.999), island statistics equal where the segs are: {stats_eq}; "
+        f"probability maps (A and B) within {map_err:.3e} (limit 3e-2, bf16 "
+        f"forwards); the CPU's A/B moves a pixel by at most "
+        f"{[round(m, 4) for m in moved]} (the largest must exceed 6e-2); "
+        f"pred_mean_abs_delta card {dc} CPU {dp}, "
+        f"relative difference at most {max(rel, default=np.inf):.4f} (limit "
+        f"0.1); {card}")
+    if (min(seg_eq) < 0.999 or not same or not stats_eq
+            or not map_err <= 3e-2 or not max(moved) > 6e-2
+            or not max(rel) <= 0.1):
+        fail("measure_connectivity on the card differs from the CPU")
+    trained.cleanup()
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def make_gated(step, gated: bool):
     """``step`` run under ``WESUP_FUSED_POOL1=1`` when ``gated``."""
     def run(*args, **kwargs):
@@ -3204,10 +3393,13 @@ def main(argv=None) -> int:
     protocol_phase(torch, card, args.seed)
 
     # ---- 14. the quality protocol: a model the port trains, scored -------
-    quality_phase(torch, card)
+    trained = quality_phase(torch, card)
 
     # ---- 15. JPEG, and the DigestPath2019 pipeline -----------------------
     jpeg_pipeline_phase(torch, card, args.seed)
+
+    # ---- 16. the profiling tools and the small tools ---------------------
+    tools_phase(torch, card, args.seed, trained)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

@@ -1,9 +1,11 @@
 """The port's trainer on the JAX trainer's random streams.
 
-The two packages draw their initial weights and their augmentation from
-different generators (threefry keys against torch generators) by design,
-so a run of each from one seed differs in both streams.  This script takes
-them out of the comparison:
+The port draws its initial weights (``models/jax_init.py``) and its
+augmentation (``models/steps.py``: the key chain and the draws) from
+JAX's threefry bits, so that a run of each package from one seed starts
+from one model and draws the same parameters.  This script takes the
+port's own draws out of the comparison all the same, with the JAX
+package's dumped streams in their place:
 
 - ``dump`` (needs JAX; runs on the CPU) writes the JAX trainer's initial
   weights for ``--seed`` (as the port's state dict) and the augmentation
@@ -16,7 +18,9 @@ them out of the comparison:
   and draws and writes its summary.
 
 What is left between such a run and the JAX run on the same data is the
-arithmetic of the two devices.
+arithmetic of the two devices.  ``--own-init`` and ``--own-draws`` keep
+the port's own streams, which are JAX's bits for the config's seed
+too.
 
 Usage:
     python tests/jax_stream_replay.py dump --out DIR [--epochs 120]
@@ -124,7 +128,7 @@ def replaying(draws):
     from wesup_tpu_torch.models import steps
     from wesup_tpu_torch.ops import augment as aug
 
-    def generator(rng, batch, phase, device):
+    def key(rng, batch, phase):
         return steps._rng_idx(batch["rng_idx"])
 
     def sample(config, B, hw, point_mode, where, device):
@@ -150,7 +154,7 @@ def replaying(draws):
                                         noise * 34.0 / max(H, W) * min(H, W))
         return steps.AugParams(app, aug.random_affine(pos, hw), elastic)
 
-    return mock.patch.multiple(steps, batch_generator=generator,
+    return mock.patch.multiple(steps, step_key=key,
                                sample_augmentation=sample)
 
 
@@ -160,7 +164,8 @@ def train(draws_dir, data, epochs, overrides, device=None, init=None,
     default ``init.npz`` beside the draws) and draws, with its
     ``history.csv`` rows under ``history`` and, on the card, ``card``.
     ``own_init`` keeps the port's own initial weights and ``own_draws``
-    its own augmentation draws, so that each stream can be swapped alone.
+    its own augmentation draws (both JAX's bits for the config's
+    ``seed``), so that each stream can be swapped alone.
     Without ``data/train/images`` it first makes the dataset as
     ``quality_ablation`` does (seed 0, ``hw``, ``n_val``, one train image
     per batch of the draws, points in point mode).  ``overrides`` go to
@@ -260,7 +265,8 @@ def main(argv=None):
     t.add_argument("--own-init", action="store_true",
                    help="the port's own initial weights")
     t.add_argument("--own-draws", action="store_true",
-                   help="the port's own augmentation draws")
+                   help="the port's own augmentation draws (JAX's bits "
+                   "for the config's seed)")
     t.add_argument("--out", default=None)
     q = sub.add_parser("protocol", help="quality_protocol on the dumped "
                        "streams; other flags go to quality_protocol")

@@ -37,6 +37,7 @@ from wesup_tpu_torch.ops import (adjoint, cellgrid, cellpool,  # noqa: E402
                                  reset_launches)
 from wesup_tpu_torch.ops.resize import _interp_matrix  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
+from wesup_tpu_torch.utils import prng  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -244,11 +245,11 @@ def test_train_step_launches_on_card(cuda, point_mode):
     optimizer = steps.make_optimizer(cfg, model)
     step = steps.make_train_step(cfg, (H, W), point_mode=point_mode)
     acc = steps.init_metric_acc()
-    gen = torch.Generator(device=cuda).manual_seed(0)
+    key = prng.PRNGKey(0)
     batch = _train_batch(2, H, W, (58, 141))
-    acc = step(model, optimizer, acc, batch, gen)
+    acc = step(model, optimizer, acc, batch, key)
     cellpool.reset_launches()
-    acc = step(model, optimizer, acc, batch, gen)
+    acc = step(model, optimizer, acc, batch, key)
     torch.cuda.synchronize()
     assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
                                  "cell_pool0_bwd": 1, "cell_pool_stage_bwd": 4}
@@ -730,10 +731,9 @@ def test_adjoint_and_fullres_train_on_card(cuda, pooling_, launches):
     model = wesup.WESUP(fc_width=64,
                         generator=torch.Generator().manual_seed(0)).to(cuda)
     step = steps.make_train_step(cfg, (H, W), point_mode=True)
-    gen = torch.Generator(device=cuda).manual_seed(0)
     reset_launches()
     acc = step(model, steps.make_optimizer(cfg, model),
-               steps.init_metric_acc(), batch, gen)
+               steps.init_metric_acc(), batch, prng.PRNGKey(0))
     torch.cuda.synchronize()
     assert launch_counts() == _expected(launches)
     assert not acc["nan"].item()
@@ -784,10 +784,9 @@ def test_gated_train_step_on_card(cuda, monkeypatch):
     optimizer = steps.make_optimizer(cfg, model)
     step = steps.make_train_step(cfg, (64, 160), point_mode=True)
     acc = steps.init_metric_acc()
-    gen = torch.Generator(device=cuda).manual_seed(0)
     reset_launches()
     acc = step(model, optimizer, acc, _train_batch(2, 64, 160, (58, 141)),
-               gen)
+               prng.PRNGKey(0))
     torch.cuda.synchronize()
     assert launch_counts() == _expected({
         "cell_pool0": 1, "cell_pool_stage": 4, "cell_pool0_bwd": 1,
@@ -843,17 +842,36 @@ def test_device_resize_on_card_matches_cpu(cuda):
 
 
 def test_batch_generators_seed_alike_on_both_devices(cuda):
+    """A batch's key and draws are host arithmetic: the same on a step for
+    the card as for the CPU, and what ``batch_key`` gives; the drawn
+    parameters reach the card unchanged (the affine matrices, computed
+    from them on each device, within 1e-4); an ``rng_idx`` on the card is
+    refused."""
+    base = prng.PRNGKey(12)
+    cfg = WESUPConfig()
     for rng_idx in ((1, 0), (3, 7), np.array([[2, 5]] * 4, np.int32)):
-        gens = [steps.batch_generator(12, {"rng_idx": rng_idx}, "train", d)
-                for d in ("cpu", cuda)]
+        key = steps.step_key(base, {"rng_idx": rng_idx}, "train")
         pair = np.asarray(rng_idx).reshape(-1, 2)[0]
-        want = steps.batch_seed(12, int(pair[0]), 0, int(pair[1]))
-        assert [g.initial_seed() for g in gens] == [want, want]
-        assert gens[1].device.type == "cuda"
+        want = steps.batch_key(base, int(pair[0]), 0, int(pair[1]))
+        assert np.array_equal(key, want)
+        ref, got = (steps.sample_augmentation(cfg, 4, (64, 160), False, key,
+                                              dev) for dev in ("cpu", cuda))
+        assert got.affine.is_cuda
+        for name in ("appearance", "elastic"):
+            for a, b in zip(_leaves(getattr(got, name)),
+                            _leaves(getattr(ref, name))):
+                assert torch.equal(a.cpu(), b), name
+        assert (got.affine.cpu() - ref.affine).abs().max().item() <= 1e-4
     with pytest.raises(ValueError, match="host"):
-        steps.batch_generator(12, {"rng_idx": torch.zeros(2, 2,
-                                                         device=cuda)},
-                              "train", cuda)
+        steps.step_key(base, {"rng_idx": torch.zeros(2, 2, device=cuda)},
+                       "train")
+
+
+def _leaves(x):
+    """The tensors of a nested NamedTuple, in order (None skipped)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in (x or ()) for t in _leaves(v)]
 
 
 def test_bucketed_train_and_eval_steps_on_card(cuda):
@@ -872,8 +890,8 @@ def test_bucketed_train_and_eval_steps_on_card(cuda):
         b = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
         acc = steps.init_metric_acc()
         reset_launches()
-        acc = train(model, optimizer, acc, dict(b, rng_idx=(1, i)), 5,
-                    cache=dcache)
+        acc = train(model, optimizer, acc, dict(b, rng_idx=(1, i)),
+                    prng.PRNGKey(5), cache=dcache)
         torch.cuda.synchronize()
         assert launch_counts() == _expected({
             "cell_pool0": 1, "cell_pool_stage": 4, "cell_pool0_bwd": 1,
@@ -1043,8 +1061,8 @@ def test_train_augmentation_on_card_matches_cpu(cuda, point_mode):
         point_valid[b, :8] = True
     use_mask = torch.zeros((B,), dtype=torch.bool)
     cfg = WESUPConfig(compute_dtype="float32")
-    gen = torch.Generator().manual_seed(5)
-    params = steps.sample_augmentation(cfg, B, (H, W), point_mode, gen, "cpu")
+    params = steps.sample_augmentation(cfg, B, (H, W), point_mode,
+                                       prng.PRNGKey(5), "cpu")
     # every appearance branch taken by some image
     params = params._replace(appearance=params.appearance._replace(
         clahe=torch.tensor([True, False, True, False]),

@@ -43,6 +43,7 @@ from wesup_tpu_torch.data import codec  # noqa: E402
 from wesup_tpu_torch.data import datasets as t_datasets  # noqa: E402
 from wesup_tpu_torch.data import loader as t_loader  # noqa: E402
 from wesup_tpu_torch.ops import train_resize as t_resize  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from pathlib import Path
 import cv2
 import numpy as np
 import pytest
+from torch_threads import worker_threads  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))

@@ -31,6 +31,7 @@ import make_dataset as j_make  # noqa: E402
 
 from wesup_tpu_torch.data import codec, draw  # noqa: E402
 from wesup_tpu_torch.scripts import make_dataset as t_make  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 RESIDUE = 0.005      # of the rim pixels OpenCV paints
 ROUNDING = 1e-4      # of the samples, 1 level apart

@@ -43,6 +43,7 @@ from wesup_tpu.utils import metrics as j_metrics
 from wesup_tpu_torch import native
 from wesup_tpu_torch.ops.morphology import flip_small_regions
 from wesup_tpu_torch.utils import metrics
+from torch_threads import worker_threads  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = REPO / "scripts"

@@ -23,6 +23,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).parent))
 from trainer_headtohead import run  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 
 def test_trainers_agree_without_augmentation(tmp_path):

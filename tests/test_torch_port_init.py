@@ -1,7 +1,8 @@
 """The port's initial weights are the JAX trainer's, on the CPU.
 
-``models/jax_init.py`` is a numpy copy of the parts of ``jax.random``
-that ``wesup_tpu.models.wesup.init_params`` uses.  Held against the
+``models/jax_init.py`` draws them with ``utils/prng.py``, a numpy copy
+of the parts of ``jax.random`` that ``wesup_tpu.models.wesup.init_params``
+uses.  Held against the
 installed JAX:
 
 - the flag it follows (``jax_threefry_partitionable``) and the raw
@@ -26,6 +27,8 @@ import torch
 from wesup_tpu.models import wesup as j_wesup
 from wesup_tpu_torch.models import initialize_trainer, jax_init, wesup
 from wesup_tpu_torch.models.convert import from_jax_params
+from wesup_tpu_torch.utils import prng
+from torch_threads import worker_threads  # noqa: E402,F401
 
 SEEDS = [0, 1, 7]
 
@@ -43,32 +46,32 @@ def test_jax_follows_the_flag_this_copy_follows():
 @pytest.mark.parametrize("seed", [0, 1, 7, 2**31 - 1])
 def test_raw_bits_split_and_fold_in(seed):
     key = jax.random.PRNGKey(seed)
-    mine = jax_init.PRNGKey(seed)
+    mine = prng.PRNGKey(seed)
     np.testing.assert_array_equal(np.asarray(key), mine)
     np.testing.assert_array_equal(np.asarray(jax.random.split(key, 18)),
-                                  jax_init.split(mine, 18))
+                                  prng.split(mine, 18))
     for data in (0, 3, 123456):
         np.testing.assert_array_equal(
             np.asarray(jax.random.fold_in(key, data)),
-            jax_init.fold_in(mine, data))
+            prng.fold_in(mine, data))
     np.testing.assert_array_equal(
         np.asarray(jax.random.bits(key, (3, 5, 7), jnp.uint32)),
-        jax_init.random_bits(mine, (3, 5, 7)))
+        prng.random_bits(mine, (3, 5, 7)))
 
 
 def test_uniform_normal_and_erf_inv_are_bitwise():
     key = jax.random.PRNGKey(3)
-    mine = jax_init.PRNGKey(3)
+    mine = prng.PRNGKey(3)
     n = 200_000
     np.testing.assert_array_equal(
         np.asarray(jax.random.uniform(key, (n,), jnp.float32, -0.3, 0.3)),
-        jax_init.uniform(mine, (n,), -0.3, 0.3))
+        prng.uniform(mine, (n,), -0.3, 0.3))
     np.testing.assert_array_equal(
         np.asarray(jax.random.normal(key, (n,), jnp.float32)),
-        jax_init.normal(mine, (n,)))
-    u = jax_init.uniform(mine, (n,), -1.0, 1.0)
+        prng.normal(mine, (n,)))
+    u = prng.uniform(mine, (n,), -1.0, 1.0)
     np.testing.assert_array_equal(
-        np.asarray(jax.jit(jax.lax.erf_inv)(u)), jax_init.erf_inv(u))
+        np.asarray(jax.jit(jax.lax.erf_inv)(u)), prng.erf_inv(u))
 
 
 def _jax_state(seed):

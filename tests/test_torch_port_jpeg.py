@@ -37,6 +37,7 @@ from torch_png_writer import CHANNELS, png
 from wesup_tpu_torch import native
 from wesup_tpu_torch.data import codec
 from wesup_tpu_torch.data import jpeg
+from torch_threads import worker_threads  # noqa: E402,F401
 
 SIZES = [(1, 1), (7, 9), (37, 53), (97, 131)]
 SAMPLING = {"444": 0x111111, "422": 0x211111, "420": 0x221111,

@@ -26,6 +26,7 @@ from wesup_tpu_torch.models import steps, vgg, wesup  # noqa: E402
 from wesup_tpu_torch.models.convert import (from_jax_params,  # noqa: E402
                                             load_state_dict_file)
 from wesup_tpu_torch.ops.slic import make_plan  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 FC_WIDTH = 64
 

@@ -25,6 +25,7 @@ from wesup_tpu.ops import resize as j_resize  # noqa: E402
 from wesup_tpu.ops import slic as j_slic  # noqa: E402
 from wesup_tpu_torch.ops import cellgrid, cellpool, resize  # noqa: E402
 from wesup_tpu_torch.ops import slic as t_slic  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

@@ -70,6 +70,7 @@ from wesup_tpu_torch.models.convert import from_jax_params  # noqa: E402
 from wesup_tpu_torch.ops import adjoint, pool, pooling, resize  # noqa: E402
 from wesup_tpu_torch.ops import segments  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 FC_WIDTH = 64
 DTYPES = ["float32", "bfloat16"]

@@ -19,6 +19,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from torch_threads import worker_threads  # noqa: E402,F401
 
 REPO = Path(__file__).parent.parent
 sys.path.insert(0, str(REPO))

@@ -1,4 +1,4 @@
-"""The port's trainer, checkpoints and per-batch generators, on the CPU.
+"""The port's trainer and checkpoints, on the CPU.
 
 - history.csv is byte-equal to the JAX package's for the same metrics;
 - a JAX trainer's msgpack checkpoint loads into the port (weights bitwise
@@ -6,23 +6,17 @@
   optax's update on the same gradient within 1e-6: both compute
   ``m = 0.9 m + g + wd p; p -= lr m`` in f32, in another order), and the
   port's ``.pth`` loads into the JAX trainer bitwise;
-- ``python -m wesup_tpu_torch.train``'s ``fit`` writes the reference
-  record layout and resumes: epoch numbering continues, the resumed
-  epoch's per-batch seeds are the straight run's, and the restored
-  weights and momentum are bitwise what was saved;
-- the steps take ``rng_idx`` (a batch's draws do not depend on the batches
-  that ran before it) and ``img_idx`` with ``cache=`` (bitwise the host
-  wire format's result);
 - the NaN abort and the refusal of an unknown metric name; the default
   val phase reads no prediction map back, ``metrics=`` one per batch;
 - the slice against JAX: one epoch of both trainers from one JAX
-  checkpoint with ``lr=0`` (the weights cannot move, so augmentation and
-  the packages' different random bits cannot matter) gives the same
+  checkpoint with ``lr=0`` (the weights cannot move, so the augmentation
+  cannot matter) gives the same
   validation metrics, the host GlaS metrics among them, within the
   tolerance derived in :func:`test_one_epoch_matches_jax_trainer`.
 
 Sizes follow tests/test_train_smoke.py: 64x80 images, canvas 48x64, 3
-SLIC iterations, sp_area 100, f32.
+SLIC iterations, sp_area 100, f32.  ``fit``, resume and the steps' wire
+formats are in tests/test_torch_port_trainer_fit.py.
 """
 
 import csv
@@ -45,15 +39,12 @@ from wesup_tpu.config import WESUPConfig as JConfig  # noqa: E402
 from wesup_tpu.models import initialize_trainer as j_init  # noqa: E402
 from wesup_tpu.models import steps as j_steps  # noqa: E402
 from wesup_tpu.utils.history import HistoryTracker as JTracker  # noqa: E402
-from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.data import datasets as t_datasets  # noqa: E402
-from wesup_tpu_torch.data import loader as t_loader  # noqa: E402
-from wesup_tpu_torch.models import convert, steps, wesup  # noqa: E402
+from wesup_tpu_torch.models import convert, steps  # noqa: E402
 from wesup_tpu_torch.models import initialize_trainer  # noqa: E402
-from wesup_tpu_torch.ops import train_resize  # noqa: E402
 from wesup_tpu_torch.ops.slic import slic  # noqa: E402
-from wesup_tpu_torch.train import fit  # noqa: E402
 from wesup_tpu_torch.utils.history import HistoryTracker  # noqa: E402
+from torch_threads import worker_threads  # noqa: E402,F401
 
 CFG = dict(canvas_size=(48, 64), slic_iters=3, compute_dtype="float32",
            sp_area=100)
@@ -223,185 +214,6 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
     assert other.initial_epoch == 6 and not other.optimizer.state
     for name, t in pt.model.state_dict().items():
         assert torch.equal(other.model.state_dict()[name], t), name
-
-
-# ---------------------------------------------------------------------------
-# fit: record layout, checkpoints, resume
-# ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def seed_log():
-    """Every per-batch seed the steps derive: (epoch, phase, batch) ->
-    seed, in order."""
-    calls = []
-    real = steps.batch_seed
-
-    def recording(base, epoch, phase, idx):
-        seed = real(base, epoch, phase, idx)
-        calls.append(((epoch, phase, idx), seed))
-        return seed
-
-    steps.batch_seed = recording
-    yield calls
-    steps.batch_seed = real
-
-
-@pytest.fixture(scope="module")
-def fitted(dataset, tmp_path_factory, seed_log):
-    """A 2-epoch fit on the CPU (with the package's build directory, which
-    the source snapshot must leave out; it is git-ignored and left in
-    place, as other test processes may be building the native library
-    into it)."""
-    root = tmp_path_factory.mktemp("port_fit")
-    (PKG / "_build").mkdir(exist_ok=True)
-    mp = pytest.MonkeyPatch()
-    mp.setenv("RECORD_ROOT", str(root / "records"))
-    try:
-        trainer = fit(dataset, epochs=2, device="cpu",
-                      profile_dir=str(root / "trace"), **CFG)
-    finally:
-        mp.undo()
-    return trainer, list(seed_log)
-
-
-def test_fit_smoke(fitted):
-    trainer, _ = fitted
-    rd = trainer.record_dir
-    for name in ("history.csv", "train.log", "params/0.json"):
-        assert (rd / name).exists(), name
-    assert (rd / "source" / "wesup_tpu_torch" / "ops" / "slic.py").exists()
-    assert not (rd / "source" / "wesup_tpu_torch" / "_build").exists()
-    assert not list((rd / "source").rglob("__pycache__"))
-    ckpts = sorted(p.name for p in (rd / "checkpoints").iterdir())
-    assert ckpts == ["ckpt.0002.pth"]   # latest-only retention
-    # profile_dir=: the first epoch's train phase, as a Chrome trace
-    assert (Path(trainer.kwargs["profile_dir"]) / "trace.epoch1.json").exists()
-    rows = _rows(rd / "history.csv")
-    assert len(rows) == 3
-    assert rows[0] == ["accuracy", "dice", "labeled_sp_ratio", "loss",
-                       "propagate_loss", "propagated_labels", "val_accuracy",
-                       "val_dice", "lr"]
-    assert all(np.isfinite(float(v)) for r in rows[1:] for v in r)
-    # every batch of every phase stepped, none raised
-    assert sorted(trainer.phase_stats) == [(e, p) for e in (1, 2)
-                                           for p in ("train", "val")]
-    for key, stats in trainer.phase_stats.items():
-        assert stats["batches"] > 0 and stats["failed"] == 0, key
-        assert stats["samples"] > 0 and stats["seconds"] > 0, key
-    assert trainer.phase_stats[(1, "train")]["batches"] == 3
-
-
-def test_resume_continues_and_reproduces_the_seeds(fitted, dataset,
-                                                   tmp_path, seed_log,
-                                                   monkeypatch):
-    trainer, first = fitted
-    ckpt = trainer.record_dir / "checkpoints" / "ckpt.0002.pth"
-    saved = torch.load(ckpt, weights_only=True)
-    restored = initialize_trainer("wesup", device="cpu", **CFG)
-    restored.load_checkpoint(ckpt)
-    assert restored.initial_epoch == 3
-    for name, t in saved["model_state_dict"].items():
-        assert torch.equal(restored.model.state_dict()[name], t), name
-    state = restored.optimizer.state_dict()["state"]
-    assert state.keys() == saved["optimizer_state_dict"]["state"].keys()
-    for k, v in saved["optimizer_state_dict"]["state"].items():
-        assert torch.equal(state[k]["momentum_buffer"], v["momentum_buffer"])
-
-    del seed_log[:]
-    fit(dataset, epochs=1, device="cpu", checkpoint=str(ckpt), **CFG)
-    resumed = [c for c in seed_log if c[0][0] == 3]
-    ckpts = sorted(p.name for p in (trainer.record_dir
-                                    / "checkpoints").iterdir())
-    assert ckpts == ["ckpt.0003.pth"]
-    assert len(_rows(trainer.record_dir / "history.csv")) == 4
-
-    del seed_log[:]
-    monkeypatch.setenv("RECORD_ROOT", str(tmp_path / "straight"))
-    fit(dataset, epochs=3, device="cpu", **CFG)
-    straight = [c for c in seed_log if c[0][0] == 3]
-    assert resumed and resumed == straight
-    # only train batches draw, each from its own (epoch, batch) seed
-    assert [c[0] for c in first] == [(e, 0, i) for e in (1, 2)
-                                     for i in range(3)]
-    assert len({s for _, s in first + straight}) == len(first + straight)
-
-
-# ---------------------------------------------------------------------------
-# the steps' wire formats
-# ---------------------------------------------------------------------------
-
-def _host_batches(dataset, device_resize, n=2):
-    ds = t_datasets.PointSupervisionDataset(
-        dataset / "train", multiscale_range=(0.3, 0.6), seed=3)
-    ds.device_resize = device_resize
-    bat = t_loader.CanvasBatcher(ds, t_loader.CanvasSpec(48, 64),
-                                 batch_size=2)
-    cache = None
-    if device_resize:
-        cache = {k: torch.from_numpy(v)
-                 for k, v in train_resize.build_cache(ds).items()}
-    return list(bat.epoch_iter(0))[:n], cache
-
-
-def _fresh(model0, cfg):
-    model = wesup.WESUP()
-    model.load_state_dict(model0.state_dict())
-    return model, steps.make_optimizer(cfg, model)
-
-
-@pytest.fixture(scope="module")
-def model0():
-    return wesup.WESUP(generator=torch.Generator().manual_seed(5))
-
-
-def test_rng_idx_draws_do_not_depend_on_earlier_batches(dataset, model0):
-    cfg = WESUPConfig(**CFG)
-    (batch, val_batch), _ = _host_batches(dataset, False)
-    train = steps.make_train_step(cfg, (48, 64), point_mode=True,
-                                  device="cpu")
-    evaluate = steps.make_eval_step(cfg, (48, 64), device="cpu")
-
-    def run(n_before, rng_idx=(2, 1), rng=7):
-        model, opt = _fresh(model0, cfg)
-        acc = steps.init_metric_acc(device="cpu")
-        eacc = steps.init_metric_acc(steps.EVAL_METRIC_KEYS, device="cpu")
-        for i in range(n_before):
-            _, eacc = evaluate(model, eacc, dict(val_batch, rng_idx=(2, i)))
-        b = batch if rng_idx is None else dict(batch, rng_idx=rng_idx)
-        acc = train(model, opt, acc, b, rng)
-        return acc["sums"]["loss"], model.state_dict()
-
-    loss, sd = run(0)
-    for other in (run(3), run(0, rng=torch.Generator().manual_seed(
-            steps.batch_seed(7, 2, 0, 1)), rng_idx=None)):
-        assert torch.equal(other[0], loss)
-        assert all(torch.equal(other[1][k], v) for k, v in sd.items())
-    assert not torch.equal(run(0, rng_idx=(2, 2))[0], loss)
-
-
-def test_img_idx_with_cache_equals_the_host_wire_format(dataset, model0):
-    cfg = WESUPConfig(**CFG)
-    host, _ = _host_batches(dataset, False, n=1)
-    dev, cache = _host_batches(dataset, True, n=1)
-    assert "img_idx" in dev[0] and "image" not in dev[0]
-    train = steps.make_train_step(cfg, (48, 64), point_mode=True,
-                                  device="cpu")
-    evaluate = steps.make_eval_step(cfg, (48, 64), device="cpu")
-    out = []
-    for batch, c in ((host[0], None), (dev[0], cache)):
-        model, opt = _fresh(model0, cfg)
-        pred, eacc = evaluate(model, steps.init_metric_acc(
-            steps.EVAL_METRIC_KEYS, device="cpu"), batch, cache=c)
-        acc = train(model, opt, steps.init_metric_acc(device="cpu"),
-                    dict(batch, rng_idx=(1, 0)), 11, cache=c)
-        out.append((pred, eacc["sums"], acc["sums"], model.state_dict()))
-    (p0, e0, a0, s0), (p1, e1, a1, s1) = out
-    assert torch.equal(p0, p1)
-    for k in a0:
-        assert torch.equal(a0[k], a1[k]), k
-    for k in e0:
-        assert torch.equal(e0[k], e1[k]), k
-    assert all(torch.equal(s0[k], s1[k]) for k in s0)
 
 
 # ---------------------------------------------------------------------------

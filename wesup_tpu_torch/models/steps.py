@@ -20,13 +20,15 @@ PyTorch runs eagerly, so a "step" is a plain function closed over the
 static shapes and plans; it takes the model as its first argument, as the
 JAX step takes params.  The train step updates the model and the optimizer
 IN PLACE (the JAX step returns new ones) and returns the metric
-accumulator.  Randomness comes from an explicit ``torch.Generator`` on the
-step's device: the augmentation parameters are drawn from it
-(:func:`sample_augmentation`) and then applied.  The trainer's batches
-carry ``rng_idx`` (epoch, batch index) instead, and the step seeds the
-batch's generator from them (:func:`batch_seed`); device-resize batches
-carry ``img_idx`` and resize vectors, and the step builds their canvases
-from the cache it is given (``ops.train_resize``).
+accumulator.  Randomness comes from JAX's threefry keys, drawn on the
+host (``utils/prng.py``): the train step takes a key, draws the batch's
+augmentation parameters from it as the JAX step does, bit for bit
+(:func:`sample_augmentation`), copies them to the device in one
+non-blocking transfer and applies them.  The trainer's batches carry
+``rng_idx`` (epoch, batch index) and the step folds them into the base
+key it is given (:func:`batch_key`), as the JAX step does; device-resize
+batches carry ``img_idx`` and resize vectors, and the step builds their
+canvases from the cache it is given (``ops.train_resize``).
 
 The step factories run on ``cuda`` unless ``device`` says otherwise, and raise
 when no CUDA device is present and none was given.
@@ -46,6 +48,7 @@ from ..ops.segments import superpixel_stats
 from ..ops.slic import make_plan, n_clusters, slic
 from ..runtime import compute_dtype as _compute_dtype
 from ..runtime import resolve_device
+from ..utils import prng
 from ..utils.metrics import device_accuracy, device_dice
 from . import wesup
 from .objectives import wesup_loss
@@ -246,17 +249,54 @@ def _aug_configs(point_mode: bool):
             aug.PositionConfig(ssr_p=0.8))
 
 
-def sample_augmentation(config, B: int, hw, point_mode: bool,
-                        generator: torch.Generator, device) -> AugParams:
-    """Draw one batch's augmentation parameters from ``generator``."""
+def draw_augmentation(config, B: int, hw, point_mode: bool, key):
+    """One batch's augmentation parameters on the host, as numpy arrays:
+    ``(appearance, affine draws, elastic or None)``, bitwise what
+    ``wesup_tpu.models.steps.make_train_step`` draws from ``key``: the key
+    split per image, each image's key split in 3 (appearance, affine,
+    elastic), the elastic draws only for mask supervision with
+    ``elastic_p > 0``."""
     app_cfg, pos_cfg = _aug_configs(point_mode)
-    appearance = aug.sample_appearance(generator, B, app_cfg, device)
-    A = aug.random_affine(aug.sample_affine(generator, B, pos_cfg, device),
-                          hw)
+    k = prng.split(prng.split(key, B), 3)
+    # the appearance's and the affine's 7 draws in one hash of 14 keys
+    limits = zip(aug.appearance_limits(app_cfg), aug.affine_limits(pos_cfg))
+    u = prng.uniform(prng.split(k[:, :2], 7), (), *map(np.stack, limits))
     elastic = None
     if not point_mode and config.elastic_p > 0:
-        elastic = aug.sample_elastic(generator, B, hw, config.elastic_p,
-                                     device)
+        elastic = aug.draw_elastic(k[:, 2], hw, config.elastic_p)
+    return (aug.appearance_params(u[:, 0], app_cfg),
+            aug.affine_draws(u[:, 1], pos_cfg), elastic)
+
+
+def sample_augmentation(config, B: int, hw, point_mode: bool, key,
+                        device) -> AugParams:
+    """:func:`draw_augmentation`'s parameters on ``device``: packed into
+    one f32 array, copied from pinned memory without blocking (nothing is
+    read back), and unpacked there."""
+    dev = torch.device(device)
+    app, affine, elastic = draw_augmentation(config, B, hw, point_mode, key)
+    cols = {f"app.{f}": v for f, v in app._asdict().items() if v is not None}
+    cols.update({f"aff.{f}": v for f, v in affine._asdict().items()})
+    blocks = []
+    if elastic is not None:
+        cols["apply"] = elastic.apply
+        blocks.append(elastic.coarse.reshape(B, -1))
+    host = torch.from_numpy(np.concatenate(
+        [np.stack(list(cols.values()), axis=1).astype(np.float32)] + blocks,
+        axis=1))
+    if dev.type == "cuda":
+        host = host.pin_memory()
+    packed = host.to(dev, non_blocking=True)
+    # the flags travel as 0.0 / 1.0
+    t = {k: packed[:, i] != 0 if v.dtype == bool else packed[:, i]
+         for i, (k, v) in enumerate(cols.items())}
+    appearance = aug.AppearanceParams(
+        **{f: t.get(f"app.{f}") for f in aug.AppearanceParams._fields})
+    A = aug.random_affine(aug.AffineDraws(
+        **{f: t[f"aff.{f}"] for f in aug.AffineDraws._fields}), hw)
+    if elastic is not None:
+        elastic = aug.ElasticParams(t["apply"], packed[:, len(cols):].reshape(
+            elastic.coarse.shape))
     return AugParams(appearance, A, elastic)
 
 
@@ -403,35 +443,21 @@ def _batch_on(batch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Per-batch generators
+# Per-batch keys
 # ---------------------------------------------------------------------------
 
 PHASE_IDS = {"train": 0, "val": 1}
-_MASK64 = (1 << 64) - 1
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def batch_seed(base_seed: int, epoch: int, phase: int, batch_idx: int) -> int:
-    """Seed of one batch's ``torch.Generator``: the base seed, then the
-    epoch, the phase (:data:`PHASE_IDS`) and the batch index, each xored
-    into the state and mixed by splitmix64; the top 63 bits.
-
-    The JAX package folds the same (epoch, phase, batch) into a threefry
-    key; torch cannot draw JAX's bits, so the port keeps the properties
-    instead: a batch's draws depend on nothing but these four integers
-    (not on how many batches another phase emitted), a resumed epoch
-    draws what the straight run drew, and the seed is host integer
-    arithmetic, with nothing read back from the device."""
-    s = _splitmix64(int(base_seed) & _MASK64)
-    for v in (epoch, phase, batch_idx):
-        s = _splitmix64(s ^ (int(v) & _MASK64))
-    return s >> 1
+def batch_key(base_key, epoch: int, phase: int, batch_idx: int):
+    """One batch's key: the epoch, the phase (:data:`PHASE_IDS`) and the
+    batch index folded into the base key, in that order
+    (``wesup_tpu.models.steps._batch_rng_key``).  A batch's draws depend
+    on nothing but these four (not on how many batches another phase
+    emitted), so a resumed epoch draws what the straight run drew; the
+    chain is host arithmetic, with nothing read back from the device."""
+    key = prng.fold_in(base_key, epoch)
+    return prng.fold_in(prng.fold_in(key, phase), batch_idx)
 
 
 def _rng_idx(value) -> tuple:
@@ -444,19 +470,21 @@ def _rng_idx(value) -> tuple:
     return int(pair[0]), int(pair[1])
 
 
-def batch_generator(rng, batch, phase: str, device) -> torch.Generator:
-    """The generator a step draws from.  With ``rng_idx`` in the batch,
-    ``rng`` is the int base seed and the batch's generator is seeded with
-    :func:`batch_seed`; without it, ``rng`` is that generator."""
+def step_key(rng, batch, phase: str):
+    """The key a step draws from.  With ``rng_idx`` in the batch, ``rng``
+    is the base key and the batch's key is :func:`batch_key`; without it,
+    ``rng`` is the batch's key, used as it is (as the JAX step's direct
+    callers pass one).  A key is a (2,) uint32 array
+    (``utils.prng.PRNGKey``; ``np.asarray`` of a JAX key is one)."""
+    key = np.asarray(rng)
+    if key.shape != (2,) or key.dtype.kind not in "ui":
+        raise TypeError(f"rng must be a key, (2,) uint32 as "
+                        f"prng.PRNGKey(seed) gives, not "
+                        f"{type(rng).__name__}")
     if "rng_idx" not in batch:
-        return rng
-    if isinstance(rng, bool) or not isinstance(rng, (int, np.integer)):
-        raise TypeError(
-            f"a batch with rng_idx takes the int base seed as rng, not "
-            f"{type(rng).__name__}")
+        return key
     epoch, idx = _rng_idx(batch["rng_idx"])
-    seed = batch_seed(rng, epoch, PHASE_IDS[phase], idx)
-    return torch.Generator(device=device).manual_seed(seed)
+    return batch_key(key, epoch, PHASE_IDS[phase], idx)
 
 
 def init_metric_acc(keys=TRAIN_METRIC_KEYS, device=None) -> dict:
@@ -508,12 +536,12 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
     ``use_mask_as_points`` (B,) and ``sample_valid`` (B,); in the
     device-resize wire format ``img_idx`` and the resize vectors take the
     place of ``image`` and ``pixel_mask``, and ``cache`` holds the
-    dataset's full-resolution tensors (``ops.train_resize``).  ``rng`` is a
-    ``torch.Generator`` on the step's device, from which the batch's
-    augmentation is drawn, or, when the batch carries ``rng_idx`` (epoch,
-    batch index; host integers), the int base seed of
-    :func:`batch_generator`.  ``mark(name)`` is called after each phase:
-    augment, slic, forward, loss, backward, optimizer.
+    dataset's full-resolution tensors (``ops.train_resize``).  ``rng`` is
+    a key (``utils.prng.PRNGKey``) from which the batch's augmentation is
+    drawn, or, when the batch carries ``rng_idx`` (epoch, batch index;
+    host integers), the base key of :func:`batch_key` (:func:`step_key`).
+    ``mark(name)`` is called after each phase: augment, slic, forward,
+    loss, backward, optimizer.
     """
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
@@ -523,12 +551,12 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None):
     def step(model, optimizer, acc, batch, rng, mark=None, cache=None):
         _check_model(model, dev)
         mark = mark or (lambda name: None)
-        generator = batch_generator(rng, batch, "train", dev)
+        key = step_key(rng, batch, "train")
         b = _batch_on(batch, dev)
         image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
         B = b["sample_valid"].shape[0]
-        params = sample_augmentation(config, B, (H, W), point_mode,
-                                     generator, dev)
+        params = sample_augmentation(config, B, (H, W), point_mode, key,
+                                     dev)
         prep = _preprocess_sample(
             params, image, valid, pixel_mask, b["points"],
             b["point_valid"], b["use_mask_as_points"], config=config,

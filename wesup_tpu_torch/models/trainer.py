@@ -17,7 +17,9 @@ main thread copies each batch to the device (from pinned memory, without
 blocking, on the current stream) and launches the step, so nothing is
 read back per batch: the metric sums stay on the device until the end of
 the phase.  Each train batch carries ``rng_idx`` = (epoch, batch index),
-from which the step seeds its generator (``steps.batch_seed``).
+which the step folds into the base key ``PRNGKey(seed + 1)``
+(``steps.batch_key``): the augmentation draws are the JAX trainer's, bit
+for bit, for the same seed.
 
 ``metrics=`` (names from ``utils.metrics.HOST_METRICS`` or functions)
 adds host metrics to the val phase: accuracy and dice stay on the device;
@@ -44,6 +46,7 @@ from ..data.datasets import Digest2019PointDataset, SegmentationDataset
 from ..data.loader import (CanvasBatcher, CanvasSpec, infer_canvas,
                            place_on_canvas)
 from ..runtime import resolve_device
+from ..utils import prng
 from . import jax_init, steps, wesup
 from .base import BaseTrainer, timed_phase
 
@@ -82,8 +85,9 @@ class WESUPTrainer(BaseTrainer):
             D=self.config.sp_feature_dim, fc_width=self.config.fc_width)
         self._drawn = False
         self.optimizer = steps.make_optimizer(self.config, self._model)
-        # base of the per-batch seeds (the JAX trainer's PRNGKey(seed + 1))
-        self._base_seed = self.config.seed + 1
+        # base of the per-batch keys, the JAX trainer's PRNGKey(seed + 1);
+        # predict_probs advances it, as the JAX trainer's does
+        self._rng = prng.PRNGKey(self.config.seed + 1)
         self._epoch_idx = 0  # set per epoch by BaseTrainer.train
         self._step_cache = {}
         self._resize_cache = {}
@@ -382,7 +386,7 @@ class WESUPTrainer(BaseTrainer):
                 step = self._get_step("train", self._batch_hw(batch))
                 acc = step(self.model, self.optimizer, acc,
                            self._put_batch(batch, (self._epoch_idx, i)),
-                           self._base_seed,
+                           self._rng,
                            cache=cache if "img_idx" in batch else None)
             except RuntimeError as ex:  # parity: swallow per-iteration errors
                 counts["failed"] += 1
@@ -471,9 +475,14 @@ class WESUPTrainer(BaseTrainer):
     # ------------------------------------------------------------------
 
     def predict_probs(self, image_u8: np.ndarray) -> np.ndarray:
-        """Superpixel-wise foreground probability map for one RGB image."""
+        """Superpixel-wise foreground probability map for one RGB image.
+
+        Each call advances the base key as the JAX trainer's does (its
+        eval step takes a subkey it does not draw from), so that the
+        epochs after it draw what the JAX trainer's draw."""
         from ..inference import Predictor
 
+        self._rng = prng.split(self._rng)[0]
         h, w = image_u8.shape[:2]
         H = ((h + 31) // 32) * 32
         W = ((w + 31) // 32) * 32

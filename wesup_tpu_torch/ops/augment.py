@@ -6,13 +6,14 @@ shift-scale-rotate as one affine warp, with point annotations transformed
 as coordinates (position); a coarse-field elastic deformation (the
 mask-supervised path).
 
-Each random transform is split in two.  A ``sample_*`` function draws the
-transform's parameters for a batch from an explicit ``torch.Generator`` on
-the device; the apply function (``random_appearance``, ``warp``,
-``random_elastic``...) takes them as tensors and is deterministic.  torch
-cannot reproduce JAX's threefry bits, so the tests hold each apply function
-against JAX on the very parameters JAX drew, and the samplers by their
-distributions.
+Each random transform is split in two.  Its parameters are drawn for a
+batch on the host, in numpy, from JAX's threefry keys (``utils/prng.py``)
+with JAX's splits and in its order, so that they are bitwise the
+parameters the JAX function draws from the same key
+(:func:`appearance_params`, :func:`affine_draws`, :func:`draw_elastic`;
+``models.steps.draw_augmentation`` holds the key chain); the apply
+function (``random_appearance``, ``warp``, ``random_elastic``...) takes
+them as tensors on the device and is deterministic.
 
 The resampling is the JAX design: the cascade ``warp`` factors the affine
 into two axis-aligned shears, each a shared banded stride-resample matrix
@@ -26,8 +27,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..utils import prng
 from .clahe import clahe_rgb
 from .colorspace import hsv_to_rgb, rgb_to_hsv
 from .resize import resize_bilinear
@@ -78,33 +81,32 @@ class AffineDraws(NamedTuple):
     shift_y: torch.Tensor     # fraction of the height
 
 
-def _uniform(gen, B, lo, hi, device) -> torch.Tensor:
-    u = torch.rand((B,), generator=gen, device=device)
-    return lo + (hi - lo) * u
+# each transform's draws in JAX's key order: (minval, maxval) of every
+# uniform, (0, 1) where a bernoulli compares its uniform against p
 
 
-def _bernoulli(gen, B, p, device) -> torch.Tensor:
-    return torch.rand((B,), generator=gen, device=device) < p
+def appearance_limits(cfg: AppearanceConfig = AppearanceConfig()):
+    """(lo, hi) of the draws of ``random_appearance``'s 7 keys: h, s, v,
+    brightness, contrast, CLAHE, blur."""
+    lim = np.array([cfg.hue_shift_limit, cfg.sat_shift_limit,
+                    cfg.val_shift_limit, cfg.brightness_limit,
+                    cfg.contrast_limit], np.float32)
+    return (np.concatenate([-lim, np.zeros(2, np.float32)]),
+            np.concatenate([lim, np.ones(2, np.float32)]))
 
 
-def sample_appearance(gen: torch.Generator, B: int,
-                      cfg: AppearanceConfig = AppearanceConfig(),
-                      device=None) -> AppearanceParams:
-    """Draw :class:`AppearanceParams` for ``B`` images."""
+def appearance_params(u, cfg: AppearanceConfig = AppearanceConfig()
+                      ) -> AppearanceParams:
+    """:class:`AppearanceParams` (numpy) from the (B, 7) draws of
+    :func:`appearance_limits`' keys.  XLA compiles a division by a
+    constant into a product with its f32 reciprocal, and so does this;
+    cv2's uint8 hue spans 0..180."""
+    scale = np.float32(1.0) / np.array([180.0, 255.0, 255.0], np.float32)
     return AppearanceParams(
-        dh=_uniform(gen, B, -cfg.hue_shift_limit, cfg.hue_shift_limit,
-                    device) / 180.0,      # cv2 uint8 hue spans 0..180
-        ds=_uniform(gen, B, -cfg.sat_shift_limit, cfg.sat_shift_limit,
-                    device) / 255.0,
-        dv=_uniform(gen, B, -cfg.val_shift_limit, cfg.val_shift_limit,
-                    device) / 255.0,
-        contrast=_uniform(gen, B, -cfg.contrast_limit, cfg.contrast_limit,
-                          device),
-        brightness=_uniform(gen, B, -cfg.brightness_limit,
-                            cfg.brightness_limit, device),
-        clahe=(_bernoulli(gen, B, cfg.clahe_p, device)
-               if cfg.clahe_p > 0 else None),
-        blur=_bernoulli(gen, B, cfg.blur_p, device))
+        dh=u[:, 0] * scale[0], ds=u[:, 1] * scale[1], dv=u[:, 2] * scale[2],
+        contrast=u[:, 4], brightness=u[:, 3],
+        clahe=u[:, 5] < np.float32(cfg.clahe_p) if cfg.clahe_p > 0 else None,
+        blur=u[:, 6] < np.float32(cfg.blur_p))
 
 
 def _per_image(x: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -149,18 +151,23 @@ def _box_blur3(img: torch.Tensor) -> torch.Tensor:
     return out / 9.0
 
 
-def sample_affine(gen: torch.Generator, B: int,
-                  cfg: PositionConfig = PositionConfig(),
-                  device=None) -> AffineDraws:
-    """Draw flips and shift-scale-rotate for ``B`` images."""
-    return AffineDraws(
-        hflip=_bernoulli(gen, B, cfg.hflip_p, device),
-        vflip=_bernoulli(gen, B, cfg.vflip_p, device),
-        ssr=_bernoulli(gen, B, cfg.ssr_p, device),
-        angle=_uniform(gen, B, -cfg.rotate_limit, cfg.rotate_limit, device),
-        scale=_uniform(gen, B, -cfg.scale_limit, cfg.scale_limit, device),
-        shift_x=_uniform(gen, B, -cfg.shift_limit, cfg.shift_limit, device),
-        shift_y=_uniform(gen, B, -cfg.shift_limit, cfg.shift_limit, device))
+def affine_limits(cfg: PositionConfig = PositionConfig()):
+    """(lo, hi) of the draws of ``random_affine``'s 7 keys: h, v,
+    shift-scale-rotate, angle, scale, shift x, shift y."""
+    lim = np.array([cfg.rotate_limit, cfg.scale_limit, cfg.shift_limit,
+                    cfg.shift_limit], np.float32)
+    return (np.concatenate([np.zeros(3, np.float32), -lim]),
+            np.concatenate([np.ones(3, np.float32), lim]))
+
+
+def affine_draws(u, cfg: PositionConfig = PositionConfig()) -> AffineDraws:
+    """:class:`AffineDraws` (numpy) from the (B, 7) draws of
+    :func:`affine_limits`' keys."""
+    p = np.array([cfg.hflip_p, cfg.vflip_p, cfg.ssr_p], np.float32)
+    flags = u[:, :3] < p
+    return AffineDraws(hflip=flags[:, 0], vflip=flags[:, 1], ssr=flags[:, 2],
+                       angle=u[:, 3], scale=u[:, 4], shift_x=u[:, 5],
+                       shift_y=u[:, 6])
 
 
 def random_affine(draws: AffineDraws, hw) -> torch.Tensor:
@@ -397,13 +404,20 @@ class ElasticParams(NamedTuple):
     coarse: torch.Tensor      # (B, grid, grid, 2) displacement, pixels
 
 
-def sample_elastic(gen: torch.Generator, B: int, hw, p: float, device=None,
-                   alpha: float = 34.0, grid: int = 8) -> ElasticParams:
-    """Draw whether each image is deformed and its coarse field."""
+def draw_elastic(keys, hw, p: float, alpha: float = 34.0,
+                 grid: int = 8) -> ElasticParams:
+    """:class:`ElasticParams` of numpy arrays for the keys ``keys`` (B, 2)
+    of the elastic transform: whether each image is deformed,
+    ``bernoulli(fold_in(key, 0), p)`` (``wesup_tpu/models/steps.py``), and
+    its coarse field, the normal draw of ``split(key)[0]`` times
+    ``alpha / max(H, W) * min(H, W)``, which the compiled JAX step folds
+    into one f32 constant, ``alpha * (min * (1 / max))``."""
     H, W = hw
-    apply = _bernoulli(gen, B, p, device)
-    noise = torch.randn((B, grid, grid, 2), generator=gen, device=device)
-    return ElasticParams(apply, noise * alpha / max(H, W) * min(H, W))
+    f = np.float32
+    apply = prng.bernoulli(prng.fold_in(keys, 0), p)
+    scale = f(alpha) * (f(min(H, W)) * (f(1) / f(max(H, W))))
+    return ElasticParams(apply, prng.normal(prng.split(keys)[:, 0],
+                                            (grid, grid, 2), scale))
 
 
 def random_elastic(img: torch.Tensor, mask: torch.Tensor | None,

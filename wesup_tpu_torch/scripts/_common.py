@@ -2,8 +2,8 @@
 
 Copy of ``scripts/_common.py``'s image helpers on ``data/codec.py`` (PNG,
 uncompressed BMP and JPEG, as ``cv2.imread`` / ``cv2.imwrite`` read and
-write them) and its scipy ``label8``, plus :func:`pool_map`, the process
-pool that takes joblib's place.
+write them) and its scipy ``label8`` and ``mark_boundaries``, plus
+:func:`pool_map`, the process pool that takes joblib's place.
 """
 
 from __future__ import annotations
@@ -52,6 +52,20 @@ def label8(mask):
     return lab
 
 
+def mark_boundaries(img, mask, color=(255, 255, 0)):
+    """Thick-boundary overlay (skimage.segmentation.mark_boundaries
+    stand-in)."""
+    from scipy import ndimage
+
+    mask = np.asarray(mask)
+    dil = ndimage.grey_dilation(mask, size=(3, 3))
+    ero = ndimage.grey_erosion(mask, size=(3, 3))
+    boundary = dil != ero
+    out = img.copy()
+    out[boundary] = color
+    return out
+
+
 def _cuda_initialized() -> bool:
     torch = sys.modules.get("torch")
     return torch is not None and torch.cuda.is_initialized()
@@ -62,12 +76,15 @@ def pool_map(fn, arg_tuples) -> list:
     ``os.cpu_count()`` processes (the reference's
     ``Parallel(n_jobs=os.cpu_count())``).  The workers are forked, unless
     this process has initialised CUDA: a forked child must not touch the
-    device, so they are spawned then."""
+    device, so they are spawned then.  Each worker seeds numpy's global
+    generator afresh, as joblib's fresh worker processes start, so that
+    forked workers do not all draw the stream they inherited."""
     arg_tuples = list(arg_tuples)
     jobs = min(os.cpu_count() or 1, len(arg_tuples))
     if jobs <= 1:
         return [fn(*args) for args in arg_tuples]
     method = "spawn" if _cuda_initialized() else "fork"
     with ProcessPoolExecutor(
-            jobs, mp_context=multiprocessing.get_context(method)) as pool:
+            jobs, mp_context=multiprocessing.get_context(method),
+            initializer=np.random.seed) as pool:
         return list(pool.map(fn, *zip(*arg_tuples)))

@@ -58,16 +58,21 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
 11. training from a dataset directory: a synthetic GlaS-shaped dataset
    (85 train and 8 val 522x775 PNGs whose rows cycle through the five
    filters, masks, point CSVs; made from ``--seed``) trained by
-   ``wesup_tpu_torch.train.fit`` at full width for 2 epochs at B=8 with
+   ``wesup_tpu_torch.train.fit`` at full width for 3 epochs at B=8 with
    the defaults (device resize, bucketed canvases), then resumed for 1
-   epoch from ``ckpt.0002.pth``: every batch of every phase stepped and
+   epoch from ``ckpt.0003.pth``: every batch of every phase stepped and
    none raised or logged an error, epoch numbering, latest-only
-   retention, 3 history rows and the per-batch keys of all three epochs
-   in a straight schedule's order; decode ms, epoch seconds
+   retention, 4 history rows and the per-batch keys of all four epochs
+   in a straight schedule's order; the staging chain: epochs 2 and 3
+   claimed the chain pre-warmed by the train phase before them, with
+   batches already copied to the card when their train phase began,
+   epochs 1 and 4 (resumed) start cold, epoch 2's first staged batch read
+   back equals its host batch, and no staging or loader thread is alive
+   after ``fit`` returns; decode ms, epoch seconds
    (the trainer's ``phase_stats``), epoch 2's img/s against the step-only
    rate, val seconds, bytes per batch (device against host resize), the
    device resize's time and its bitwise equality with the CPU, launches
-   per train step (K1-K4), device busy share over epoch 3 (the trainer's
+   per train step (K1-K4), device busy share over epoch 4 (the trainer's
    ``profile_dir`` trace), peak memory; one bucketed train step's K1-K4
    outputs against their plain versions on the step's own inputs;
 12. the pixel head and inference: the f32 pixel forward on the card
@@ -139,7 +144,21 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    every combined mask equal to its patch masks stitched in numpy, and
    the printed Accuracy and Dice equal to numpy's on them; one JPEG
    ``POST /predict`` (200, K1 1 and K2 4) and the same JPEG cut in half
-   (400).  Its lines start with ``[jpeg`` and ``[serve jpeg``.
+   (400); then JPEG beyond baseline (15e), files made by
+   ``tests/torch_jpeg_writer.py`` from the same integer-arithmetic image
+   (progressive 4:2:0, 4:4:4 and gray with restarts, no DHT, sequential
+   and progressive arithmetic with DAC and restarts, CMYK, YCCK): the
+   library's colour and gray decodes equal the plain versions' and, by
+   SHA-256, cv2's (``JPEG_BEYOND_SHA256``), each transcode's decode its
+   baseline source's, a progressive file whose scans stop early refused
+   by both routes naming ROADMAP Queue 1 item 9; ms to decode a
+   1000x1000 patch of each kind, library and plain (the writer runs in
+   spawned processes beside 15b-15c); the pipeline (superpixel) again on
+   both slides transcoded to progressive and on one transcoded to
+   arithmetic, each combined mask bitwise the baseline slides'; ``POST
+   /predict`` with a progressive and a CMYK body (200, the mask equal to
+   the ``Predictor``'s on ``codec.decode`` of the body, K1 1 and K2 4).
+   Its lines start with ``[jpeg``, ``[jpeg beyond`` and ``[serve jpeg``.
 
 16. the tools of slice 9: ``scripts.profile_train_step`` at B=8 on the
    288x416 canvas in train, predict and pixel (under
@@ -180,6 +199,17 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    the range of CPU runs from starts scaled by 1 + 1e-15..1e-13, widened
    by its width (the descent is chaotic), and the seconds.  Its lines
    start with ``[parallel``.
+18. the head-to-head: ``scripts.quality_headtohead`` on the card at the
+   JAX record's setting (12 train / 4 val synthetic images at 96x128,
+   K=63, data seed 0, eval every 10, ``H2H_EPOCHS`` epochs, f32 with TF32
+   off): the port's ``forward_superpixel`` (adjoint) + ``wesup_loss`` +
+   SGD against the reference replica from JAX's initial weights; held:
+   loss MAE < 1e-3, final val Dice within 0.005 of the replica's, both
+   sides above 0, and K5 1, K6 4, K3 (``segment_sum_bwd``) 1 and K8 4
+   launches per train step (K5 1, K6 4 per val forward) over the run;
+   both final Dice beside JAX's 0.93435, the propagation counts' first
+   and last values, seconds per epoch for each side.  Its lines start
+   with ``[h2h``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -1510,8 +1540,8 @@ class ErrorRecords(logging.Handler):
 
 def trainer_phase(torch, card, seed) -> None:
     """Phase 11: ``fit`` on a synthetic GlaS-shaped dataset made from
-    ``seed``, at full width, 2 epochs and a resume, with the trainer's
-    figures."""
+    ``seed``, at full width, 3 epochs and a resume, with the trainer's
+    figures and its staging chain's checks."""
     import tempfile
 
     from wesup_tpu_torch.data import codec
@@ -1563,6 +1593,18 @@ def trainer_phase(torch, card, seed) -> None:
             return out
         return run
 
+    # the first batch the staging chain copied for epoch 2: host batch,
+    # device batch, event
+    staged = {}
+    real_stage = WESUPTrainer._stage
+
+    def stage(self, batch, rng_idx, stream):
+        dev_batch, event = real_stage(self, batch, rng_idx, stream)
+        if rng_idx == (2, 0) and "train" not in staged and \
+                "img_idx" in batch:
+            staged["train"] = (batch, dev_batch, event)
+        return dev_batch, event
+
     # a step that raises is logged and skipped by the trainer: catch it
     errors = ErrorRecords("Train")
     old_root = os.environ.get("RECORD_ROOT")
@@ -1570,10 +1612,13 @@ def trainer_phase(torch, card, seed) -> None:
     logging.getLogger().addHandler(errors)
     try:
         with mock.patch.object(WESUPTrainer, "_get_step", new=get_step), \
+                mock.patch.object(WESUPTrainer, "_stage", new=stage), \
                 mock.patch.object(steps, "batch_key",
                                   wraps=steps.batch_key) as keys:
             torch.cuda.reset_peak_memory_stats()
-            trainer = fit(root, epochs=2, batch_size=BATCH, seed=seed)
+            trainer = fit(root, epochs=3, batch_size=BATCH, seed=seed)
+            alive = [t.name for t in threading.enumerate()
+                     if t.name.startswith(("wesup-stage-", "wesup-loader-"))]
             peak_fit = torch.cuda.max_memory_allocated() / 2**30
             cache = trainer._resize_cache
             if not all(c is not None and c["imgs"].is_cuda
@@ -1581,13 +1626,13 @@ def trainer_phase(torch, card, seed) -> None:
                 fail("the device-resize cache is not on the card")
             ckpt_dir = trainer.record_dir / "checkpoints"
             if sorted(p.name for p in ckpt_dir.iterdir()) != [
-                    "ckpt.0002.pth"]:
-                fail(f"checkpoints after 2 epochs: {list(ckpt_dir.iterdir())}")
+                    "ckpt.0003.pth"]:
+                fail(f"checkpoints after 3 epochs: {list(ckpt_dir.iterdir())}")
             n_first = len(keys.call_args_list)
             # the trainer's own profile_dir hook traces the resumed run's
-            # first train phase, epoch 3
+            # first train phase, epoch 4
             resumed = fit(root, epochs=1, batch_size=BATCH, seed=seed,
-                          checkpoint=str(ckpt_dir / "ckpt.0002.pth"),
+                          checkpoint=str(ckpt_dir / "ckpt.0003.pth"),
                           profile_dir=str(Path(tmp.name) / "trace"))
             key_args = [(tuple(int(v) for v in c.args[0]),) + c.args[1:]
                         for c in keys.call_args_list]
@@ -1600,7 +1645,8 @@ def trainer_phase(torch, card, seed) -> None:
 
     # ---- 11a. every step ran; numbering, retention, history, keys --------
     stats = {**trainer.phase_stats, **resumed.phase_stats}
-    if sorted(stats) != [(e, p) for e in (1, 2, 3) for p in ("train", "val")]:
+    epochs = (1, 2, 3, 4)
+    if sorted(stats) != [(e, p) for e in epochs for p in ("train", "val")]:
         fail(f"the fits ran the phases {sorted(stats)}")
     for (e, phase), st in sorted(stats.items()):
         n_steps = sum(s[0] == e for s in step_log)
@@ -1611,20 +1657,47 @@ def trainer_phase(torch, card, seed) -> None:
     if errors.records:
         fail(f"the trainer logged {len(errors.records)} errors, the first: "
              f"{errors.records[0].getMessage()}")
-    log(f"[{tag}] every batch of epochs 1-3 stepped, none raised: train "
-        + ", ".join(f"{stats[(e, 'train')]['batches']}" for e in (1, 2, 3))
+    log(f"[{tag}] every batch of epochs 1-4 stepped, none raised: train "
+        + ", ".join(f"{stats[(e, 'train')]['batches']}" for e in epochs)
         + " batches, val " + ", ".join(
-            f"{stats[(e, 'val')]['batches']}" for e in (1, 2, 3))
+            f"{stats[(e, 'val')]['batches']}" for e in epochs)
         + "; no error logged")
+    # the staging chain: epochs 2 and 3 claimed the chain that the train
+    # phase before them started, with batches already copied to the card
+    # when their train phase began; epoch 1 and the resumed epoch 4 start
+    # cold; no staging or loader thread outlives fit
+    chain = {e: (stats[(e, "train")]["lookahead"],
+                 stats[(e, "train")]["staged_at_start"]) for e in epochs}
+    log(f"[{tag}] staging chain (claimed from the lookahead, batches on the "
+        f"card at the train phase's start) by epoch: {chain}; staging or "
+        f"loader threads alive after fit: {alive}")
+    if not all(chain[e][0] and chain[e][1] >= 1 for e in (2, 3)) or \
+            chain[1][0] or chain[4][0]:
+        fail(f"the staging chain: {chain}")
+    if alive:
+        fail(f"threads outlive fit: {alive}")
+    if "train" not in staged:
+        fail("no staged batch of epoch 2 was recorded")
+    host_b, dev_b, event = staged["train"]
+    event.synchronize()
+    wire = WESUPTrainer.wire(host_b)
+    diff = [k for k, v in dev_b.items() if k != "rng_idx" and not (
+        v.is_cuda and torch.equal(v.cpu(), torch.from_numpy(
+            np.asarray(wire[k]))))]
+    log(f"[{tag}] epoch 2's first staged batch ({len(dev_b) - 1} tensors, "
+        f"copied on the side stream) read back equals its host batch: "
+        f"{not diff}")
+    if diff:
+        fail(f"staged tensors differ from the host batch: {diff}")
     names = sorted(p.name for p in ckpt_dir.iterdir())
     with open(trainer.record_dir / "history.csv") as fp:
         rows = list(csv.reader(fp))
     log(f"[{tag}] resumed at epoch {resumed.initial_epoch}; checkpoints "
         f"{names}; history.csv {len(rows) - 1} rows, columns {rows[0]}")
-    if (resumed.initial_epoch != 3 or names != ["ckpt.0003.pth"]
-            or len(rows) != 4):
-        fail("the resume did not continue at epoch 3 with latest-only "
-             "checkpoints and 3 history rows")
+    if (resumed.initial_epoch != 4 or names != ["ckpt.0004.pth"]
+            or len(rows) != 5):
+        fail("the resume did not continue at epoch 4 with latest-only "
+             "checkpoints and 4 history rows")
     if not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
         fail("history.csv holds values that are not finite")
     # the schedule a straight 3-epoch run follows: the base key
@@ -1632,20 +1705,21 @@ def trainer_phase(torch, card, seed) -> None:
     # (tests/test_torch_port_trainer_fit.py holds the keys against the JAX
     # trainer's own)
     base = (0, seed + 1)
-    want = [(base, e, 0, i) for e in (1, 2, 3)
+    want = [(base, e, 0, i) for e in epochs
             for i in range(stats[(e, "train")]["batches"])]
-    log(f"[{tag}] per-batch keys: epochs 1-2 and the resumed epoch 3 "
+    log(f"[{tag}] per-batch keys: epochs 1-3 and the resumed epoch 4 "
         f"folded from (PRNGKey(seed + 1), epoch, 0, batch) in a straight "
-        f"3-epoch schedule's order: {key_args == want} ({n_first} + "
+        f"4-epoch schedule's order: {key_args == want} ({n_first} + "
         f"{len(key_args) - n_first} batches)")
     if key_args != want:
-        fail("the resumed run's batch keys leave the straight 3-epoch "
+        fail("the resumed run's batch keys leave the straight 4-epoch "
              "schedule")
 
     # ---- 11b. the epochs' figures ----------------------------------------
     torch.cuda.synchronize()
-    for e in (1, 2, 3):
-        what = {1: "warm-up", 2: "untraced", 3: "resumed, under the "
+    for e in epochs:
+        what = {1: "warm-up", 2: "untraced, chain pre-warmed", 3: "untraced, "
+                "chain pre-warmed", 4: "resumed, cold chain, under the "
                 "profiler's host and device tracing, its export included"}[e]
         tr, va = stats[(e, "train")]["seconds"], stats[(e, "val")]["seconds"]
         log(f"[{tag}] epoch {e} ({what}): train {tr:.3f} s, val {va:.3f} s "
@@ -1676,17 +1750,17 @@ def trainer_phase(torch, card, seed) -> None:
     if bad:
         fail(f"train steps launched other kernels than K1-K4: {bad[:2]}")
     n_kern, busy, span = trace_busy(Path(tmp.name) / "trace"
-                                    / "trace.epoch3.json")
+                                    / "trace.epoch4.json")
     if n_kern:
-        log(f"[{tag}] device busy over epoch 3's train phase (the trainer's "
+        log(f"[{tag}] device busy over epoch 4's train phase (the trainer's "
             f"profile_dir trace, host ops recorded too): {busy / 1e3:.3f} ms "
             f"of a {span / 1e3:.3f} ms span (first kernel to last), busy "
             f"share {busy / span:.3f}, {n_kern} kernels, "
-            f"{n_kern / stats[(3, 'train')]['batches']:.0f} per step; {card}")
+            f"{n_kern / stats[(4, 'train')]['batches']:.0f} per step; {card}")
     else:
         log(f"[{tag}] the profiler recorded no device kernels: busy share "
             "not measured")
-    log(f"[{tag}] peak memory over the 2-epoch fit: {peak_fit:.2f} GiB; "
+    log(f"[{tag}] peak memory over the 3-epoch fit: {peak_fit:.2f} GiB; "
         f"{card}")
 
     # ---- 11c. wire bytes, device resize: card vs CPU and its time --------
@@ -1727,7 +1801,8 @@ def trainer_phase(torch, card, seed) -> None:
         resumed.model, resumed.optimizer, steps.init_metric_acc(device=dev),
         dict(gpu_batch, rng_idx=(4, 0)), resumed._rng, cache=cache),
         tag)
-    del trainer, resumed, cache, gpu_batch, step, step_log
+    del trainer, resumed, cache, gpu_batch, step, step_log, staged
+    del host_b, dev_b
     tmp.cleanup()
     torch.cuda.empty_cache()
     log(f"[{tag}] phase 11 took {time.perf_counter() - t_phase:.1f} s")
@@ -2582,6 +2657,34 @@ JPEG_CV2_SHA256 = {
     "orientations":
         "f3edf190a6ac164d7c2d6b486da626eda373751204c03af6ee99cb2e77b0d7d9",
 }
+# the files of beyond_cases() (tests/torch_jpeg_writer.py, integer
+# arithmetic only): the SHA-256 of their bytes and of cv2.imdecode's
+# colour (RGB) and gray reads of each, computed with OpenCV 5.0.0
+# (libjpeg-turbo 3.1.2); a transcode's equal its baseline source's
+JPEG_BEYOND_SHA256 = {
+    "bytes":
+        "9cb47688f7607e13056993bd7961096ee78775dbf3731d7a63c30b7e70acc0de",
+    "progressive 4:2:0":
+        "4caa1b96ab4d134d9d37e6e48f3946f72901329c51b7661260b43e2138cf4d57",
+    "progressive 4:4:4":
+        "6f2b1d35eaae0b0accccbacd0c6109110175a068c1e3e00fe86ac7b9f6de4b6d",
+    "progressive gray, restarts":
+        "7bcef6ca792b01d47753b06d7c840c34a83edbc4f1834279251d503e40e67c73",
+    "no DHT":
+        "4caa1b96ab4d134d9d37e6e48f3946f72901329c51b7661260b43e2138cf4d57",
+    "arithmetic, DAC, restarts":
+        "4caa1b96ab4d134d9d37e6e48f3946f72901329c51b7661260b43e2138cf4d57",
+    "progressive arithmetic, DAC, restarts":
+        "4caa1b96ab4d134d9d37e6e48f3946f72901329c51b7661260b43e2138cf4d57",
+    "CMYK":
+        "c0e95bb90f965fb7de3bf661d09c721776bb0f17df32f68b1b71331f2025a818",
+    "YCCK 4:2:0":
+        "07a42313c4c4f7bf5ac5f0873b4978e4f92c61f105acebd71d683eba0d34297e",
+}
+# the kinds timed per 1000x1000 patch (written from the baseline patch,
+# or its pixels for CMYK/YCCK)
+PATCH_KINDS = ("progressive", "no_dht", "arithmetic",
+               "arithmetic_progressive", "cmyk", "ycck")
 # DigestPath2019's colonoscopy slides are JPEG, tiled at 1000: two
 # synthetic slides whose sides are not multiples of the patch
 DP_SLIDE_HW = (2300, 3100)
@@ -2634,6 +2737,81 @@ def jpeg_cases():
     cases["orientations"] = [with_orientation(b, v, order) for b in bases
                              for v in range(1, 9) for order in ("II", "MM")]
     return cases
+
+
+def jpeg_writer():
+    """``tests/torch_jpeg_writer.py``: numpy only, integer arithmetic
+    where it makes coefficients, so its files are the same bytes on every
+    machine."""
+    if str(REPO / "tests") not in sys.path:
+        sys.path.insert(0, str(REPO / "tests"))
+    import torch_jpeg_writer
+
+    return torch_jpeg_writer
+
+
+def cmyk_pixels(img: np.ndarray) -> np.ndarray:
+    """(H, W, 4) stored CMYK samples of an RGB image: C, M, Y = 255 - R,
+    G, B less half their minimum, K that half (integer arithmetic)."""
+    cmy = 255 - img.astype(np.int64)
+    k = cmy.min(-1, keepdims=True) // 2
+    return np.concatenate([cmy - k, k], -1).astype(np.uint8)
+
+
+def beyond_jpeg(kind: str, data) -> bytes:
+    """A JPEG beyond baseline by the test writer: ``data`` (a baseline
+    file, or an RGB image for "cmyk" and "ycck") transcoded as ``kind``
+    (one of JPEG_BEYOND_KINDS)."""
+    w = jpeg_writer()
+    if kind == "cmyk":
+        return w.four_component(cmyk_pixels(data), 0)
+    if kind == "ycck":
+        return w.four_component(cmyk_pixels(data), 2,
+                                ((2, 2), (1, 1), (1, 1), (2, 2)))
+    if kind == "no_dht":
+        return w.without_dht(data)
+    frame = w.parse(data)
+    return {
+        "progressive": lambda: w.progressive(frame),
+        "progressive_restarts": lambda: w.progressive(frame, restart=3),
+        "early_stop": lambda: w.progressive(
+            frame, w.early_stop(len(frame.comps))),
+        "arithmetic": lambda: w.arithmetic(frame, restart=4,
+                                           dac=(1, 3, 2)),
+        "arithmetic_progressive": lambda: w.arithmetic(
+            frame, True, restart=3, dac=(2, 5, 10)),
+    }[kind]()
+
+
+JPEG_BEYOND_KINDS = ("progressive", "progressive_restarts", "early_stop",
+                     "no_dht", "arithmetic", "arithmetic_progressive",
+                     "cmyk", "ycck")
+
+
+def beyond_cases():
+    """{case: (baseline source or None, file)} at ``JPEG_HW`` from
+    ``smoke_image``: progressive 4:2:0, 4:4:4 and gray with restarts, no
+    DHT, sequential and progressive arithmetic (DAC, restarts), CMYK and
+    YCCK; and the early-stopping progressive file, which the port refuses
+    (libjpeg smooths it)."""
+    from wesup_tpu_torch.data.jpeg import encode_plain
+
+    img = smoke_image(*JPEG_HW)
+    b420, b444 = encode_plain(img), encode_plain(img, (1, 1))
+    gray = encode_plain(img[..., 0])
+    cases = {
+        "progressive 4:2:0": (b420, beyond_jpeg("progressive", b420)),
+        "progressive 4:4:4": (b444, beyond_jpeg("progressive", b444)),
+        "progressive gray, restarts": (gray, beyond_jpeg(
+            "progressive_restarts", gray)),
+        "no DHT": (b420, beyond_jpeg("no_dht", b420)),
+        "arithmetic, DAC, restarts": (b420, beyond_jpeg("arithmetic", b420)),
+        "progressive arithmetic, DAC, restarts": (b420, beyond_jpeg(
+            "arithmetic_progressive", b420)),
+        "CMYK": (None, beyond_jpeg("cmyk", img)),
+        "YCCK 4:2:0": (None, beyond_jpeg("ycck", img)),
+    }
+    return cases, beyond_jpeg("early_stop", b420)
 
 
 def decodes_sha256(decode, files) -> str:
@@ -2736,6 +2914,17 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
     log(f"[{tag}] a {DP_PATCH}x{DP_PATCH} 4:2:0 patch ({len(data)} bytes), "
         "ms on the card's host: " + ", ".join(
             f"{k} {v:.1f}" for k, v in times.items()) + f"; {card}")
+    # the writer's files for 15e are made in spawned processes (the writer
+    # is pure Python: seconds a megapixel) while 15b and 15c run
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    writers = ProcessPoolExecutor(max_workers=max(1, min(6, (os.cpu_count()
+                                                           or 2) - 2)),
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    patch_jobs = {k: writers.submit(beyond_jpeg, k, patch if k in (
+        "cmyk", "ycck") else data) for k in PATCH_KINDS}
 
     # ---- 15b. the DigestPath2019 pipeline on two JPEG slides -------------
     tmp = tempfile.TemporaryDirectory(prefix="wesup_phase15_")
@@ -2748,6 +2937,11 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
         slide, mask = make_image_hard(rng, *DP_SLIDE_HW)
         codec.imwrite(root / "images" / f"{stem}.jpg", slide)
         codec.imwrite(root / "masks" / f"{stem}.png", mask * 255)
+    slide_jobs = {(stem, kind): writers.submit(
+        beyond_jpeg, kind, (root / "images" / f"{stem}.jpg").read_bytes())
+        for stem, kind in (("negative-00", "progressive"),
+                           ("positive-00", "progressive"),
+                           ("positive-00", "arithmetic"))}
     log(f"[{tag}] two {DP_SLIDE_HW[0]}x{DP_SLIDE_HW[1]} synthetic slides "
         f"(make_image_hard, seed {seed}) written as JPEG in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2824,6 +3018,7 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
            for stem in ("positive-00", "negative-00")}
     grid = [-(-s // DP_PATCH) for s in DP_SLIDE_HW]
     n_patches = 2 * grid[0] * grid[1]
+    base_masks = {}
     for route, flags, gated, forward, ckpt in (
             ("superpixel, 400x400", [], False, "forward_superpixel",
              ckpts["superpixel"]),
@@ -2902,6 +3097,8 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
             if got.shape != DP_SLIDE_HW or not np.array_equal(got, want_mask):
                 fail(f"{tag} {route}: the combined {stem} is not its patch "
                      "masks stitched")
+            if not gated:       # 15e's transcoded slides must give these
+                base_masks[stem] = got
     log(f"[{tag}] each combined mask holds both classes, equals its patch "
         "masks stitched in numpy, and scores as numpy scores it")
 
@@ -2936,9 +3133,174 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
         fail(f"the JPEG request launched {counts}")
     if bad[0] != 400 or b"request body" not in bad[1]:
         fail(f"a cut JPEG was answered {bad[0]}")
+
+    try:
+        beyond_phase(torch, card, root, ckpts["superpixel"], base_masks,
+                     patch_jobs, slide_jobs, seed)
+    finally:
+        writers.shutdown(wait=True, cancel_futures=True)
     tmp.cleanup()
     torch.cuda.empty_cache()
     log(f"[{tag}] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def beyond_phase(torch, card, root, ckpt, base_masks, patch_jobs,
+                 slide_jobs, seed) -> None:
+    """Phase 15e: JPEG beyond baseline.  The library against its plain
+    versions and, by SHA-256, cv2's decodes on the writer's files; ms to
+    decode a 1000x1000 patch of each kind; the DigestPath2019 pipeline on
+    phase 15's slides transcoded to progressive and to arithmetic, whose
+    masks must be the baseline slides'; ``POST /predict`` with a
+    progressive and a CMYK body."""
+    import io
+    import shutil
+
+    from wesup_tpu_torch import native
+    from wesup_tpu_torch import test_dp2019_pipeline as dp
+    from wesup_tpu_torch.data import codec
+    from wesup_tpu_torch.data import jpeg as plain
+    from wesup_tpu_torch.inference import predict_multiscale
+    from wesup_tpu_torch.ops import launch_counts, reset_launches
+    from wesup_tpu_torch.serve import create_server
+
+    tag = "jpeg beyond"
+    t0 = time.perf_counter()
+    cases, early = beyond_cases()
+    files = [f for _, f in cases.values()] + [early]
+    got = decodes_sha256(lambda d, g: np.frombuffer(d, np.uint8), files)
+    if got != JPEG_BEYOND_SHA256["bytes"]:
+        fail(f"{tag}: the writer's files differ from those the constants "
+             f"were computed on ({got})")
+    for name, (src, data) in cases.items():
+        for gray in (False, True):
+            a = native.jpeg_decode(data, gray)
+            b = plain.decode_plain(data, gray)
+            if a.shape != b.shape or not np.array_equal(a, b):
+                fail(f"{tag}: {name}: the library's decode (gray {gray}) "
+                     "differs from the plain version's")
+            if src is not None and not np.array_equal(
+                    a, native.jpeg_decode(src, gray)):
+                fail(f"{tag}: {name}: the transcode decodes unlike its "
+                     "baseline source")
+        digest = decodes_sha256(native.jpeg_decode, [data])
+        if digest != JPEG_BEYOND_SHA256[name]:
+            fail(f"{tag}: {name}: decodes differ from cv2.imdecode's "
+                 f"({digest} != {JPEG_BEYOND_SHA256[name]})")
+    for decode in (native.jpeg_decode, plain.decode_plain):
+        try:
+            decode(early)
+            fail(f"{tag}: a progressive file whose scans stop early was "
+                 "decoded")
+        except ValueError as ex:
+            if "smoothing" not in str(ex):
+                raise
+    try:
+        codec.decode(early, name="early-stop.jpg")
+        fail(f"{tag}: the codec decoded a smoothed progressive file")
+    except ValueError as ex:
+        if "early-stop.jpg" not in str(ex) or "item 9" not in str(ex):
+            fail(f"{tag}: the refusal does not name the file and ROADMAP "
+                 f"Queue 1 item 9: {ex}")
+    log(f"[{tag}] {len(cases)} files at {JPEG_HW[0]}x{JPEG_HW[1]} from "
+        "tests/torch_jpeg_writer.py (" + ", ".join(cases) + "): the "
+        "library's colour and gray decodes equal the plain versions' and, "
+        "by SHA-256, cv2.imdecode's; each transcode decodes as its "
+        "baseline source; a progressive file whose scans stop early "
+        f"(libjpeg smooths it) refused by both routes, naming ROADMAP "
+        f"Queue 1 item 9 ({time.perf_counter() - t0:.1f} s)")
+
+    # the DigestPath2019 pipeline on the transcoded slides (the
+    # arithmetic run's negative slide is the baseline file)
+    for kind, stems in (("progressive", ("negative-00", "positive-00")),
+                        ("arithmetic", ("positive-00",))):
+        data_root = root.parent / f"dp-{kind}" / "dp"
+        (data_root / "images").mkdir(parents=True)
+        shutil.copytree(root / "masks", data_root / "masks")
+        for stem in ("negative-00", "positive-00"):
+            (data_root / "images" / f"{stem}.jpg").write_bytes(
+                slide_jobs[stem, kind].result() if stem in stems
+                else (root / "images" / f"{stem}.jpg").read_bytes())
+        run_ckpt = data_root.parent / "rec" / "checkpoints" / ckpt.name
+        run_ckpt.parent.mkdir(parents=True)
+        shutil.copy(ckpt, run_ckpt)
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            dp.main([str(data_root), "-c", str(run_ckpt)])
+        sec = time.perf_counter() - t1
+        combined = run_ckpt.parent.parent / f"combined-results-for-{ckpt.name}"
+        for stem in ("negative-00", "positive-00"):
+            got = codec.imread_mask(combined / f"{stem}.png")
+            if not np.array_equal(got, base_masks[stem]):
+                fail(f"{tag}: the {kind} {stem}'s combined mask differs "
+                     "from the baseline slide's")
+        sizes = [len((data_root / "images" / f"{s}.jpg").read_bytes())
+                 for s in stems]
+        log(f"[{tag}] test_dp2019_pipeline (superpixel, 400x400) on two "
+            f"slides, {', '.join(stems)} transcoded to {kind} ({sizes} "
+            f"bytes): {sec:.1f} s; both combined masks bitwise the baseline "
+            f"slides'; {card}")
+
+    # ms to decode a 1000x1000 patch of each kind, native and plain (the
+    # writer's processes are idle by now)
+    patch_files = {k: f.result() for k, f in patch_jobs.items()}
+    times = []
+    for kind, data in patch_files.items():
+        a = native.jpeg_decode(data)
+        t1 = time.perf_counter()
+        for _ in range(10):
+            native.jpeg_decode(data)
+        nat = (time.perf_counter() - t1) * 1e2
+        t1 = time.perf_counter()
+        b = plain.decode_plain(data)
+        pl = (time.perf_counter() - t1) * 1e3
+        if not np.array_equal(a, b):
+            fail(f"{tag}: the {kind} patch decodes differently by the "
+                 "library and the plain version")
+        times.append(f"{kind} {nat:.1f} / {pl:.1f} ({len(data)} B)")
+    log(f"[{tag}] ms to decode a {DP_PATCH}x{DP_PATCH} patch on the card's "
+        "host, library / plain: " + "; ".join(times)
+        + f" (baseline 25.3 / 1722.1, PERF.md section 5); {card}")
+
+    # POST /predict with a progressive and a CMYK body
+    img = glas_image(np.random.default_rng(seed + 1))[0]
+    base = codec.encode_jpeg(img)
+    bodies = {"progressive": beyond_jpeg("progressive", base),
+              "CMYK": beyond_jpeg("cmyk", img)}
+    server = create_server(port=0, host="127.0.0.1", seed=seed)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_port}/predict"
+        for name, body in bodies.items():
+            torch.cuda.synchronize()
+            reset_launches()
+            status, reply, sec, _ = post(url, body)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            mask = (codec.decode(reply, gray=True) if status == 200
+                    else np.zeros(0))
+            with server.state.lock:
+                want = predict_multiscale(server.state.predictor,
+                                          codec.decode(body),
+                                          scales=server.state.scales)
+            want = (want * 255).astype(np.uint8)
+            same = mask.shape == want.shape and np.array_equal(mask, want)
+            log(f"[serve jpeg] POST /predict of a {GLAS_HW[0]}x{GLAS_HW[1]} "
+                f"{name} JPEG ({len(body)} bytes): {status}, "
+                f"{sec * 1e3:.1f} ms, launches "
+                + str({k: v for k, v in counts.items() if v})
+                + f"; equal to the Predictor's on codec.decode of the "
+                f"body: {same}; {card}")
+            if status != 200 or not same:
+                fail(f"POST /predict of a {name} JPEG: {status} "
+                     f"{reply[:200]!r}")
+            if counts != expected({"cell_pool0": 1, "cell_pool_stage": 4}):
+                fail(f"the {name} JPEG request launched {counts}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
 
 
 # the K1-K8 launches per step that phase 16 expects of each of
@@ -3600,6 +3962,88 @@ def make_gated(step, gated: bool):
     return run
 
 
+# phase 18: the JAX record's setting (artifacts/h2h_full.json: 12 train /
+# 4 val at 96x128, K=63, data seed 0, 300 epochs on the CPU, final val
+# Dice 0.93435 on both sides, breakthrough at epoch 80).  100 epochs: past
+# the breakthrough, and before the window (epochs 110-150) where the 0.8
+# propagation threshold flips on ulp noise and the loss gap between any
+# two runs grows to 1e-3-2e-2 a point (the replica against a copy of
+# itself scaled by 1 + 1e-7 too: --self-chaos), which is why the JAX
+# record's own loss MAE is 1.35e-3; there 2 of 7 card runs ending at
+# epoch 120 read a MAE above 1e-3 (PERF.md section 6)
+H2H_EPOCHS = 100
+H2H_EVAL_EVERY = 10
+H2H_JAX_DICE = 0.9343536526373984
+
+
+def headtohead_phase(torch, card) -> None:
+    """Phase 18: ``quality_headtohead`` on the card at the JAX record's
+    setting; the port's training math against the reference replica's."""
+    import tempfile
+
+    from wesup_tpu_torch.ops import launch_counts, reset_launches
+    from wesup_tpu_torch.scripts import quality_headtohead as h2h
+    from wesup_tpu_torch.scripts.make_dataset import make_dataset
+
+    t_phase = time.perf_counter()
+    tag = "h2h"
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase18_")
+    n_train, n_val = 12, 4
+    make_dataset(tmp.name, n_train=n_train, n_val=n_val, hw=(96, 128),
+                 seed=0)
+    torch.cuda.synchronize()
+    reset_launches()
+    seconds = {}
+    t0 = time.perf_counter()
+    final, _ = h2h.run(tmp.name, H2H_EPOCHS, H2H_EVAL_EVERY,
+                       log=lambda m: log(m.replace("[h2h]", "[h2h run]")),
+                       seconds=seconds)
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    hist = final["history"]
+    steps_n = H2H_EPOCHS * n_train
+    fwd_n = steps_n + len(hist["epoch"]) * n_val
+    want = expected({"segment_sum": fwd_n, "adjoint_pool_stage": 4 * fwd_n,
+                     "segment_sum_bwd": steps_n,
+                     "adjoint_pool_stage_bwd": 4 * steps_n})
+    log(f"[{tag}] quality_headtohead on the card: {H2H_EPOCHS} epochs of "
+        f"{n_train} train / {n_val} val images at 96x128, K={final['K']}, "
+        f"data seed 0, eval every {H2H_EVAL_EVERY}, f32 (TF32 off): "
+        f"{sec:.1f} s; s per epoch: the port {seconds['ours'] / H2H_EPOCHS:.4f}"
+        f", the replica {seconds['torch'] / H2H_EPOCHS:.4f}; {card}")
+    log(f"[{tag}] final val Dice: the port {final['ours_final_dice']:.5f}, the "
+        f"replica {final['torch_final_dice']:.5f} (delta "
+        f"{final['dice_delta']:.5f}); JAX {H2H_JAX_DICE:.5f} on both sides "
+        "over 300 epochs (artifacts/h2h_full.json, CPU); loss MAE "
+        f"{final['loss_mae']:.3e}; propagated labels first / last: the port "
+        f"{hist['ours_prop'][0]:.3f} / {hist['ours_prop'][-1]:.3f}, the "
+        f"replica {hist['torch_prop'][0]:.3f} / {hist['torch_prop'][-1]:.3f}"
+        "; val Dice by evaluation: " + ", ".join(
+            f"{e}: {a:.3f}/{b:.3f}" for e, a, b in zip(
+                hist["epoch"], hist["ours_dice"], hist["torch_dice"])))
+    log(f"[{tag}] launches over the run: "
+        + str({k: v for k, v in counts.items() if v})
+        + f"; per train step K5 1, K6 4, K3 (segment_sum_bwd) 1, K8 4 over "
+        f"{steps_n} steps, and K5 1, K6 4 per forward of "
+        f"{fwd_n - steps_n} val predicts")
+    if counts != want:
+        fail(f"{tag}: launches {counts}, expected {want}")
+    if not final["loss_mae"] < 1e-3:
+        fail(f"{tag}: loss MAE {final['loss_mae']:.3e} between the sides")
+    if not final["dice_delta"] <= 0.005:
+        fail(f"{tag}: final val Dice {final['ours_final_dice']:.5f} against "
+             f"the replica's {final['torch_final_dice']:.5f}")
+    if not (final["ours_final_dice"] > 0 and final["torch_final_dice"] > 0):
+        fail(f"{tag}: a side did not break through (final Dice "
+             f"{final['ours_final_dice']}, {final['torch_final_dice']})")
+    if not (torch.backends.cuda.matmul.allow_tf32 is False
+            and torch.backends.cudnn.allow_tf32 is False):
+        fail(f"{tag}: the run left TF32 settings changed")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3921,6 +4365,9 @@ def main(argv=None) -> int:
     # ---- 17. data and tensor parallelism, plot_tsne ----------------------
     parallel_phase(torch, card, args.seed, trained)
     trained.cleanup()
+
+    # ---- 18. the head-to-head against the reference's training math -----
+    headtohead_phase(torch, card)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

@@ -34,6 +34,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).parent))
 sys.path.insert(0, str(Path(__file__).parent.parent))
 from make_dataset import make_dataset  # noqa: E402
+import torch_jpeg_writer as writer  # noqa: E402
 from torch_png_writer import png  # noqa: E402
 
 from wesup_tpu.data import datasets as j_datasets  # noqa: E402
@@ -133,15 +134,18 @@ def test_codec_reads_bmps(tmp_path):
 
 
 def test_codec_refuses_what_it_cannot_decode(tmp_path):
-    """JPEG and 16-bit PNG, once refused, now read as cv2 reads them; a
-    progressive JPEG is still refused, naming the file and the ROADMAP
-    item that plans it, and a missing file is not found."""
+    """JPEG (progressive JPEG too) and 16-bit PNG, once refused, now read
+    as cv2 reads them; a lossless JPEG is still refused, naming the file
+    and the ROADMAP item that plans it, and a missing file is not
+    found."""
     cv2.imwrite(str(tmp_path / "a.jpg"), _image())
     _assert_reads_like_cv2(tmp_path / "a.jpg")
     cv2.imwrite(str(tmp_path / "p.jpg"), _image(),
                 [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="p.jpg.*progressive.*ROADMAP"):
-        codec.imread_rgb(tmp_path / "p.jpg")
+    _assert_reads_like_cv2(tmp_path / "p.jpg")
+    (tmp_path / "l.jpg").write_bytes(writer.lossless(_image()[..., 0]))
+    with pytest.raises(ValueError, match="l.jpg.*lossless.*ROADMAP"):
+        codec.imread_rgb(tmp_path / "l.jpg")
     _raw_png(tmp_path / "16.png", _image()[..., :2], 0)
     data = bytearray((tmp_path / "16.png").read_bytes())
     data[24] = 16                                   # bit depth 16

@@ -15,11 +15,23 @@
   other sampling modes are cv2's with ``IMWRITE_JPEG_SAMPLING_FACTOR``;
 - the plain quantiser (a rounding division) equals libjpeg-turbo's
   reciprocal multiply for every quantum a baseline table can hold;
-- a progressive file, a CMYK header, a lossless, an arithmetic and a
-  12-bit header, a header of more than 2**30 pixels (OpenCV's limit),
-  Huffman tables that libjpeg refuses (over-subscribed counts, an all-ones
-  code, a DC size past 15), a scan that lists a component twice and a
-  truncated file raise ``ValueError`` naming the file and the reason;
+- beyond baseline, both routes equal ``cv2.imdecode`` on progressive
+  files from cv2 (every sampling, gray, restart intervals) and PIL (4:4:4
+  and 4:2:0), PIL's CMYK files, and the files of
+  ``tests/torch_jpeg_writer.py``: sequential and progressive arithmetic
+  coding (with and without DAC conditioning and restarts), scans with no
+  DHT (the Annex K tables), CMYK and YCCK at 4:4:4 and 4:2:0, EXIF
+  orientations on a progressive and an arithmetic file, at 1x1, 6x8 and
+  37x53; cv2's decode of each transcode equals its decode of the source;
+- a lossless, a 12-bit, a hierarchical and a 2-component file, a
+  progressive file cut after some scans and one whose scans stop short
+  of full precision (libjpeg smooths it), a header of more than 2**30
+  pixels (OpenCV's limit), Huffman tables that libjpeg refuses
+  (over-subscribed counts, an all-ones code, a DC size past 15), a scan
+  that lists a component twice and a truncated file raise ``ValueError``
+  naming the file and the reason (the kinds still to come also ROADMAP's
+  item); the three kinds once refused here (progressive, CMYK,
+  arithmetic) now decode as cv2 decodes them, under the same test ids;
 - PNGs at bit depths 1, 2, 4 (gray and palette) and 16 (gray, RGB,
   gray + alpha, RGBA), plain and Adam7-interlaced, written by
   ``tests/torch_png_writer.py``, decode as ``cv2.imread`` reads them;
@@ -33,6 +45,7 @@ import cv2
 import numpy as np
 import pytest
 
+import torch_jpeg_writer as writer
 from torch_png_writer import CHANNELS, png
 from wesup_tpu_torch import native
 from wesup_tpu_torch.data import codec
@@ -230,13 +243,19 @@ def _dc_table(data: bytes):
     return bits, list(data[i + 21:i + 21 + sum(bits)])
 
 
+def _cmyk(img):
+    k = (np.arange(img.size // 3) % 251).reshape(img.shape[:2] + (1,))
+    return np.concatenate([img, k.astype(np.uint8)], -1)
+
+
 REFUSED = {
-    "progressive": (lambda d, img: _cv2_jpeg(img, progressive=1),
-                    "progressive.*ROADMAP"),
-    "cmyk": (lambda d, img: _patched_sof(d, 0xC0, components=4), "CMYK"),
+    # once refused, now decoded (a patched header would be a corrupt
+    # file, whose garbage cv2 shows with a warning: these are real ones)
+    "progressive": (lambda d, img: _cv2_jpeg(img, progressive=1), None),
+    "cmyk": (lambda d, img: writer.four_component(_cmyk(img)), None),
     "lossless": (lambda d, img: _patched_sof(d, 0xC3), "lossless"),
     "12bit": (lambda d, img: _patched_sof(d, 0xC1, precision=12), "12-bit"),
-    "arithmetic": (lambda d, img: _patched_sof(d, 0xC9), "arithmetic"),
+    "arithmetic": (lambda d, img: writer.arithmetic(writer.parse(d)), None),
     "truncated": (lambda d, img: d[:len(d) // 2], "truncated"),
     "huge": (lambda d, img: d.replace(struct.pack(">HH", 37, 53),
                                       struct.pack(">HH", 65535, 65535), 1),
@@ -264,6 +283,11 @@ def test_unsupported_jpeg_raises_naming_the_file(tmp_path, case):
     make, reason = REFUSED[case]
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(make(_cv2_jpeg(img), img))
+    if reason is None:
+        _assert_decodes_like_cv2(path.read_bytes())
+        want = cv2.imread(str(path))
+        np.testing.assert_array_equal(codec.imread_rgb(path), want[..., ::-1])
+        return
     for read in (codec.imread_rgb, codec.imread_mask):
         with pytest.raises(ValueError, match=f"{case}.jpg.*{reason}"):
             read(path)
@@ -272,6 +296,174 @@ def test_unsupported_jpeg_raises_naming_the_file(tmp_path, case):
     if case in CV2_REFUSES:
         assert cv2.imdecode(np.frombuffer(path.read_bytes(), np.uint8),
                             cv2.IMREAD_COLOR) is None
+
+
+# ---------------------------------------------------------------------------
+# JPEG beyond baseline
+# ---------------------------------------------------------------------------
+
+BEYOND_SIZES = [(1, 1), (6, 8), (37, 53)]
+
+
+@pytest.mark.parametrize("sampling", list(SAMPLING))
+def test_progressive_from_cv2_matches_cv2(sampling):
+    for i, hw in enumerate(BEYOND_SIZES + [(97, 131)]):
+        img = _image(hw, seed=20 + i)
+        _assert_decodes_like_cv2(_cv2_jpeg(img, sampling, progressive=1))
+    img = _image((37, 53), seed=30)
+    for rst in (1, 3):
+        _assert_decodes_like_cv2(_cv2_jpeg(img, sampling, progressive=1,
+                                           rst_interval=rst))
+
+
+@pytest.mark.parametrize("subsampling", [0, 2], ids=["444", "420"])
+def test_progressive_and_cmyk_from_pil_match_cv2(subsampling):
+    Image = pytest.importorskip("PIL.Image")
+    import io
+
+    for i, hw in enumerate(BEYOND_SIZES + [(61, 77)]):
+        img = _image(hw, seed=40 + i)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", progressive=True,
+                                  quality=90, subsampling=subsampling)
+        _assert_decodes_like_cv2(buf.getvalue())
+        buf = io.BytesIO()
+        Image.fromarray(_cmyk(img), "CMYK").save(buf, "JPEG", quality=90,
+                                                 subsampling=subsampling)
+        _assert_decodes_like_cv2(buf.getvalue())
+
+
+def _sources(hw, seed):
+    """Baseline files to transcode: 4:2:0, 4:4:4, 4:2:2 and gray."""
+    img = _image(hw, seed)
+    return {"420": jpeg.encode_plain(img), "444": jpeg.encode_plain(
+        img, (1, 1)), "422": jpeg.encode_plain(img, (2, 1)),
+        "gray": jpeg.encode_plain(img[..., 0])}
+
+
+TRANSCODES = {
+    "sequential_huffman": lambda f: writer.sequential(f),
+    "progressive_restarts": lambda f: writer.progressive(f, restart=2),
+    "arithmetic": lambda f: writer.arithmetic(f),
+    "arithmetic_dac_restarts": lambda f: writer.arithmetic(
+        f, restart=3, dac=(1, 3, 2)),
+    "progressive_arithmetic": lambda f: writer.arithmetic(f, True),
+    "progressive_arithmetic_dac_restarts": lambda f: writer.arithmetic(
+        f, True, restart=1, dac=(2, 5, 10)),
+}
+
+
+def _cv2_decodes(data):
+    return [cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+            for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE)]
+
+
+@pytest.mark.parametrize("kind", list(TRANSCODES))
+def test_writer_transcodes_decode_like_cv2(kind):
+    """The writer's own check: cv2 decodes each transcode as it decodes
+    the baseline source (transcoding keeps every coefficient), and both
+    routes decode it as cv2 does."""
+    for i, hw in enumerate(BEYOND_SIZES):
+        for name, src in _sources(hw, 50 + i).items():
+            data = TRANSCODES[kind](writer.parse(src))
+            for got, want in zip(_cv2_decodes(data), _cv2_decodes(src)):
+                assert got is not None, (kind, name, hw)
+                np.testing.assert_array_equal(got, want)
+            _assert_decodes_like_cv2(data)
+
+
+def test_scans_without_dht_take_the_annex_k_tables():
+    for i, hw in enumerate(BEYOND_SIZES):
+        for name, src in _sources(hw, 60 + i).items():
+            data = writer.without_dht(src)
+            assert b"\xff\xc4" not in data[:data.index(b"\xff\xda")]
+            for got, want in zip(_cv2_decodes(data), _cv2_decodes(src)):
+                np.testing.assert_array_equal(got, want)
+            _assert_decodes_like_cv2(data)
+    # cv2's own file (quality 95, the Annex K tables) without its DHT
+    _assert_decodes_like_cv2(writer.without_dht(_cv2_jpeg(_image(
+        (37, 53), 64), "420")))
+
+
+@pytest.mark.parametrize("transform", [0, 2], ids=["cmyk", "ycck"])
+def test_four_component_files_match_cv2(transform):
+    for i, hw in enumerate(BEYOND_SIZES):
+        cmyk = _cmyk(_image(hw, seed=70 + i))
+        for sampling in (((1, 1),) * 4, ((2, 2), (1, 1), (1, 1), (2, 2))):
+            _assert_decodes_like_cv2(writer.four_component(
+                cmyk, transform, sampling))
+
+
+@pytest.mark.parametrize("value", range(1, 9))
+def test_exif_orientation_beyond_baseline(tmp_path, value):
+    src = _cv2_jpeg(_image((37, 53), seed=80 + value), "420")
+    frame = writer.parse(src)
+    for name, data in (("progressive", writer.progressive(frame)),
+                       ("arithmetic", writer.arithmetic(frame))):
+        data = _with_orientation(data, value, "MM" if value % 2 else "II")
+        _assert_decodes_like_cv2(data)
+        path = tmp_path / f"{name}.jpg"
+        path.write_bytes(data)
+        assert codec.image_size(path) == cv2.imread(str(path)).shape[:2]
+
+
+def _two_component(img):
+    return writer.sequential(writer.from_planes(
+        [img[..., 0], img[..., 1]], [(1, 1), (1, 1)], [1, 2]))
+
+
+def _twelve_bit(img):
+    return writer.sequential(writer.from_planes(
+        [img[..., 0].astype(np.int64) * 16 + 8], [(1, 1)], [1],
+        precision=12))
+
+
+def _cut_progressive(img):
+    data = writer.progressive(writer.parse(_cv2_jpeg(img)))
+    return data[:data.rfind(b"\xff\xda")]
+
+
+def _hierarchical(img):
+    data = bytearray(_cv2_jpeg(img))
+    data[data.index(b"\xff\xc0") + 1] = 0xC5
+    return bytes(data)
+
+
+# the kinds still refused, each by its own file: what cv2 (OpenCV 5.0.0,
+# libjpeg-turbo 3.1.2) does with it (ROADMAP Queue 1 item 9 records it)
+STILL_REFUSED = {
+    # (maker, the reason given, whether cv2's colour and gray reads
+    # decode it or return None)
+    "lossless": (lambda img: writer.lossless(img[..., 0]), "lossless",
+                 (False, True)),
+    "12bit": (_twelve_bit, "12-bit", (False, False)),
+    "hierarchical": (_hierarchical, "hierarchical", (False, False)),
+    "two_component": (_two_component, "2-component", (False, False)),
+    "truncated_progressive": (_cut_progressive, "truncated progressive",
+                              (False, False)),
+    "smoothed_progressive": (lambda img: writer.progressive(
+        writer.parse(_cv2_jpeg(img)), writer.early_stop(3)), "smoothing",
+        (True, True)),
+}
+
+
+@pytest.mark.parametrize("case", list(STILL_REFUSED))
+def test_kinds_still_refused_name_the_file_and_the_roadmap(tmp_path, case):
+    img = _image((37, 53), seed=90)
+    make, reason, cv2_does = STILL_REFUSED[case]
+    data = make(img)
+    path = tmp_path / f"{case}.jpg"
+    path.write_bytes(data)
+    for read in (codec.imread_rgb, codec.imread_mask):
+        with pytest.raises(ValueError,
+                           match=f"{case}.jpg.*{reason}.*ROADMAP.*item 9"):
+            read(path)
+    with pytest.raises(ValueError, match=reason):
+        jpeg.decode_plain(data)
+    got = _cv2_decodes(data)
+    assert tuple(g is not None for g in got) == cv2_does
+    if case == "lossless":
+        np.testing.assert_array_equal(got[1], img[..., 0])
 
 
 # ---------------------------------------------------------------------------

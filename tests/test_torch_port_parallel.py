@@ -14,7 +14,9 @@ fails.  Small shapes: ``tests/make_dataset.py`` images of three sizes
   image leaves the second rank only blanks), rtol 1e-4 / atol 1e-6 as
   tests/test_trainer_dp.py, with the host metrics (detection F1, object
   Dice) that each rank scores on its own rows; a rank that raises in one
-  batch makes both count it failed, and the run ends;
+  batch makes both count it failed, and the run ends; so does a rank
+  whose staging thread fails to copy a batch (the trainer's chain queues
+  ``steps.FailedBatch``);
 - one DP train step of a padded global batch (3 images + 1 blank) against
   JAX's train step on a 2-device mesh, same weights, batch and key: lr 1
   and no weight decay, so the update is the gradient, held within the
@@ -202,6 +204,7 @@ def two_ranks(data, tmp_path_factory):
     run_job(out, 2, [
         hist("dp_bs2", 2), hist("dp_bs3", 3),
         hist("dp_fail", 2, fail_rank=1, epochs=1),
+        hist("dp_stage_fail", 2, stage_fail_rank=0, epochs=1),
         dict(kind="one_step", name="dp_step",
              inputs=str(out / "step_inputs.pt")),
         dict(kind="predict", name="dp_predict", mode="superpixel",
@@ -296,6 +299,19 @@ def test_failing_rank_is_counted_failed_on_both(two_ranks):
         assert rep["failed"]["1/train"] == 1, rep["failed"]
         assert rep["failed"]["1/val"] == 0
     assert len(_history(_report(out, "dp_fail")["record"])) == 1
+
+
+def test_staging_failure_is_counted_failed_on_both(two_ranks):
+    """Rank 0's staging thread fails to copy its first train batch; the
+    chain queues a failure marker, both ranks' steps fail on it together
+    (neither waits in a collective the other skipped), and the run
+    goes on."""
+    out, _ = two_ranks
+    for r in range(2):
+        rep = _report(out, "dp_stage_fail", r)
+        assert rep["failed"]["1/train"] == 1, rep["failed"]
+        assert rep["failed"]["1/val"] == 0
+    assert len(_history(_report(out, "dp_stage_fail")["record"])) == 1
 
 
 def test_failing_rank_under_tp_is_counted_failed_on_all(four_ranks):

@@ -12,6 +12,7 @@
 
 import json
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -137,3 +138,6 @@ def test_profile_epoch_on_cpu(monkeypatch, tmp_path, capsys):
     assert inst["batches"] == 2 and inst["rng"] > 0
     assert report["step_only"]["canvas"] == [64, 96]
     assert (tmp_path / "wesup_glas85" / "4_64x80" / ".complete").exists()
+    # the production loop's last pre-warmed staging chain is cancelled
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith(("wesup-stage-", "wesup-loader-"))]

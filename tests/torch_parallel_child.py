@@ -41,12 +41,18 @@ def _trainer(sc, world):
 def history(sc, rank, world, out):
     """Train (2 epochs by default); report the mesh, the loader's rows, the shard
     shapes, the valid rows of every batch, the failed batches, the record
-    and (after training) ``predict_probs`` of a fixed image."""
+    and (after training) ``predict_probs`` of a fixed image.  ``fail_rank``
+    raises in that rank's first step, ``stage_fail_rank`` in the copy of
+    its first train batch (the staging thread's)."""
     trainer = _trainer(sc, world)
     put, rows = trainer._put_batch, []
+    stage_fail = [sc.get("stage_fail_rank") == rank]
 
     def spy(batch, rng_idx=None):
         rows.append(int(np.asarray(batch["sample_valid"]).sum()))
+        if stage_fail[0] and rng_idx == (1, 0):   # the first train batch
+            stage_fail[0] = False
+            raise RuntimeError("injected staging failure")
         return put(batch, rng_idx)
 
     fail_at = sc.get("fail_rank") == rank

@@ -1,12 +1,21 @@
 // JPEG decode and encode on the host, equal to what OpenCV's imread /
 // imdecode / imencode(".jpg") give with the libjpeg-turbo it bundles.
 //
-// Decoder: baseline and extended-sequential Huffman JPEG (SOF0/SOF1),
-// 8 bits per sample, 1 or 3 components, any sampling whose ratio to the
-// largest factor is 1 or 2 in each direction (4:4:4, 4:2:2, 4:2:0,
-// 4:4:0) or another integer (plain replication), restart intervals, any
-// DHT/DQT layout, interleaved or per-component scans.  It follows the
-// steps of libjpeg-turbo's default decompressor:
+// Decoder: 8 bits per sample, 1, 3 or 4 components, any sampling whose
+// ratio to the largest factor is 1 or 2 in each direction (4:4:4, 4:2:2,
+// 4:2:0, 4:4:0) or another integer (plain replication), restart
+// intervals, any DHT/DQT layout, interleaved or per-component scans, in
+// each of these codings:
+//   - baseline and extended-sequential Huffman (SOF0/SOF1);
+//   - progressive Huffman (SOF2), after jdphuff.c: DC and AC first and
+//     refinement scans, EOB runs, successive approximation, into a
+//     whole-image coefficient buffer;
+//   - sequential and progressive arithmetic coding (SOF9/SOF10), after
+//     T.81 Annex D/F/G and jdarith.c: the QM decoder (Table D.2), the DC
+//     and AC statistics, DAC conditioning (defaults L 0, U 1, Kx 5);
+//   - Huffman scans whose tables no DHT defined (Motion-JPEG frames)
+//     take the Annex K tables in slots 0 and 1, as jstdhuff.c loads them.
+// It follows the steps of libjpeg-turbo's default decompressor:
 //   - jidctint.c's ISLOW inverse DCT (CONST_BITS 13, PASS1_BITS 2) and
 //     its range-limit table (the result masked to 10 bits);
 //   - jdsample.c's fancy upsampling: h2v1 (bias 1/2), h1v2 (bias 1/2)
@@ -16,13 +25,20 @@
 //   - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16); a gray
 //     read of a YCbCr file is its Y plane (JCS_GRAYSCALE), of an RGB file
 //     (Adobe transform 0) rgb_gray_convert's weights;
+//   - four components read as JCS_CMYK (ycck_cmyk_convert for Adobe
+//     transform 2 or any other than 0), then OpenCV's own CMYK -> BGR
+//     (x = k - ((255 - x) k >> 8) per channel) and CMYK -> gray (those
+//     channels weighted 4899, 9617, 1868 >> 14, rounded);
 //   - the EXIF orientation (APP1 "Exif", IFD0 tag 0x0112, either byte
 //     order) applied as OpenCV's ApplyExifOrientation does.
-// It refuses progressive, arithmetic, lossless and hierarchical files,
-// other precisions than 8 bits, 2- or 4-component files and images of
-// more than 2^30 pixels (OpenCV's limit), and raises on corrupt or
-// truncated entropy data (libjpeg fills the rest of such
-// an image with gray and only warns).
+// It refuses lossless (SOF3, SOF11) and hierarchical files, other
+// precisions than 8 bits, 2-component files, images of more than 2^30
+// pixels (OpenCV's limit) and a progressive file whose scans leave any of
+// coefficients 1-9 of a component short of full precision (libjpeg then
+// smooths the blocks, jdcoefct.c decompress_smooth_data).  It raises on
+// corrupt or truncated entropy data (libjpeg fills the rest of such an
+// image with gray and only warns); a progressive or arithmetic-coded file
+// must end in its EOI marker, as one cut after some scans does not.
 //
 // Encoder: cv2.imencode(".jpg") at its defaults, byte for byte: quality
 // 95 (jpeg_quality_scaling, baseline-limited tables), a JFIF 1.01 APP0,
@@ -268,6 +284,54 @@ void fdct_islow(int* d) {
   }
 }
 
+// Annex K: the example quantisation tables and the standard Huffman tables
+const uint8_t kStdLumaQ[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromaQ[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kBitsDcLuma[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kBitsDcChroma[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kValsDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kBitsAcLuma[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kValsAcLuma[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kBitsAcChroma[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kValsAcChroma[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 // ---------------------------------------------------------------------------
 // Decoder
 // ---------------------------------------------------------------------------
@@ -326,6 +390,7 @@ struct Component {
   uint16_t qlatch[64];
   bool latched = false;
   bool seen = false;
+  int coef_bits[64];  // progressive: the Al each coefficient reached, -1
 };
 
 struct BitReader {
@@ -388,6 +453,140 @@ inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// T.81 Table D.2, packed as jaricom.c packs it: Qe << 16, Next_Index_MPS
+// << 8, Switch_MPS << 7, Next_Index_LPS; entry 113 is the fixed bin of
+// probability one half (the sign of an AC value, DC refinement bits).
+constexpr uint32_t qm(uint32_t qe, uint32_t lps, uint32_t mps, uint32_t sw) {
+  return (qe << 16) | (mps << 8) | (sw << 7) | lps;
+}
+const uint32_t kQe[114] = {
+    qm(0x5a1d, 1, 1, 1),     qm(0x2586, 14, 2, 0),    qm(0x1114, 16, 3, 0),
+    qm(0x080b, 18, 4, 0),    qm(0x03d8, 20, 5, 0),    qm(0x01da, 23, 6, 0),
+    qm(0x00e5, 25, 7, 0),    qm(0x006f, 28, 8, 0),    qm(0x0036, 30, 9, 0),
+    qm(0x001a, 33, 10, 0),   qm(0x000d, 35, 11, 0),   qm(0x0006, 9, 12, 0),
+    qm(0x0003, 10, 13, 0),   qm(0x0001, 12, 13, 0),   qm(0x5a7f, 15, 15, 1),
+    qm(0x3f25, 36, 16, 0),   qm(0x2cf2, 38, 17, 0),   qm(0x207c, 39, 18, 0),
+    qm(0x17b9, 40, 19, 0),   qm(0x1182, 42, 20, 0),   qm(0x0cef, 43, 21, 0),
+    qm(0x09a1, 45, 22, 0),   qm(0x072f, 46, 23, 0),   qm(0x055c, 48, 24, 0),
+    qm(0x0406, 49, 25, 0),   qm(0x0303, 51, 26, 0),   qm(0x0240, 52, 27, 0),
+    qm(0x01b1, 54, 28, 0),   qm(0x0144, 56, 29, 0),   qm(0x00f5, 57, 30, 0),
+    qm(0x00b7, 59, 31, 0),   qm(0x008a, 60, 32, 0),   qm(0x0068, 62, 33, 0),
+    qm(0x004e, 63, 34, 0),   qm(0x003b, 32, 35, 0),   qm(0x002c, 33, 9, 0),
+    qm(0x5ae1, 37, 37, 1),   qm(0x484c, 64, 38, 0),   qm(0x3a0d, 65, 39, 0),
+    qm(0x2ef1, 67, 40, 0),   qm(0x261f, 68, 41, 0),   qm(0x1f33, 69, 42, 0),
+    qm(0x19a8, 70, 43, 0),   qm(0x1518, 72, 44, 0),   qm(0x1177, 73, 45, 0),
+    qm(0x0e74, 74, 46, 0),   qm(0x0bfb, 75, 47, 0),   qm(0x09f8, 77, 48, 0),
+    qm(0x0861, 78, 49, 0),   qm(0x0706, 79, 50, 0),   qm(0x05cd, 48, 51, 0),
+    qm(0x04de, 50, 52, 0),   qm(0x040f, 50, 53, 0),   qm(0x0363, 51, 54, 0),
+    qm(0x02d4, 52, 55, 0),   qm(0x025c, 53, 56, 0),   qm(0x01f8, 54, 57, 0),
+    qm(0x01a4, 55, 58, 0),   qm(0x0160, 56, 59, 0),   qm(0x0125, 57, 60, 0),
+    qm(0x00f6, 58, 61, 0),   qm(0x00cb, 59, 62, 0),   qm(0x00ab, 61, 63, 0),
+    qm(0x008f, 61, 32, 0),   qm(0x5b12, 65, 65, 1),   qm(0x4d04, 80, 66, 0),
+    qm(0x412c, 81, 67, 0),   qm(0x37d8, 82, 68, 0),   qm(0x2fe8, 83, 69, 0),
+    qm(0x293c, 84, 70, 0),   qm(0x2379, 86, 71, 0),   qm(0x1edf, 87, 72, 0),
+    qm(0x1aa9, 87, 73, 0),   qm(0x174e, 72, 74, 0),   qm(0x1424, 72, 75, 0),
+    qm(0x119c, 74, 76, 0),   qm(0x0f6b, 74, 77, 0),   qm(0x0d51, 75, 78, 0),
+    qm(0x0bb6, 77, 79, 0),   qm(0x0a40, 77, 48, 0),   qm(0x5832, 80, 81, 1),
+    qm(0x4d1c, 88, 82, 0),   qm(0x438e, 89, 83, 0),   qm(0x3bdd, 90, 84, 0),
+    qm(0x34ee, 91, 85, 0),   qm(0x2eae, 92, 86, 0),   qm(0x299a, 93, 87, 0),
+    qm(0x2516, 86, 71, 0),   qm(0x5570, 88, 89, 1),   qm(0x4ca9, 95, 90, 0),
+    qm(0x44d9, 96, 91, 0),   qm(0x3e22, 97, 92, 0),   qm(0x3824, 99, 93, 0),
+    qm(0x32b4, 99, 94, 0),   qm(0x2e17, 93, 86, 0),   qm(0x56a8, 95, 96, 1),
+    qm(0x4f46, 101, 97, 0),  qm(0x47e5, 102, 98, 0),  qm(0x41cf, 103, 99, 0),
+    qm(0x3c3d, 104, 100, 0), qm(0x375e, 99, 93, 0),   qm(0x5231, 105, 102, 0),
+    qm(0x4c0f, 106, 103, 0), qm(0x4639, 107, 104, 0), qm(0x415e, 103, 99, 0),
+    qm(0x5627, 105, 106, 1), qm(0x50e7, 108, 107, 0), qm(0x4b85, 109, 103, 0),
+    qm(0x5597, 110, 109, 0), qm(0x504f, 111, 107, 0), qm(0x5a10, 110, 111, 1),
+    qm(0x5522, 112, 109, 0), qm(0x59eb, 112, 111, 1), qm(0x5a1d, 113, 113, 0)};
+
+// The QM decoder of T.81 D.2 (jdarith.c arith_decode): a marker met in
+// the data, or the end of the file, feeds zero bytes from then on.
+struct ArithReader {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: the two first bytes are still to be read
+  bool marker = false;
+
+  ArithReader(const uint8_t* d_, size_t n_, size_t pos_) : d(d_), n(n_), pos(pos_) {}
+
+  void reset(size_t p) {
+    pos = p;
+    c = a = 0;
+    ct = -16;
+    marker = false;
+  }
+  int byte() {
+    if (marker || pos >= n) {
+      marker = true;
+      return 0;
+    }
+    int b = d[pos];
+    if (b != 0xFF) {
+      ++pos;
+      return b;
+    }
+    size_t q = pos + 1;
+    while (q < n && d[q] == 0xFF) ++q;
+    if (q < n && d[q] == 0) {  // a stuffed zero
+      pos = q + 1;
+      return 0xFF;
+    }
+    marker = true;  // pos stays on the marker
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = kQe[sv & 0x7F];
+    int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int64_t qe = e >> 16;
+    int64_t t = a - qe;
+    a = t;
+    t <<= ct;
+    if (c >= t) {
+      c -= t;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {  // conditional exchange: the LPS
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// the position of the next marker (0xFF then a code other than 0x00 or
+// 0xFF) at or after q, or n
+size_t next_marker(const uint8_t* d, size_t n, size_t q) {
+  while (q + 1 < n) {
+    if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF) return q;
+    ++q;
+  }
+  return n;
+}
+
+struct Scan {
+  std::vector<int> comp, tdc, tac;  // frame component, DC and AC table
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
 struct Decoder {
   const uint8_t* d;
   size_t n;
@@ -395,7 +594,11 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
   int restart_interval = 0;
-  bool have_frame = false;
+  bool have_frame = false, progressive = false, arith = false;
+  bool saw_eoi = false, std_tables = false;
+  // DAC conditioning (jdmarker.c get_soi's defaults)
+  uint8_t dc_l[16], dc_u[16], ac_k[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
   int width = 0, height = 0, max_h = 1, max_v = 1;
   int mcux = 0, mcuy = 0;
   std::vector<Component> comps;
@@ -404,7 +607,11 @@ struct Decoder {
   int orientation = 1;
   bool exif_seen = false;
 
-  Decoder(const uint8_t* d_, size_t n_) : d(d_), n(n_) {}
+  Decoder(const uint8_t* d_, size_t n_) : d(d_), n(n_) {
+    std::memset(dc_l, 0, sizeof(dc_l));
+    std::memset(dc_u, 1, sizeof(dc_u));
+    std::memset(ac_k, 5, sizeof(ac_k));
+  }
 
   [[noreturn]] void fail(const std::string& why) { throw Error(why); }
 
@@ -453,7 +660,8 @@ struct Decoder {
 
   void read_sof(size_t p, int len, int marker) {
     if (have_frame) fail("JPEG with more than one frame");
-    if (marker != 0xC0 && marker != 0xC1) fail("unexpected SOF marker");
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
     if (len < 8) fail("corrupt SOF segment");
     int precision = d[p];
     height = u16(p + 1);
@@ -461,10 +669,8 @@ struct Decoder {
     int nc = d[p + 5];
     if (precision != 8)
       fail(std::to_string(precision) +
-           "-bit JPEG; only 8-bit samples are decoded");
-    if (nc == 4)
-      fail("4-component (CMYK/YCCK) JPEG is not decoded");
-    if (nc != 1 && nc != 3)
+           "-bit JPEG is not decoded (only 8-bit samples are)");
+    if (nc != 1 && nc != 3 && nc != 4)
       fail(std::to_string(nc) + "-component JPEG is not decoded");
     if (height == 0)
       fail("JPEG with its height in a DNL marker is not decoded");
@@ -500,8 +706,45 @@ struct Decoder {
       c.bw = nc == 1 ? c.width_in_blocks : mcux * c.h;
       c.bh = nc == 1 ? c.height_in_blocks : mcuy * c.v;
       c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     have_frame = true;
+  }
+
+  void read_dac(size_t p, int len) {
+    if (len % 2) fail("corrupt DAC segment");
+    for (size_t e = p + len; p < e; p += 2) {
+      int index = d[p], val = d[p + 1];
+      if (index >= 32) fail("corrupt DAC segment");
+      if (index >= 16) {
+        ac_k[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_l[index] = static_cast<uint8_t>(val & 15);
+        dc_u[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l[index] > dc_u[index]) fail("corrupt DAC segment");
+      }
+    }
+  }
+
+  // jstdhuff.c std_huff_tables: the Huffman decoder starts with the
+  // Annex K tables in every slot 0 or 1 that no DHT filled yet
+  void load_std_tables() {
+    std_tables = true;
+    struct {
+      HuffTable* t;
+      const uint8_t* bits;
+      const uint8_t* vals;
+      int nvals;
+    } std_tabs[4] = {{&dc[0], kBitsDcLuma, kValsDc, 12},
+                     {&ac[0], kBitsAcLuma, kValsAcLuma, 162},
+                     {&dc[1], kBitsDcChroma, kValsDc, 12},
+                     {&ac[1], kBitsAcChroma, kValsAcChroma, 162}};
+    for (auto& s : std_tabs) {
+      if (s.t->defined) continue;
+      std::memcpy(s.t->bits, s.bits, 17);
+      std::memcpy(s.t->vals, s.vals, s.nvals);
+      s.t->build();
+    }
   }
 
   void read_dht(size_t p, int len) {
@@ -581,17 +824,205 @@ struct Decoder {
     fail("corrupt JPEG entropy data (bad Huffman code)");
   }
 
+  // jdphuff.c: the first DC scan of a progressive file, and its
+  // refinement (one bit each)
+  void dc_first(BitReader& br, int16_t* blk, int& pred, HuffTable& t, int al) {
+    int s = huff(br, t);
+    if (s) s = extend(br.get(s), s);
+    pred += s;
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred) << al);
+  }
+
+  void ac_first(BitReader& br, int16_t* blk, HuffTable& t, const Scan& sc,
+                int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = sc.ss; k <= sc.se; ++k) {
+      int rs = huff(br, t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt JPEG entropy data (coefficient past 63)");
+        blk[kNatural[k]] = static_cast<int16_t>(
+            static_cast<unsigned>(extend(br.get(s), s)) << sc.al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // a correction bit for a coefficient already nonzero
+  static void refine(BitReader& br, int16_t* c, int p1) {
+    if (br.get(1) && (*c & p1) == 0)
+      *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c - p1);
+  }
+
+  void ac_refine(BitReader& br, int16_t* blk, HuffTable& t, const Scan& sc,
+                 int& eobrun) {
+    const int p1 = 1 << sc.al;
+    int k = sc.ss;
+    if (eobrun == 0) {
+      for (; k <= sc.se; ++k) {
+        int rs = huff(br, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : -p1;  // a size other than 1 is read as 1
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // pass the nonzero coefficients (each takes a correction bit) and
+        // r zero ones
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) refine(br, c, p1);
+          else if (--r < 0) break;
+          ++k;
+        } while (k <= sc.se);
+        if (s) {
+          if (k > 63) fail("corrupt JPEG entropy data (coefficient past 63)");
+          blk[kNatural[k]] = static_cast<int16_t>(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= sc.se; ++k) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) refine(br, c, p1);
+      }
+      --eobrun;
+    }
+  }
+
+  // jdarith.c: the DC difference (F.1.4.4.1) of scan component i, added
+  // to its prediction
+  void arith_dc(ArithReader& ar, int tbl, int& pred, int& ctx) {
+    uint8_t* st = dc_stats[tbl] + ctx;
+    if (ar.decode(st) == 0) {
+      ctx = 0;
+      return;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = dc_stats[tbl] + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG entropy data (bad arithmetic code)");
+        ++st;
+      }
+    }
+    if (m < ((1 << dc_l[tbl]) >> 1)) ctx = 0;
+    else if (m > ((1 << dc_u[tbl]) >> 1)) ctx = 12 + sign * 4;
+    else ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    pred = (pred + (sign ? -v : v)) & 0xFFFF;
+  }
+
+  // the magnitude and sign of a nonzero AC value at k (F.1.4.4.2);
+  // st points at the coefficient's S0 + 2
+  int arith_ac_value(ArithReader& ar, uint8_t* st, int tbl, int k,
+                     uint8_t* fixed) {
+    int sign = ar.decode(fixed);
+    int m = ar.decode(st);
+    if (m && ar.decode(st)) {
+      m <<= 1;
+      st = ac_stats[tbl] + (k <= ac_k[tbl] ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG entropy data (bad arithmetic code)");
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // AC coefficients ss..se of one block, first pass (sequential, or a
+  // progressive first scan at al)
+  void arith_ac_first(ArithReader& ar, int16_t* blk, int tbl, int ss, int se,
+                      int al, uint8_t* fixed) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) fail("corrupt JPEG entropy data (bad arithmetic code)");
+      }
+      int v = arith_ac_value(ar, st + 2, tbl, k, fixed);
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+  }
+
+  void arith_ac_refine(ArithReader& ar, int16_t* blk, int tbl, const Scan& sc,
+                       uint8_t* fixed) {
+    const int p1 = 1 << sc.al;
+    int kex = sc.se;  // the end of the block as the earlier scans left it
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = sc.ss; k <= sc.se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* c = blk + kNatural[k];
+        if (*c) {
+          if (ar.decode(st + 2))
+            *c = static_cast<int16_t>(*c < 0 ? *c - p1 : *c + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *c = static_cast<int16_t>(ar.decode(fixed) ? -p1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > sc.se) fail("corrupt JPEG entropy data (bad arithmetic code)");
+      }
+    }
+  }
+
+  void reset_stats(const Scan& sc) {
+    for (size_t i = 0; i < sc.comp.size(); ++i) {
+      if (!progressive || (sc.ss == 0 && sc.ah == 0))
+        std::memset(dc_stats[sc.tdc[i]], 0, 64);
+      if (!progressive || sc.ss) std::memset(ac_stats[sc.tac[i]], 0, 256);
+    }
+  }
+
   // Decode one scan starting at p (after the SOS header); returns the
   // position of the marker that ends it.
-  size_t read_scan(size_t p, const std::vector<int>& sc,
-                   const std::vector<int>& tdc, const std::vector<int>& tac) {
-    for (size_t i = 0; i < sc.size(); ++i) {
-      Component& c = comps[sc[i]];
-      if (!dc[tdc[i]].defined || !ac[tac[i]].defined)
-        fail("JPEG scan uses an undefined Huffman table");
-      // jdhuff.c: DC symbols are sizes, 0..15
-      if (!dc[tdc[i]].valid || !ac[tac[i]].valid || dc[tdc[i]].max_val > 15)
-        fail("corrupt JPEG Huffman table");
+  size_t read_scan(size_t p, const Scan& sc) {
+    const size_t ns = sc.comp.size();
+    const bool dc_band = sc.ss == 0;
+    for (size_t i = 0; i < ns; ++i) {
+      Component& c = comps[sc.comp[i]];
+      if (!arith) {
+        // as jdhuff.c / jdphuff.c derive them: only the tables the scan
+        // reads
+        bool use_dc = !progressive || (dc_band && sc.ah == 0);
+        bool use_ac = !progressive || !dc_band;
+        HuffTable& dt = dc[sc.tdc[i]];
+        HuffTable& at = ac[sc.tac[i]];
+        if ((use_dc && !dt.defined) || (use_ac && !at.defined))
+          fail("JPEG scan uses an undefined Huffman table");
+        // jdhuff.c: DC symbols are sizes, 0..15
+        if ((use_dc && (!dt.valid || dt.max_val > 15)) || (use_ac && !at.valid))
+          fail("corrupt JPEG Huffman table");
+      }
       if (!c.latched) {
         if (!qt_defined[c.tq]) fail("JPEG uses an undefined quant table");
         std::memcpy(c.qlatch, qt[c.tq], sizeof(c.qlatch));
@@ -599,17 +1030,31 @@ struct Decoder {
       }
       c.seen = true;
     }
+    // the scan's MCUs: one block of a lone component (its real blocks
+    // only), or each component's h x v blocks
+    const bool single = ns == 1;
+    const int rows = single ? comps[sc.comp[0]].height_in_blocks : mcuy;
+    const int cols = single ? comps[sc.comp[0]].width_in_blocks : mcux;
+    std::vector<std::pair<int, int16_t*>> mcu;
+    auto gather = [&](int r, int q) {
+      mcu.clear();
+      for (size_t i = 0; i < ns; ++i) {
+        Component& c = comps[sc.comp[i]];
+        int bh = single ? 1 : c.v, bw = single ? 1 : c.h;
+        for (int yy = 0; yy < bh; ++yy)
+          for (int xx = 0; xx < bw; ++xx)
+            mcu.emplace_back(static_cast<int>(i),
+                             &c.coef[(size_t(r * bh + yy) * c.bw + q * bw + xx) * 64]);
+      }
+    };
     BitReader br(d, n, p);
-    std::vector<int> pred(sc.size(), 0);
-    int next_rst = 0;
+    ArithReader ar(d, n, p);
+    uint8_t fixed = 113;
+    if (arith) reset_stats(sc);
+    std::vector<int> pred(ns, 0), ctx(ns, 0);
+    int eobrun = 0, next_rst = 0;
     long units_left = restart_interval;
-    auto restart = [&]() {
-      // the encoder pads the last byte with 1 bits: fewer than 8 bits of
-      // entropy data may be left, and then the marker
-      if (br.overrun()) fail("truncated JPEG entropy data");
-      if (br.cnt - br.pad_bytes * 8 >= 8)
-        fail("corrupt JPEG entropy data (data before a restart marker)");
-      size_t q = br.pos;
+    auto expect_rst = [&](size_t q) -> size_t {
       if (q >= n) fail("truncated JPEG entropy data");
       if (d[q] != 0xFF) fail("corrupt JPEG entropy data (no restart marker)");
       while (q < n && d[q] == 0xFF) ++q;
@@ -617,49 +1062,86 @@ struct Decoder {
       if (d[q] != 0xD0 + next_rst)
         fail("corrupt JPEG entropy data (restart marker out of order)");
       next_rst = (next_rst + 1) & 7;
-      br.pos = q + 1;
-      br.marker = false;
-      br.reset();
+      return q + 1;
+    };
+    auto restart = [&]() {
+      if (arith) {
+        // data the decoder did not need before the marker is skipped, as
+        // jdmarker.c next_marker skips it
+        ar.reset(expect_rst(next_marker(d, n, ar.pos)));
+        reset_stats(sc);
+      } else {
+        // the encoder pads the last byte with 1 bits: fewer than 8 bits of
+        // entropy data may be left, and then the marker
+        if (br.overrun()) fail("truncated JPEG entropy data");
+        if (br.cnt - br.pad_bytes * 8 >= 8)
+          fail("corrupt JPEG entropy data (data before a restart marker)");
+        br.pos = expect_rst(br.pos);
+        br.marker = false;
+        br.reset();
+        eobrun = 0;
+      }
       std::fill(pred.begin(), pred.end(), 0);
+      std::fill(ctx.begin(), ctx.end(), 0);
       units_left = restart_interval;
     };
-    if (sc.size() == 1) {
-      Component& c = comps[sc[0]];
-      for (int by = 0; by < c.height_in_blocks; ++by) {
-        for (int bx = 0; bx < c.width_in_blocks; ++bx) {
-          if (restart_interval && units_left == 0) restart();
-          decode_block(br, &c.coef[(size_t(by) * c.bw + bx) * 64], pred[0],
-                       dc[tdc[0]], ac[tac[0]]);
-          --units_left;
-        }
-        if (br.overrun()) fail("truncated JPEG entropy data");
-      }
-    } else {
-      for (int my = 0; my < mcuy; ++my) {
-        for (int mx = 0; mx < mcux; ++mx) {
-          if (restart_interval && units_left == 0) restart();
-          for (size_t i = 0; i < sc.size(); ++i) {
-            Component& c = comps[sc[i]];
-            for (int yy = 0; yy < c.v; ++yy)
-              for (int xx = 0; xx < c.h; ++xx) {
-                int by = my * c.v + yy, bx = mx * c.h + xx;
-                decode_block(br, &c.coef[(size_t(by) * c.bw + bx) * 64],
-                             pred[i], dc[tdc[i]], ac[tac[i]]);
-              }
+    const int p1 = 1 << sc.al;
+    for (int r = 0; r < rows; ++r) {
+      for (int q = 0; q < cols; ++q) {
+        if (restart_interval && units_left == 0) restart();
+        gather(r, q);
+        for (auto& [i, blk] : mcu) {
+          HuffTable& dt = dc[sc.tdc[i]];
+          HuffTable& at = ac[sc.tac[i]];
+          if (arith) {
+            if (!progressive) {
+              arith_dc(ar, sc.tdc[i], pred[i], ctx[i]);
+              blk[0] = static_cast<int16_t>(pred[i]);
+              arith_ac_first(ar, blk, sc.tac[i], 1, 63, 0, &fixed);
+            } else if (dc_band && sc.ah == 0) {
+              arith_dc(ar, sc.tdc[i], pred[i], ctx[i]);
+              blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred[i]) << sc.al);
+            } else if (dc_band) {
+              if (ar.decode(&fixed)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+            } else if (sc.ah == 0) {
+              arith_ac_first(ar, blk, sc.tac[i], sc.ss, sc.se, sc.al, &fixed);
+            } else {
+              arith_ac_refine(ar, blk, sc.tac[i], sc, &fixed);
+            }
+          } else if (!progressive) {
+            decode_block(br, blk, pred[i], dt, at);
+          } else if (dc_band && sc.ah == 0) {
+            dc_first(br, blk, pred[i], dt, sc.al);
+          } else if (dc_band) {
+            if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+          } else if (sc.ah == 0) {
+            ac_first(br, blk, at, sc, eobrun);
+          } else {
+            ac_refine(br, blk, at, sc, eobrun);
           }
-          --units_left;
         }
-        if (br.overrun()) fail("truncated JPEG entropy data");
+        --units_left;
       }
+      if (!arith && br.overrun()) fail("truncated JPEG entropy data");
     }
-    if (br.overrun()) fail("truncated JPEG entropy data");
-    // find the marker that ends the scan
-    size_t q = br.pos;
-    while (q + 1 < n) {
-      if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF) break;
-      ++q;
+    // the marker that ends the scan
+    return next_marker(d, n, arith ? ar.pos : br.pos);
+  }
+
+  // libjpeg smooths the blocks of a progressive file (jdcoefct.c
+  // smoothing_ok) where any component's coefficients 1-9 end short of
+  // full precision, its DC is known and its quantisers there are nonzero
+  bool would_smooth() const {
+    static const int kQPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (const Component& c : comps) {
+      for (int qp : kQPos)
+        if (c.qlatch[qp] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
     }
-    return q;
+    return useful;
   }
 
   void parse(bool header_only) {
@@ -675,7 +1157,10 @@ struct Decoder {
         break;
       }
       int m = d[p++];
-      if (m == 0xD9) break;  // EOI
+      if (m == 0xD9) {  // EOI
+        saw_eoi = true;
+        break;
+      }
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
       if (m == 0xD8) fail("corrupt JPEG file (second SOI)");
       int len = u16(p);
@@ -685,12 +1170,15 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
+        case 0xC9:
+        case 0xCA:
           read_sof(body, blen, m);
           break;
-        case 0xC2:
-          fail("progressive JPEG (SOF2) is not decoded");
         case 0xC3:
           fail("lossless JPEG (SOF3) is not decoded");
+        case 0xCB:
+          fail("lossless arithmetic-coded JPEG (SOF11) is not decoded");
         case 0xC5:
         case 0xC6:
         case 0xC7:
@@ -699,11 +1187,9 @@ struct Decoder {
         case 0xCF:
         case 0xDE:
           fail("hierarchical JPEG is not decoded");
-        case 0xC9:
-        case 0xCA:
-        case 0xCB:
         case 0xCC:
-          fail("arithmetic-coded JPEG is not decoded");
+          read_dac(body, blen);
+          break;
         case 0xC4:
           read_dht(body, blen);
           break;
@@ -734,7 +1220,8 @@ struct Decoder {
           int ns = d[body];
           if (ns < 1 || ns > 4 || blen != 4 + 2 * ns)
             fail("corrupt SOS segment");
-          std::vector<int> sc, tdc, tac;
+          Scan s;
+          std::vector<int>& sc = s.comp;
           for (int i = 0; i < ns; ++i) {
             int cid = d[body + 1 + 2 * i];
             int t = d[body + 2 + 2 * i];
@@ -747,14 +1234,28 @@ struct Decoder {
             if (std::find(sc.begin(), sc.end(), idx) != sc.end())
               fail("corrupt SOS segment (component listed twice)");
             sc.push_back(idx);
-            tdc.push_back(t >> 4);
-            tac.push_back(t & 15);
+            s.tdc.push_back(t >> 4);
+            s.tac.push_back(t & 15);
             if ((t >> 4) > 3 || (t & 15) > 3) fail("corrupt SOS segment");
           }
-          int ss = d[body + 1 + 2 * ns], se = d[body + 2 + 2 * ns],
-              a = d[body + 3 + 2 * ns];
-          if (ss != 0 || se != 63 || a != 0) fail("corrupt SOS segment");
-          p = read_scan(body + blen, sc, tdc, tac);
+          s.ss = d[body + 1 + 2 * ns];
+          s.se = d[body + 2 + 2 * ns];
+          s.ah = d[body + 3 + 2 * ns] >> 4;
+          s.al = d[body + 3 + 2 * ns] & 15;
+          if (!progressive) {
+            if (s.ss != 0 || s.se != 63 || s.ah != 0 || s.al != 0)
+              fail("corrupt SOS segment");
+          } else {
+            // jdphuff.c / jdarith.c start_pass: a legal progression step
+            bool bad = s.ss == 0 ? s.se != 0
+                                 : s.se < s.ss || s.se > 63 || ns != 1;
+            if ((s.ah != 0 && s.al != s.ah - 1) || s.al > 13) bad = true;
+            if (bad) fail("corrupt SOS segment (bad progression parameters)");
+            for (int ci : sc)
+              for (int k = s.ss; k <= s.se; ++k) comps[ci].coef_bits[k] = s.al;
+          }
+          if (!arith && !std_tables) load_std_tables();
+          p = read_scan(body + blen, s);
           done_any_scan = true;
           continue;
         }
@@ -766,6 +1267,13 @@ struct Decoder {
     if (!have_frame) fail("JPEG without a frame header");
     for (const Component& c : comps)
       if (!c.seen) fail("truncated JPEG file (a component has no scan)");
+    // libjpeg shows what the scans before a cut hold; the port refuses
+    if ((progressive || arith) && !saw_eoi)
+      fail("truncated progressive or arithmetic-coded JPEG (no EOI marker "
+           "after its scans) is not decoded");
+    if (progressive && would_smooth())
+      fail("progressive JPEG whose scans leave coefficients 1-9 short of "
+           "full precision (libjpeg's block smoothing) is not decoded");
   }
 
   // the component's samples (ds_h rows of ds_w)
@@ -859,6 +1367,44 @@ struct Decoder {
       }
       return;
     }
+    constexpr int SB = 16;
+    constexpr int64_t HALF = int64_t(1) << (SB - 1);
+    auto fix = [](double x) { return int64_t(x * (1 << SB) + 0.5); };
+    if (comps.size() == 4) {
+      // jdapimin.c: Adobe transform 0 or no Adobe marker is CMYK, any
+      // other transform YCCK
+      const bool ycck = adobe && adobe_transform != 0;
+      std::vector<uint8_t> pl[4];
+      for (int i = 0; i < 4; ++i) pl[i] = upsample(comps[i]);
+      for (int r = 0; r < H; ++r) {
+        const uint8_t* s[4];
+        for (int i = 0; i < 4; ++i) s[i] = row_of(pl[i], comps[i], r);
+        for (int x = 0; x < W; ++x) {
+          int cmy[3] = {s[0][x], s[1][x], s[2][x]}, k = s[3][x];
+          if (ycck) {  // jdcolor.c ycck_cmyk_convert
+            int y = cmy[0], cb = cmy[1] - 128, cr = cmy[2] - 128;
+            int cr_r = static_cast<int>((fix(1.40200) * cr + HALF) >> SB);
+            int cb_b = static_cast<int>((fix(1.77200) * cb + HALF) >> SB);
+            int g = static_cast<int>(
+                ((-fix(0.34414)) * cb + HALF + (-fix(0.71414)) * cr) >> SB);
+            cmy[0] = clamp255(255 - (y + cr_r));
+            cmy[1] = clamp255(255 - (y + g));
+            cmy[2] = clamp255(255 - (y + cb_b));
+          }
+          // OpenCV's icvCvt_CMYK2BGR / icvCvt_CMYK2Gray
+          int rgb[3];
+          for (int i = 0; i < 3; ++i) rgb[i] = k - (((255 - cmy[i]) * k) >> 8);
+          if (gray) {
+            out[size_t(r) * W + x] = static_cast<uint8_t>(
+                (rgb[2] * 1868 + rgb[1] * 9617 + rgb[0] * 4899 + 8192) >> 14);
+          } else {
+            uint8_t* o = out + (size_t(r) * W + x) * 3;
+            for (int i = 0; i < 3; ++i) o[i] = static_cast<uint8_t>(rgb[i]);
+          }
+        }
+      }
+      return;
+    }
     bool rgb_space;
     if (jfif) rgb_space = false;
     else if (adobe) rgb_space = adobe_transform == 0;
@@ -873,9 +1419,6 @@ struct Decoder {
     }
     std::vector<uint8_t> p0 = upsample(comps[0]), p1 = upsample(comps[1]),
                          p2 = upsample(comps[2]);
-    constexpr int SB = 16;
-    constexpr int64_t HALF = int64_t(1) << (SB - 1);
-    auto fix = [](double x) { return int64_t(x * (1 << SB) + 0.5); };
     for (int r = 0; r < H; ++r) {
       const uint8_t* a = row_of(p0, comps[0], r);
       const uint8_t* b = row_of(p1, comps[1], r);
@@ -934,53 +1477,6 @@ void orient(const uint8_t* in, int h, int w, int ch, int o, uint8_t* out) {
 // ---------------------------------------------------------------------------
 // Encoder
 // ---------------------------------------------------------------------------
-
-const uint8_t kStdLumaQ[64] = {
-    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
-    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
-    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
-const uint8_t kStdChromaQ[64] = {
-    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
-    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
-    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-
-const uint8_t kBitsDcLuma[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kBitsDcChroma[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kValsDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kBitsAcLuma[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kValsAcLuma[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
-    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
-    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
-    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
-    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
-    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
-    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
-    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
-    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
-    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
-    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kBitsAcChroma[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kValsAcChroma[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
-    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
-    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
-    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
-    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
-    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
-    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
-    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
-    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
-    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
-    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
-    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
-    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 struct EncTable {
   uint16_t code[256];

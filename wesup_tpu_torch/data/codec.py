@@ -16,14 +16,17 @@ datasets ship by itself, equal to what ``cv2.imread`` returns for them:
 - BMP, uncompressed (``BI_RGB``), 8-bit palette, 24 and 32 bits (GlaS
   ships BMP); grayscale reads use OpenCV's own BGR -> gray weights
   (14-bit fixed point, rounded);
-- JPEG, baseline and extended-sequential Huffman, 8-bit, gray or YCbCr
-  (or RGB) at any common sampling, with restart intervals and the EXIF
-  orientation applied, by the port's own library
-  (``wesup_tpu_torch/csrc/jpeg.cpp`` through ``native.jpeg_decode``),
-  which follows libjpeg-turbo's default decompressor step by step.
+- JPEG, baseline, extended-sequential or progressive, Huffman- or
+  arithmetic-coded, 8-bit, gray, YCbCr (or RGB), CMYK or YCCK, at any
+  common sampling, with restart intervals, with or without its DHT
+  segments (Motion-JPEG frames) and with the EXIF orientation applied, by
+  the port's own library (``wesup_tpu_torch/csrc/jpeg.cpp`` through
+  ``native.jpeg_decode``), which follows libjpeg-turbo's default
+  decompressor step by step and OpenCV's own CMYK conversions.
 
-Anything else (progressive, arithmetic-coded, lossless, hierarchical,
-12-bit or CMYK JPEG; compressed or bit-field BMP; other formats) raises
+Anything else (lossless, hierarchical, 12-bit or 2-component JPEG, a
+progressive JPEG whose scans end short of full precision, which libjpeg
+smooths; compressed or bit-field BMP; other formats) raises
 ``ValueError`` naming the file and the reason.  So do corrupt or
 truncated data: where libjpeg fills the rest of a truncated JPEG with
 gray and only warns, the port raises, as it does for a cut PNG.  There is
@@ -54,7 +57,8 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # by colour type
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
                4: (8, 16), 6: (8, 16)}
 # where the JPEG kinds that the library refuses are planned
-_LATER = "progressive, arithmetic and CMYK JPEG: ROADMAP Queue 1 item 9"
+_LATER = ("lossless, hierarchical, 12-bit, 2-component and smoothed "
+          "progressive JPEG: ROADMAP Queue 1 item 9")
 
 
 def _png_header(data: bytes, name: str):

@@ -4,16 +4,19 @@ numpy.
 :func:`decode_plain` and :func:`encode_plain` compute what
 ``native.jpeg_decode`` and ``native.jpeg_encode`` compute, written apart
 from them: the Huffman codes in a Python loop over a table of every
-16-bit window of the entropy bits, the DCTs, sampling and colour steps
-vectorised over all blocks of a component, quantisation as a rounding
-division.  The tests and ``chip_smoke.py`` hold the library against
-them; the codec's route (``data/codec.py``) uses the library on every
-machine.
+16-bit window of the entropy bits, the QM decoder of T.81 Annex D over a
+restart interval's bytes, the DCTs, sampling and colour steps vectorised
+over all blocks of a component, quantisation as a rounding division.
+The tests and ``chip_smoke.py`` hold the library against them; the
+codec's route (``data/codec.py``) uses the library on every machine.
 
 What both compute is libjpeg-turbo's default path, as OpenCV runs it:
-the ISLOW DCTs (``jidctint.c``, ``jfdctint.c``), fancy upsampling
-(``jdsample.c``), the fixed-point colour tables (``jdcolor.c``,
-``jccolor.c``), ``h2v2_downsample`` (``jcsample.c``), and the EXIF
+sequential and progressive Huffman or arithmetic entropy decoding
+(``jdhuff.c``, ``jdphuff.c``, ``jdarith.c``; the Annex K tables where a
+scan's Huffman table was never defined), the ISLOW DCTs (``jidctint.c``,
+``jfdctint.c``), fancy upsampling (``jdsample.c``), the fixed-point
+colour tables (``jdcolor.c``, ``jccolor.c``; YCCK to CMYK), OpenCV's
+CMYK to BGR and gray, ``h2v2_downsample`` (``jcsample.c``), and the EXIF
 orientation as OpenCV applies it; the encoder writes what
 ``cv2.imencode(".jpg")`` writes at its defaults (quality 95, 4:2:0,
 standard Huffman tables).
@@ -256,17 +259,27 @@ def _extend(v, s):
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
+def _i16(v):
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+# the frame markers decoded, and how: (progressive, arithmetic)
+_FRAMES = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+           0xC9: (False, True), 0xCA: (True, True)}
+_REFUSED = {0xC3: "lossless JPEG (SOF3)",
+            0xCB: "lossless arithmetic-coded JPEG (SOF11)",
+            **{m: "hierarchical JPEG"
+               for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF, 0xDE)}}
+
+
 def _parse(data: bytes):
     if len(data) < 4 or data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     st = dict(qt={}, dc={}, ac={}, ri=0, frame=None, jfif=False,
-              adobe=None, orientation=1, exif_seen=False, scans=[])
+              adobe=None, orientation=1, exif_seen=False, scans=[],
+              mode=(False, False), eoi=False,
+              dac=dict(L=[0] * 16, U=[1] * 16, K=[5] * 16))
     pos, n = 2, len(data)
-    refusals = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
-                0xC9: "arithmetic-coded JPEG", 0xCA: "arithmetic-coded JPEG",
-                0xCB: "arithmetic-coded JPEG", 0xCC: "arithmetic-coded JPEG"}
-    for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF, 0xDE):
-        refusals[m] = "hierarchical JPEG"
     while True:
         while pos < n and data[pos] != 0xFF:
             pos += 1
@@ -279,6 +292,7 @@ def _parse(data: bytes):
         m = data[pos]
         pos += 1
         if m == 0xD9:
+            st["eoi"] = True
             break
         if m == 0x01 or 0xD0 <= m <= 0xD7:
             continue
@@ -288,21 +302,20 @@ def _parse(data: bytes):
         if length < 2 or pos + length > n:
             raise ValueError("truncated JPEG header")
         body = data[pos + 2:pos + length]
-        if m in refusals:
-            raise ValueError(f"{refusals[m]} is not decoded")
-        if m in (0xC0, 0xC1):
+        if m in _REFUSED:
+            raise ValueError(f"{_REFUSED[m]} is not decoded")
+        if m in _FRAMES:
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
-                raise ValueError(f"{prec}-bit JPEG; only 8-bit samples are "
-                               "decoded")
-            if nc == 4:
-                raise ValueError("4-component (CMYK/YCCK) JPEG is not decoded")
-            if nc not in (1, 3):
+                raise ValueError(f"{prec}-bit JPEG is not decoded (only "
+                                 "8-bit samples are)")
+            if nc not in (1, 3, 4):
                 raise ValueError(f"{nc}-component JPEG is not decoded")
             comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4,
                           v=body[7 + 3 * i] & 15, tq=body[8 + 3 * i])
                      for i in range(nc)]
             st["frame"] = (h, w, comps)
+            st["mode"] = _FRAMES[m]
         elif m == 0xC4:
             p = 0
             while p < len(body):
@@ -311,6 +324,16 @@ def _parse(data: bytes):
                 vals = tuple(body[p + 17:p + 17 + sum(bits)])
                 st["ac" if tc else "dc"][th] = _lut(bits, vals)
                 p += 17 + sum(bits)
+        elif m == 0xCC:
+            dac = st["dac"]
+            for p in range(0, len(body) - 1, 2):
+                t, v = body[p], body[p + 1]
+                if t >= 32 or (t < 16 and (v & 15) > (v >> 4)):
+                    raise ValueError("corrupt DAC segment")
+                if t >= 16:
+                    dac["K"][t - 16] = v
+                else:
+                    dac["L"][t], dac["U"][t] = v & 15, v >> 4
         elif m == 0xDB:
             p = 0
             while p < len(body):
@@ -335,12 +358,23 @@ def _parse(data: bytes):
         elif m == 0xDA:
             if st["frame"] is None:
                 raise ValueError("JPEG scan before its frame header")
+            if not st["scans"] and not st["mode"][1]:
+                # Motion-JPEG frames leave out DHT: the Huffman decoder
+                # starts with the Annex K tables wherever slots 0 and 1
+                # are empty (jstdhuff.c)
+                for slot, (dc, ac) in enumerate(((DC_LUMA, AC_LUMA),
+                                                 (DC_CHROMA, AC_CHROMA))):
+                    st["dc"].setdefault(slot, _lut(*dc))
+                    st["ac"].setdefault(slot, _lut(*ac))
             ns = body[0]
             sc = [(body[1 + 2 * i], body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15)
                   for i in range(ns)]
+            ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
             segs, pos = _segments(data, pos + length)
-            st["scans"].append((sc, segs, dict(st["dc"]), dict(st["ac"]),
-                                dict(st["qt"]), st["ri"]))
+            st["scans"].append(dict(
+                sc=sc, segs=segs, dc=dict(st["dc"]), ac=dict(st["ac"]),
+                qt=dict(st["qt"]), ri=st["ri"], band=(ss, se, a >> 4, a & 15),
+                dac={k: list(v) for k, v in st["dac"].items()}))
             continue
         pos += length
     if st["frame"] is None:
@@ -365,18 +399,18 @@ def _exif_orientation(tiff: bytes) -> int:
     return 1
 
 
-def _decode_scan(scan, frame_comps, coefs, geo):
-    sc, segs, dcs, acs, qts, ri = scan
-    h, w, mcux, mcuy = geo
+def _scan_units(scan, frame_comps, geo):
+    """The scan's components (frame index, DC table, AC table) and its
+    MCUs: lists of (component, block index) in coding order, one block of
+    a lone component (its real blocks only) or each component's h x v."""
+    mcux, mcuy = geo
     idx = {c["id"]: i for i, c in enumerate(frame_comps)}
-    parts = [(idx[cid], dcs[td], acs[ta]) for cid, td, ta in sc]
-    for _, dc, ac in parts:     # DC symbols are sizes, 0..15
-        if dc is None or ac is None or max(dc[1]) > 15:
-            raise ValueError("corrupt JPEG Huffman table")
+    parts = [(idx[cid], scan["dc"].get(td), scan["ac"].get(ta))
+             for cid, td, ta in scan["sc"]]
     if len(parts) == 1:
         ci = parts[0][0]
         c = frame_comps[ci]
-        units = [[(ci, by, bx)] for by in range(c["hb"])
+        units = [[(ci, by * c["bw"] + bx)] for by in range(c["hb"])
                  for bx in range(c["wb"])]
     else:
         units = []
@@ -385,33 +419,59 @@ def _decode_scan(scan, frame_comps, coefs, geo):
                 u = []
                 for ci, _, _ in parts:
                     c = frame_comps[ci]
-                    u += [(ci, my * c["v"] + yy, mx * c["h"] + xx)
+                    u += [(ci, (my * c["v"] + yy) * c["bw"] + mx * c["h"] + xx)
                           for yy in range(c["v"]) for xx in range(c["h"])]
                 units.append(u)
-    tables = {ci: (dc, ac) for ci, dc, ac in parts}
+    return parts, units
+
+
+def _decode_scan(scan, frame_comps, coefs, geo, mode):
+    progressive, arith = mode
+    ss, se, ah, al = scan["band"]
+    parts, units = _scan_units(scan, frame_comps, geo)
+    if not arith:
+        use_dc = not progressive or (ss == 0 and ah == 0)
+        use_ac = not progressive or ss > 0
+        for _, dc, ac in parts:     # DC symbols are sizes, 0..15
+            if (use_dc and (dc is None or max(dc[1]) > 15)) or (
+                    use_ac and ac is None):
+                raise ValueError("corrupt JPEG Huffman table")
+    ri = scan["ri"]
+    segs = scan["segs"]
     per_seg = ri if ri else len(units)
+    tables = {ci: (dc, ac) for ci, dc, ac in parts}
+    tnums = {frame_ci: (td, ta) for (frame_ci, _, _), (_, td, ta)
+             in zip(parts, scan["sc"])}
     for s, start in enumerate(range(0, len(units), per_seg)):
         if s >= len(segs):
             raise ValueError("truncated JPEG entropy data")
         seg, rst = segs[s]
         if start + per_seg < len(units) and rst != s % 8:
             raise ValueError("corrupt JPEG entropy data (restart marker)")
+        chunk = units[start:start + per_seg]
+        if arith:
+            _arith_units(chunk, tnums, coefs, seg, scan, progressive)
+            continue
         win, nbits = _windows(seg)
         try:
-            _decode_units(units[start:start + per_seg], tables, coefs, win,
-                          nbits)
+            if progressive:
+                _progressive_units(chunk, tables, coefs, _Bits(win, nbits),
+                                   scan["band"])
+            else:
+                _decode_units(chunk, tables, coefs, win, nbits)
         except IndexError as ex:      # read past the padding
             raise ValueError("truncated JPEG entropy data") from ex
 
 
 def _decode_units(units, tables, coefs, win, nbits):
     """Huffman-decode the blocks of ``units`` (lists of (component, block
-    row, block column)) from one restart interval's bit windows."""
+    index)) of a sequential scan from one restart interval's bit
+    windows."""
     natural = NATURAL.tolist()
     pos = 0
     pred = dict.fromkeys(tables, 0)
     for unit in units:
-        for ci, by, bx in unit:
+        for ci, b in unit:
             (dlen, dsym), (alen, asym) = tables[ci]
             blk = [0] * 64
             v = win[pos]
@@ -444,7 +504,317 @@ def _decode_units(units, tables, coefs, win, nbits):
                     break
             if pos > nbits:
                 raise ValueError("truncated JPEG entropy data")
-            coefs[ci][by, bx] = blk
+            coefs[ci][b] = [_i16(x) for x in blk]
+
+
+class _Bits:
+    """A reader over one restart interval's bit windows."""
+
+    def __init__(self, win, nbits):
+        self.win, self.nbits, self.pos = win, nbits, 0
+
+    def huff(self, table):
+        length, symbol = table
+        v = self.win[self.pos]
+        if length[v] == 0:
+            raise ValueError("corrupt JPEG entropy data")
+        self.pos += length[v]
+        return symbol[v]
+
+    def get(self, n):
+        if n == 0:
+            return 0
+        v = self.win[self.pos] >> (16 - n)
+        self.pos += n
+        return v
+
+
+def _progressive_units(units, tables, coefs, bits, band):
+    """One restart interval of a progressive Huffman scan (T.81 G.1.2:
+    DC first and refinement, AC first with EOB runs, AC refinement with
+    its correction bits)."""
+    ss, se, ah, al = band
+    natural = NATURAL.tolist()
+    p1 = 1 << al
+    pred = dict.fromkeys(tables, 0)
+    eobrun = 0
+    for unit in units:
+        for ci, b in unit:
+            blk = coefs[ci][b]
+            if ss == 0:
+                if ah == 0:
+                    size = bits.huff(tables[ci][0])
+                    pred[ci] += _extend(bits.get(size), size) if size else 0
+                    blk[0] = _i16(pred[ci] << al)
+                elif bits.get(1):
+                    blk[0] |= p1
+                continue
+            ac = tables[ci][1]
+            if ah == 0:
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    rs = bits.huff(ac)
+                    r, size = rs >> 4, rs & 15
+                    if size:
+                        k += r
+                        if k > 63:
+                            raise ValueError("corrupt JPEG entropy data")
+                        blk[natural[k]] = _i16(
+                            _extend(bits.get(size), size) << al)
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + bits.get(r) - 1
+                        break
+                    k += 1
+                continue
+            k = ss
+            if eobrun == 0:
+                while k <= se:
+                    rs = bits.huff(ac)
+                    r, size = rs >> 4, rs & 15
+                    new = 0
+                    if size:
+                        new = p1 if bits.get(1) else -p1
+                    elif r != 15:
+                        eobrun = (1 << r) + bits.get(r)
+                        break
+                    while k <= se:
+                        z = natural[k]
+                        if blk[z]:
+                            if bits.get(1) and not blk[z] & p1:
+                                blk[z] += p1 if blk[z] > 0 else -p1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if new:
+                        if k > 63:
+                            raise ValueError("corrupt JPEG entropy data")
+                        blk[natural[k]] = new
+                    k += 1
+            if eobrun:
+                for z in natural[k:se + 1]:
+                    if blk[z] and bits.get(1) and not blk[z] & p1:
+                        blk[z] += p1 if blk[z] > 0 else -p1
+                eobrun -= 1
+        if bits.pos > bits.nbits:
+            raise ValueError("truncated JPEG entropy data")
+
+
+# T.81 Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) by
+# index; 113 is a fixed bin of probability one half
+_QE = [
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0),
+    (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
+    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0),
+    (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0CEF, 43, 21, 0),
+    (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
+    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0),
+    (0x2EF1, 67, 40, 0), (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0),
+    (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0),
+    (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0),
+    (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0),
+    (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0),
+    (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0),
+    (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0),
+    (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
+    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0),
+    (0x3C3D, 104, 100, 0), (0x375E, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0)]
+
+
+class _Arith:
+    """The QM decoder of T.81 D.2 over one restart interval's bytes (the
+    stuffing removed); past their end it reads zeros, as the decoder is fed
+    zeros at a marker.  A statistics bin is an int: its index in Table D.2
+    and its MPS in bit 7."""
+
+    def __init__(self, seg: bytes):
+        self.seg, self.pos = seg, 0
+        self.c, self.a, self.ct = 0, 0, -16
+
+    def decode(self, bins, i):
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                b = self.seg[self.pos] if self.pos < len(self.seg) else 0
+                self.pos += 1
+                self.c = (self.c << 8) | b
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        state = bins[i]
+        mps = state >> 7
+        qe, nlps, nmps, switch = _QE[state & 0x7F]
+        self.a -= qe
+        chigh = self.a << self.ct
+        if self.c >= chigh:           # the upper sub-interval
+            self.c -= chigh
+            lps = self.a >= qe        # else the exchange gives it the MPS
+            self.a = qe
+        elif self.a < 0x8000:
+            lps = self.a < qe
+        else:
+            return mps
+        if lps:
+            bins[i] = nlps | ((mps ^ switch) << 7)
+            return mps ^ 1
+        bins[i] = nmps | (mps << 7)
+        return mps
+
+
+def _arith_value(ar, bins, s, kbins=None, x1=20):
+    """The magnitude category and bits of a nonzero value (T.81 F.1.4.4,
+    Figures F.21-F.24) after its sign, read from bin ``s`` on; an AC value
+    (``kbins``: its X1 bin) reads its first category decision twice.
+    Returns (value - 1 with the leading bit, category m)."""
+    m = ar.decode(bins, s)
+    if m:
+        if kbins is not None:
+            if not ar.decode(bins, s):
+                return 1, 1
+            m, s = 2, kbins
+        else:
+            s = x1
+        while ar.decode(bins, s):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG entropy data (bad arithmetic "
+                                 "code)")
+            s += 1
+    v = m
+    s += 14
+    b = m >> 1
+    while b:
+        if ar.decode(bins, s):
+            v |= b
+        b >>= 1
+    return v, m
+
+
+def _arith_units(units, tnums, coefs, seg, scan, progressive):
+    """One restart interval of an arithmetic-coded scan, sequential or
+    progressive (T.81 F.2.4 and G.1.3; the statistics start at zero)."""
+    ss, se, ah, al = scan["band"]
+    dac = scan["dac"]
+    natural = NATURAL.tolist()
+    ar = _Arith(seg)
+    dc_bins = {td: [0] * 64 for td, _ in tnums.values()}
+    ac_bins = {ta: [0] * 256 for _, ta in tnums.values()}
+    fixed = [113]
+    pred = dict.fromkeys(tnums, 0)
+    ctx = dict.fromkeys(tnums, 0)
+    p1 = 1 << al
+
+    def dc_diff(ci):
+        td = tnums[ci][0]
+        bins = dc_bins[td]
+        s = ctx[ci]
+        if not ar.decode(bins, s):
+            ctx[ci] = 0
+            return 0
+        sign = ar.decode(bins, s + 1)
+        v, m = _arith_value(ar, bins, s + 2 + sign)
+        if m < (1 << dac["L"][td]) >> 1:
+            ctx[ci] = 0
+        elif m > (1 << dac["U"][td]) >> 1:
+            ctx[ci] = 12 + 4 * sign
+        else:
+            ctx[ci] = 4 + 4 * sign
+        return -(v + 1) if sign else v + 1
+
+    def ac_band(ci, blk, lo, hi, shift):
+        ta = tnums[ci][1]
+        bins = ac_bins[ta]
+        k = lo
+        while k <= hi:
+            s = 3 * (k - 1)
+            if ar.decode(bins, s):                    # EOB
+                return
+            while not ar.decode(bins, s + 1):
+                s += 3
+                k += 1
+                if k > hi:
+                    raise ValueError("corrupt JPEG entropy data (bad "
+                                     "arithmetic code)")
+            sign = ar.decode(fixed, 0)
+            v, _ = _arith_value(ar, bins, s + 2,
+                                kbins=189 if k <= dac["K"][ta] else 217)
+            blk[natural[k]] = _i16((-(v + 1) if sign else v + 1) << shift)
+            k += 1
+
+    def ac_refine(ci, blk):
+        bins = ac_bins[tnums[ci][1]]
+        kex = se
+        while kex > 0 and not blk[natural[kex]]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            s = 3 * (k - 1)
+            if k > kex and ar.decode(bins, s):        # EOB
+                return
+            while True:
+                z = natural[k]
+                if blk[z]:
+                    if ar.decode(bins, s + 2):
+                        blk[z] += p1 if blk[z] > 0 else -p1
+                    break
+                if ar.decode(bins, s + 1):
+                    blk[z] = -p1 if ar.decode(fixed, 0) else p1
+                    break
+                s += 3
+                k += 1
+                if k > se:
+                    raise ValueError("corrupt JPEG entropy data (bad "
+                                     "arithmetic code)")
+            k += 1
+
+    for unit in units:
+        for ci, b in unit:
+            blk = coefs[ci][b]
+            if not progressive:
+                pred[ci] = (pred[ci] + dc_diff(ci)) & 0xFFFF
+                blk[0] = _i16(pred[ci])
+                ac_band(ci, blk, 1, 63, 0)
+            elif ss == 0 and ah == 0:
+                pred[ci] += dc_diff(ci)
+                blk[0] = _i16(pred[ci] << al)
+            elif ss == 0:
+                if ar.decode(fixed, 0):
+                    blk[0] |= p1
+            elif ah == 0:
+                ac_band(ci, blk, ss, se, al)
+            else:
+                ac_refine(ci, blk)
 
 
 def _upsample(p: np.ndarray, rh: int, rv: int) -> np.ndarray:
@@ -489,6 +859,7 @@ def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
     """(H, W, 3) RGB or (H, W) uint8, as ``native.jpeg_decode``."""
     st = _parse(bytes(data))
     h, w, comps = st["frame"]
+    progressive, arith = st["mode"]
     if h == 0:
         raise ValueError("JPEG with its height in a DNL marker is not decoded")
     if h * w > 1 << 30:
@@ -500,24 +871,41 @@ def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
     for c in comps:
         c["wb"] = -(-w * c["h"] // (8 * max_h))
         c["hb"] = -(-h * c["v"] // (8 * max_v))
-        bw = c["wb"] if len(comps) == 1 else mcux * c["h"]
-        bh = c["hb"] if len(comps) == 1 else mcuy * c["v"]
-        coefs.append(np.zeros((bh, bw, 64), np.int64))
+        c["bw"] = c["wb"] if len(comps) == 1 else mcux * c["h"]
+        c["bh"] = c["hb"] if len(comps) == 1 else mcuy * c["v"]
+        coefs.append([[0] * 64 for _ in range(c["bw"] * c["bh"])])
+    ids = [c["id"] for c in comps]
     seen, qlatch = set(), {}
+    coef_bits = [[-1] * 64 for _ in comps]
     for scan in st["scans"]:
-        sc, _, _, _, qts, _ = scan
-        for cid, _, _ in sc:
-            ci = [c["id"] for c in comps].index(cid)
+        ss, se, ah, al = scan["band"]
+        cis = [ids.index(cid) for cid, _, _ in scan["sc"]]
+        if not progressive:
+            if (ss, se, ah, al) != (0, 63, 0, 0):
+                raise ValueError("corrupt SOS segment")
+        elif ((se != 0) if ss == 0 else (se < ss or se > 63 or len(cis) != 1)
+              ) or (ah and al != ah - 1) or al > 13:
+            raise ValueError("corrupt SOS segment (bad progression "
+                             "parameters)")
+        for ci in cis:
             seen.add(ci)
-            qlatch.setdefault(ci, qts[comps[ci]["tq"]])
-        _decode_scan(scan, comps, coefs, (h, w, mcux, mcuy))
+            qlatch.setdefault(ci, scan["qt"][comps[ci]["tq"]])
+            coef_bits[ci][ss:se + 1] = [al] * (se + 1 - ss)
+        _decode_scan(scan, comps, coefs, (mcux, mcuy), st["mode"])
     if len(seen) != len(comps):
         raise ValueError("truncated JPEG file (a component has no scan)")
+    if (progressive or arith) and not st["eoi"]:
+        raise ValueError("truncated progressive or arithmetic-coded JPEG (no "
+                         "EOI marker after its scans) is not decoded")
+    if progressive and _smoothed(coef_bits, [qlatch[i] for i in
+                                             range(len(comps))]):
+        raise ValueError("progressive JPEG whose scans leave coefficients "
+                         "1-9 short of full precision (libjpeg's block "
+                         "smoothing) is not decoded")
     planes = []
     for ci, c in enumerate(comps):
-        bh, bw = coefs[ci].shape[:2]
-        blocks = coefs[ci].astype(np.int16).astype(np.int64).reshape(
-            -1, 8, 8)
+        bh, bw = c["bh"], c["bw"]
+        blocks = np.array(coefs[ci], np.int64).reshape(-1, 8, 8)
         px = idct_islow(blocks, qlatch[ci]).reshape(bh, bw, 8, 8)
         px = px.swapaxes(1, 2).reshape(bh * 8, bw * 8)
         ds_w, ds_h = -(-w * c["h"] // max_h), -(-h * c["v"] // max_v)
@@ -528,6 +916,27 @@ def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
         y = planes[0].astype(np.uint8)
         out = y if gray else np.repeat(y[..., None], 3, -1)
         return orient(out, st["orientation"])
+    fix = lambda x: int(x * 65536 + 0.5)  # noqa: E731
+
+    def ycc_rgb(a, b, c):
+        cb, cr = b - 128, c - 128
+        return (a + ((fix(1.402) * cr + 32768) >> 16),
+                a + ((-fix(0.34414) * cb + 32768 - fix(0.71414) * cr) >> 16),
+                a + ((fix(1.772) * cb + 32768) >> 16))
+
+    if len(comps) == 4:
+        # libjpeg reads CMYK (Adobe transform 0, or no Adobe marker) or
+        # converts YCCK to it; OpenCV then applies its own CMYK -> BGR or
+        # -> gray
+        cmy, k = planes[:3], planes[3]
+        if st["adobe"] not in (None, 0):
+            cmy = [np.clip(255 - v, 0, 255) for v in ycc_rgb(*cmy)]
+        r, g, b = (k - (((255 - v) * k) >> 8) for v in cmy)
+        if gray:
+            out = (b * 1868 + g * 9617 + r * 4899 + 8192) >> 14
+        else:
+            out = np.stack([r, g, b], -1)
+        return orient(out.astype(np.uint8), st["orientation"])
     if st["jfif"]:
         rgb_space = False
     elif st["adobe"] is not None:
@@ -537,20 +946,28 @@ def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
     a, b, c = planes
     if rgb_space:
         if gray:
-            fix = [int(x * 65536 + 0.5) for x in (0.299, 0.587, 0.114)]
-            out = (fix[0] * a + fix[1] * b + fix[2] * c + 32768) >> 16
+            fw = [fix(x) for x in (0.299, 0.587, 0.114)]
+            out = (fw[0] * a + fw[1] * b + fw[2] * c + 32768) >> 16
         else:
             out = np.stack([a, b, c], -1)
     elif gray:
         out = a
     else:
-        cb, cr = b - 128, c - 128
-        fix = lambda x: int(x * 65536 + 0.5)  # noqa: E731
-        r = a + ((fix(1.402) * cr + 32768) >> 16)
-        g = a + ((-fix(0.34414) * cb + 32768 - fix(0.71414) * cr) >> 16)
-        bb = a + ((fix(1.772) * cb + 32768) >> 16)
-        out = np.clip(np.stack([r, g, bb], -1), 0, 255)
+        out = np.clip(np.stack(ycc_rgb(a, b, c), -1), 0, 255)
     return orient(out.astype(np.uint8), st["orientation"])
+
+
+def _smoothed(coef_bits, qtables) -> bool:
+    """Whether libjpeg would smooth the blocks of a progressive file
+    (jdcoefct.c smoothing_ok): every component's DC known and its first
+    ten quantisers (zigzag 0-9) nonzero, and some component's
+    coefficients 1-9 short of full precision."""
+    useful = False
+    for bits, q in zip(coef_bits, qtables):
+        if (q.reshape(64)[NATURAL[:10]] == 0).any() or bits[0] < 0:
+            return False
+        useful |= any(b != 0 for b in bits[1:10])
+    return useful
 
 
 # ---------------------------------------------------------------------------

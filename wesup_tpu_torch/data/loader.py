@@ -279,7 +279,14 @@ class CanvasBatcher:
         ``__iter__`` delegates here with an internal counter (unchanged
         behavior); the trainer's cross-epoch lookahead pipeline addresses
         epochs explicitly instead so that pre-building epoch e+1's batches
-        while e trains neither consumes nor disturbs the counter."""
+        while e trains neither consumes nor disturbs the counter.
+
+        A generator: its producer thread starts at the first ``next()``,
+        which the trainer's staging thread calls as soon as it starts a
+        chain (for epoch e+1, at the end of epoch e's train phase), and
+        keeps ``prefetch`` batches built ahead.  Closing the generator (a
+        cancelled chain) stops the producer after the batch it is
+        building, and waits for it."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng = np.random.default_rng(self.seed + epoch)
@@ -295,7 +302,18 @@ class CanvasBatcher:
                  if getattr(self.dataset, "device_resize", False)
                  else _blank_item)
 
-        def emit(spec, batch):
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def emit(spec, batch) -> bool:
             items = []
             for r in rows:
                 if r >= len(batch):
@@ -303,7 +321,7 @@ class CanvasBatcher:
                     continue
                 items.append(place_on_canvas(self.dataset.load(*batch[r]),
                                              spec))
-            q.put(_stack(items))
+            return put(_stack(items))
 
         def producer():
             try:
@@ -315,25 +333,32 @@ class CanvasBatcher:
                     spec, batch = pending.setdefault(key, (spec, []))
                     batch.append((int(idx), target))
                     if len(batch) == self.batch_size:
-                        emit(spec, batch)
+                        if not emit(spec, batch):
+                            return
                         pending[key] = (spec, [])
                 for spec, batch in pending.values():
                     if batch and not self.drop_last:
-                        emit(spec, batch)
+                        if not emit(spec, batch):
+                            return
             except Exception as exc:  # surface loader errors to the consumer
-                q.put(exc)
+                put(exc)
             finally:
-                q.put(SENTINEL)
+                put(SENTINEL)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, daemon=True,
+                             name=f"wesup-loader-{epoch}")
         t.start()
         count = 0
-        while True:
-            item = q.get()
-            if item is SENTINEL:
-                break
-            if isinstance(item, Exception):
-                raise item
-            count += 1
-            yield item
-        self._last_len = count
+        try:
+            while True:
+                item = q.get()
+                if item is SENTINEL:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                count += 1
+                yield item
+            self._last_len = count
+        finally:
+            stop.set()
+            t.join()

@@ -446,6 +446,24 @@ def _batch_inputs(batch, cache, H, W):
     return batch["image"], valid, pixel_mask
 
 
+class FailedBatch(dict):
+    """A batch whose copy to the device raised (the trainer's staging
+    thread).  It holds only ``sample_valid``; a step given one raises a
+    ``RuntimeError`` from ``error`` on every rank, after the ranks agree
+    (:func:`_agreed`), so that every rank counts the batch failed and none
+    waits in a collective its peers skipped."""
+
+    def __init__(self, error: BaseException, sample_valid):
+        super().__init__(sample_valid=sample_valid)
+        self.error = error
+
+
+def _check_staged(batch) -> None:
+    if isinstance(batch, FailedBatch):
+        raise RuntimeError("the batch's copy to the device failed: "
+                           f"{batch.error}") from batch.error
+
+
 def _batch_on(batch, dev) -> dict:
     """The batch's tensors on ``dev``; ``rng_idx`` stays on the host."""
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
@@ -621,6 +639,7 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None,
     distributed = mesh is not None and mesh.distributed
 
     def prepare(batch, rng, mark, cache):
+        _check_staged(batch)
         key = step_key(rng, batch, "train")
         b = _batch_on(batch, dev)
         image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
@@ -695,6 +714,7 @@ def make_eval_step(config, canvas_hw, device=None, mesh=None):
                        lambda bp: predict(model, acc, *bp), mesh, dev)[1]
 
     def prepare(batch, cache):
+        _check_staged(batch)
         b = _batch_on(batch, dev)
         image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
         return b, _preprocess_sample(

@@ -12,14 +12,28 @@ from JAX's bits on the host (``models/jax_init.py``) at the model's first
 use, so that a trainer that loads a checkpoint first draws none.
 
 Preprocessing (device resize, augmentation, SLIC) runs inside the steps
-on the device.  The loader's prefetch thread builds numpy batches; the
-main thread copies each batch to the device (from pinned memory, without
-blocking, on the current stream) and launches the step, so nothing is
-read back per batch: the metric sums stay on the device until the end of
-the phase.  Each train batch carries ``rng_idx`` = (epoch, batch index),
-which the step folds into the base key ``PRNGKey(seed + 1)``
-(``steps.batch_key``): the augmentation draws are the JAX trainer's, bit
-for bit, for the same seed.
+on the device.  The batches reach the steps through a staging chain, as
+in JAX (``_start_staged``): a worker thread advances the loader's
+iterator (whose producer thread builds the numpy batches), copies each
+batch to the card from pinned memory on a side stream, records an event,
+and queues (batch, device batch, base key, event) ``_STAGE_DEPTH`` deep;
+the main thread makes its stream wait on the event, marks the tensors as
+used there (``record_stream``) and launches the step.  On the CPU the
+worker only builds the tensors.  At the end of each train phase the chain
+for the next epoch starts, so that its first batches are built and on the
+card while the metrics drain, the val phase runs and the record is
+written; the next train phase claims it if it is that epoch's (a
+nonstandard sequence cancels it), ``train()`` cancels the last one, and a
+resumed or new trainer starts cold.  Nothing is read back per batch: the
+metric sums stay on the device until the end of the phase.  Each train
+batch carries ``rng_idx`` = (epoch, batch index), which the step folds
+into the base key ``PRNGKey(seed + 1)`` (``steps.batch_key``): the
+augmentation draws are the JAX trainer's, bit for bit, for the same seed.
+The base key is read when the batch is staged, as JAX's chain reads it:
+a batch staged before ``predict_probs`` advances the key keeps the old
+one.  A batch whose copy raised is queued as ``steps.FailedBatch``: the
+step fails on it, on every rank of a data-parallel job, and the batch is
+counted failed.
 
 ``metrics=`` (names from ``utils.metrics.HOST_METRICS`` or functions)
 adds host metrics to the val phase: accuracy and dice stay on the device;
@@ -50,6 +64,8 @@ steps agree on a failure flag.
 
 from __future__ import annotations
 
+import queue
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -83,6 +99,55 @@ def _counts() -> dict:
     return {"batches": 0, "samples": 0, "failed": 0}
 
 
+class _Chain:
+    """A staging chain's queue, its cancel event and its thread; iterating
+    it yields the staged items until the worker's end, and re-raises a
+    loader error."""
+
+    END = object()
+
+    def __init__(self, depth: int):
+        self.queue = queue.Queue(maxsize=depth)
+        self.cancel = threading.Event()
+        self.thread = None
+
+    def put(self, item) -> bool:
+        """Queue ``item``, unless the chain is cancelled first."""
+        while not self.cancel.is_set():
+            try:
+                self.queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def __iter__(self):
+        try:
+            while True:
+                item = self.queue.get()
+                if item is _Chain.END:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            self.stop()     # also where the consumer leaves early
+
+    def ready(self) -> int:
+        """The staged items whose copies are complete (all, on the CPU)."""
+        with self.queue.mutex:
+            items = list(self.queue.queue)
+        return sum(1 for it in items if isinstance(it, tuple)
+                   and (it[3] is None or it[3].query()))
+
+    def stop(self) -> None:
+        """Cancel the chain and wait for its thread (which closes the
+        loader's iterator, and so its producer)."""
+        self.cancel.set()
+        if self.thread is not None:
+            self.thread.join()
+
+
 class WESUPTrainer(BaseTrainer):
     """``device=None`` trains on the card (and raises without one);
     ``device="cpu"`` trains on the host with the kernels' plain versions."""
@@ -114,6 +179,9 @@ class WESUPTrainer(BaseTrainer):
         self._resize_cache = {}
         self._predictor = None
         self._profiled = False
+        # (epoch, loader, _Chain) started at the end of the last train
+        # phase; none in a new or resumed trainer
+        self._lookahead = None
         self.dataloaders = {}
         # (epoch, phase) -> the phase's wall "seconds" (the device drained,
         # as the metrics are read at its end), its "batches", the valid
@@ -395,6 +463,110 @@ class WESUPTrainer(BaseTrainer):
         return out
 
     # ------------------------------------------------------------------
+    # staging chain
+    # ------------------------------------------------------------------
+
+    # staged batches: the copies of batches i+1..i+depth overlap step i on
+    # the card, and hold at most that many canvas batches more
+    _STAGE_DEPTH = 2
+
+    def _stage(self, batch, rng_idx, stream):
+        """(device batch, event) of one host batch: copied on ``stream``
+        (the card) with an event after the copy, or built on the CPU (no
+        event)."""
+        if stream is None:
+            return self._put_batch(batch, rng_idx), None
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            dev_batch = self._put_batch(batch, rng_idx)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return dev_batch, event
+
+    def _start_staged(self, batch_iter, epoch: int) -> "_Chain":
+        """Start the staging chain over ``batch_iter`` now: a thread that
+        advances it (the loader's producer thread builds the batches),
+        copies each batch to the device with ``rng_idx`` = (epoch, batch
+        index) and queues (batch, device batch, base key, event),
+        ``_STAGE_DEPTH`` deep, until the chain is cancelled.  Loader errors
+        surface in the consumer."""
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+        chain = _Chain(self._STAGE_DEPTH)
+
+        def worker():
+            try:
+                for i, batch in enumerate(batch_iter):
+                    if chain.cancel.is_set():
+                        return
+                    try:
+                        dev_batch, event = self._stage(batch, (epoch, i),
+                                                       stream)
+                    except RuntimeError as ex:
+                        # the step fails on it on every rank (a rank that
+                        # skipped it would leave its peers in the step's
+                        # collectives)
+                        self.logger.exception(ex)
+                        dev_batch = steps.FailedBatch(ex,
+                                                      batch["sample_valid"])
+                        event = None
+                    # the base key as it is now (predict_probs advances it)
+                    if not chain.put((batch, dev_batch, self._rng, event)):
+                        return
+            except BaseException as ex:  # loader errors reach the consumer
+                chain.put(ex)
+            finally:
+                close = getattr(batch_iter, "close", None)
+                if close is not None:
+                    close()       # stops the loader's producer thread
+                chain.put(_Chain.END)
+
+        chain.thread = threading.Thread(target=worker, daemon=True,
+                                        name=f"wesup-stage-{epoch}")
+        chain.thread.start()
+        return chain
+
+    def _ready(self, dev_batch, event):
+        """Order the current stream after a staged batch's copy, and tell
+        the caching allocator that its tensors are used there."""
+        if event is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(event)
+        for v in dev_batch.values():
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                v.record_stream(current)
+
+    def _staged_batches(self, loader):
+        """One phase's staged batches at the current epoch (the val
+        phase; the train phase takes the lookahead path)."""
+        return self._start_staged(iter(loader), self._epoch_idx)
+
+    def _take_lookahead(self, loader):
+        """The pre-warmed chain if it is this loader's at this epoch; any
+        other is cancelled."""
+        la, self._lookahead = self._lookahead, None
+        if la is None:
+            return None
+        epoch, ldr, chain = la
+        if ldr is loader and epoch == self._epoch_idx:
+            return chain
+        chain.stop()
+        return None
+
+    def _cancel_lookahead(self):
+        la, self._lookahead = self._lookahead, None
+        if la is not None:
+            la[2].stop()
+
+    def train(self, data_root, **kwargs):
+        try:
+            return super().train(data_root, **kwargs)
+        finally:
+            # the last epoch's chain must not keep staging while
+            # inference or evaluation uses the card after training
+            self._cancel_lookahead()
+
+    # ------------------------------------------------------------------
     # epoch loop
     # ------------------------------------------------------------------
 
@@ -439,22 +611,34 @@ class WESUPTrainer(BaseTrainer):
         # models/base.py:202-203 -- observationally equivalent since the
         # epoch's history would be discarded either way)
         acc = steps.init_metric_acc(steps.TRAIN_METRIC_KEYS, self.device)
-        batches = loader.epoch_iter(self._train_iters)
+        chain = self._take_lookahead(loader)
+        counts = _counts()
+        # whether the chain was the pre-warmed one, and how many of its
+        # batches were already on the device when the phase began
+        counts["lookahead"] = chain is not None
+        if chain is None:
+            chain = self._start_staged(loader.epoch_iter(self._train_iters),
+                                       self._epoch_idx)
+        counts["staged_at_start"] = chain.ready()
         self._train_iters += 1
         cache = self._resize_cache.get("train")
-        counts = _counts()
-        for i, batch in enumerate(batches):
+        model = self.model
+        for batch, dev_batch, rng, event in chain:
             counts["batches"] += 1
             counts["samples"] += int(batch["sample_valid"].sum())
             try:
+                self._ready(dev_batch, event)
                 step = self._get_step("train", self._batch_hw(batch))
-                acc = step(self.model, self.optimizer, acc,
-                           self._put_batch(batch, (self._epoch_idx, i)),
-                           self._rng,
+                acc = step(model, self.optimizer, acc, dev_batch, rng,
                            cache=cache if "img_idx" in batch else None)
             except RuntimeError as ex:  # parity: swallow per-iteration errors
                 counts["failed"] += 1
                 self.logger.exception(ex)
+        # epoch e+1's chain starts now: its batches are built and copied
+        # while this epoch's metrics drain, the val phase runs and the
+        # record is written
+        self._lookahead = (self._epoch_idx + 1, loader, self._start_staged(
+            loader.epoch_iter(self._train_iters), self._epoch_idx + 1))
         self._track_acc(acc)
         return counts
 
@@ -503,11 +687,13 @@ class WESUPTrainer(BaseTrainer):
         pending = []  # (device map, host batch), at most W + 1 long
         host_preds, host_targets = [], []
         counts = _counts()
-        for batch in loader:
+        model = self.model
+        for batch, dev_batch, _, event in self._staged_batches(loader):
             counts["batches"] += 1
             counts["samples"] += int(batch["sample_valid"].sum())
             try:
-                pred, acc = step(self.model, acc, self._put_batch(batch),
+                self._ready(dev_batch, event)
+                pred, acc = step(model, acc, dev_batch,
                                  cache=cache if "img_idx" in batch else None)
                 if extra_fns:
                     pending.append((pred, batch))

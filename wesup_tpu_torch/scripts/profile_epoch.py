@@ -197,21 +197,8 @@ def main(argv=None):
                    args.loop, args.resize, args.device)
 
 
-def profile(epochs=4, batch=8, n_images=85, mode="fixed", loop="both",
-            resize="auto", device=None, hw=GLAS_HW, canvas=None):
-    """Run the profile, print each stage and the report's JSON line, and
-    return the report.  ``hw`` is the dataset's image size, ``canvas`` the
-    fixed canvas (default 224x320)."""
-    root = ensure_dataset(n_images, hw)
-    trainer = build_trainer(batch, mode, resize, device, canvas)
-    print(f"device: {trainer.device}", file=sys.stderr)
-    trainer.setup_dataloaders(root / "train", None)
-    loader = trainer.dataloaders["train"]
-    trainer.tracker.start_new_epoch(trainer.current_lr())
-    trainer.tracker.train()
-
-    report = {"batch": batch, "n_images": n_images,
-              "mode": mode, "resize": resize, "epochs": []}
+def _epochs(trainer, loader, epochs, loop, n_images, report):
+    """The instrumented and production-loop epochs, into ``report``."""
     for e in range(1, epochs + 1):
         if loop in ("instrument", "both"):
             wall, parts, n_batches, n_valid = instrumented_epoch(
@@ -237,7 +224,31 @@ def profile(epochs=4, batch=8, n_images=85, mode="fixed", loop="both",
                                      "wall_s": round(wall, 3),
                                      "img_per_s": round(ips, 1)})
 
+
+def profile(epochs=4, batch=8, n_images=85, mode="fixed", loop="both",
+            resize="auto", device=None, hw=GLAS_HW, canvas=None):
+    """Run the profile, print each stage and the report's JSON line, and
+    return the report.  ``hw`` is the dataset's image size, ``canvas`` the
+    fixed canvas (default 224x320)."""
+    root = ensure_dataset(n_images, hw)
+    trainer = build_trainer(batch, mode, resize, device, canvas)
+    print(f"device: {trainer.device}", file=sys.stderr)
+    trainer.setup_dataloaders(root / "train", None)
+    loader = trainer.dataloaders["train"]
+    trainer.tracker.start_new_epoch(trainer.current_lr())
+    trainer.tracker.train()
+
+    report = {"batch": batch, "n_images": n_images,
+              "mode": mode, "resize": resize, "epochs": []}
+    try:
+        _epochs(trainer, loader, epochs, loop, n_images, report)
+    finally:
+        # the production loop pre-warms the next epoch's staging chain, as
+        # train() does; nothing claims the last one
+        trainer._cancel_lookahead()
+
     dt, step_hw = step_only_throughput(trainer, loader)
+
     step_ips = batch / dt
     print(f"[step-only] {dt * 1e3:.1f} ms/step at {step_hw} B={batch} -> "
           f"{step_ips:.1f} img/s", file=sys.stderr)

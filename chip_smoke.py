@@ -107,7 +107,12 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    CSV value equal to the plain versions' (scipy labelling,
    ``directed_hausdorff``; 1e-12, object Hausdorff 1e-6), the native
    region flip equal to scipy's, and each metric's ms per image native
-   against plain; the val phase three ways
+   against plain; the raw set written again with its images as 32-bit
+   ``BI_BITFIELDS`` and its annotations as RLE8 BMPs
+   (``tests/torch_bmp_writer.py``), through ``prepare_glas`` (masks
+   byte-equal to the uncompressed run's, images read equal) and
+   ``test_glas`` (masks equal, the same K1/K2 launches); the val phase
+   three ways
    (``scripts.measure_eval_metrics``: default, deferred and eager reads;
    the deferred and eager host metrics equal); seconds per step. Its
    lines start with ``[protocol``;
@@ -150,14 +155,25 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    and progressive arithmetic with DAC and restarts, CMYK, YCCK): the
    library's colour and gray decodes equal the plain versions' and, by
    SHA-256, cv2's (``JPEG_BEYOND_SHA256``), each transcode's decode its
-   baseline source's, a progressive file whose scans stop early refused
-   by both routes naming ROADMAP Queue 1 item 9; ms to decode a
-   1000x1000 patch of each kind, library and plain (the writer runs in
-   spawned processes beside 15b-15c); the pipeline (superpixel) again on
-   both slides transcoded to progressive and on one transcoded to
-   arithmetic, each combined mask bitwise the baseline slides'; ``POST
-   /predict`` with a progressive and a CMYK body (200, the mask equal to
-   the ``Predictor``'s on ``codec.decode`` of the body, K1 1 and K2 4).
+   baseline source's; the files of slice 12 (``slice12_cases``:
+   progressive files that libjpeg block-smooths, from six scripts,
+   Huffman and arithmetic; lossless gray and RGB files, predictors 1, 4,
+   5, 6, 7, a point transform, restarts; files without their EOI), each
+   read four ways (bytes as ``cv2.imdecode``, a file as ``cv2.imread``;
+   colour, gray), the library's reads equal to the plain version's and,
+   by SHA-256, to cv2's or refused where cv2 returns None
+   (``JPEG_SLICE12_SHA256``); ms to decode a 1000x1000 patch of each
+   kind, library and plain, smoothed progressive and lossless gray among
+   them, and of an RLE8 BMP mask (the writer runs in spawned processes
+   beside 15b-15c); the pipeline (superpixel) again on both slides
+   transcoded to progressive and on one transcoded to arithmetic, each
+   combined mask bitwise the baseline slides', on both transcoded to a
+   smoothed progressive script (each slide's library decode equal to
+   its plain decode, the foreground shares within ``SMOOTHED_FG_BOUND``
+   of the baseline's), and with the ground truths as lossless gray JPEG
+   (the printed scores the PNG masks'); ``POST /predict`` with a
+   progressive and a CMYK body (200, the mask equal to the
+   ``Predictor``'s on ``codec.decode`` of the body, K1 1 and K2 4).
    Its lines start with ``[jpeg``, ``[jpeg beyond`` and ``[serve jpeg``.
 
 16. the tools of slice 9: ``scripts.profile_train_step`` at B=8 on the
@@ -2136,14 +2152,34 @@ HOST_METRICS = ("accuracy", "dice", "detection_f1", "object_dice",
 OBJECT_METRICS = ("detection_f1", "object_dice", "object_hausdorff")
 
 
-def write_raw_glas(root: Path, seed: int) -> None:
+def write_raw_glas(root: Path, seed: int, kinds: bool = False) -> None:
     """GlaS as it ships, under ``root``: ``<split>_<i>.bmp`` images,
     ``<split>_<i>_anno.bmp`` masks holding a gland id per gland, and
     ``Grade.csv`` (name, patient ID, two grade columns; the last one has
-    the grades "adenomatous" and "healthy"), made with numpy from ``seed``."""
+    the grades "adenomatous" and "healthy"), made with numpy from ``seed``.
+    With ``kinds``, the same pixels in other BMP kinds: the images as
+    32-bit ``BI_BITFIELDS``, the masks as RLE8 with a gray palette."""
     from scipy import ndimage
 
     from wesup_tpu_torch.data.codec import write_bmp
+
+    bw = bmp_writer()
+    gray = np.repeat(np.arange(256)[:, None], 3, 1)
+
+    def write(path, pixels):
+        if not kinds:
+            write_bmp(path, pixels)
+            return
+        h, w = pixels.shape[:2]
+        if pixels.ndim == 3:
+            bgra = np.concatenate([pixels[..., ::-1], np.full(
+                (h, w, 1), 255, np.uint8)], -1)
+            path.write_bytes(bw.bmp(bw.pack_rows(bgra, 32), w, h, 32,
+                                    bw.BI_BITFIELDS,
+                                    masks=(0xFF0000, 0xFF00, 0xFF)))
+        else:
+            path.write_bytes(bw.bmp(bw.rle(pixels, 8), w, h, 8, bw.BI_RLE8,
+                                    palette=gray))
 
     rng = np.random.default_rng(seed)
     root.mkdir(parents=True)
@@ -2153,9 +2189,9 @@ def write_raw_glas(root: Path, seed: int) -> None:
         for i in range(1, n + 1):
             img, mask = glas_image(rng)
             ids, _ = ndimage.label(mask)
-            write_bmp(root / f"{split}_{i}.bmp", img)
-            write_bmp(root / f"{split}_{i}_anno.bmp",
-                      np.minimum(ids, 255).astype(np.uint8))
+            write(root / f"{split}_{i}.bmp", img)
+            write(root / f"{split}_{i}_anno.bmp",
+                  np.minimum(ids, 255).astype(np.uint8))
             grade = ("adenomatous", "healthy")[int(rng.random() < 0.44)]
             lines.append(f"{split}_{i},{i % 16},"
                          f"{'malignant' if grade[0] == 'a' else 'benign'},"
@@ -2238,7 +2274,7 @@ def protocol_phase(torch, card, seed) -> None:
     from wesup_tpu_torch import native, test_glas
     from wesup_tpu_torch.data import codec
     from wesup_tpu_torch.models.trainer import WESUPTrainer
-    from wesup_tpu_torch.ops import cellpool, launch_counts
+    from wesup_tpu_torch.ops import cellpool, launch_counts, reset_launches
     from wesup_tpu_torch.scripts import measure_eval_metrics
     from wesup_tpu_torch.scripts._common import imread_gray, pool_map
     from wesup_tpu_torch.train import fit
@@ -2352,10 +2388,15 @@ def protocol_phase(torch, card, seed) -> None:
 
     # ---- 13c. test_glas, then evaluate_glas, against the plain versions --
     ckpt = trainer.record_dir / "checkpoints" / "ckpt.0001.pth"
+    torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     results = test_glas.test(ckpt, scales=GLAS_SCALES, data_root=data)
     torch.cuda.synchronize()
     secs["test_glas, 5 scales"] = time.perf_counter() - t0
+    glas_launches = launch_counts()
+    glas_masks = {p.relative_to(results): p.read_bytes()
+                  for p in sorted(results.rglob("*.png"))}
     stdout, secs["evaluate_glas"] = run_module(
         ["wesup_tpu_torch.scripts.evaluate_glas", results, "--gt-root",
          data], tag)
@@ -2422,6 +2463,53 @@ def protocol_phase(torch, card, seed) -> None:
             f"{ms[:, 1].max():.1f}; {min(len(scored), os.cpu_count() or 1)} "
             f"worker processes at once on {os.cpu_count()} host cores); "
             f"{card}")
+
+    # ---- 13e. the raw set again in the BMP kinds slice 12 added ----------
+    t0 = time.perf_counter()
+    raw2, data2 = Path(tmp.name) / "GlaS-kinds", Path(tmp.name) / "data-kinds"
+    write_raw_glas(raw2, seed, kinds=True)
+    kinds_bytes = sum(p.stat().st_size for p in raw2.glob("*.bmp"))
+    plain_bytes = sum(p.stat().st_size for p in raw.glob("*.bmp"))
+    run_module(["wesup_tpu_torch.prepare_glas", raw2, "-o", data2,
+                "--seed", seed], tag)
+    n_masks = n_images = 0
+    for p in sorted(data.rglob("*.bmp")):
+        q = data2 / p.relative_to(data)
+        if p.parent.name == "masks":
+            n_masks += 1
+            if q.read_bytes() != p.read_bytes():
+                fail(f"{tag}: prepare_glas on the RLE8 annotations wrote "
+                     f"{q.relative_to(data2)} unlike the uncompressed run")
+        else:
+            n_images += 1
+            if not np.array_equal(codec.imread_rgb(q), codec.imread_rgb(p)):
+                fail(f"{tag}: the bit-field image {q.relative_to(data2)} "
+                     "reads unlike the 24-bit one")
+    torch.cuda.synchronize()
+    reset_launches()
+    results2 = test_glas.test(ckpt, scales=GLAS_SCALES, data_root=data2)
+    torch.cuda.synchronize()
+    kinds_launches = launch_counts()
+    kinds_masks = {p.relative_to(results2): p.read_bytes()
+                   for p in sorted(results2.rglob("*.png"))}
+    if kinds_masks != glas_masks:
+        fail(f"{tag}: test_glas over the BMP kinds wrote other masks "
+             f"({len(kinds_masks)} against {len(glas_masks)})")
+    if (kinds_launches != glas_launches
+            or not kinds_launches.get("cell_pool0")
+            or kinds_launches["cell_pool_stage"]
+            != 4 * kinds_launches["cell_pool0"]):
+        fail(f"{tag}: test_glas over the BMP kinds launched "
+             f"{kinds_launches}, over the 24-bit set {glas_launches}")
+    secs["BMP kinds: write, prepare_glas, test_glas"] = (
+        time.perf_counter() - t0)
+    log(f"[{tag}] the raw set again with its images as 32-bit BI_BITFIELDS "
+        f"and its annotations as RLE8 BMPs ({kinds_bytes} bytes against "
+        f"{plain_bytes}): prepare_glas's {n_masks} masks byte-equal to the "
+        f"uncompressed run's and its {n_images} images read equal; "
+        f"test_glas at 5 scales over it: {len(kinds_masks)} masks equal, "
+        "launches " + str({k: v for k, v in kinds_launches.items() if v})
+        + f" as over the 24-bit set; {card}")
 
     # ---- 13d. the val phase three ways -----------------------------------
     t0 = time.perf_counter()
@@ -2681,10 +2769,51 @@ JPEG_BEYOND_SHA256 = {
     "YCCK 4:2:0":
         "07a42313c4c4f7bf5ac5f0873b4978e4f92c61f105acebd71d683eba0d34297e",
 }
+# the files of slice12_cases() (tests/torch_jpeg_writer.py, integer
+# arithmetic only): the SHA-256 of their bytes, and of each one's four
+# reads by cv2 (reads_sha256: cv2.imdecode's then cv2.imread's, colour
+# (RGB) then gray, a None read as b"None"), computed with OpenCV 5.0.0
+# (libjpeg-turbo 3.1.2)
+JPEG_SLICE12_SHA256 = {
+    "bytes":
+        "50096839035391b1bed0fcbc6bfba214ddf57de6c36674a9cdb32bb39ab9f6e7",
+    "smoothed 4:2:0, the simple script cut early":
+        "9d6b90d1d82c660032e63eb6a2bd6167b7df62e6e51fc2a305a200b1cb586e03",
+    "smoothed 4:2:0, DC only":
+        "90f3807f3d3efe717947bd9aedf38f6239989721948908a52fbfba76e48fe3af",
+    "smoothed 4:4:4, luma refined, chroma not":
+        "92f3dcc601b3f6b02df2198a77106344939d21f738d7638fb274199fb982940a",
+    "smoothed gray, DC at Al 1, restarts":
+        "5a7abc3ed69325828bea963f5f08deec405028cdb2a154335b0846b3a25ff8b1",
+    "smoothed 4:2:0, the last refinement left out":
+        "6963c7faf80cb5e05230bfb91cf306df2d4045bd3b73cc1bbe628d5deb4e178c",
+    "smoothed progressive arithmetic, cut early, restarts":
+        "9d6b90d1d82c660032e63eb6a2bd6167b7df62e6e51fc2a305a200b1cb586e03",
+    "lossless gray, predictor 1":
+        "e47eb3bc2d04686eda4f17c12f3148a12c784e4db8c0fc5210bef2f850299adf",
+    "lossless gray, predictor 4, Pt 2, restarts":
+        "7a5518c1d3a79d000abeff08cb60780b5e01ab05a622eaf696b0133ccb7e8c8e",
+    "lossless gray, predictor 7":
+        "99ad504b813ee82fa804f6b9df41fc431595fb6246074935f8c52e8159b4694b",
+    "lossless RGB, predictor 6, restarts":
+        "9bf0fe46b7a7021c4e02686e7582a6a78a2e6ca6ffaeb4a493bc63f8a1c5f392",
+    "lossless RGB 4:2:0, predictor 5":
+        "54b0f9929f11917d5962cd07eaee4efdbed1e7036dccf04407744942267f828d",
+    "baseline without EOI":
+        "6f5410c0856e919579b499629af23549c3ebe7d53c0fb64800a636188bce810c",
+    "baseline, a COM and no EOI":
+        "1bdc0e65cbe955c7b442652ef5f35d5f1e0fdf529b725c17fe8456639f79d2e2",
+    "progressive without EOI":
+        "6f5410c0856e919579b499629af23549c3ebe7d53c0fb64800a636188bce810c",
+}
 # the kinds timed per 1000x1000 patch (written from the baseline patch,
-# or its pixels for CMYK/YCCK)
+# or its pixels for CMYK, YCCK and lossless gray)
 PATCH_KINDS = ("progressive", "no_dht", "arithmetic",
-               "arithmetic_progressive", "cmyk", "ycck")
+               "arithmetic_progressive", "cmyk", "ycck", "smoothed",
+               "lossless")
+# the slides' smoothed transcodes may move a mask's foreground share by
+# this much at most: the script leaves luma's coefficients one bit short
+SMOOTHED_FG_BOUND = 0.05
 # DigestPath2019's colonoscopy slides are JPEG, tiled at 1000: two
 # synthetic slides whose sides are not multiples of the patch
 DP_SLIDE_HW = (2300, 3100)
@@ -2750,6 +2879,14 @@ def jpeg_writer():
     return torch_jpeg_writer
 
 
+def bmp_writer():
+    """``tests/torch_bmp_writer.py``: numpy only, like the JPEG writer."""
+    jpeg_writer()                  # puts tests/ on the path
+    import torch_bmp_writer
+
+    return torch_bmp_writer
+
+
 def cmyk_pixels(img: np.ndarray) -> np.ndarray:
     """(H, W, 4) stored CMYK samples of an RGB image: C, M, Y = 255 - R,
     G, B less half their minimum, K that half (integer arithmetic)."""
@@ -2765,6 +2902,8 @@ def beyond_jpeg(kind: str, data) -> bytes:
     w = jpeg_writer()
     if kind == "cmyk":
         return w.four_component(cmyk_pixels(data), 0)
+    if kind == "lossless":                      # pixels: the gray channel
+        return w.lossless(data[..., 0].astype(np.int64))
     if kind == "ycck":
         return w.four_component(cmyk_pixels(data), 2,
                                 ((2, 2), (1, 1), (1, 1), (2, 2)))
@@ -2776,6 +2915,10 @@ def beyond_jpeg(kind: str, data) -> bytes:
         "progressive_restarts": lambda: w.progressive(frame, restart=3),
         "early_stop": lambda: w.progressive(
             frame, w.early_stop(len(frame.comps))),
+        # the simple script without its last refinement: coefficients 1-9
+        # of luma one bit short, and libjpeg smooths the blocks
+        "smoothed": lambda: w.progressive(
+            frame, w.simple_progression(len(frame.comps))[:-1]),
         "arithmetic": lambda: w.arithmetic(frame, restart=4,
                                            dac=(1, 3, 2)),
         "arithmetic_progressive": lambda: w.arithmetic(
@@ -2783,9 +2926,27 @@ def beyond_jpeg(kind: str, data) -> bytes:
     }[kind]()
 
 
+def smoothed_slide(data: bytes):
+    """(the "smoothed" transcode of a baseline slide, its plain colour
+    decode), made in a writer process beside the phases that run on the
+    card."""
+    from wesup_tpu_torch.data.jpeg import decode_plain
+
+    made = beyond_jpeg("smoothed", data)
+    return made, decode_plain(made)
+
+
+def try_read(decode, data, gray, file):
+    """``decode(data, gray, file)``, or None where it refuses the file."""
+    try:
+        return decode(data, gray, file)
+    except ValueError:
+        return None
+
+
 JPEG_BEYOND_KINDS = ("progressive", "progressive_restarts", "early_stop",
-                     "no_dht", "arithmetic", "arithmetic_progressive",
-                     "cmyk", "ycck")
+                     "smoothed", "no_dht", "arithmetic",
+                     "arithmetic_progressive", "cmyk", "ycck", "lossless")
 
 
 def beyond_cases():
@@ -2812,6 +2973,63 @@ def beyond_cases():
         "YCCK 4:2:0": (None, beyond_jpeg("ycck", img)),
     }
     return cases, beyond_jpeg("early_stop", b420)
+
+
+def slice12_cases(early: bytes):
+    """{case: file} at ``JPEG_HW`` from ``smoke_image`` (numpy and integer
+    arithmetic only): progressive files that libjpeg smooths (``early``,
+    beyond_cases' early-stopping file, and five more scripts, Huffman and
+    arithmetic), lossless files (predictors 1, 4, 5, 6 and 7, a point
+    transform, restarts, gray, RGB and RGB 4:2:0), and files without their
+    EOI marker."""
+    from wesup_tpu_torch.data.jpeg import encode_plain
+
+    w = jpeg_writer()
+    img = smoke_image(*JPEG_HW)
+    b420 = encode_plain(img)
+    f420 = w.parse(b420)
+    f444 = w.parse(encode_plain(img, (1, 1)))
+    fgray = w.parse(encode_plain(img[..., 0]))
+    planes = [img[..., c].astype(np.int64) for c in range(3)]
+    return {
+        "smoothed 4:2:0, the simple script cut early": early,
+        "smoothed 4:2:0, DC only": w.progressive(
+            f420, [((0, 1, 2), 0, 0, 0, 0)]),
+        "smoothed 4:4:4, luma refined, chroma not": w.progressive(
+            f444, [((0, 1, 2), 0, 0, 0, 0), ((0,), 1, 63, 0, 0)]),
+        "smoothed gray, DC at Al 1, restarts": w.progressive(
+            fgray, [((0,), 0, 0, 0, 1)], restart=3),
+        "smoothed 4:2:0, the last refinement left out": w.progressive(
+            f420, w.simple_progression(3)[:-1]),
+        "smoothed progressive arithmetic, cut early, restarts": w.arithmetic(
+            f420, True, restart=2, script=w.early_stop(3)),
+        "lossless gray, predictor 1": w.lossless(planes[0]),
+        "lossless gray, predictor 4, Pt 2, restarts": w.lossless(
+            planes[1], 4, 2, 5),
+        "lossless gray, predictor 7": w.lossless(planes[2], 7),
+        "lossless RGB, predictor 6, restarts": w.lossless(planes, 6, 0, 4),
+        "lossless RGB 4:2:0, predictor 5": w.lossless(
+            planes, 5, sampling=((2, 2), (1, 1), (1, 1))),
+        "baseline without EOI": b420[:-2],
+        "baseline, a COM and no EOI": b420[:-2] + b"\xff\xfe\x00\x04hi",
+        "progressive without EOI": w.progressive(f420)[:-2],
+    }
+
+
+def reads_sha256(read, files) -> str:
+    """SHA-256 over each file's four reads, ``read(data, gray, file)``:
+    of its bytes (``cv2.imdecode``'s) then as a file (``cv2.imread``'s),
+    colour then gray; a read that is refused (None) hashes as b"None"."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for data in files:
+        for file in (False, True):
+            for gray in (False, True):
+                out = read(data, gray, file)
+                h.update(b"None" if out is None else str(out.shape).encode()
+                         + np.ascontiguousarray(out).tobytes())
+    return h.hexdigest()
 
 
 def decodes_sha256(decode, files) -> str:
@@ -2924,7 +3142,7 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
                                mp_context=multiprocessing.get_context(
                                    "spawn"))
     patch_jobs = {k: writers.submit(beyond_jpeg, k, patch if k in (
-        "cmyk", "ycck") else data) for k in PATCH_KINDS}
+        "cmyk", "ycck", "lossless") else data) for k in PATCH_KINDS}
 
     # ---- 15b. the DigestPath2019 pipeline on two JPEG slides -------------
     tmp = tempfile.TemporaryDirectory(prefix="wesup_phase15_")
@@ -2938,10 +3156,14 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
         codec.imwrite(root / "images" / f"{stem}.jpg", slide)
         codec.imwrite(root / "masks" / f"{stem}.png", mask * 255)
     slide_jobs = {(stem, kind): writers.submit(
-        beyond_jpeg, kind, (root / "images" / f"{stem}.jpg").read_bytes())
+        smoothed_slide if kind == "smoothed" else beyond_jpeg,
+        *([] if kind == "smoothed" else [kind]),
+        (root / "images" / f"{stem}.jpg").read_bytes())
         for stem, kind in (("negative-00", "progressive"),
                            ("positive-00", "progressive"),
-                           ("positive-00", "arithmetic"))}
+                           ("positive-00", "arithmetic"),
+                           ("negative-00", "smoothed"),
+                           ("positive-00", "smoothed"))}
     log(f"[{tag}] two {DP_SLIDE_HW[0]}x{DP_SLIDE_HW[1]} synthetic slides "
         f"(make_image_hard, seed {seed}) written as JPEG in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3099,6 +3321,8 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
                      "masks stitched")
             if not gated:       # 15e's transcoded slides must give these
                 base_masks[stem] = got
+        if not gated:
+            base_lines = lines
     log(f"[{tag}] each combined mask holds both classes, equals its patch "
         "masks stitched in numpy, and scores as numpy scores it")
 
@@ -3136,7 +3360,7 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
 
     try:
         beyond_phase(torch, card, root, ckpts["superpixel"], base_masks,
-                     patch_jobs, slide_jobs, seed)
+                     base_lines, patch_jobs, slide_jobs, seed)
     finally:
         writers.shutdown(wait=True, cancel_futures=True)
     tmp.cleanup()
@@ -3144,14 +3368,19 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
     log(f"[{tag}] phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
-def beyond_phase(torch, card, root, ckpt, base_masks, patch_jobs,
-                 slide_jobs, seed) -> None:
+def beyond_phase(torch, card, root, ckpt, base_masks, base_lines,
+                 patch_jobs, slide_jobs, seed) -> None:
     """Phase 15e: JPEG beyond baseline.  The library against its plain
-    versions and, by SHA-256, cv2's decodes on the writer's files; ms to
-    decode a 1000x1000 patch of each kind; the DigestPath2019 pipeline on
-    phase 15's slides transcoded to progressive and to arithmetic, whose
-    masks must be the baseline slides'; ``POST /predict`` with a
-    progressive and a CMYK body."""
+    versions and, by SHA-256, cv2's decodes on the writer's files (the
+    smoothed progressive, lossless and EOI-less ones too, each read as
+    ``cv2.imdecode`` and ``cv2.imread`` read it); ms to decode a 1000x1000
+    patch of each kind, and of an RLE8 BMP; the DigestPath2019 pipeline
+    on phase 15's slides transcoded to progressive and to arithmetic,
+    whose masks must be the baseline slides', to a smoothed progressive
+    script, whose masks' foreground shares must stay within
+    ``SMOOTHED_FG_BOUND`` of theirs, and with its ground truths as
+    lossless JPEG, whose scores must be the PNG masks'; ``POST /predict``
+    with a progressive and a CMYK body."""
     import io
     import shutil
 
@@ -3186,40 +3415,83 @@ def beyond_phase(torch, card, root, ckpt, base_masks, patch_jobs,
         if digest != JPEG_BEYOND_SHA256[name]:
             fail(f"{tag}: {name}: decodes differ from cv2.imdecode's "
                  f"({digest} != {JPEG_BEYOND_SHA256[name]})")
-    for decode in (native.jpeg_decode, plain.decode_plain):
-        try:
-            decode(early)
-            fail(f"{tag}: a progressive file whose scans stop early was "
-                 "decoded")
-        except ValueError as ex:
-            if "smoothing" not in str(ex):
-                raise
-    try:
-        codec.decode(early, name="early-stop.jpg")
-        fail(f"{tag}: the codec decoded a smoothed progressive file")
-    except ValueError as ex:
-        if "early-stop.jpg" not in str(ex) or "item 9" not in str(ex):
-            fail(f"{tag}: the refusal does not name the file and ROADMAP "
-                 f"Queue 1 item 9: {ex}")
     log(f"[{tag}] {len(cases)} files at {JPEG_HW[0]}x{JPEG_HW[1]} from "
         "tests/torch_jpeg_writer.py (" + ", ".join(cases) + "): the "
         "library's colour and gray decodes equal the plain versions' and, "
         "by SHA-256, cv2.imdecode's; each transcode decodes as its "
-        "baseline source; a progressive file whose scans stop early "
-        f"(libjpeg smooths it) refused by both routes, naming ROADMAP "
-        f"Queue 1 item 9 ({time.perf_counter() - t0:.1f} s)")
+        f"baseline source ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the kinds of slice 12: smoothed, lossless, without EOI ----------
+    t0 = time.perf_counter()
+    c12 = slice12_cases(early)
+    got = decodes_sha256(lambda d, g: np.frombuffer(d, np.uint8),
+                         list(c12.values()))
+    if got != JPEG_SLICE12_SHA256["bytes"]:
+        fail(f"{tag}: the writer's slice-12 files differ from those the "
+             f"constants were computed on ({got})")
+    refused = []
+    for name, data in c12.items():
+        for file in (False, True):
+            for gray in (False, True):
+                a = try_read(native.jpeg_decode, data, gray, file)
+                b = try_read(plain.decode_plain, data, gray, file)
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    fail(f"{tag}: {name}: the library's read (gray {gray}, "
+                         f"file {file}) differs from the plain version's")
+                if a is None:
+                    refused.append(f"{name} ({'file' if file else 'bytes'}"
+                                   f", {'gray' if gray else 'colour'})")
+        digest = reads_sha256(lambda d, g, f: try_read(native.jpeg_decode,
+                                                       d, g, f), [data])
+        if digest != JPEG_SLICE12_SHA256[name]:
+            fail(f"{tag}: {name}: reads differ from cv2's ({digest} != "
+                 f"{JPEG_SLICE12_SHA256[name]})")
+    try:
+        codec.decode(c12["lossless gray, predictor 1"], name="lossless.jpg")
+        fail(f"{tag}: the codec read a lossless gray file in colour")
+    except codec.ImageReadError as ex:
+        if ("lossless.jpg" not in str(ex) or "cv2 returns None" not in
+                str(ex) or not isinstance(ex, FileNotFoundError)):
+            fail(f"{tag}: the refusal does not name the file and cv2: {ex}")
+    log(f"[{tag}] {len(c12)} files of slice 12 at {JPEG_HW[0]}x"
+        f"{JPEG_HW[1]} (" + ", ".join(c12) + "): each one's four reads "
+        "(bytes as cv2.imdecode, file as cv2.imread; colour, gray) by the "
+        "library equal the plain version's and, by SHA-256, cv2's; "
+        f"{len(refused)} reads refused where cv2 returns None: "
+        + "; ".join(refused) + f" ({time.perf_counter() - t0:.1f} s)")
 
     # the DigestPath2019 pipeline on the transcoded slides (the
-    # arithmetic run's negative slide is the baseline file)
-    for kind, stems in (("progressive", ("negative-00", "positive-00")),
-                        ("arithmetic", ("positive-00",))):
-        data_root = root.parent / f"dp-{kind}" / "dp"
+    # arithmetic run's negative slide is the baseline file), and on the
+    # baseline slides with their ground truths as lossless JPEG
+    writer = jpeg_writer()
+    base_fg = {stem: float((m > 0).mean()) for stem, m in base_masks.items()}
+    both = ("negative-00", "positive-00")
+    for kind, stems, lossless_masks in (
+            ("progressive", both, False), ("arithmetic", ("positive-00",),
+                                           False),
+            ("smoothed", both, False), ("lossless masks", (), True)):
+        data_root = root.parent / f"dp-{kind.replace(' ', '-')}" / "dp"
         (data_root / "images").mkdir(parents=True)
-        shutil.copytree(root / "masks", data_root / "masks")
-        for stem in ("negative-00", "positive-00"):
-            (data_root / "images" / f"{stem}.jpg").write_bytes(
-                slide_jobs[stem, kind].result() if stem in stems
-                else (root / "images" / f"{stem}.jpg").read_bytes())
+        (data_root / "masks").mkdir()
+        for stem in both:
+            made = (root / "images" / f"{stem}.jpg").read_bytes()
+            if stem in stems:
+                made = slide_jobs[stem, kind].result()
+            if kind == "smoothed":
+                made, want = made
+                if not np.array_equal(native.jpeg_decode(made), want):
+                    fail(f"{tag}: the smoothed {stem}'s library decode "
+                         "differs from the plain version's")
+            (data_root / "images" / f"{stem}.jpg").write_bytes(made)
+            mask = (root / "masks" / f"{stem}.png").read_bytes()
+            if lossless_masks:
+                gt = codec.decode(mask, gray=True)
+                mask = writer.lossless(gt.astype(np.int64))
+                if not np.array_equal(codec.decode(mask, gray=True), gt):
+                    fail(f"{tag}: the lossless {stem} mask reads unlike "
+                         "its PNG")
+            (data_root / "masks" / f"{stem}.png").write_bytes(mask)
         run_ckpt = data_root.parent / "rec" / "checkpoints" / ckpt.name
         run_ckpt.parent.mkdir(parents=True)
         shutil.copy(ckpt, run_ckpt)
@@ -3228,36 +3500,75 @@ def beyond_phase(torch, card, root, ckpt, base_masks, patch_jobs,
         with contextlib.redirect_stdout(out):
             dp.main([str(data_root), "-c", str(run_ckpt)])
         sec = time.perf_counter() - t1
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("Accuracy:", "Dice:"))]
         combined = run_ckpt.parent.parent / f"combined-results-for-{ckpt.name}"
-        for stem in ("negative-00", "positive-00"):
+        fg = {}
+        for stem in both:
             got = codec.imread_mask(combined / f"{stem}.png")
-            if not np.array_equal(got, base_masks[stem]):
+            fg[stem] = float((got > 0).mean())
+            if kind == "smoothed":
+                if abs(fg[stem] - base_fg[stem]) > SMOOTHED_FG_BOUND:
+                    fail(f"{tag}: the smoothed {stem}'s foreground share "
+                         f"{fg[stem]:.4f} is more than {SMOOTHED_FG_BOUND} "
+                         f"from the baseline slide's {base_fg[stem]:.4f}")
+            elif not np.array_equal(got, base_masks[stem]):
                 fail(f"{tag}: the {kind} {stem}'s combined mask differs "
                      "from the baseline slide's")
-        sizes = [len((data_root / "images" / f"{s}.jpg").read_bytes())
-                 for s in stems]
+        if lossless_masks and lines != base_lines:
+            fail(f"{tag}: the scores on the lossless masks {lines} are not "
+                 f"the PNG masks' {base_lines}")
+        files = sorted((data_root / ("masks" if lossless_masks else
+                                     "images")).iterdir())
+        sizes = [len(f.read_bytes()) for f in files]
+        if kind == "smoothed":
+            what = ("foreground shares " + ", ".join(
+                f"{s} {fg[s]:.4f} (baseline {base_fg[s]:.4f})" for s in both)
+                + f", within {SMOOTHED_FG_BOUND}; the slides' library "
+                "decodes equal the plain version's")
+        elif lossless_masks:
+            what = "scores " + " | ".join(lines) + ", the PNG masks'"
+        else:
+            what = "both combined masks bitwise the baseline slides'"
         log(f"[{tag}] test_dp2019_pipeline (superpixel, 400x400) on two "
-            f"slides, {', '.join(stems)} transcoded to {kind} ({sizes} "
-            f"bytes): {sec:.1f} s; both combined masks bitwise the baseline "
-            f"slides'; {card}")
+            f"slides, " + (f"ground truths as lossless gray JPEG ({sizes} "
+                           "bytes)" if lossless_masks else
+                           f"{', '.join(stems)} transcoded to {kind} "
+                           f"({sizes} bytes)")
+            + f": {sec:.1f} s; {what}; {card}")
 
     # ms to decode a 1000x1000 patch of each kind, native and plain (the
-    # writer's processes are idle by now)
+    # writer's processes are idle by now); lossless gray reads in gray
     patch_files = {k: f.result() for k, f in patch_jobs.items()}
     times = []
     for kind, data in patch_files.items():
-        a = native.jpeg_decode(data)
+        gray = kind == "lossless"
+        a = native.jpeg_decode(data, gray)
         t1 = time.perf_counter()
         for _ in range(10):
-            native.jpeg_decode(data)
+            native.jpeg_decode(data, gray)
         nat = (time.perf_counter() - t1) * 1e2
         t1 = time.perf_counter()
-        b = plain.decode_plain(data)
+        b = plain.decode_plain(data, gray)
         pl = (time.perf_counter() - t1) * 1e3
         if not np.array_equal(a, b):
             fail(f"{tag}: the {kind} patch decodes differently by the "
                  "library and the plain version")
         times.append(f"{kind} {nat:.1f} / {pl:.1f} ({len(data)} B)")
+    # an RLE8 BMP of a slide's mask (OpenCV's BMP decoder is the codec's
+    # numpy one: no library)
+    bw = bmp_writer()
+    cut = codec.imread_mask(root / "masks" / "positive-00.png")[
+        :DP_PATCH, :DP_PATCH] // 255
+    rle = bw.bmp(bw.rle(cut, 8), DP_PATCH, DP_PATCH, 8, bw.BI_RLE8,
+                 palette=np.array([[0, 0, 0], [255, 255, 255]]))
+    if not np.array_equal(codec.decode(rle, gray=True), cut * 255):
+        fail(f"{tag}: the RLE8 BMP mask reads unlike its PNG")
+    t1 = time.perf_counter()
+    for _ in range(10):
+        codec.decode(rle, gray=True)
+    times.append(f"RLE8 BMP mask (the codec's numpy decoder, no library) "
+                 f"{(time.perf_counter() - t1) * 1e2:.1f} ({len(rle)} B)")
     log(f"[{tag}] ms to decode a {DP_PATCH}x{DP_PATCH} patch on the card's "
         "host, library / plain: " + "; ".join(times)
         + f" (baseline 25.3 / 1722.1, PERF.md section 5); {card}")

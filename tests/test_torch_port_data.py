@@ -135,17 +135,21 @@ def test_codec_reads_bmps(tmp_path):
 
 def test_codec_refuses_what_it_cannot_decode(tmp_path):
     """JPEG (progressive JPEG too) and 16-bit PNG, once refused, now read
-    as cv2 reads them; a lossless JPEG is still refused, naming the file
-    and the ROADMAP item that plans it, and a missing file is not
-    found."""
+    as cv2 reads them; a lossless gray JPEG reads in gray as cv2 reads it,
+    and its colour read is refused, naming the file, as cv2 refuses it;
+    a missing file is not found."""
     cv2.imwrite(str(tmp_path / "a.jpg"), _image())
     _assert_reads_like_cv2(tmp_path / "a.jpg")
     cv2.imwrite(str(tmp_path / "p.jpg"), _image(),
                 [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     _assert_reads_like_cv2(tmp_path / "p.jpg")
     (tmp_path / "l.jpg").write_bytes(writer.lossless(_image()[..., 0]))
-    with pytest.raises(ValueError, match="l.jpg.*lossless.*ROADMAP"):
+    with pytest.raises(ValueError, match="l.jpg.*lossless.*cv2 returns None"):
         codec.imread_rgb(tmp_path / "l.jpg")
+    assert cv2.imread(str(tmp_path / "l.jpg")) is None
+    np.testing.assert_array_equal(
+        codec.imread_mask(tmp_path / "l.jpg"),
+        cv2.imread(str(tmp_path / "l.jpg"), cv2.IMREAD_GRAYSCALE))
     _raw_png(tmp_path / "16.png", _image()[..., :2], 0)
     data = bytearray((tmp_path / "16.png").read_bytes())
     data[24] = 16                                   # bit depth 16
@@ -156,6 +160,96 @@ def test_codec_refuses_what_it_cannot_decode(tmp_path):
         codec.imread_rgb(tmp_path / "missing.png")
     assert codec.image_size(tmp_path / "a.jpg") == _image().shape[:2]
     assert codec.image_size(tmp_path / "16.png") == (61, 83)
+
+
+def _unreadable_files(tmp_path):
+    """{name: path} of files cv2.imread returns None for in colour and in
+    gray: a missing one, a directory, a text file, a 12-bit JPEG, a
+    truncated PNG and a BMP RLE run past its row."""
+    import torch_bmp_writer as bmp_writer
+
+    files = {"missing": tmp_path / "missing.png", "dir": tmp_path / "d.png"}
+    files["dir"].mkdir()
+    files["text"] = tmp_path / "t.png"
+    files["text"].write_text("not an image")
+    img = _image()
+    frame = writer.from_planes([img[..., 0].astype(np.int64) * 16],
+                               [(1, 1)], [1], precision=12)
+    files["12bit"] = tmp_path / "b12.jpg"
+    files["12bit"].write_bytes(writer.sequential(frame))
+    files["cut_png"] = tmp_path / "cut.png"
+    files["cut_png"].write_bytes(codec.encode_png(img)[:200])
+    files["rle_past_row"] = tmp_path / "r.bmp"
+    files["rle_past_row"].write_bytes(bmp_writer.bmp(
+        bytes([9, 1, 0, 1]), 4, 2, 8, bmp_writer.BI_RLE8,
+        palette=np.zeros((256, 3), np.uint8)))
+    return files
+
+
+def test_unreadable_image_raises_file_not_found_and_value_error(tmp_path):
+    """Where ``cv2.imread`` returns None, the port's readers raise
+    ``codec.ImageReadError``: a ``FileNotFoundError`` with the JAX
+    package's message ("cannot read image: <path>" or "cannot read mask:
+    <path>", then the reason) and a ``ValueError``, as the port raised
+    before; ``decode`` of the bytes raises it too."""
+    for name, path in _unreadable_files(tmp_path).items():
+        for read, kind, flag in ((codec.imread_rgb, "image",
+                                  cv2.IMREAD_COLOR),
+                                 (codec.imread_mask, "mask",
+                                  cv2.IMREAD_GRAYSCALE)):
+            assert cv2.imread(str(path), flag) is None, name
+            with pytest.raises(codec.ImageReadError) as got:
+                read(path)
+            assert isinstance(got.value, FileNotFoundError), name
+            assert isinstance(got.value, ValueError), name
+            assert str(got.value).startswith(f"cannot read {kind}: {path}: ")
+        if path.is_file():
+            with pytest.raises(FileNotFoundError, match="request body"):
+                codec.decode(path.read_bytes(), name="request body")
+
+
+def test_jax_readers_and_the_port_agree_on_the_new_kinds(tmp_path):
+    """The JAX package's ``imread_rgb`` and ``imread_mask`` against the
+    port's on files of the kinds this data layer added: both read the
+    same pixels, or both raise ``FileNotFoundError`` with the same message
+    prefix."""
+    import torch_bmp_writer as bmp_writer
+
+    img = _image(seed=4, hw=(37, 53))
+    frame = writer.parse(codec.encode_jpeg(img))
+    idx = img[..., 0] // 64
+    pal = np.array([[0, 0, 0], [90, 20, 10], [10, 200, 30], [250, 250, 9]])
+    files = {
+        "smoothed.jpg": writer.progressive(frame, writer.early_stop(3)),
+        "lossless_gray.jpg": writer.lossless(img[..., 1], predictor=4),
+        "lossless_rgb.jpg": writer.lossless(
+            [img[..., c] for c in range(3)], predictor=7, restart_rows=2),
+        "no_eoi.jpg": writer.progressive(frame)[:-2],
+        "rle8.bmp": bmp_writer.bmp(bmp_writer.rle(idx, 8), 53, 37, 8,
+                                   bmp_writer.BI_RLE8, palette=pal),
+        "rle4.bmp": bmp_writer.bmp(bmp_writer.rle(idx, 4), 53, 37, 4,
+                                   bmp_writer.BI_RLE4, palette=pal),
+        "565.bmp": bmp_writer.bmp(
+            bmp_writer.pack_rows(img[..., 0].astype(np.int64) * 257, 16),
+            53, 37, 16, bmp_writer.BI_BITFIELDS,
+            masks=bmp_writer.MASKS_565),
+        "12bit.jpg": writer.sequential(writer.from_planes(
+            [img[..., 0].astype(np.int64) * 16], [(1, 1)], [1],
+            precision=12)),
+    }
+    for name, data in files.items():
+        path = tmp_path / name
+        path.write_bytes(data)
+        for j_read, t_read in ((j_datasets.imread_rgb, codec.imread_rgb),
+                               (j_datasets.imread_mask, codec.imread_mask)):
+            try:
+                want = j_read(path)
+            except FileNotFoundError as ex:
+                with pytest.raises(FileNotFoundError) as got:
+                    t_read(path)
+                assert str(got.value).startswith(str(ex)), name
+                continue
+            np.testing.assert_array_equal(t_read(path), want, err_msg=name)
 
 
 @pytest.mark.parametrize("hw", [(37, 53), (1, 1), (6, 8)])

@@ -23,15 +23,17 @@
   DHT (the Annex K tables), CMYK and YCCK at 4:4:4 and 4:2:0, EXIF
   orientations on a progressive and an arithmetic file, at 1x1, 6x8 and
   37x53; cv2's decode of each transcode equals its decode of the source;
-- a lossless, a 12-bit, a hierarchical and a 2-component file, a
-  progressive file cut after some scans and one whose scans stop short
-  of full precision (libjpeg smooths it), a header of more than 2**30
-  pixels (OpenCV's limit), Huffman tables that libjpeg refuses
+- a 12-bit, a hierarchical and a 2-component file, a header of more
+  than 2**30 pixels (OpenCV's limit), Huffman tables that libjpeg refuses
   (over-subscribed counts, an all-ones code, a DC size past 15), a scan
-  that lists a component twice and a truncated file raise ``ValueError``
-  naming the file and the reason (the kinds still to come also ROADMAP's
-  item); the three kinds once refused here (progressive, CMYK,
-  arithmetic) now decode as cv2 decodes them, under the same test ids;
+  that lists a component twice, a baseline file patched to SOF3 and a
+  truncated file raise ``ValueError`` naming the file and the reason, and
+  cv2 returns None for each (a truncated file read from its path aside:
+  ``cv2.imread`` decodes it with the rest gray, a known difference); the
+  kinds once refused here (progressive, CMYK, arithmetic; lossless, a
+  progressive file cut after some scans and one whose scans stop short
+  of full precision, which libjpeg smooths) now decode as cv2 decodes
+  them, in the reads it decodes them in, under the same test ids;
 - PNGs at bit depths 1, 2, 4 (gray and palette) and 16 (gray, RGB,
   gray + alpha, RGBA), plain and Adam7-interlaced, written by
   ``tests/torch_png_writer.py``, decode as ``cv2.imread`` reads them;
@@ -272,9 +274,10 @@ REFUSED = {
     "component_twice": (lambda d, img: _scan_listing_a_component_twice(d),
                         "listed twice"),
 }
-# corrupt files that libjpeg refuses too (it decodes a truncated one)
-CV2_REFUSES = ("oversubscribed", "all_ones_code", "dc_size_16",
-               "component_twice")
+# corrupt files that cv2 refuses too (cv2.imread decodes a truncated one,
+# with the rest gray: libjpeg's stdio source supplies the EOI it lacks)
+CV2_REFUSES = ("lossless", "12bit", "huge", "oversubscribed", "all_ones_code",
+               "dc_size_16", "component_twice")
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
@@ -293,9 +296,9 @@ def test_unsupported_jpeg_raises_naming_the_file(tmp_path, case):
             read(path)
     with pytest.raises(ValueError):
         jpeg.decode_plain(path.read_bytes())
-    if case in CV2_REFUSES:
-        assert cv2.imdecode(np.frombuffer(path.read_bytes(), np.uint8),
-                            cv2.IMREAD_COLOR) is None
+    assert cv2.imdecode(np.frombuffer(path.read_bytes(), np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    assert (cv2.imread(str(path)) is None) == (case in CV2_REFUSES)
 
 
 # ---------------------------------------------------------------------------
@@ -429,39 +432,62 @@ def _hierarchical(img):
     return bytes(data)
 
 
-# the kinds still refused, each by its own file: what cv2 (OpenCV 5.0.0,
-# libjpeg-turbo 3.1.2) does with it (ROADMAP Queue 1 item 9 records it)
+# the kinds once refused, each by its own file, and what cv2 (OpenCV
+# 5.0.0, libjpeg-turbo 3.1.2) does with it: the port reads what cv2 reads
+# and refuses the rest, saying that cv2 refuses it too
 STILL_REFUSED = {
-    # (maker, the reason given, whether cv2's colour and gray reads
-    # decode it or return None)
+    # (maker, the reason the port gives where cv2 refuses, whether cv2's
+    # colour and gray reads of the bytes (cv2.imdecode) decode it)
     "lossless": (lambda img: writer.lossless(img[..., 0]), "lossless",
                  (False, True)),
     "12bit": (_twelve_bit, "12-bit", (False, False)),
     "hierarchical": (_hierarchical, "hierarchical", (False, False)),
     "two_component": (_two_component, "2-component", (False, False)),
-    "truncated_progressive": (_cut_progressive, "truncated progressive",
-                              (False, False)),
+    "truncated_progressive": (_cut_progressive, "several scans without an "
+                              "EOI", (False, False)),
     "smoothed_progressive": (lambda img: writer.progressive(
-        writer.parse(_cv2_jpeg(img)), writer.early_stop(3)), "smoothing",
+        writer.parse(_cv2_jpeg(img)), writer.early_stop(3)), None,
         (True, True)),
 }
 
 
 @pytest.mark.parametrize("case", list(STILL_REFUSED))
 def test_kinds_still_refused_name_the_file_and_the_roadmap(tmp_path, case):
+    """Each read, of the bytes (``decode``, ``decode_plain``, the library)
+    as ``cv2.imdecode`` and of the path as ``cv2.imread`` (which reads a
+    progressive file cut after some scans: libjpeg's stdio source
+    supplies its EOI), equals cv2's or is refused where cv2 returns None,
+    naming the file and saying that cv2 refuses it too."""
     img = _image((37, 53), seed=90)
     make, reason, cv2_does = STILL_REFUSED[case]
     data = make(img)
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(data)
-    for read in (codec.imread_rgb, codec.imread_mask):
-        with pytest.raises(ValueError,
-                           match=f"{case}.jpg.*{reason}.*ROADMAP.*item 9"):
-            read(path)
-    with pytest.raises(ValueError, match=reason):
-        jpeg.decode_plain(data)
     got = _cv2_decodes(data)
     assert tuple(g is not None for g in got) == cv2_does
+    for gray, want in zip((False, True), got):
+        decodes = [lambda: codec.decode(data, gray, name=str(path)),
+                   lambda: jpeg.decode_plain(data, gray),
+                   lambda: native.jpeg_decode(data, gray)]
+        for i, decode in enumerate(decodes):
+            if want is None:
+                with pytest.raises(ValueError, match=reason) as ex:
+                    decode()
+                assert i or (f"{case}.jpg" in str(ex.value)
+                             and "cv2" in str(ex.value))
+            else:
+                np.testing.assert_array_equal(
+                    decode(), want if gray else want[..., ::-1])
+        read = codec.imread_mask if gray else codec.imread_rgb
+        want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE if gray
+                          else cv2.IMREAD_COLOR)
+        if want is None:
+            with pytest.raises(codec.ImageReadError,
+                               match=f"{case}.jpg.*{reason}.*cv2"):
+                read(path)
+        else:
+            np.testing.assert_array_equal(
+                read(path), want if gray else want[..., ::-1])
     if case == "lossless":
         np.testing.assert_array_equal(got[1], img[..., 0])
 
@@ -528,9 +554,13 @@ def test_png_16_bit_keeps_the_high_byte(tmp_path):
 
 
 def test_codec_module_docs_name_no_missing_format():
-    """The codec's docstring lists JPEG as decoded (and the refusals it
-    keeps), so no reader is sent to a roadmap item that is done."""
+    """The codec's docstring lists JPEG as decoded, lossless and smoothed
+    files among it, and the refusals it keeps, none of them sent to a
+    roadmap item: every kind it refuses is one cv2 refuses too, or a
+    known difference."""
     doc = codec.__doc__
     assert "JPEG, baseline" in doc and "Adam7" in doc
-    assert "item 9" in codec._LATER
+    assert "lossless files" in doc and "block smoothing" in doc
+    assert "RLE4" in doc and "known differences" in doc
+    assert "item 9" not in doc and not hasattr(codec, "_LATER")
     assert Path(native.JPEG_SOURCE).exists()

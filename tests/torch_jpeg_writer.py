@@ -20,9 +20,12 @@ libjpeg-turbo reads beyond baseline:
 - :func:`four_component`: a baseline CMYK (Adobe transform 0) or YCCK
   (Adobe transform 2) file from an (H, W, 4) array;
 - :func:`sequential`: the coefficients as sequential Huffman, 8 or 12
-  bits, any number of components (a 2-component file), and
-  :func:`lossless`: a lossless (SOF3) gray file, for the kinds the port
-  still refuses.
+  bits, any number of components (a 2-component file);
+- :func:`lossless`: a lossless (SOF3) file of integer planes, T.81 Annex
+  H: 2-16 bits, predictors 1-7, a point transform, restart intervals,
+  any number of components at any sampling, interleaved or a scan per
+  component (its entropy coding vectorised, so a slide's mask takes
+  seconds).
 
 Transcoding keeps every quantised coefficient, so a decoder gives the
 same pixels for a baseline file and any of its transcodes (a progressive
@@ -978,23 +981,131 @@ def four_component(cmyk: np.ndarray, transform: int = 0,
                                   head=head))
 
 
-def lossless(gray: np.ndarray) -> bytes:
-    """A lossless (SOF3) gray file: predictor 1 (the left sample), no
-    point transform, one optimal Huffman table (T.81 H.1)."""
-    h, w = gray.shape
-    x = gray.astype(np.int64)
-    pred = np.empty_like(x)
-    pred[0, 0] = 128
-    pred[0, 1:] = x[0, :-1]
-    pred[1:, 0] = x[:-1, 0]
-    pred[1:, 1:] = x[1:, :-1]
-    diff = ((x - pred + 32768) % 65536) - 32768
-    tokens = []
-    for d in diff.ravel().tolist():
-        size, bits = _value_bits(d)
-        tokens += [size, (bits, size)]
-    body, ent = _huffman_scan(tokens)
-    out = b"\xff\xd8\xff\xc3\x00\x0b" + struct.pack(">BHHB", 8, h, w, 1)
-    out += b"\x01\x11\x00" + _dht(body)
-    out += b"\xff\xda\x00\x08\x01\x01\x00\x01\x00\x00"
-    return out + ent + b"\xff\xd9"
+def lossless(planes, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
+             precision: int = 8, sampling=None, ids=None,
+             interleave: bool = True) -> bytes:
+    """A lossless (SOF3) file, T.81 Annex H: ``planes`` (one (H, W)
+    array, or a list of full-size ones) of samples below ``2**precision``,
+    each component's taken at its ``sampling`` (h, v) factors (every
+    ``max/h``-th column and ``max/v``-th row); predictor 1-7, point
+    transform ``pt`` (the samples' low bits dropped), a restart interval
+    of ``restart_rows`` MCU rows, one interleaved scan (or one scan per
+    component) and an optimal Huffman table per scan (T.81 H.1).  MCUs
+    that overhang a component repeat its last column and row."""
+    if isinstance(planes, np.ndarray) and planes.ndim == 2:
+        planes = [planes]
+    nc = len(planes)
+    h, w = planes[0].shape
+    sampling = list(sampling or [(1, 1)] * nc)
+    ids = list(ids or range(1, nc + 1))
+    max_h = max(sh for sh, _ in sampling)
+    max_v = max(sv for _, sv in sampling)
+    single = nc == 1 or not interleave
+    comps = []
+    for plane, (sh, sv) in zip(planes, sampling):
+        cw, ch = -(-w * sh // max_h), -(-h * sv // max_v)
+        x = np.asarray(plane, np.int64)[::max_v // sv, ::max_h // sh]
+        x = x[:ch, :cw] >> pt
+        if not single:
+            mcux, mcuy = -(-w // max_h), -(-h // max_v)
+            x = np.pad(x, ((0, mcuy * sv - ch), (0, mcux * sh - cw)),
+                       mode="edge")
+        comps.append(x)
+    body = struct.pack(">BHHB", precision, h, w, nc)
+    for cid, (sh, sv) in zip(ids, sampling):
+        body += bytes([cid, (sh << 4) | sv, 0])
+    out = bytearray(b"\xff\xd8\xff\xc3" + struct.pack(">H", len(body) + 2)
+                    + body)
+    if restart_rows:
+        per_row = -(-w // max_h) if not single else None
+        out += b"\xff\xdd\x00\x04"
+        out += struct.pack(">H", restart_rows * (per_row or comps[0].shape[1]))
+    scans = [list(range(nc))] if not single else [[i] for i in range(nc)]
+    for cis in scans:
+        # each scan's differences in coding order: an MCU's samples, the
+        # component's h x v for each component in turn
+        units = []
+        for ci in cis:
+            d = _lossless_diffs(comps[ci], predictor, precision - pt,
+                                restart_rows * (1 if single else
+                                                sampling[ci][1]))
+            sh, sv = (1, 1) if single else sampling[ci]
+            rows, cols = d.shape[0] // sv, d.shape[1] // sh
+            units.append(d.reshape(rows, sv, cols, sh).transpose(
+                0, 2, 1, 3).reshape(rows * cols, sv * sh))
+        per = restart_rows * (cols if single else -(-w // max_h))
+        dht, ent = _lossless_scan(np.concatenate(units, 1), per)
+        sos = bytes([len(cis)]) + b"".join(bytes([ids[ci], 0x00])
+                                           for ci in cis)
+        sos += bytes([predictor, 0, pt])
+        out += _dht(dht) + b"\xff\xda" + struct.pack(">H", len(sos) + 2)
+        out += sos + ent
+    return bytes(out + b"\xff\xd9")
+
+
+def _lossless_scan(units: np.ndarray, per: int):
+    """(DHT segment body, entropy bytes) of a lossless scan: ``units``
+    (MCUs, samples an MCU) of differences coded as DC sizes (16 for 32768,
+    with no extra bits) with one optimal table, restart markers every
+    ``per`` MCUs.  Vectorised: the bits of each code and value are laid
+    out with numpy, then packed, padded with 1 bits and stuffed."""
+    d = units.astype(np.int64)
+    size = np.where(d == 32768, 16, np.ceil(np.log2(np.abs(d) + 1)))
+    size = size.astype(np.int64)
+    extra = np.where(size == 16, 0, np.where(d >= 0, d, d - 1)
+                     & ((1 << size) - 1))
+    bits, vals = optimal_table(np.bincount(size.ravel(), minlength=256))
+    code = np.zeros(256, np.int64)
+    length = np.zeros(256, np.int64)
+    for sym, (c, n) in _codes(bits, vals).items():
+        code[sym], length[sym] = c, n
+    dht = bytes([0]) + bits + vals
+    per = per or len(d)
+    out = bytearray()
+    for k, start in enumerate(range(0, len(d), per)):
+        if k:
+            out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        s = size[start:start + per].ravel()
+        e = extra[start:start + per].ravel()
+        values = np.stack([code[s], e], 1).ravel()
+        lens = np.stack([length[s], np.where(s == 16, 0, s)], 1).ravel()
+        out += _pack_bits(values, lens)
+    return dht, bytes(out)
+
+
+def _pack_bits(values: np.ndarray, lens: np.ndarray) -> bytes:
+    """The codes ``values`` of ``lens`` bits each, most significant bit
+    first, padded with 1 bits to a byte and with 0xFF bytes stuffed."""
+    total = int(lens.sum())
+    pad = -total % 8
+    out = np.ones(total + pad, np.uint8)
+    start = np.cumsum(lens) - lens
+    for k in range(int(lens.max(initial=0))):
+        sel = lens > k
+        out[start[sel] + k] = (values[sel] >> (lens[sel] - 1 - k)) & 1
+    return np.packbits(out).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _lossless_diffs(x, predictor, bits, restart_rows):
+    """T.81 H.1.2's differences of the (rows, cols) samples ``x`` (already
+    point-transformed, ``bits`` of precision), modulo 2**16 as
+    -32767..32768: the first row (and each restart interval's) predicted
+    from the left with 2**(bits-1) first, the first column from above,
+    the rest by ``predictor``."""
+    rows, cols = x.shape
+    ra = np.zeros_like(x)
+    rb = np.zeros_like(x)
+    rc = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb[1:] = x[:-1]
+    rc[1:, 1:] = x[:-1, :-1]
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+            5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+            7: (ra + rb) >> 1}[predictor].copy()
+    pred[:, 0] = rb[:, 0]
+    first = np.zeros(rows, bool)
+    first[::restart_rows or rows] = True
+    pred[first, 1:] = x[first, :-1]
+    pred[first, 0] = 1 << (bits - 1)
+    d = (x - pred) % 65536
+    return np.where(d > 32768, d - 65536, d)

@@ -14,10 +14,19 @@
 //     T.81 Annex D/F/G and jdarith.c: the QM decoder (Table D.2), the DC
 //     and AC statistics, DAC conditioning (defaults L 0, U 1, Kx 5);
 //   - Huffman scans whose tables no DHT defined (Motion-JPEG frames)
-//     take the Annex K tables in slots 0 and 1, as jstdhuff.c loads them.
+//     take the Annex K tables in slots 0 and 1, as jstdhuff.c loads them;
+//   - lossless (SOF3, T.81 Annex H; jdlhuff.c, jddiffct.c, jdlossls.c):
+//     2-8-bit samples, predictors 1-7, point transforms, restart
+//     intervals of whole MCU rows, upsampled by replication, in the read
+//     modes libjpeg-turbo converts losslessly (gray as gray, RGB as
+//     colour, CMYK).
 // It follows the steps of libjpeg-turbo's default decompressor:
 //   - jidctint.c's ISLOW inverse DCT (CONST_BITS 13, PASS1_BITS 2) and
 //     its range-limit table (the result masked to 10 bits);
+//   - jdcoefct.c's block smoothing of a progressive file whose scans
+//     leave any of zigzag coefficients 1-9 short of full precision
+//     (smoothing_ok, decompress_smooth_data: the 5 x 5 DC neighbourhood,
+//     the Al bounds, the DC interpolation of a DC-only file);
 //   - jdsample.c's fancy upsampling: h2v1 (bias 1/2), h1v2 (bias 1/2)
 //     and h2v2 (the triangle filter, biases 8/7 >> 4) with context rows,
 //     the edge rows and columns replicated; plain replication where a
@@ -31,14 +40,17 @@
 //     channels weighted 4899, 9617, 1868 >> 14, rounded);
 //   - the EXIF orientation (APP1 "Exif", IFD0 tag 0x0112, either byte
 //     order) applied as OpenCV's ApplyExifOrientation does.
-// It refuses lossless (SOF3, SOF11) and hierarchical files, other
-// precisions than 8 bits, 2-component files, images of more than 2^30
-// pixels (OpenCV's limit) and a progressive file whose scans leave any of
-// coefficients 1-9 of a component short of full precision (libjpeg then
-// smooths the blocks, jdcoefct.c decompress_smooth_data).  It raises on
-// corrupt or truncated entropy data (libjpeg fills the rest of such an
-// image with gray and only warns); a progressive or arithmetic-coded file
-// must end in its EOI marker, as one cut after some scans does not.
+// It refuses what cv2 refuses, saying so: lossless arithmetic (SOF11) and
+// hierarchical files, DCT precisions other than 8 bits and lossless ones
+// above 8, 2-component files, MCUs of more than 10 blocks, images of more
+// than 2^30 pixels (OpenCV's limit).  Where the data ends is read as cv2
+// reads it: bytes as cv2.imdecode (libjpeg's memory source: a file of
+// several scans needs its EOI, and so does a lone scan whose data runs
+// to the end), a file as cv2.imread (libjpeg's stdio source supplies the
+// EOI at the end of the file).  It also raises on corrupt entropy data
+// and on data that runs short, which libjpeg recovers from with a
+// warning (cv2.imread fills the rest of a cut file with gray): those are
+// known differences.
 //
 // Encoder: cv2.imencode(".jpg") at its defaults, byte for byte: quality
 // 95 (jpeg_quality_scaling, baseline-limited tables), a JFIF 1.01 APP0,
@@ -65,6 +77,10 @@ namespace {
 struct Error : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
+
+// what a refusal of a kind of file adds: OpenCV's build of libjpeg-turbo
+// refuses it as well
+const char* const kCv2Too = " (cv2 returns None for it too)";
 
 const int kNatural[64] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -332,6 +348,34 @@ const uint8_t kValsAcChroma[162] = {
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
+// jdcoefct.c decompress_smooth_data: the estimate of zigzag coefficient
+// k (1-9) from the 5 x 5 DC values around a block (rows then columns
+// -2..2), with DC interpolation (no AC scan coded coefficients 1-9) and
+// without it (a 5 x 5 form of T.81 K.8; none for k 6-9)
+struct SmoothKernel {
+  int pos;  // natural index
+  int with_dc[25];
+  int without[25];
+  bool has_without;
+};
+const SmoothKernel kSmooth[9] = {
+    {1, {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, true},
+    {8, {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0}, true},
+    {16, {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0}, true},
+    {9, {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0}, true},
+    {2, {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, true},
+    {3, {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}, {0}, false},
+    {10, {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0}, {0}, false},
+    {17, {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}, {0}, false},
+    {24, {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}, {0}, false}};
+const int kSmoothDc[25] = {-2, -6, -8, -6, -2, -6, 6,  42, 6,  -6, -8, 42, 152,
+                           42, -8, -6, 6,  42, 6,  -6, -2, -6, -8, -6, -2};
+
 // ---------------------------------------------------------------------------
 // Decoder
 // ---------------------------------------------------------------------------
@@ -391,6 +435,9 @@ struct Component {
   bool latched = false;
   bool seen = false;
   int coef_bits[64];  // progressive: the Al each coefficient reached, -1
+  // lossless: the differences a scan decoded, then the samples
+  std::vector<int32_t> diff;
+  std::vector<uint8_t> samples;
 };
 
 struct BitReader {
@@ -595,7 +642,14 @@ struct Decoder {
   HuffTable dc[4], ac[4];
   int restart_interval = 0;
   bool have_frame = false, progressive = false, arith = false;
+  bool lossless = false;
+  int precision = 8;
+  bool gray = false;         // the read asked for: cv2's IMREAD_GRAYSCALE
+  bool eof_is_eoi = false;   // a file read: the end of the data is its EOI
+  int scans = 0;
+  bool last_scan_at_end = false;  // the last scan's data ran to the end
   bool saw_eoi = false, std_tables = false;
+  bool smoothing = false;  // libjpeg smooths the blocks (smoothing_ok)
   // DAC conditioning (jdmarker.c get_soi's defaults)
   uint8_t dc_l[16], dc_u[16], ac_k[16];
   uint8_t dc_stats[16][64], ac_stats[16][256];
@@ -662,16 +716,22 @@ struct Decoder {
     if (have_frame) fail("JPEG with more than one frame");
     progressive = marker == 0xC2 || marker == 0xCA;
     arith = marker == 0xC9 || marker == 0xCA;
+    lossless = marker == 0xC3;
     if (len < 8) fail("corrupt SOF segment");
-    int precision = d[p];
+    precision = d[p];
     height = u16(p + 1);
     width = u16(p + 3);
     int nc = d[p + 5];
-    if (precision != 8)
-      fail(std::to_string(precision) +
-           "-bit JPEG is not decoded (only 8-bit samples are)");
+    // libjpeg-turbo reads 8-bit DCT files and 2-16-bit lossless ones
+    // through the API for their precision, and OpenCV calls only the
+    // 8-bit one
+    if (lossless && (precision < 2 || precision > 16))
+      fail("corrupt SOF segment (bad precision)");
+    if (precision > 8 || (!lossless && precision != 8))
+      fail(std::to_string(precision) + "-bit " +
+           (lossless ? "lossless " : "") + "JPEG is not decoded" + kCv2Too);
     if (nc != 1 && nc != 3 && nc != 4)
-      fail(std::to_string(nc) + "-component JPEG is not decoded");
+      fail(std::to_string(nc) + "-component JPEG is not decoded" + kCv2Too);
     if (height == 0)
       fail("JPEG with its height in a DNL marker is not decoded");
     if (width == 0) fail("JPEG of width 0");
@@ -679,7 +739,8 @@ struct Decoder {
     // decoder allocate without bound
     if (int64_t(width) * height > (int64_t(1) << 30))
       fail("JPEG of " + std::to_string(width) + "x" +
-           std::to_string(height) + " pixels is too large (limit 2^30)");
+           std::to_string(height) + " pixels is too large (limit 2^30)" +
+           kCv2Too);
     if (len != 6 + 3 * nc) fail("corrupt SOF segment");
     comps.resize(nc);
     max_h = max_v = 1;
@@ -694,18 +755,25 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
-    mcux = ceil_div(width, 8 * max_h);
-    mcuy = ceil_div(height, 8 * max_v);
+    // a lossless file's data unit is one sample, a DCT file's a block
+    const int du = lossless ? 1 : 8;
+    mcux = ceil_div(width, du * max_h);
+    mcuy = ceil_div(height, du * max_v);
     for (Component& c : comps) {
       if (max_h % c.h || max_v % c.v)
         fail("JPEG sampling factors that do not divide the largest");
-      c.width_in_blocks = ceil_div(width * c.h, 8 * max_h);
-      c.height_in_blocks = ceil_div(height * c.v, 8 * max_v);
+      c.width_in_blocks = ceil_div(width * c.h, du * max_h);
+      c.height_in_blocks = ceil_div(height * c.v, du * max_v);
       c.ds_w = ceil_div(width * c.h, max_h);
       c.ds_h = ceil_div(height * c.v, max_v);
       c.bw = nc == 1 ? c.width_in_blocks : mcux * c.h;
       c.bh = nc == 1 ? c.height_in_blocks : mcuy * c.v;
-      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      if (lossless) {
+        c.diff.assign(size_t(c.bw) * c.bh, 0);
+        c.samples.assign(size_t(c.bw) * c.bh, 0);
+      } else {
+        c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      }
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     have_frame = true;
@@ -1003,10 +1071,46 @@ struct Decoder {
     }
   }
 
+  // jdinput.c per_scan_setup: an interleaved scan's MCU holds at most 10
+  // blocks (or samples)
+  void check_mcu(const Scan& sc) {
+    if (sc.comp.size() < 2) return;
+    int units = 0;
+    for (int ci : sc.comp) units += comps[ci].h * comps[ci].v;
+    if (units > 10)
+      fail("corrupt SOS segment (more than 10 blocks in an MCU)" +
+           std::string(kCv2Too));
+  }
+
+  // the position after restart marker next_rst, expected at q (after any
+  // 0xFF fill bytes); next_rst moves on
+  size_t expect_rst(size_t q, int& next_rst) {
+    if (q >= n) fail("truncated JPEG entropy data");
+    if (d[q] != 0xFF) fail("corrupt JPEG entropy data (no restart marker)");
+    while (q < n && d[q] == 0xFF) ++q;
+    if (q >= n) fail("truncated JPEG entropy data");
+    if (d[q] != 0xD0 + next_rst)
+      fail("corrupt JPEG entropy data (restart marker out of order)");
+    next_rst = (next_rst + 1) & 7;
+    return q + 1;
+  }
+
+  // a Huffman scan's restart: the encoder pads the last byte with 1 bits,
+  // so fewer than 8 bits of entropy data may be left, and then the marker
+  void huffman_restart(BitReader& br, int& next_rst) {
+    if (br.overrun()) fail("truncated JPEG entropy data");
+    if (br.cnt - br.pad_bytes * 8 >= 8)
+      fail("corrupt JPEG entropy data (data before a restart marker)");
+    br.pos = expect_rst(br.pos, next_rst);
+    br.marker = false;
+    br.reset();
+  }
+
   // Decode one scan starting at p (after the SOS header); returns the
   // position of the marker that ends it.
   size_t read_scan(size_t p, const Scan& sc) {
     const size_t ns = sc.comp.size();
+    check_mcu(sc);
     const bool dc_band = sc.ss == 0;
     for (size_t i = 0; i < ns; ++i) {
       Component& c = comps[sc.comp[i]];
@@ -1054,31 +1158,14 @@ struct Decoder {
     std::vector<int> pred(ns, 0), ctx(ns, 0);
     int eobrun = 0, next_rst = 0;
     long units_left = restart_interval;
-    auto expect_rst = [&](size_t q) -> size_t {
-      if (q >= n) fail("truncated JPEG entropy data");
-      if (d[q] != 0xFF) fail("corrupt JPEG entropy data (no restart marker)");
-      while (q < n && d[q] == 0xFF) ++q;
-      if (q >= n) fail("truncated JPEG entropy data");
-      if (d[q] != 0xD0 + next_rst)
-        fail("corrupt JPEG entropy data (restart marker out of order)");
-      next_rst = (next_rst + 1) & 7;
-      return q + 1;
-    };
     auto restart = [&]() {
       if (arith) {
         // data the decoder did not need before the marker is skipped, as
         // jdmarker.c next_marker skips it
-        ar.reset(expect_rst(next_marker(d, n, ar.pos)));
+        ar.reset(expect_rst(next_marker(d, n, ar.pos), next_rst));
         reset_stats(sc);
       } else {
-        // the encoder pads the last byte with 1 bits: fewer than 8 bits of
-        // entropy data may be left, and then the marker
-        if (br.overrun()) fail("truncated JPEG entropy data");
-        if (br.cnt - br.pad_bytes * 8 >= 8)
-          fail("corrupt JPEG entropy data (data before a restart marker)");
-        br.pos = expect_rst(br.pos);
-        br.marker = false;
-        br.reset();
+        huffman_restart(br, next_rst);
         eobrun = 0;
       }
       std::fill(pred.begin(), pred.end(), 0);
@@ -1128,6 +1215,106 @@ struct Decoder {
     return next_marker(d, n, arith ? ar.pos : br.pos);
   }
 
+  // The lossless files that cv2 does not read in the mode asked for:
+  // libjpeg-turbo converts no colour space in lossless mode (a gray file
+  // reads only as gray, RGB only as colour, CMYK as CMYK, which OpenCV
+  // converts itself), and a 3-component file is RGB unless a JFIF marker
+  // or an Adobe transform other than 0 makes it YCbCr
+  void check_readable() {
+    if (!lossless) return;
+    const size_t nc = comps.size();
+    const char* why = nullptr;
+    if (nc == 1 && !gray) why = "a lossless gray JPEG read in colour";
+    if (nc == 3 && (jfif || (adobe && adobe_transform != 0)))
+      why = "a lossless YCbCr JPEG";
+    else if (nc == 3 && gray) why = "a lossless RGB JPEG read in gray";
+    if (nc == 4 && adobe && adobe_transform != 0)
+      why = "a lossless YCCK JPEG";
+    if (why) fail(std::string(why) + " is not decoded" + kCv2Too);
+  }
+
+  // A lossless scan (T.81 Annex H; jdlhuff.c, jddiffct.c): each sample's
+  // difference, a DC-style size (16: 32768, no extra bits) and its bits,
+  // MCU by MCU; restart intervals of whole MCU rows.  Then the samples,
+  // predicted as jdlossls.c predicts them.  Returns the position of the
+  // marker that ends the scan.
+  size_t read_lossless_scan(size_t p, const Scan& sc) {
+    const size_t ns = sc.comp.size();
+    check_mcu(sc);
+    for (size_t i = 0; i < ns; ++i) {
+      HuffTable& t = dc[sc.tdc[i]];
+      if (!t.defined) fail("JPEG scan uses an undefined Huffman table");
+      if (!t.valid || t.max_val > 16) fail("corrupt JPEG Huffman table");
+      comps[sc.comp[i]].seen = true;
+    }
+    const bool single = ns == 1;
+    const Component& c0 = comps[sc.comp[0]];
+    const int rows = single ? c0.height_in_blocks : mcuy;
+    const int cols = single ? c0.width_in_blocks : mcux;
+    // jddiffct.c counts restarts in MCU rows
+    if (restart_interval % cols)
+      fail("lossless JPEG whose restart interval is not a whole number of "
+           "MCU rows is not decoded" + std::string(kCv2Too));
+    const int interval_rows = restart_interval / cols;
+    BitReader br(d, n, p);
+    int next_rst = 0;
+    for (int r = 0; r < rows; ++r) {
+      if (interval_rows && r && r % interval_rows == 0)
+        huffman_restart(br, next_rst);
+      for (int q = 0; q < cols; ++q)
+        for (size_t i = 0; i < ns; ++i) {
+          Component& c = comps[sc.comp[i]];
+          int bh = single ? 1 : c.v, bw = single ? 1 : c.h;
+          for (int yy = 0; yy < bh; ++yy)
+            for (int xx = 0; xx < bw; ++xx) {
+              int s = huff(br, dc[sc.tdc[i]]);
+              int v = s == 16 ? 32768 : (s ? extend(br.get(s), s) : 0);
+              c.diff[size_t(r * bh + yy) * c.bw + q * bw + xx] = v;
+            }
+        }
+      if (br.overrun()) fail("truncated JPEG entropy data");
+    }
+    for (size_t i = 0; i < ns; ++i) {
+      Component& c = comps[sc.comp[i]];
+      undifference(c, sc.ss, sc.al, interval_rows * (single ? 1 : c.v));
+    }
+    return next_marker(d, n, br.pos);
+  }
+
+  // jdlossls.c: each sample its difference plus its prediction, modulo
+  // 2^16; the first row (and each restart interval's) from the left,
+  // 2^(precision - Pt - 1) first, the first column from above, the rest
+  // by the predictor; then shifted left by Pt into an 8-bit sample
+  void undifference(Component& c, int predictor, int pt, int interval) {
+    std::vector<int> prev(c.bw), cur(c.bw);
+    for (int r = 0; r < c.bh; ++r) {
+      const int32_t* dr = &c.diff[size_t(r) * c.bw];
+      const bool first = r == 0 || (interval && r % interval == 0);
+      for (int x = 0; x < c.bw; ++x) {
+        int pred;
+        if (first) {
+          pred = x ? cur[x - 1] : 1 << (precision - pt - 1);
+        } else if (x == 0) {
+          pred = prev[0];
+        } else {
+          const int ra = cur[x - 1], rb = prev[x], rc = prev[x - 1];
+          switch (predictor) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = ra + rb - rc; break;
+            case 5: pred = ra + ((rb - rc) >> 1); break;
+            case 6: pred = rb + ((ra - rc) >> 1); break;
+            default: pred = (ra + rb) >> 1; break;
+          }
+        }
+        cur[x] = (dr[x] + pred) & 0xFFFF;
+        c.samples[size_t(r) * c.bw + x] = static_cast<uint8_t>(cur[x] << pt);
+      }
+      std::swap(prev, cur);
+    }
+  }
+
   // libjpeg smooths the blocks of a progressive file (jdcoefct.c
   // smoothing_ok) where any component's coefficients 1-9 end short of
   // full precision, its DC is known and its quantisers there are nonzero
@@ -1154,6 +1341,11 @@ struct Decoder {
       while (p < n && d[p] == 0xFF) ++p;
       if (p >= n) {
         if (!done_any_scan) fail("truncated JPEG file (no image data)");
+        // cv2.imread reads a file through libjpeg's stdio source, which
+        // supplies an EOI marker at the end of the file; the port takes it
+        // where it can tell that the scans' data is whole (not after
+        // arithmetic-coded data, which decodes on from zero bits)
+        if (eof_is_eoi && !(arith && last_scan_at_end)) saw_eoi = true;
         break;
       }
       int m = d[p++];
@@ -1171,14 +1363,14 @@ struct Decoder {
         case 0xC0:
         case 0xC1:
         case 0xC2:
+        case 0xC3:
         case 0xC9:
         case 0xCA:
           read_sof(body, blen, m);
           break;
-        case 0xC3:
-          fail("lossless JPEG (SOF3) is not decoded");
         case 0xCB:
-          fail("lossless arithmetic-coded JPEG (SOF11) is not decoded");
+          fail(std::string("lossless arithmetic-coded JPEG (SOF11) is not "
+                           "decoded") + kCv2Too);
         case 0xC5:
         case 0xC6:
         case 0xC7:
@@ -1186,7 +1378,7 @@ struct Decoder {
         case 0xCE:
         case 0xCF:
         case 0xDE:
-          fail("hierarchical JPEG is not decoded");
+          fail(std::string("hierarchical JPEG is not decoded") + kCv2Too);
         case 0xCC:
           read_dac(body, blen);
           break;
@@ -1215,7 +1407,7 @@ struct Decoder {
           break;
         case 0xDA: {
           if (!have_frame) fail("JPEG scan before its frame header");
-          if (header_only) return;
+          check_readable();
           if (blen < 1) fail("corrupt SOS segment");
           int ns = d[body];
           if (ns < 1 || ns > 4 || blen != 4 + 2 * ns)
@@ -1242,7 +1434,13 @@ struct Decoder {
           s.se = d[body + 2 + 2 * ns];
           s.ah = d[body + 3 + 2 * ns] >> 4;
           s.al = d[body + 3 + 2 * ns] & 15;
-          if (!progressive) {
+          if (lossless) {
+            // jdlossls.c start_pass: a predictor, and a point transform
+            // below the precision
+            if (s.ss < 1 || s.ss > 7 || s.se != 0 || s.ah != 0 ||
+                s.al >= precision)
+              fail("corrupt SOS segment (bad lossless parameters)");
+          } else if (!progressive) {
             if (s.ss != 0 || s.se != 63 || s.ah != 0 || s.al != 0)
               fail("corrupt SOS segment");
           } else {
@@ -1254,9 +1452,15 @@ struct Decoder {
             for (int ci : sc)
               for (int k = s.ss; k <= s.se; ++k) comps[ci].coef_bits[k] = s.al;
           }
+          check_mcu(s);
+          // the size: from the headers up to the first scan's
+          if (header_only) return;
           if (!arith && !std_tables) load_std_tables();
-          p = read_scan(body + blen, s);
+          p = lossless ? read_lossless_scan(body + blen, s)
+                       : read_scan(body + blen, s);
           done_any_scan = true;
+          ++scans;
+          last_scan_at_end = p >= n;
           continue;
         }
         default:
@@ -1267,35 +1471,124 @@ struct Decoder {
     if (!have_frame) fail("JPEG without a frame header");
     for (const Component& c : comps)
       if (!c.seen) fail("truncated JPEG file (a component has no scan)");
-    // libjpeg shows what the scans before a cut hold; the port refuses
-    if ((progressive || arith) && !saw_eoi)
-      fail("truncated progressive or arithmetic-coded JPEG (no EOI marker "
-           "after its scans) is not decoded");
-    if (progressive && would_smooth())
-      fail("progressive JPEG whose scans leave coefficients 1-9 short of "
-           "full precision (libjpeg's block smoothing) is not decoded");
+    // cv2.imdecode's memory source has no byte past the end of the
+    // buffer, and libjpeg's read of one suspends, which OpenCV takes as a
+    // failure: libjpeg reads a file of several scans (every progressive
+    // one) to its EOI before any output, and a lone scan as far as its bit
+    // reader looks ahead
+    if (!saw_eoi && eof_is_eoi)
+      fail("arithmetic-coded JPEG whose scan data runs to the end of the "
+           "file is not decoded (cv2.imread decodes it on from zero bits)");
+    if (!saw_eoi && (progressive || scans > 1))
+      fail(std::string("JPEG of several scans without an EOI marker after "
+                       "them is not decoded") + kCv2Too);
+    if (!saw_eoi && last_scan_at_end)
+      fail("JPEG whose scan data runs to the end of the bytes without an "
+           "EOI marker is not decoded (cv2.imdecode returns None for it "
+           "unless libjpeg's bit reader looks no byte past the end)");
+    smoothing = progressive && would_smooth();
+  }
+
+  // the rows of the DC values around each block row (-2..2), as
+  // decompress_smooth_data picks them: an iMCU row counts `rows` block
+  // rows (the last one only its real ones), and a neighbour row that this
+  // index math puts outside the image repeats the nearer one
+  std::vector<int> smooth_rows(const Component& c) const {
+    const int hb = c.height_in_blocks, v = c.v, total = mcuy;
+    std::vector<int> out(size_t(hb) * 5);
+    for (int r = 0; r < hb; ++r) {
+      int i = r / v, b = r % v;
+      int rows = i < total - 1 ? v : (hb % v ? hb % v : v);
+      int at = i * rows + b, n = rows * total;
+      int prev = at > 0 ? r - 1 : r, prev2 = at > 1 ? r - 2 : prev;
+      int next = at < n - 1 ? r + 1 : r, next2 = at < n - 2 ? r + 2 : next;
+      int* o = &out[size_t(r) * 5];
+      o[0] = prev2, o[1] = prev, o[2] = r, o[3] = next, o[4] = next2;
+    }
+    return out;
+  }
+
+  // jdcoefct.c decompress_smooth_data on block (by, bx), copied into ws:
+  // zigzag coefficients 1-9 still zero and short of full precision
+  // (coef_bits k != 0: the Al of the last scan that coded them, -1 for
+  // none) are estimated from the 5 x 5 DC values around it, bounded
+  // below 2^Al; where no AC scan coded any of them (change_dc), the DC is
+  // replaced by its interpolation too
+  void smooth_block(const Component& c, const int* rows, bool change_dc,
+                    int by, int bx, int16_t* ws) const {
+    int dc[25];
+    for (int a = 0; a < 5; ++a) {
+      int r = rows[size_t(by) * 5 + a];
+      for (int b = 0; b < 5; ++b) {
+        int q = std::min(std::max(bx + b - 2, 0), c.width_in_blocks - 1);
+        // a lone component's dummy rows hold no coefficients
+        dc[5 * a + b] = r < c.bh ? c.coef[(size_t(r) * c.bw + q) * 64] : 0;
+      }
+    }
+    const int64_t q00 = c.qlatch[0];
+    auto estimate = [&](const int* w, int64_t qk, int al, bool bounded) {
+      int64_t sum = 0;
+      for (int i = 0; i < 25; ++i) sum += int64_t(w[i]) * dc[i];
+      int64_t num = q00 * sum;
+      int64_t pred = ((qk << 7) + (num < 0 ? -num : num)) / (qk << 8);
+      if (bounded && al > 0 && pred >= (int64_t(1) << al))
+        pred = (int64_t(1) << al) - 1;
+      return static_cast<int16_t>(num < 0 ? -pred : pred);
+    };
+    for (int k = 1; k <= 9; ++k) {
+      const SmoothKernel& sk = kSmooth[k - 1];
+      const int al = c.coef_bits[k];
+      if (al == 0 || ws[sk.pos] != 0 || (!change_dc && !sk.has_without))
+        continue;
+      ws[sk.pos] = estimate(change_dc ? sk.with_dc : sk.without,
+                            c.qlatch[sk.pos], al, true);
+    }
+    if (change_dc) ws[0] = estimate(kSmoothDc, q00, 0, false);
   }
 
   // the component's samples (ds_h rows of ds_w)
   std::vector<uint8_t> plane(const Component& c) {
+    if (lossless) {
+      std::vector<uint8_t> out(size_t(c.ds_w) * c.ds_h);
+      for (int y = 0; y < c.ds_h; ++y)
+        std::memcpy(&out[size_t(y) * c.ds_w], &c.samples[size_t(y) * c.bw],
+                    c.ds_w);
+      return out;
+    }
     int pw = c.bw * 8;
     std::vector<uint8_t> full(size_t(pw) * c.bh * 8);
+    std::vector<int> rows;
+    bool change_dc = true;
+    if (smoothing) {
+      rows = smooth_rows(c);
+      for (int k = 1; k <= 9; ++k)
+        if (c.coef_bits[k] != -1) change_dc = false;
+    }
+    int16_t ws[64];
     for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.qlatch,
-                   &full[size_t(by) * 8 * pw + bx * 8], pw);
+      for (int bx = 0; bx < c.bw; ++bx) {
+        const int16_t* blk = &c.coef[(size_t(by) * c.bw + bx) * 64];
+        if (smoothing && by < c.height_in_blocks && bx < c.width_in_blocks) {
+          std::memcpy(ws, blk, sizeof(ws));
+          smooth_block(c, rows.data(), change_dc, by, bx, ws);
+          blk = ws;
+        }
+        idct_islow(blk, c.qlatch, &full[size_t(by) * 8 * pw + bx * 8], pw);
+      }
     std::vector<uint8_t> out(size_t(c.ds_w) * c.ds_h);
     for (int y = 0; y < c.ds_h; ++y)
       std::memcpy(&out[size_t(y) * c.ds_w], &full[size_t(y) * pw], c.ds_w);
     return out;
   }
 
-  // upsample a component to at least width x height (jdsample.c)
+  // upsample a component to at least width x height (jdsample.c; in
+  // lossless mode by replication only)
   std::vector<uint8_t> upsample(const Component& c) {
     std::vector<uint8_t> in = plane(c);
     int rh = max_h / c.h, rv = max_v / c.v;
     int w = c.ds_w, h = c.ds_h;
     if (rh == 1 && rv == 1) return in;
+    const bool fancy = !lossless;
     int ow = w * rh, oh = h * rv;
     std::vector<uint8_t> out(size_t(ow) * oh);
     auto at = [&](int y, int x) -> int {
@@ -1303,7 +1596,7 @@ struct Decoder {
       x = std::min(std::max(x, 0), w - 1);
       return in[size_t(y) * w + x];
     };
-    if (rh == 2 && rv == 1 && w > 2) {
+    if (fancy && rh == 2 && rv == 1 && w > 2) {
       for (int y = 0; y < h; ++y)
         for (int x = 0; x < w; ++x) {
           int cur = at(y, x) * 3;
@@ -1312,7 +1605,7 @@ struct Decoder {
           out[size_t(y) * ow + 2 * x + 1] =
               static_cast<uint8_t>((cur + at(y, x + 1) + 2) >> 2);
         }
-    } else if (rh == 1 && rv == 2) {
+    } else if (fancy && rh == 1 && rv == 2) {
       for (int y = 0; y < h; ++y)
         for (int x = 0; x < w; ++x) {
           int cur = at(y, x) * 3;
@@ -1321,7 +1614,7 @@ struct Decoder {
           out[size_t(2 * y + 1) * ow + x] =
               static_cast<uint8_t>((cur + at(y + 1, x) + 2) >> 2);
         }
-    } else if (rh == 2 && rv == 2 && w > 2) {
+    } else if (fancy && rh == 2 && rv == 2 && w > 2) {
       std::vector<int> cs(w);
       for (int y = 0; y < h; ++y)
         for (int vv = 0; vv < 2; ++vv) {
@@ -1405,8 +1698,10 @@ struct Decoder {
       }
       return;
     }
+    // a lossless file that reaches here is RGB (check_readable)
     bool rgb_space;
-    if (jfif) rgb_space = false;
+    if (lossless) rgb_space = true;
+    else if (jfif) rgb_space = false;
     else if (adobe) rgb_space = adobe_transform == 0;
     else
       rgb_space = comps[0].id == 'R' && comps[1].id == 'G' &&
@@ -1804,12 +2099,18 @@ void set_error(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
+// The flags of a read: bit 0 a gray read (cv2's IMREAD_GRAYSCALE, else
+// IMREAD_COLOR), bit 1 the read of a file (cv2.imread: the end of the data
+// reads as an EOI marker; else cv2.imdecode's read of bytes).
+
 // Size from the markers before the first scan, without entropy
-// decoding: the frame's height and width and the EXIF orientation.
-int jpeg_size(const uint8_t* data, size_t n, int* h, int* w, int* orientation,
-              char* err, int errlen) {
+// decoding: the frame's height and width and the EXIF orientation; fails
+// where the headers show a file the read refuses.
+int jpeg_size(const uint8_t* data, size_t n, int flags, int* h, int* w,
+              int* orientation, char* err, int errlen) {
   try {
     Decoder dec(data, n);
+    dec.gray = flags & 1;
     dec.parse(true);
     if (!dec.have_frame) throw Error("JPEG without a frame header");
     *h = dec.height;
@@ -1825,11 +2126,14 @@ int jpeg_size(const uint8_t* data, size_t n, int* h, int* w, int* orientation,
 // Decode to *out (malloc'd; free it with jpeg_free): *oh x *ow gray, or
 // x 3 RGB, after the EXIF orientation.  Returns 0, or 1 with a message
 // in err.
-int jpeg_decode(const uint8_t* data, size_t n, int gray, uint8_t** out,
+int jpeg_decode(const uint8_t* data, size_t n, int flags, uint8_t** out,
                 int* oh, int* ow, char* err, int errlen) {
   *out = nullptr;
+  const int gray = flags & 1;
   try {
     Decoder dec(data, n);
+    dec.gray = gray;
+    dec.eof_is_eoi = flags & 2;
     dec.parse(false);
     int o = dec.orientation;
     bool t = o >= 5;

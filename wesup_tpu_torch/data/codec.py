@@ -13,24 +13,39 @@ datasets ship by itself, equal to what ``cv2.imread`` returns for them:
   replicate gray; grayscale reads of colour images use libpng's
   ``png_set_rgb_to_gray(0.299, 0.587)`` fixed-point weights (at 16 bits
   rounded, before the high byte is kept);
-- BMP, uncompressed (``BI_RGB``), 8-bit palette, 24 and 32 bits (GlaS
-  ships BMP); grayscale reads use OpenCV's own BGR -> gray weights
-  (14-bit fixed point, rounded);
+- BMP, every kind that OpenCV's own BMP decoder reads (GlaS ships BMP):
+  1-, 4- and 8-bit palettes (short palettes padded with black), RLE4 and
+  RLE8 (end-of-line, delta and absolute runs; skipped pixels take palette
+  entry 0), 16-bit 5-5-5 and ``BI_BITFIELDS`` 5-6-5 (channels shifted,
+  not bit-replicated), 24 and 32 bits (``BI_RGB`` or ``BI_BITFIELDS``,
+  read as BGRA whatever the masks), the OS/2 12-byte header, top-down or
+  bottom-up rows; grayscale reads use OpenCV's own BGR -> gray weights
+  (14-bit fixed point, rounded) on the pixel or its palette entry;
 - JPEG, baseline, extended-sequential or progressive, Huffman- or
   arithmetic-coded, 8-bit, gray, YCbCr (or RGB), CMYK or YCCK, at any
   common sampling, with restart intervals, with or without its DHT
-  segments (Motion-JPEG frames) and with the EXIF orientation applied, by
-  the port's own library (``wesup_tpu_torch/csrc/jpeg.cpp`` through
-  ``native.jpeg_decode``), which follows libjpeg-turbo's default
-  decompressor step by step and OpenCV's own CMYK conversions.
+  segments (Motion-JPEG frames), progressive files that end short of full
+  precision (libjpeg's block smoothing), lossless files (SOF3, 2-8 bits,
+  every predictor and point transform, in the read modes cv2 reads them)
+  and with the EXIF orientation applied, by the port's own library
+  (``wesup_tpu_torch/csrc/jpeg.cpp`` through ``native.jpeg_decode``),
+  which follows libjpeg-turbo's default decompressor step by step and
+  OpenCV's own CMYK conversions.
 
-Anything else (lossless, hierarchical, 12-bit or 2-component JPEG, a
-progressive JPEG whose scans end short of full precision, which libjpeg
-smooths; compressed or bit-field BMP; other formats) raises
-``ValueError`` naming the file and the reason.  So do corrupt or
-truncated data: where libjpeg fills the rest of a truncated JPEG with
-gray and only warns, the port raises, as it does for a cut PNG.  There is
-one route on every machine, whether OpenCV is installed or not.
+What cv2 does not read raises :class:`ImageReadError`, which is both a
+``FileNotFoundError`` (as the JAX package's readers raise where
+``cv2.imread`` returns None) and a ``ValueError``: hierarchical, 12-bit,
+2-component or lossless arithmetic-coded JPEG, a lossless file in a read
+mode libjpeg-turbo does not convert, other formats.  Its message starts as
+the JAX package's (``cannot read image: <path>`` or ``cannot read mask:
+<path>``) and gives the reason.  A path is read as ``cv2.imread`` reads a
+file (libjpeg's stdio source supplies the EOI marker a JPEG lacks at its
+end), bytes as ``cv2.imdecode`` reads them (a JPEG of several scans
+without its EOI is refused).  Corrupt data that libjpeg recovers from with
+a warning also raises (ROADMAP, known differences): entropy data that runs
+short, which ``cv2.imread`` fills with gray, and restart markers that it
+resynchronises.  There is one route on every machine, whether OpenCV is
+installed or not.
 
 Encoding, for synthetic datasets and for the masks that the inference
 entry points and the server write, byte for byte as ``cv2.imencode``
@@ -51,25 +66,29 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
+from .jpeg import CV2_TOO
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # by colour type
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
                4: (8, 16), 6: (8, 16)}
-# where the JPEG kinds that the library refuses are planned
-_LATER = ("lossless, hierarchical, 12-bit, 2-component and smoothed "
-          "progressive JPEG: ROADMAP Queue 1 item 9")
 
 
-def _png_header(data: bytes, name: str):
+class ImageReadError(FileNotFoundError, ValueError):
+    """An image that ``cv2.imread`` returns None for.  A
+    ``FileNotFoundError``, as the JAX package's readers raise there, and a
+    ``ValueError``, as the port's decoder always raised."""
+
+
+def _png_header(data: bytes):
     if data[12:16] != b"IHDR":
-        raise ValueError(f"{name}: PNG without an IHDR chunk first")
+        raise ValueError("PNG without an IHDR chunk first")
     w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
                                                         data[16:29])
     if (ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype]
             or interlace > 1 or w == 0 or h == 0):
         raise ValueError(
-            f"{name}: PNG with bit depth {depth}, colour type {ctype}, "
+            f"PNG with bit depth {depth}, colour type {ctype}, "
             f"interlace {interlace} is not a valid PNG")
     return h, w, depth, ctype, interlace
 
@@ -127,11 +146,11 @@ def _unpack(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
 
 
-def _decode_png(data: bytes, name: str):
+def _decode_png(data: bytes):
     """(H, W, C) samples (uint8, or uint16 at bit depth 16; palette indices
     expanded; gray below 8 bits scaled to 0-255 as
     ``png_set_expand_gray_1_2_4_to_8``), the colour type and the depth."""
-    h, w, depth, ctype, interlace = _png_header(data, name)
+    h, w, depth, ctype, interlace = _png_header(data)
     pos, idat, palette = 8, [], None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -139,7 +158,7 @@ def _decode_png(data: bytes, name: str):
         crc = data[pos + 8 + length:pos + 12 + length]
         if len(crc) != 4 or zlib.crc32(kind + body) != struct.unpack(
                 ">I", crc)[0]:
-            raise ValueError(f"{name}: PNG chunk {kind!r} is corrupt")
+            raise ValueError(f"PNG chunk {kind!r} is corrupt")
         if kind == b"IDAT":
             idat.append(body)
         elif kind == b"PLTE":
@@ -160,14 +179,14 @@ def _decode_png(data: bytes, name: str):
         rowbytes = (pw * bits + 7) // 8
         size = ph * (1 + rowbytes)
         if raw.size < at + size:
-            raise ValueError(f"{name}: PNG image data is truncated")
+            raise ValueError("PNG image data is truncated")
         rows = _unfilter(raw[at:at + size].reshape(ph, 1 + rowbytes), ph,
                          rowbytes // fbpp, fbpp).reshape(ph, rowbytes)
         pix[y0::dy, x0::dx] = _unpack(rows, pw, ch, depth)
         at += size
     if ctype == 3:
         if palette is None:
-            raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+            raise ValueError("palette PNG without a PLTE chunk")
         pix = palette[pix[..., 0]]
     elif depth < 8:
         pix = pix * np.uint8(255 // ((1 << depth) - 1))
@@ -207,47 +226,223 @@ def _bgr_gray(rgb: np.ndarray) -> np.ndarray:
             >> 14).astype(np.uint8)
 
 
-def _decode_bmp(data: bytes, name: str, gray: bool) -> np.ndarray:
-    offset, dib = struct.unpack("<II", data[10:18])
-    w, h, _, bits, compression = struct.unpack("<iiHHI", data[18:34])
-    if compression != 0 or bits not in (8, 24, 32) or dib < 40 or w <= 0:
-        raise ValueError(f"{name}: BMP with {bits} bits, compression "
-                         f"{compression}; only uncompressed 8/24/32-bit BMPs "
-                         "are decoded")
+def _bmp_header(data: bytes):
+    """(width, height, bits, compression, palette (256, 3) RGB or None,
+    masks or None) of a BMP as OpenCV's ``BmpDecoder::readHeader`` reads
+    it: a DIB header
+    of 36 bytes or more (16-bit files 5-5-5, or ``BI_BITFIELDS`` with the
+    R, G, B masks of 5-6-5 or 5-5-5 read right after the header, whatever
+    its size; 32-bit ``BI_BITFIELDS`` read as BGRA unless a header of 56
+    bytes or more holds three nonzero masks), or the OS/2 12-byte one; a
+    palette of ``biClrUsed`` entries (0: all), the rest black.  Bits 15
+    stand for 5-5-5; ``masks`` are a masked 32-bit file's R, G, B ones."""
+    size = struct.unpack("<i", data[14:18])[0]
+    if size >= 36:
+        w, h, bits, comp = struct.unpack("<iiiI", data[18:34])
+        bits >>= 16                                 # planes, then bits
+        used = struct.unpack("<i", data[46:50])[0]
+        ok = w > 0 and h != 0 and (
+            (bits in (1, 4, 8, 24, 32) and comp == 0)
+            or (bits in (16, 32) and comp in (0, 3))
+            or (bits, comp) in ((4, 2), (8, 1)))
+        if not ok or comp > 3:
+            raise ValueError(f"BMP with {bits} bits and compression {comp} "
+                             "is not decoded")
+        pal = masks = None
+        at = 14 + size
+        if bits <= 8:
+            if not 0 <= used <= 256:
+                raise ValueError("corrupt BMP palette size")
+            n = used or 1 << bits
+            entries = np.frombuffer(data[at:at + 4 * n], np.uint8)
+            if entries.size != 4 * n:
+                raise ValueError("truncated BMP palette")
+            pal = np.zeros((256, 3), np.uint8)
+            pal[:n] = entries.reshape(n, 4)[:, 2::-1]      # BGRX -> RGB
+        elif bits == 16 and comp == 3:
+            masks = struct.unpack("<III", data[at:at + 12])
+            if masks not in ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)):
+                raise ValueError(f"BMP with bit-field masks {masks} is not "
+                                 "decoded")
+            bits = 15 if masks[0] == 0x7C00 else 16
+        elif bits == 16:
+            bits = 15
+        elif bits == 32 and comp == 3 and size >= 56:
+            masks = struct.unpack("<III", data[54:66])
+            if not all(masks):
+                masks = None
+            for m in masks or ():
+                if (m + (m & -m)) & m:
+                    raise ValueError(f"BMP with the bit-field mask {m:#x} "
+                                     "is not decoded")
+        return w, h, bits, comp, pal, masks
+    if size != 12:
+        raise ValueError(f"BMP with a {size}-byte header is not decoded")
+    w, h, planes, bits = struct.unpack("<HHHH", data[18:26])
+    if not (w > 0 and h > 0 and planes == 1 and bits in (1, 4, 8, 24, 32)):
+        raise ValueError(f"OS/2 BMP with {bits} bits is not decoded")
+    pal = None
+    if bits <= 8:
+        n = 1 << bits
+        entries = np.frombuffer(data[26:26 + 3 * n], np.uint8)
+        if entries.size != 3 * n:
+            raise ValueError("truncated BMP palette")
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:n] = entries.reshape(n, 3)[:, ::-1]
+    return w, h, bits, 0, pal, None
+
+
+def _bmp_rle(data: bytes, at: int, w: int, h: int, bits: int):
+    """(h, w) palette indices, first stored row first, of RLE8 (``bits``
+    8) or RLE4 data from ``at``, decoded as OpenCV's ``BmpDecoder``
+    decodes it: a cursor over the rows that escape codes move by filling
+    with entry 0.  RLE8: end of line fills the rest of the row, end of
+    bitmap the rest of the image, delta (dx, dy) dx + dy * w pixels; an
+    encoded run that fills a row steps to the next, and an end-of-line
+    code right after it is a no-op.  RLE4: end of line and end of bitmap
+    both fill the rest of the row, delta dx pixels (dy is read and
+    ignored).  A run past its row is corrupt, as is data that ends before
+    the last row."""
+    out = np.zeros((h, w), np.uint8)
+    y = x = 0
+    stepped = False                       # RLE8: the last run ended a row
+
+    def fill(count, value):
+        nonlocal y, x
+        while True:
+            end = min(x + count, w)
+            count -= end - x
+            out[y, x:end] = value
+            x = end
+            if x >= w:
+                y, x = y + 1, 0
+                if y >= h:
+                    return
+            if count <= 0:
+                return
+
+    while y < h:
+        if at + 2 > len(data):
+            raise ValueError("truncated BMP RLE data")
+        n, code = data[at], data[at + 1]
+        at += 2
+        if n:                                           # encoded mode
+            if x + n > w:
+                raise ValueError("corrupt BMP RLE data (a run past its row)")
+            if bits == 8:
+                row = y
+                fill(n, code)
+                stepped = y != row
+            else:
+                out[y, x:x + n] = np.array([code >> 4, code & 15])[
+                    np.arange(n) % 2]
+                x += n
+        elif code > 2:                                  # absolute mode
+            if x + code > w:
+                raise ValueError("corrupt BMP RLE data (a run past its row)")
+            size = ((code + 1) & ~1 if bits == 8
+                    else (((code + 1) >> 1) + 1) & ~1)
+            raw = np.frombuffer(data[at:at + size], np.uint8)
+            if raw.size != size:
+                raise ValueError("truncated BMP RLE data")
+            at += size
+            if bits == 4:
+                raw = np.stack([raw >> 4, raw & 15], 1).reshape(-1)
+            out[y, x:x + code] = raw[:code]
+            x += code
+            stepped = False
+        else:
+            skip = w - x
+            if bits == 4 or code or not stepped or skip < w:
+                rows = h - y
+                if code == 2:
+                    if at + 2 > len(data):
+                        raise ValueError("truncated BMP RLE data")
+                    skip, rows = data[at], data[at + 1]
+                    at += 2
+                # RLE4 moves by the row's rest or dx alone
+                fill(skip + (rows * w if code and bits == 8 else 0), 0)
+            stepped = False
+    return out
+
+
+def _decode_bmp(data: bytes, gray: bool) -> np.ndarray:
+    """OpenCV's own BMP decoder (``grfmt_bmp.cpp``): see
+    :func:`_bmp_header` and :func:`_bmp_rle`; colour (RGB) or gray
+    (OpenCV's BGR -> gray weights on each pixel or palette entry)."""
+    w, h, bits, comp, pal, masks = _bmp_header(data)
     top_down, h = h < 0, abs(h)
-    stride = (w * bits + 31) // 32 * 4
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h,
-                                                                     stride)
-    if not top_down:
-        rows = rows[::-1]
-    if bits == 8:
-        n = struct.unpack("<I", data[46:50])[0] or 256
-        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + dib).reshape(n, 4)
-        pal = pal[:, 2::-1]                                   # BGRX -> RGB
-        if gray:
-            pal = _bgr_gray(pal)
-        return pal[rows[:, :w]]
-    rgb = rows[:, :w * bits // 8].reshape(h, w, bits // 8)[..., 2::-1]
-    return _bgr_gray(rgb) if gray else np.ascontiguousarray(rgb)
+    if w * h > 1 << 30:
+        raise ValueError(f"BMP of {w}x{h} pixels is too large (limit 2^30)")
+    offset = struct.unpack("<I", data[10:14])[0]
+    if comp in (1, 2):
+        px = _bmp_rle(data, offset, w, h, bits)
+    else:
+        stride = (w * (16 if bits == 15 else bits) + 31) // 32 * 4
+        rows = np.frombuffer(data[offset:offset + stride * h], np.uint8)
+        if rows.size != stride * h:
+            raise ValueError("truncated BMP pixel data")
+        rows = rows.reshape(h, stride)
+        if bits < 8:
+            px = np.unpackbits(rows, axis=1).reshape(h, -1, bits)
+            px = (px << np.arange(bits - 1, -1, -1)).sum(-1)[:, :w]
+        elif bits == 8:
+            px = rows[:, :w]
+        elif bits in (15, 16):         # channels shifted, not replicated
+            t = rows[:, :2 * w].view("<u2").astype(np.int64)
+            g = (t >> 2) & 0xF8 if bits == 15 else (t >> 3) & 0xFC
+            r = (t >> 7) & 0xF8 if bits == 15 else (t >> 8) & 0xF8
+            px = np.stack([r, g, (t << 3) & 0xF8], -1).astype(np.uint8)
+        elif masks:
+            # each channel scaled to 8 bits, truncated; gray in float32,
+            # truncated
+            u = rows[:, :4 * w].view("<u4").astype(np.int64)
+            ch = [(u & m) // (m & -m) * 255 // (m // (m & -m))
+                  for m in masks]
+            if gray:
+                r, g, b = (c.astype(np.float32) for c in ch)
+                y = (np.float32(0.299) * r + np.float32(0.587) * g
+                     + np.float32(0.114) * b)
+                return _bmp_rows(y.astype(np.uint8), top_down)
+            px = np.stack(ch, -1).astype(np.uint8)
+        else:                          # BGR or BGRA, the masks unread
+            px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)[..., 2::-1]
+    if bits <= 8:                      # palette indices
+        px = (_bgr_gray(pal) if gray else pal)[px]
+    elif gray:
+        px = _bgr_gray(px)
+    return _bmp_rows(px, top_down)
 
 
-def decode(data: bytes, gray: bool = False, name: str = "<bytes>"):
+def _bmp_rows(px: np.ndarray, top_down: bool) -> np.ndarray:
+    """The stored rows in image order: a BMP's are bottom-up unless its
+    height is negative."""
+    return np.ascontiguousarray(px if top_down else px[::-1])
+
+
+def decode(data: bytes, gray: bool = False, name: str = "<bytes>", *,
+           file: bool = False, kind: str = "image"):
     """(H, W, 3) RGB uint8, or (H, W) uint8 with ``gray``; ``cv2.imdecode``
-    with ``IMREAD_COLOR`` (then BGR -> RGB) or ``IMREAD_GRAYSCALE``.
+    with ``IMREAD_COLOR`` (then BGR -> RGB) or ``IMREAD_GRAYSCALE``, or
+    with ``file`` ``cv2.imread`` of a file that holds ``data``.
 
-    Raises ``ValueError`` naming ``name`` for anything it cannot decode,
-    a PNG, BMP or JPEG whose fields or data run past its bytes included
-    (libjpeg would decode a truncated JPEG to a partly gray image)."""
+    Raises :class:`ImageReadError` ("cannot read <kind>: <name>: <reason>")
+    for anything it cannot decode, a PNG, BMP or JPEG whose fields or data
+    run past its bytes included: ``cv2.imdecode`` returns None for a
+    truncated JPEG, and ``cv2.imread`` decodes it with the rest gray
+    (ROADMAP, known differences)."""
     try:
-        return _decode(bytes(data), gray, name)
-    except (struct.error, zlib.error, IndexError) as ex:
-        raise ValueError(f"{name}: corrupt or truncated image data "
-                         f"({ex})") from ex
+        return _decode(bytes(data), gray, file)
+    except (struct.error, zlib.error, IndexError, ValueError) as ex:
+        reason = str(ex)
+        if not isinstance(ex, ValueError):
+            reason = f"corrupt or truncated image data ({ex})"
+        raise ImageReadError(f"cannot read {kind}: {name}: {reason}") from ex
 
 
-def _decode(data: bytes, gray: bool, name: str):
+def _decode(data: bytes, gray: bool, file: bool):
     if data[:8] == _PNG_SIG:
-        pix, ctype, depth = _decode_png(data, name)
+        pix, ctype, depth = _decode_png(data)
         if ctype in (0, 4):                       # gray, gray + alpha
             y = pix[..., 0]
             if depth == 16:
@@ -260,54 +455,66 @@ def _decode(data: bytes, gray: bool, name: str):
             return (rgb >> 8).astype(np.uint8)
         return _png_gray(rgb) if gray else np.ascontiguousarray(rgb)
     if data[:2] == b"BM":
-        return _decode_bmp(data, name, gray)
-    if data[:2] == b"\xff\xd8":
         try:
-            return native.jpeg_decode(data, gray)
+            return _decode_bmp(data, gray)
+        except struct.error as ex:
+            raise ValueError(f"corrupt or truncated image data ({ex})"
+                             f"{CV2_TOO}") from ex
         except ValueError as ex:
-            later = f" ({_LATER})" if "is not decoded" in str(ex) else ""
-            raise ValueError(f"{name}: {ex}{later}") from None
-    raise ValueError(f"{name}: not a PNG, BMP or JPEG file")
+            # the decoder is OpenCV's, which refuses the same files
+            raise ValueError(f"{ex}{CV2_TOO}") from ex
+    if data[:2] == b"\xff\xd8":
+        return native.jpeg_decode(data, gray, file)
+    raise ValueError("not a PNG, BMP or JPEG file")
 
 
-def _read(path) -> bytes:
+def _read(path, kind: str) -> bytes:
     try:
         return Path(path).read_bytes()
     except (FileNotFoundError, IsADirectoryError) as ex:
-        raise FileNotFoundError(f"cannot read image: {path}") from ex
+        raise ImageReadError(f"cannot read {kind}: {path}: no such "
+                             "file") from ex
 
 
 def imread_rgb(path) -> np.ndarray:
     """(H, W, 3) RGB uint8, as ``cv2.imread(IMREAD_COLOR)`` + BGR -> RGB."""
-    return decode(_read(path), gray=False, name=str(path))
+    return decode(_read(path, "image"), gray=False, name=str(path),
+                  file=True)
 
 
 def imread_mask(path) -> np.ndarray:
     """(H, W) uint8, as ``cv2.imread(IMREAD_GRAYSCALE)``."""
-    return decode(_read(path), gray=True, name=str(path))
+    return decode(_read(path, "mask"), gray=True, name=str(path), file=True,
+                  kind="mask")
 
 
-def image_size(path):
-    """(H, W) of the image that :func:`imread_rgb` would return, from the
-    file's headers (a JPEG's EXIF orientation swaps them), or None where
-    the file is missing or not an image it decodes (``cv2.imread`` returns
-    None there)."""
+def image_size(path, gray: bool = False):
+    """(H, W) of the image that :func:`imread_rgb` (with ``gray``,
+    :func:`imread_mask`) would return, from the file's headers (a JPEG's
+    EXIF orientation swaps them), or None where the file is missing or
+    its headers show an image that read refuses (``cv2.imread`` returns
+    None there: a lossless JPEG that cv2 reads only in the other mode)."""
     try:
         with open(path, "rb") as fp:
             head = fp.read(30)
             if head[:2] == b"\xff\xd8":
                 head += fp.read()
+            elif head[:2] == b"BM":          # the DIB header and palette
+                head += fp.read(2048)
     except OSError:
         return None
     if head[:8] == _PNG_SIG and head[12:16] == b"IHDR":
         w, h = struct.unpack(">II", head[16:24])
         return int(h), int(w)
-    if head[:2] == b"BM" and len(head) >= 26:
-        w, h = struct.unpack("<ii", head[18:26])
+    if head[:2] == b"BM":
+        try:
+            w, h = _bmp_header(head)[:2]
+        except (ValueError, struct.error):
+            return None
         return abs(h), w
     if head[:2] == b"\xff\xd8":
         try:
-            return native.jpeg_size(head)
+            return native.jpeg_size(head, gray)
         except ValueError:
             return None
     return None

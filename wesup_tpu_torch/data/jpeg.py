@@ -13,8 +13,9 @@ codec's route (``data/codec.py``) uses the library on every machine.
 What both compute is libjpeg-turbo's default path, as OpenCV runs it:
 sequential and progressive Huffman or arithmetic entropy decoding
 (``jdhuff.c``, ``jdphuff.c``, ``jdarith.c``; the Annex K tables where a
-scan's Huffman table was never defined), the ISLOW DCTs (``jidctint.c``,
-``jfdctint.c``), fancy upsampling (``jdsample.c``), the fixed-point
+scan's Huffman table was never defined), lossless files (``jdlhuff.c``,
+``jdlossls.c``), the ISLOW DCTs (``jidctint.c``, ``jfdctint.c``), block
+smoothing (``jdcoefct.c``), fancy upsampling (``jdsample.c``), the fixed-point
 colour tables (``jdcolor.c``, ``jccolor.c``; YCCK to CMYK), OpenCV's
 CMYK to BGR and gray, ``h2v2_downsample`` (``jcsample.c``), and the EXIF
 orientation as OpenCV applies it; the encoder writes what
@@ -263,21 +264,43 @@ def _i16(v):
     return ((v + 0x8000) & 0xFFFF) - 0x8000
 
 
-# the frame markers decoded, and how: (progressive, arithmetic)
+# the frame markers decoded, and how: (progressive, arithmetic); SOF3 is
+# lossless
 _FRAMES = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
-           0xC9: (False, True), 0xCA: (True, True)}
-_REFUSED = {0xC3: "lossless JPEG (SOF3)",
-            0xCB: "lossless arithmetic-coded JPEG (SOF11)",
+           0xC3: (False, False), 0xC9: (False, True), 0xCA: (True, True)}
+# what a refusal of a kind of file adds: OpenCV's build of libjpeg-turbo
+# refuses it as well
+CV2_TOO = " (cv2 returns None for it too)"
+_REFUSED = {0xCB: "lossless arithmetic-coded JPEG (SOF11)",
             **{m: "hierarchical JPEG"
                for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF, 0xDE)}}
 
 
-def _parse(data: bytes):
+def _check_readable(st, gray: bool):
+    """The lossless files that cv2 does not read in the mode asked for:
+    libjpeg-turbo converts no colour space in lossless mode (gray reads
+    only as gray, RGB only as colour, CMYK as CMYK), and a 3-component
+    file is RGB unless a JFIF marker or an Adobe transform other than 0
+    makes it YCbCr."""
+    if not st["lossless"]:
+        return
+    nc = len(st["frame"][2])
+    ycc = st["jfif"] or st["adobe"] not in (None, 0)
+    why = {1: None if gray else "a lossless gray JPEG read in colour",
+           3: ("a lossless YCbCr JPEG" if ycc else
+               "a lossless RGB JPEG read in gray" if gray else None),
+           4: "a lossless YCCK JPEG" if st["adobe"] not in (None, 0)
+           else None}[nc]
+    if why:
+        raise ValueError(f"{why} is not decoded{CV2_TOO}")
+
+
+def _parse(data: bytes, gray: bool = False, file: bool = False):
     if len(data) < 4 or data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     st = dict(qt={}, dc={}, ac={}, ri=0, frame=None, jfif=False,
               adobe=None, orientation=1, exif_seen=False, scans=[],
-              mode=(False, False), eoi=False,
+              mode=(False, False), eoi=False, lossless=False, precision=8,
               dac=dict(L=[0] * 16, U=[1] * 16, K=[5] * 16))
     pos, n = 2, len(data)
     while True:
@@ -288,6 +311,12 @@ def _parse(data: bytes):
         if pos >= n:
             if not st["scans"]:
                 raise ValueError("truncated JPEG file (no image data)")
+            # cv2.imread reads a file through libjpeg's stdio source, which
+            # supplies an EOI marker at the end of the file; taken where
+            # the scans' data is known whole (not after arithmetic-coded
+            # data, which decodes on from zero bits)
+            st["eoi"] = file and not (st["mode"][1] and st["last_at_end"])
+            st["file"] = file
             break
         m = data[pos]
         pos += 1
@@ -303,14 +332,22 @@ def _parse(data: bytes):
             raise ValueError("truncated JPEG header")
         body = data[pos + 2:pos + length]
         if m in _REFUSED:
-            raise ValueError(f"{_REFUSED[m]} is not decoded")
+            raise ValueError(f"{_REFUSED[m]} is not decoded{CV2_TOO}")
         if m in _FRAMES:
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
-            if prec != 8:
-                raise ValueError(f"{prec}-bit JPEG is not decoded (only "
-                                 "8-bit samples are)")
+            lossless = m == 0xC3
+            if lossless and not 2 <= prec <= 16:
+                raise ValueError("corrupt SOF segment (bad precision)")
+            # libjpeg-turbo reads 8-bit DCT files and 2-16-bit lossless
+            # ones through the API for their precision; OpenCV calls only
+            # the 8-bit one
+            if prec > 8 or (not lossless and prec != 8):
+                raise ValueError(f"{prec}-bit {'lossless ' * lossless}JPEG "
+                                 f"is not decoded{CV2_TOO}")
             if nc not in (1, 3, 4):
-                raise ValueError(f"{nc}-component JPEG is not decoded")
+                raise ValueError(f"{nc}-component JPEG is not decoded"
+                                 f"{CV2_TOO}")
+            st["lossless"], st["precision"] = lossless, prec
             comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4,
                           v=body[7 + 3 * i] & 15, tq=body[8 + 3 * i])
                      for i in range(nc)]
@@ -358,6 +395,7 @@ def _parse(data: bytes):
         elif m == 0xDA:
             if st["frame"] is None:
                 raise ValueError("JPEG scan before its frame header")
+            _check_readable(st, gray)
             if not st["scans"] and not st["mode"][1]:
                 # Motion-JPEG frames leave out DHT: the Huffman decoder
                 # starts with the Annex K tables wherever slots 0 and 1
@@ -371,6 +409,7 @@ def _parse(data: bytes):
                   for i in range(ns)]
             ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
             segs, pos = _segments(data, pos + length)
+            st["last_at_end"] = pos >= n
             st["scans"].append(dict(
                 sc=sc, segs=segs, dc=dict(st["dc"]), ac=dict(st["ac"]),
                 qt=dict(st["qt"]), ri=st["ri"], band=(ss, se, a >> 4, a & 15),
@@ -407,6 +446,11 @@ def _scan_units(scan, frame_comps, geo):
     idx = {c["id"]: i for i, c in enumerate(frame_comps)}
     parts = [(idx[cid], scan["dc"].get(td), scan["ac"].get(ta))
              for cid, td, ta in scan["sc"]]
+    # jdinput.c per_scan_setup: at most 10 blocks (or samples) an MCU
+    if len(parts) > 1 and sum(frame_comps[ci]["h"] * frame_comps[ci]["v"]
+                              for ci, _, _ in parts) > 10:
+        raise ValueError("corrupt SOS segment (more than 10 blocks in an "
+                         f"MCU){CV2_TOO}")
     if len(parts) == 1:
         ci = parts[0][0]
         c = frame_comps[ci]
@@ -855,15 +899,41 @@ def orient(img: np.ndarray, o: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
+def _check_eoi(st):
+    """cv2.imdecode's memory source has no byte past the end of the
+    buffer, and libjpeg's read of one suspends, which OpenCV takes as a
+    failure: libjpeg reads a file of several scans (every progressive one)
+    to its EOI before any output, and a lone scan as far as its bit reader
+    looks ahead."""
+    if st["eoi"]:
+        return
+    if st.get("file"):
+        raise ValueError("arithmetic-coded JPEG whose scan data runs to the "
+                         "end of the file is not decoded (cv2.imread decodes "
+                         "it on from zero bits)")
+    if st["mode"][0] or len(st["scans"]) > 1:
+        raise ValueError("JPEG of several scans without an EOI marker after "
+                         f"them is not decoded{CV2_TOO}")
+    if st["last_at_end"]:
+        raise ValueError("JPEG whose scan data runs to the end of the bytes "
+                         "without an EOI marker is not decoded (cv2.imdecode "
+                         "returns None for it unless libjpeg's bit reader "
+                         "looks no byte past the end)")
+
+
+def decode_plain(data: bytes, gray: bool = False,
+                 file: bool = False) -> np.ndarray:
     """(H, W, 3) RGB or (H, W) uint8, as ``native.jpeg_decode``."""
-    st = _parse(bytes(data))
+    st = _parse(bytes(data), gray, file)
     h, w, comps = st["frame"]
     progressive, arith = st["mode"]
     if h == 0:
         raise ValueError("JPEG with its height in a DNL marker is not decoded")
     if h * w > 1 << 30:
-        raise ValueError(f"JPEG of {w}x{h} pixels is too large (limit 2^30)")
+        raise ValueError(f"JPEG of {w}x{h} pixels is too large (limit 2^30)"
+                         f"{CV2_TOO}")
+    if st["lossless"]:
+        return _decode_lossless(st, gray)
     max_h = max(c["h"] for c in comps)
     max_v = max(c["v"] for c in comps)
     mcux, mcuy = -(-w // (8 * max_h)), -(-h // (8 * max_v))
@@ -894,18 +964,17 @@ def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
         _decode_scan(scan, comps, coefs, (mcux, mcuy), st["mode"])
     if len(seen) != len(comps):
         raise ValueError("truncated JPEG file (a component has no scan)")
-    if (progressive or arith) and not st["eoi"]:
-        raise ValueError("truncated progressive or arithmetic-coded JPEG (no "
-                         "EOI marker after its scans) is not decoded")
-    if progressive and _smoothed(coef_bits, [qlatch[i] for i in
-                                             range(len(comps))]):
-        raise ValueError("progressive JPEG whose scans leave coefficients "
-                         "1-9 short of full precision (libjpeg's block "
-                         "smoothing) is not decoded")
+    _check_eoi(st)
+    smooth = progressive and _smoothed(
+        coef_bits, [qlatch[i] for i in range(len(comps))])
     planes = []
     for ci, c in enumerate(comps):
         bh, bw = c["bh"], c["bw"]
-        blocks = np.array(coefs[ci], np.int64).reshape(-1, 8, 8)
+        blocks = np.array(coefs[ci], np.int64).reshape(bh, bw, 64)
+        if smooth:
+            blocks = _smooth_blocks(blocks, c["hb"], c["wb"], c["v"], mcuy,
+                                   coef_bits[ci], qlatch[ci])
+        blocks = blocks.reshape(-1, 8, 8)
         px = idct_islow(blocks, qlatch[ci]).reshape(bh, bw, 8, 8)
         px = px.swapaxes(1, 2).reshape(bh * 8, bw * 8)
         ds_w, ds_h = -(-w * c["h"] // max_h), -(-h * c["v"] // max_v)
@@ -957,8 +1026,123 @@ def decode_plain(data: bytes, gray: bool = False) -> np.ndarray:
     return orient(out.astype(np.uint8), st["orientation"])
 
 
+def _decode_lossless(st, gray: bool) -> np.ndarray:
+    """A lossless file (T.81 Annex H; jdlhuff.c, jddiffct.c, jdlossls.c):
+    each scan's differences in MCU order (restart intervals of whole MCU
+    rows), the samples undifferenced by the scan's predictor and shifted
+    by its point transform into 8 bits, components upsampled by
+    replication."""
+    h, w, comps = st["frame"]
+    max_h = max(c["h"] for c in comps)
+    max_v = max(c["v"] for c in comps)
+    mcux, mcuy = -(-w // max_h), -(-h // max_v)
+    for c in comps:          # a data unit is a sample
+        c["wb"] = -(-w * c["h"] // max_h)
+        c["hb"] = -(-h * c["v"] // max_v)
+        c["bw"] = c["wb"] if len(comps) == 1 else mcux * c["h"]
+        c["bh"] = c["hb"] if len(comps) == 1 else mcuy * c["v"]
+    ids = [c["id"] for c in comps]
+    samples = {}
+    for scan in st["scans"]:
+        ss, se, ah, al = scan["band"]
+        if not 1 <= ss <= 7 or se or ah or al >= st["precision"]:
+            raise ValueError("corrupt SOS segment (bad lossless parameters)")
+        parts, units = _scan_units(scan, comps, (mcux, mcuy))
+        for _, dc, _ in parts:
+            if dc is None or max(dc[1]) > 16:
+                raise ValueError("corrupt JPEG Huffman table")
+        single = len(parts) == 1
+        cols = comps[parts[0][0]]["wb"] if single else mcux
+        if scan["ri"] % cols:
+            raise ValueError("lossless JPEG whose restart interval is not a "
+                             f"whole number of MCU rows is not decoded"
+                             f"{CV2_TOO}")
+        diffs = {ci: [0] * (comps[ci]["bw"] * comps[ci]["bh"])
+                 for ci, _, _ in parts}
+        tables = {ci: dc for ci, dc, _ in parts}
+        per_seg = scan["ri"] or len(units)
+        for s, start in enumerate(range(0, len(units), per_seg)):
+            if s >= len(scan["segs"]):
+                raise ValueError("truncated JPEG entropy data")
+            seg, rst = scan["segs"][s]
+            if start + per_seg < len(units) and rst != s % 8:
+                raise ValueError("corrupt JPEG entropy data (restart marker)")
+            win, nbits = _windows(seg)
+            bits = _Bits(win, nbits)
+            try:
+                for unit in units[start:start + per_seg]:
+                    for ci, i in unit:
+                        size = bits.huff(tables[ci])
+                        diffs[ci][i] = (32768 if size == 16 else
+                                        _extend(bits.get(size), size)
+                                        if size else 0)
+            except IndexError as ex:
+                raise ValueError("truncated JPEG entropy data") from ex
+            if bits.pos > bits.nbits:
+                raise ValueError("truncated JPEG entropy data")
+        for ci, _, _ in parts:
+            c = comps[ci]
+            d = np.array(diffs[ci], np.int64).reshape(c["bh"], c["bw"])
+            rows = scan["ri"] // cols * (1 if single else c["v"])
+            x = _undifference(d, ss, st["precision"] - al, rows)
+            samples[ci] = ((x << al) & 0xFF).astype(np.uint8)
+    if len(samples) != len(comps):
+        raise ValueError("truncated JPEG file (a component has no scan)")
+    _check_eoi(st)
+    planes = []
+    for ci, c in enumerate(comps):
+        p = samples[ci][:-(-h * c["v"] // max_v), :-(-w * c["h"] // max_h)]
+        p = np.repeat(np.repeat(p, max_v // c["v"], 0), max_h // c["h"], 1)
+        planes.append(p[:h, :w].astype(np.int64))
+    if len(comps) == 1:
+        out = planes[0]
+    elif len(comps) == 3:
+        out = np.stack(planes, -1)
+    else:                        # CMYK, as OpenCV converts it
+        r, g, b = (planes[3] - (((255 - v) * planes[3]) >> 8)
+                   for v in planes[:3])
+        out = ((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14 if gray
+               else np.stack([r, g, b], -1))
+    return orient(out.astype(np.uint8), st["orientation"])
+
+
+def _undifference(d, predictor: int, bits: int, interval: int):
+    """jdlossls.c's samples of the (rows, cols) differences ``d``, modulo
+    2**16: a restart interval's first row (every ``interval`` rows, or the
+    first) predicted from the left with ``2**(bits - 1)`` first, the first
+    column from above, the rest by ``predictor`` (1-7)."""
+    rows, cols = d.shape
+    x = np.zeros((rows, cols), np.int64)
+    for r in range(rows):
+        t = d[r].copy()
+        if r % (interval or rows) == 0:
+            t[0] += 1 << (bits - 1)
+            x[r] = np.cumsum(t) & 0xFFFF
+            continue
+        up = x[r - 1]
+        t[0] += up[0]
+        if predictor in (1, 4, 5):           # linear in the left sample
+            if predictor == 4:
+                t[1:] += up[1:] - up[:-1]
+            elif predictor == 5:
+                t[1:] += (up[1:] - up[:-1]) >> 1
+            x[r] = np.cumsum(t) & 0xFFFF
+        elif predictor in (2, 3):
+            t[1:] += up[1:] if predictor == 2 else up[:-1]
+            x[r] = t & 0xFFFF
+        else:
+            row, ups, ds = [int(t[0]) & 0xFFFF], up.tolist(), d[r].tolist()
+            for c in range(1, cols):
+                ra, rb, rc = row[-1], ups[c], ups[c - 1]
+                pred = (rb + ((ra - rc) >> 1) if predictor == 6
+                        else (ra + rb) >> 1)
+                row.append((ds[c] + pred) & 0xFFFF)
+            x[r] = row
+    return x
+
+
 def _smoothed(coef_bits, qtables) -> bool:
-    """Whether libjpeg would smooth the blocks of a progressive file
+    """Whether libjpeg smooths the blocks of a progressive file
     (jdcoefct.c smoothing_ok): every component's DC known and its first
     ten quantisers (zigzag 0-9) nonzero, and some component's
     coefficients 1-9 short of full precision."""
@@ -968,6 +1152,94 @@ def _smoothed(coef_bits, qtables) -> bool:
             return False
         useful |= any(b != 0 for b in bits[1:10])
     return useful
+
+
+def _kernel(rows):
+    return np.array(rows, np.int64)
+
+
+# jdcoefct.c decompress_smooth_data's estimates of zigzag coefficients
+# 1-9 (and the DC) from the 5 x 5 DC values around a block (rows and
+# columns -2..2): (natural index, weights with DC interpolation, weights
+# without it, or None where only DC interpolation estimates it)
+_AC01 = _kernel([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+                 [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]])
+_AC01_K8 = _kernel([[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5])
+_AC20 = _kernel([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+                 [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]])
+_AC20_K8 = _kernel([[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0],
+                    [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]])
+_AC11 = _kernel([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5,
+                 [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]])
+_AC11_K8 = _kernel([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5,
+                    [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]])
+_AC03 = _kernel([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+                 [0, 1, 0, -1, 0], [0] * 5])
+_AC12 = _kernel([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0],
+                 [0] * 5])
+_SMOOTH = [(1, _AC01, _AC01_K8), (8, _AC01.T, _AC01_K8.T),
+           (16, _AC20, _AC20_K8), (9, _AC11, _AC11_K8),
+           (2, _AC20.T, _AC20_K8.T), (3, _AC03, None), (10, _AC12, None),
+           (17, _AC12.T, None), (24, _AC03.T, None)]
+_DC_SMOOTH = _kernel([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                      [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                      [-2, -6, -8, -6, -2]])
+
+
+def _smooth_rows(hb, v, total):
+    """(hb, 5) rows of the DC values around each block row, -2..2, as
+    decompress_smooth_data picks them: an iMCU row's block rows count
+    ``block_rows`` (the last one's only its real rows), and a neighbour
+    row that its index math puts outside the image repeats the nearer
+    one."""
+    out = np.zeros((hb, 5), np.int64)
+    for r in range(hb):
+        i, b = divmod(r, v)
+        rows = v if i < total - 1 else (hb % v or v)
+        at, n = i * rows + b, rows * total
+        prev = r - 1 if at > 0 else r
+        prev2 = r - 2 if at > 1 else prev
+        nxt = r + 1 if at < n - 1 else r
+        nxt2 = r + 2 if at < n - 2 else nxt
+        out[r] = (prev2, prev, r, nxt, nxt2)
+    return out
+
+
+def _smooth_blocks(blocks, hb, wb, v, total, bits, q):
+    """libjpeg's block smoothing (jdcoefct.c decompress_smooth_data) of a
+    component's real ``hb`` x ``wb`` blocks in ``blocks`` ((rows, cols,
+    64) natural order, rows past ``hb`` the iMCU rows' dummy ones): zigzag
+    coefficients 1-9 still zero and short of full precision
+    (``bits[k]`` != 0, the Al of the last scan that coded them, -1 for
+    none) are estimated from the 5 x 5 DC values around the block, bounded
+    below ``2**Al``; where no AC scan coded any of them, the DC is also
+    replaced by its interpolation.  Returns the blocks to transform."""
+    q = q.reshape(64).astype(np.int64)
+    short = total * v - blocks.shape[0]       # a lone component's dummies
+    dc = np.pad(blocks[..., 0], ((0, max(short, 0)), (0, 0)))
+    rows = _smooth_rows(hb, v, total)
+    cols = np.clip(np.arange(wb)[:, None] + np.arange(-2, 3), 0, wb - 1)
+    # (hb, wb, 5, 5) DC values around each real block
+    near = dc[rows[:, None, :, None], cols[None, :, None, :]]
+    change_dc = all(b == -1 for b in bits[1:10])
+    out = blocks.copy()
+    real = out[:hb, :wb]
+    for k, (pos, with_dc, without) in enumerate(_SMOOTH, start=1):
+        kernel = with_dc if change_dc else without
+        if kernel is None or bits[k] == 0:
+            continue
+        num = q[0] * (near * kernel).sum((-2, -1))
+        qk = q[pos]
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if bits[k] > 0:
+            pred = np.minimum(pred, (1 << bits[k]) - 1)
+        pred = np.where(num < 0, -pred, pred)
+        real[..., pos] = np.where(real[..., pos] == 0, pred, real[..., pos])
+    if change_dc:
+        num = q[0] * (near * _DC_SMOOTH).sum((-2, -1))
+        pred = ((q[0] << 7) + np.abs(num)) // (q[0] << 8)
+        real[..., 0] = np.where(num < 0, -pred, pred)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,12 @@ and their plain scipy versions ``label8_plain``, ``edt_sq_plain`` and
 ``ops.morphology.flip_small_regions``), against which the tests and
 ``chip_smoke.py`` hold the library.  From the JPEG library:
 
-    jpeg_decode(data, gray)  -- (H, W, 3) RGB or (H, W) uint8, as
-                                cv2.imdecode, EXIF orientation applied
-    jpeg_size(data)          -- (H, W) of jpeg_decode from the headers
+    jpeg_decode(data, gray, file)
+                             -- (H, W, 3) RGB or (H, W) uint8, as
+                                cv2.imdecode (or, with ``file``,
+                                cv2.imread) reads them, EXIF orientation
+                                applied
+    jpeg_size(data, gray)    -- (H, W) of jpeg_decode from the headers
     jpeg_encode(image)       -- the bytes of cv2.imencode(".jpg") at its
                                 defaults
 
@@ -64,8 +67,8 @@ _SIGNATURES = {
 }
 _U8PP = ctypes.POINTER(_U8P)
 _JPEG_SIGNATURES = {
-    "jpeg_size": (_I32, [ctypes.c_char_p, ctypes.c_size_t, _I32P, _I32P,
-                         _I32P, ctypes.c_char_p, _I32]),
+    "jpeg_size": (_I32, [ctypes.c_char_p, ctypes.c_size_t, _I32, _I32P,
+                         _I32P, _I32P, ctypes.c_char_p, _I32]),
     "jpeg_decode": (_I32, [ctypes.c_char_p, ctypes.c_size_t, _I32, _U8PP,
                            _I32P, _I32P, ctypes.c_char_p, _I32]),
     "jpeg_encode": (ctypes.c_size_t, [_U8P, _I32, _I32, _I32, _U8PP]),
@@ -190,26 +193,31 @@ def flip_small_regions(mask, threshold: int) -> np.ndarray:
 # JPEG
 # ---------------------------------------------------------------------------
 
-def jpeg_size(data: bytes):
+def jpeg_size(data: bytes, gray: bool = False):
     """(H, W) that :func:`jpeg_decode` gives, from the markers before the
-    first scan (the orientation tag swaps them)."""
+    first scan (the orientation tag swaps them); ``ValueError`` where they
+    show a file that the read (``gray`` or colour) refuses."""
     lib = jpeg_library()
     h, w, o = _I32(), _I32(), _I32()
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_size(data, len(data), ctypes.byref(h), ctypes.byref(w),
-                     ctypes.byref(o), err, 256):
+    if lib.jpeg_size(data, len(data), int(bool(gray)), ctypes.byref(h),
+                     ctypes.byref(w), ctypes.byref(o), err, 256):
         raise ValueError(err.value.decode())
     return (w.value, h.value) if o.value >= 5 else (h.value, w.value)
 
 
-def jpeg_decode(data: bytes, gray: bool = False) -> np.ndarray:
+def jpeg_decode(data: bytes, gray: bool = False,
+                file: bool = False) -> np.ndarray:
     """(H, W, 3) RGB or, with ``gray``, (H, W) uint8 samples of a JPEG,
     as ``cv2.imdecode`` gives them (``IMREAD_COLOR`` then BGR -> RGB, or
-    ``IMREAD_GRAYSCALE``), the EXIF orientation applied."""
+    ``IMREAD_GRAYSCALE``), the EXIF orientation applied.  With ``file``,
+    as ``cv2.imread`` reads the same bytes from a file: libjpeg's stdio
+    source supplies an EOI marker at the end of the data."""
     lib = jpeg_library()
     out, h, w = _U8P(), _I32(), _I32()
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_decode(data, len(data), int(bool(gray)), ctypes.byref(out),
+    flags = int(bool(gray)) | 2 * int(bool(file))
+    if lib.jpeg_decode(data, len(data), flags, ctypes.byref(out),
                        ctypes.byref(h), ctypes.byref(w), err, 256):
         raise ValueError(err.value.decode())
     try:

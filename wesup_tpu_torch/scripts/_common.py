@@ -1,8 +1,7 @@
 """Shared helpers of the port's offline tools.
 
 Copy of ``scripts/_common.py``'s image helpers on ``data/codec.py`` (PNG,
-uncompressed BMP and JPEG, as ``cv2.imread`` / ``cv2.imwrite`` read and
-write them) and its scipy ``label8`` and ``mark_boundaries``, plus
+BMP and JPEG, as ``cv2.imread`` / ``cv2.imwrite`` read and write them) and its scipy ``label8`` and ``mark_boundaries``, plus
 :func:`pool_map`, the process pool that takes joblib's place.
 """
 

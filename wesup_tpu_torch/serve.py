@@ -13,8 +13,8 @@ Usage:
 API:
     GET  /healthz            -> {"status": "ok", "device": ...}
     POST /predict            -> binary PNG mask ({0,255})
-         body: image file (PNG, uncompressed BMP or baseline JPEG,
-         ``data/codec.py``; anything it cannot decode, a progressive or
+         body: image file (PNG, BMP or JPEG as ``cv2.imdecode``
+         reads them, ``data/codec.py``; anything it cannot decode, a
          cut JPEG included, is answered with 400 and the codec's
          reason); query args: ?scales=0.5,0.4
 

@@ -226,6 +226,34 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    both final Dice beside JAX's 0.93435, the propagation counts' first
    and last values, seconds per epoch for each side.  Its lines start
    with ``[h2h``.
+19. damaged files: 72 JPEGs made without cv2 (``damage_cases``: one
+   40x56 image encoded by ``data/jpeg.encode_plain``, whose bytes are
+   ``cv2.imencode``'s, in nine kinds by ``tests/torch_jpeg_writer.py``,
+   each damaged once by each of the eight seeded edits of
+   ``tests/torch_jpeg_damage.py``: a byte replaced, bits flipped, a cut
+   with and without an EOI, an RST removed, two RSTs swapped, bytes
+   before an RST, a marker inserted), each read four ways by the library
+   (bytes as ``cv2.imdecode``, a file as ``cv2.imread``; colour, gray):
+   every third file's reads equal the plain version's, and each kind's
+   reads equal cv2's by SHA-256 (``JPEG_DAMAGE_SHA256``, computed with
+   OpenCV 5.0.0; regenerate with ``reads_sha256`` on cv2's
+   imdecode/imread if the cases change); the library's and the plain
+   version's ms to decode a whole and a byte-damaged 1000x1000 patch;
+   ``python -m wesup_tpu_torch.train`` (``cli.run`` of ``train.fit``, in
+   this process) for one epoch at ``pooling=adjoint`` and one at
+   ``fullres`` over a GlaS-shaped directory (8 train, 2 val 522x775
+   JPEG images) whose train images 0-2 have a byte replaced, are cut
+   mid-scan and lost a restart marker, and whose mask 3 holds a tEXt
+   chunk with a bad CRC: every file read by the codec (the damaged
+   images equal to the plain version's reads), no error logged, every
+   batch stepped, the losses in ``history.csv`` finite, the first train
+   step's K5, K3 (``segment_sum_bwd``), K6 and K8 held against their
+   plain versions (phases 9-10's limits), and each train step's launches
+   PERF.md's (adjoint K5 1, K6 4, K3 1, K8 4; fullres K5 2, K3 2); a
+   superpixel server's ``POST /predict`` of a byte-damaged JPEG (200, K1
+   once and K2 four times) and of a PNG without its IEND (400, the
+   codec's reason).  Its lines start with ``[damage`` and ``[serve
+   damage``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the line before that the
@@ -4362,6 +4390,422 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: damaged files
+# ---------------------------------------------------------------------------
+
+DAMAGE_SEED = 19
+# the files of damage_cases() (tests/torch_jpeg_damage.py on
+# data/jpeg.encode_plain's bytes, which are cv2.imencode's: integer
+# arithmetic and numpy's seeded PCG64 only): the SHA-256 of their bytes,
+# and for each kind of file the SHA-256 of its damaged files' reads by cv2
+# (reads_sha256: cv2.imdecode's then cv2.imread's, colour (RGB) then
+# gray, a None read as b"None"), computed with OpenCV 5.0.0
+# (libjpeg-turbo 3.1.2)
+JPEG_DAMAGE_SHA256 = {
+    "bytes":
+        "b0edf0938b715fdd72575ef1385245fa0d4e75bf91d0c1f3d1c3ad24ea3b2e0e",
+    "baseline":
+        "39d7a0e196f9f7260f46b1cca34359b19efcf9bb47f97cf72dd7e1bac9c6ce6a",
+    "gray":
+        "02d0340219707d5e9a3ef1818077218359bc0c772db522fef8b1e0728a7898aa",
+    "restart2":
+        "3c384e1537b9917f18125bd62d491b942f59f583351fb2808ca9b15686bb294b",
+    "progressive":
+        "f5b14c1b03de3a313f6f9011676dd607e99f9a99681f4e685c52ee05ec9d2843",
+    "progressive_rst":
+        "902e67d0fc968d6be416a55561467183b1d2dc7762e052d42bf6d2d08a4f30b8",
+    "arith":
+        "924804b1d7b63e04ace04ac6e83a2aa2f93fa096e053407e24a6fac1ccc78522",
+    "arith_progressive":
+        "f9dc14bfb5a54024633017b9330dbdee5abbe29e7a01590b15be11acb8129e5a",
+    "lossless_gray":
+        "cdfb899167d9fdb6fef69c499df784148d37a7dcaabd38005b59449dc993b32b",
+    "lossless_rgb":
+        "afb034b4d4617736c3c94b6940b923a902332803205b396cb14fda4eda7e68cc",
+}
+
+
+def jpeg_damage():
+    """``tests/torch_jpeg_damage.py``: numpy only, like the JPEG writer."""
+    jpeg_writer()                  # puts tests/ on the path
+    import torch_jpeg_damage
+
+    return torch_jpeg_damage
+
+
+def damage_cases() -> dict:
+    """{kind: [(name, bytes)]}: phase 19's damaged files, one 40x56
+    image's nine kinds (baseline, gray, a restart interval of 2,
+    progressive with and without restarts, sequential and progressive
+    arithmetic, lossless gray and RGB), each damaged once by each of the
+    eight edits of ``torch_jpeg_damage.DAMAGE``."""
+    from wesup_tpu_torch.data.jpeg import encode_plain
+
+    dmg = jpeg_damage()
+    out = {}
+    for name, data in dmg.corpus(encode_plain, DAMAGE_SEED, n_images=1,
+                                 per_kind=1):
+        how = next(h for h in sorted(dmg.DAMAGE, key=len, reverse=True)
+                   if name.rsplit("_", 1)[0].endswith("_" + h))
+        kind = name.split("_", 2)[2].rsplit("_", 1)[0][:-len(how) - 1]
+        out.setdefault(kind, []).append((name, data))
+    return out
+
+
+def damaged_glas(root: Path, seed: int) -> dict:
+    """A GlaS-shaped dataset under ``root``: 8 train images (522x775 JPEG,
+    from ``seed``) with gland masks (PNG) and points, 2 val images; train
+    image 0 has a byte replaced, image 1 is cut mid-scan, image 2 (written
+    with a restart interval of 4) lost a restart marker, and mask 3 holds
+    a tEXt chunk whose CRC is wrong.  Returns {what: path} of the damaged
+    files."""
+    import struct
+
+    from wesup_tpu_torch.data import codec
+
+    dmg, writer = jpeg_damage(), jpeg_writer()
+    rng = np.random.default_rng(seed)
+    edit = np.random.default_rng(seed + 1)
+    damaged = {}
+    for split, n in (("train", 8), ("val", 2)):
+        dirs = {d: root / split / d for d in ("images", "masks", "points")}
+        for d, path in dirs.items():
+            if d != "points" or split == "train":
+                path.mkdir(parents=True)
+        for i in range(n):
+            img, mask = glas_image(rng)
+            name = f"{split}_{i:02d}"
+            data = codec.encode_jpeg(img)
+            png = codec.encode_png(mask)
+            if split == "train" and i == 0:
+                data = dmg.damage(data, "byte", edit)
+            elif split == "train" and i == 1:
+                data = dmg.damage(data, "cut", edit)
+            elif split == "train" and i == 2:
+                data = dmg.damage(writer.sequential(writer.parse(data),
+                                                    restart=4), "no_rst",
+                                  edit)
+            elif split == "train" and i == 3:
+                text = b"tEXt" + b"Comment\0damaged"
+                png = (png[:33] + struct.pack(">I", len(text) - 4) + text
+                       + b"\0\0\0\0" + png[33:])
+            (dirs["images"] / f"{name}.jpg").write_bytes(data)
+            (dirs["masks"] / f"{name}.png").write_bytes(png)
+            if split == "train" and i < 3:
+                damaged[("byte replaced", "cut mid-scan", "RST missing")[i]] = \
+                    dirs["images"] / f"{name}.jpg"
+            if split == "train" and i == 3:
+                damaged["mask with a bad tEXt CRC"] = \
+                    dirs["masks"] / f"{name}.png"
+            if split == "train":
+                rows = []
+                for cls in (0, 1):
+                    ys, xs = np.nonzero(mask == cls)
+                    for j in rng.choice(len(ys), 3, replace=False):
+                        rows.append(f"{xs[j]},{ys[j]},{cls}\n")
+                (dirs["points"] / f"{name}.csv").write_text("".join(rows))
+    return damaged
+
+
+def hold_adjoint_kernels(torch, calls, tag) -> str:
+    """K5, K3 (``segment_sum_bwd``), K6 and K8 as one train step called
+    them, against their plain versions on the same inputs, with the limits
+    of phases 9 and 10; returns the errors' summary."""
+    from wesup_tpu_torch.ops import adjoint, pooling
+
+    errs = {}
+    for name, args, got in calls:
+        if name == "K5":
+            seg, feat, K = args[:3]
+            want = pooling.segment_sum_plain(seg, feat, K)
+            err = (got - want).abs().max().item()
+            ok = err <= 1e-5 * max(1.0, want.abs().max().item())
+        elif name == "K3":
+            want = pooling.segment_sum_bwd_plain(*args[:3])
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want)
+        elif name == "K6":
+            seg, tapsH_T, A_wT, K = args[:4]
+            want = adjoint.adjoint_pool_stage_plain(seg, tapsH_T, A_wT, K)
+            diff = (got - want).abs()
+            err = diff.max().item()
+            lim = 1e-5 * max(1.0, want.abs().max().item())
+            if tapsH_T.dtype == torch.float32:
+                ok = err <= lim
+            else:
+                mass = adjoint.adjoint_pool_stage_plain(seg, tapsH_T.abs(),
+                                                        A_wT, K)
+                ok = bool((diff <= lim + 2.0 ** -8 * mass).all())
+        else:
+            seg, dsums, A_wT, K, dt = args[:5]
+            want = adjoint.adjoint_pool_stage_bwd_plain(seg, dsums, A_wT, K,
+                                                        dt)
+            mass = adjoint.adjoint_pool_stage_bwd_plain(
+                seg, dsums.abs(), A_wT, K, torch.float32)
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            lim = 1e-5 * mass
+            if dt == torch.bfloat16:
+                lim = lim + 2.0 ** -8 * mass + bf16_ulp(torch, want)
+            ok = bool((diff <= lim).all())
+        if not ok:
+            fail(f"{tag}: {name} disagrees with its plain version in the "
+                 f"first train step ({tuple(got.shape)}, max_abs_err "
+                 f"{err:.3e})")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return ", ".join(f"{k} {v:.3e}" for k, v in sorted(errs.items()))
+
+
+def damage_phase(torch, card, seed) -> None:
+    """Phase 19: damaged JPEG and PNG files, read as cv2 reads them.
+    19a: the corpus of ``damage_cases`` read four ways by the library,
+    against the plain version and, by SHA-256, cv2; decode ms of a whole
+    and a damaged 1000x1000 patch.  19b: ``python -m
+    wesup_tpu_torch.train`` in this process, one epoch at pooling
+    "adjoint" and one at "fullres", over a GlaS-shaped directory with
+    three damaged image JPEGs and a mask PNG with a bad tEXt CRC.  19c: a
+    superpixel server's answers to a byte-damaged JPEG and to a PNG
+    without its IEND."""
+    import tempfile
+
+    from wesup_tpu_torch import cli, native
+    from wesup_tpu_torch import train as train_cli
+    from wesup_tpu_torch.data import codec
+    from wesup_tpu_torch.data import jpeg as plain
+    from wesup_tpu_torch.models.trainer import WESUPTrainer
+    from wesup_tpu_torch.ops import (adjoint, launch_counts, pooling,
+                                     reset_launches)
+    from wesup_tpu_torch.serve import create_server
+
+    t_phase = time.perf_counter()
+    tag = "damage"
+    dmg = jpeg_damage()
+
+    # ---- 19a. the corpus: library, plain version, cv2 --------------------
+    t0 = time.perf_counter()
+    cases = damage_cases()
+    files = [d for kind in cases.values() for _, d in kind]
+    got = decodes_sha256(lambda d, g: np.frombuffer(d, np.uint8), files)
+    if got != JPEG_DAMAGE_SHA256["bytes"]:
+        fail(f"{tag}: the damaged files differ from those the constants "
+             f"were computed on ({got})")
+    n_plain = decoded = refused = 0
+    for kind, named in cases.items():
+        for i, (name, data) in enumerate(named):
+            for file in (False, True):
+                for gray in (False, True):
+                    a = try_read(native.jpeg_decode, data, gray, file)
+                    decoded += a is not None
+                    refused += a is None
+                    if i % 3:
+                        continue
+                    b = try_read(plain.decode_plain, data, gray, file)
+                    n_plain += 1
+                    if (a is None) != (b is None) or (
+                            a is not None and not np.array_equal(a, b)):
+                        fail(f"{tag}: {name}: the library's read (gray "
+                             f"{gray}, file {file}) differs from the plain "
+                             "version's")
+        digest = reads_sha256(lambda d, g, f: try_read(native.jpeg_decode,
+                                                       d, g, f),
+                              [d for _, d in named])
+        if digest != JPEG_DAMAGE_SHA256[kind]:
+            fail(f"{tag}: {kind}: the damaged files' reads differ from "
+                 f"cv2's ({digest} != {JPEG_DAMAGE_SHA256[kind]})")
+    log(f"[{tag}] {len(files)} damaged files ({len(cases)} kinds x "
+        f"{len(dmg.DAMAGE)} edits: " + ", ".join(dmg.DAMAGE) + "), four "
+        f"reads each by the library: {decoded} decoded, {refused} refused, "
+        f"all equal by SHA-256 to cv2's; {n_plain} reads equal to the plain "
+        f"version's ({time.perf_counter() - t0:.1f} s)")
+    patch = dmg.image((1000, 1000), seed)
+    whole = native.jpeg_encode(patch)
+    broken = dmg.damage(whole, "byte", np.random.default_rng(seed))
+    times = {}
+    for what, data in (("whole", whole), ("damaged", broken)):
+        lib = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            a = native.jpeg_decode(data)
+            lib.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        b = plain.decode_plain(data)
+        times[what] = (statistics.median(lib),
+                       (time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(a, b):
+            fail(f"{tag}: the {what} 1000x1000 patch: the library's decode "
+                 "differs from the plain version's")
+    log(f"[{tag}] decode of a 1000x1000 patch (baseline, {len(whole)} "
+        f"bytes), library / plain: whole {times['whole'][0]:.1f} / "
+        f"{times['whole'][1]:.1f} ms, one byte replaced "
+        f"{times['damaged'][0]:.1f} / {times['damaged'][1]:.1f} ms "
+        f"(library median of 5, plain one run; {card})")
+
+    # ---- 19b. the trainer over damaged files ------------------------------
+    tmp = tempfile.TemporaryDirectory(prefix="wesup_phase19_")
+    root = Path(tmp.name) / "glas"
+    damaged = damaged_glas(root, seed)
+    for what, path in damaged.items():
+        read = codec.imread_mask if path.suffix == ".png" else \
+            codec.imread_rgb
+        try:
+            img = read(path)
+        except codec.ImageReadError as ex:
+            fail(f"{tag}: the {what} file is refused: {ex}")
+        data = path.read_bytes()
+        if path.suffix == ".jpg" and not np.array_equal(
+                img, plain.decode_plain(data, False, True)):
+            fail(f"{tag}: the {what} file: the codec's read differs from "
+                 "the plain version's")
+    per_step = {"adjoint": {"segment_sum": 1, "adjoint_pool_stage": 4,
+                            "segment_sum_bwd": 1,
+                            "adjoint_pool_stage_bwd": 4},
+                "fullres": {"segment_sum": 2, "segment_sum_bwd": 2}}
+    for pooling_, want_step in per_step.items():
+        step_counts = []
+        first = {"on": False}
+        calls = []
+        real_get = WESUPTrainer._get_step
+
+        def get_step(self, kind, hw):
+            step = real_get(self, kind, hw)
+            if kind != "train":
+                return step
+
+            def run(*args, **kwargs):
+                before = launch_counts()
+                first["on"] = not step_counts
+                try:
+                    out = step(*args, **kwargs)
+                    torch.cuda.synchronize()
+                finally:
+                    first["on"] = False
+                after = launch_counts()
+                step_counts.append({k: after[k] - before[k] for k in after})
+                return out
+            return run
+
+        def recording(name, fn):
+            def run(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                if first["on"]:
+                    calls.append((name, args, out.detach()))
+                return out
+            return run
+
+        errors = ErrorRecords("Train")
+        old_root = os.environ.get("RECORD_ROOT")
+        os.environ["RECORD_ROOT"] = str(Path(tmp.name) / f"rec_{pooling_}")
+        logging.getLogger().addHandler(errors)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(
+                    WESUPTrainer, "_get_step", new=get_step))
+                for name, module, attr in (
+                        ("K5", pooling, "_segment_sum_fwd"),
+                        ("K3", pooling, "segment_sum_bwd"),
+                        ("K6", adjoint, "adjoint_pool_stage"),
+                        ("K8", adjoint, "adjoint_pool_stage_bwd")):
+                    stack.enter_context(mock.patch.object(
+                        module, attr,
+                        new=recording(name, getattr(module, attr))))
+                reset_launches()
+                trainer = cli.run(train_cli.fit, [
+                    str(root), "epochs=1", f"pooling={pooling_}",
+                    f"batch_size={BATCH}", f"seed={seed}"])
+        finally:
+            logging.getLogger().removeHandler(errors)
+            if old_root is None:
+                os.environ.pop("RECORD_ROOT", None)
+            else:
+                os.environ["RECORD_ROOT"] = old_root
+        sec = time.perf_counter() - t0
+        stats = trainer.phase_stats
+        if errors.records:
+            fail(f"{tag}: the {pooling_} fit logged "
+                 f"{errors.records[0].getMessage()}")
+        if not step_counts or any(st["failed"] or not st["batches"]
+                                  for st in stats.values()):
+            fail(f"{tag}: the {pooling_} fit ran {stats}, "
+                 f"{len(step_counts)} train steps")
+        with open(trainer.record_dir / "history.csv") as fp:
+            rows = list(csv.DictReader(fp))
+        losses = {k: float(v) for r in rows for k, v in r.items()
+                  if "loss" in k and v not in ("", None)}
+        if not losses or not all(math.isfinite(v) for v in losses.values()):
+            fail(f"{tag}: the {pooling_} fit's losses {losses}")
+        summed = {}
+        for c in step_counts:
+            for k, v in c.items():
+                summed[k] = summed.get(k, 0) + v
+        want = expected({k: v * len(step_counts)
+                         for k, v in want_step.items()})
+        if summed != want:
+            fail(f"{tag}: the {pooling_} fit's {len(step_counts)} train "
+                 f"steps launched {summed}, expected {want}")
+        held = {n: sum(c[0] == n for c in calls)
+                for n in ("K5", "K3", "K6", "K8")}
+        want_held = {"K5": want_step.get("segment_sum", 0),
+                     "K3": want_step.get("segment_sum_bwd", 0),
+                     "K6": want_step.get("adjoint_pool_stage", 0),
+                     "K8": want_step.get("adjoint_pool_stage_bwd", 0)}
+        if held != want_held:
+            fail(f"{tag}: the {pooling_} fit's first step called {held}")
+        errs = hold_adjoint_kernels(torch, calls, tag)
+        del calls
+        log(f"[{tag}] python -m wesup_tpu_torch.train (in process) "
+            f"pooling={pooling_}, 1 epoch over {len(damaged)} damaged files ("
+            + ", ".join(damaged) + f"): {len(step_counts)} train steps, "
+            + ", ".join(f"{(e, p)}: {st['batches']} batches, "
+                        f"{st['failed']} failed" for (e, p), st in
+                        sorted(stats.items()))
+            + "; losses " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in losses.items())
+            + f"; launches {summed}; the first step's kernels against their "
+            f"plain versions: max_abs_err {errs}; {sec:.1f} s")
+        torch.cuda.empty_cache()
+
+    # ---- 19c. the server: a damaged JPEG, a PNG without IEND -------------
+    img = glas_image(np.random.default_rng(seed + 2))[0]
+    body = dmg.damage(codec.encode_jpeg(img), "byte",
+                      np.random.default_rng(seed + 3))
+    png = codec.encode_png(img)
+    no_iend = png[:-12]
+    server = create_server(port=0, host="127.0.0.1", seed=seed)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_port}/predict"
+        post(url, codec.encode_jpeg(img))
+        torch.cuda.synchronize()
+        reset_launches()
+        status, reply, sec, _ = post(url, body)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        bad = post(url, no_iend)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    mask = codec.decode(reply, gray=True) if status == 200 else np.zeros(0)
+    log(f"[serve damage] POST /predict of a {GLAS_HW[0]}x{GLAS_HW[1]} JPEG "
+        f"with one byte replaced: {status}, mask {mask.shape}, "
+        f"{sec * 1e3:.1f} ms, launches "
+        + str({k: v for k, v in counts.items() if v})
+        + f"; a PNG without its IEND: {bad[0]} {bad[1][:90]!r}; {card}")
+    if not (status == 200 and mask.shape == GLAS_HW
+            and set(np.unique(mask).tolist()) <= {0, 255}):
+        fail(f"POST /predict of a damaged JPEG: {status} {reply[:200]!r}")
+    if counts != expected({"cell_pool0": 1, "cell_pool_stage": 4}):
+        fail(f"the damaged JPEG request launched {counts}")
+    if bad[0] != 400 or b"request body" not in bad[1] or \
+            b"IEND" not in bad[1]:
+        fail(f"a PNG without its IEND was answered {bad[0]} {bad[1]!r}")
+    tmp.cleanup()
+    log(f"[{tag}] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4679,6 +5123,9 @@ def main(argv=None) -> int:
 
     # ---- 18. the head-to-head against the reference's training math -----
     headtohead_phase(torch, card)
+
+    # ---- 19. damaged files: the reads, the trainer, the server -----------
+    damage_phase(torch, card, args.seed)
     log("[kernels] " + ", ".join(
         f"{k['name']}: launches {k['launches']}, pass" for k in kernels))
 

@@ -29,7 +29,7 @@
   that lists a component twice, a baseline file patched to SOF3 and a
   truncated file raise ``ValueError`` naming the file and the reason, and
   cv2 returns None for each (a truncated file read from its path aside:
-  ``cv2.imread`` decodes it with the rest gray, a known difference); the
+  ``cv2.imread`` decodes it with the rest gray, and so does the port); the
   kinds once refused here (progressive, CMYK, arithmetic; lossless, a
   progressive file cut after some scans and one whose scans stop short
   of full precision, which libjpeg smooths) now decode as cv2 decodes
@@ -291,9 +291,17 @@ def test_unsupported_jpeg_raises_naming_the_file(tmp_path, case):
         want = cv2.imread(str(path))
         np.testing.assert_array_equal(codec.imread_rgb(path), want[..., ::-1])
         return
-    for read in (codec.imread_rgb, codec.imread_mask):
-        with pytest.raises(ValueError, match=f"{case}.jpg.*{reason}"):
-            read(path)
+    for read, flag in ((codec.imread_rgb, cv2.IMREAD_COLOR),
+                       (codec.imread_mask, cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imread(str(path), flag)
+        if want is None:
+            with pytest.raises(ValueError, match=f"{case}.jpg.*{reason}"):
+                read(path)
+        else:       # a cut file, whose rest cv2.imread fills with gray
+            np.testing.assert_array_equal(
+                read(path), want[..., ::-1] if want.ndim == 3 else want)
+    with pytest.raises(ValueError, match=f"{case}.jpg.*{reason}"):
+        codec.decode(path.read_bytes(), name=str(path))
     with pytest.raises(ValueError):
         jpeg.decode_plain(path.read_bytes())
     assert cv2.imdecode(np.frombuffer(path.read_bytes(), np.uint8),
@@ -556,11 +564,12 @@ def test_png_16_bit_keeps_the_high_byte(tmp_path):
 def test_codec_module_docs_name_no_missing_format():
     """The codec's docstring lists JPEG as decoded, lossless and smoothed
     files among it, and the refusals it keeps, none of them sent to a
-    roadmap item: every kind it refuses is one cv2 refuses too, or a
-    known difference."""
+    roadmap item: every kind it refuses is one cv2 refuses too, and
+    damaged files read as cv2 reads them (no known difference is left)."""
     doc = codec.__doc__
     assert "JPEG, baseline" in doc and "Adam7" in doc
     assert "lossless files" in doc and "block smoothing" in doc
-    assert "RLE4" in doc and "known differences" in doc
+    assert "RLE4" in doc and "known difference" not in doc
+    assert "damaged" in doc
     assert "item 9" not in doc and not hasattr(codec, "_LATER")
     assert Path(native.JPEG_SOURCE).exists()

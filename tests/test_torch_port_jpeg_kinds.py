@@ -20,10 +20,11 @@ and where it stops, against OpenCV on the CPU.
   (without its EOI marker a file of several scans is refused, and one
   whose scan data runs to its end), the readers of a path follow
   ``cv2.imread`` (libjpeg's stdio source supplies the EOI at the end of
-  a file); the cuts of the file cv2 refuses, and the known differences:
-  data that runs short (``cv2.imread`` fills it with gray), an EOI-less
-  file that ``cv2.imdecode`` decodes because libjpeg's bit reader never
-  looked past its end, a restart interval without its markers.
+  a file); the cuts of the file cv2 refuses, and the cases once known
+  differences: data that runs short (``cv2.imread`` fills it with gray),
+  an EOI-less file that ``cv2.imdecode`` decodes because libjpeg's bit
+  reader never looked past its end, a restart interval without its
+  markers.
 
 The library (``native.jpeg_decode``), its plain version
 (``data/jpeg.decode_plain``) and ``codec`` equal cv2 byte for byte, in
@@ -86,20 +87,18 @@ def _port_reads(data, path, gray, file):
     return routes
 
 
-def assert_reads_like_cv2(data, tmp_path, name="f.jpg", known=()):
+def assert_reads_like_cv2(data, tmp_path, name="f.jpg"):
     """Every route of every read equals cv2's, or raises where cv2 returns
     None (naming the file where the codec reads it, and saying that cv2
-    refuses it too); reads in ``known`` are known differences where cv2
-    decodes and the port refuses.  Returns the number of reads cv2
-    decodes."""
+    refuses it too).  Returns the number of reads cv2 decodes."""
     path, want = _reads(data, tmp_path, name)
     decoded = 0
     for (gray, file), expect in want.items():
         for i, read in enumerate(_port_reads(data, path, gray, file)):
-            if expect is None or (gray, file) in known:
+            if expect is None:
                 with pytest.raises(ValueError) as ex:
                     read()
-                if expect is None and i == 2:
+                if i == 2:
                     assert name in str(ex.value) and "cv2" in str(ex.value)
                 continue
             np.testing.assert_array_equal(read(), expect,
@@ -298,13 +297,11 @@ def test_jpeg_without_its_eoi_reads_as_cv2_reads_it(tmp_path):
     scan data runs to its end: libjpeg's memory source cannot look past
     it), and decoded where a marker ends the scan; a path read decodes the
     whole scans, as ``cv2.imread`` does (libjpeg's stdio source supplies
-    the EOI at the end of a file), except arithmetic-coded data, which
-    libjpeg decodes on from zero bits (a known difference)."""
+    the EOI at the end of a file; arithmetic-coded data decodes on from
+    the zero bits that the decoder is fed after a marker)."""
     for name, data in _sources():
         cut = data[:-2]
-        known = {(g, True) for g in (False, True)} if name == "arithmetic" \
-            else ()
-        assert_reads_like_cv2(cut, tmp_path, f"{name}.jpg", known)
+        assert_reads_like_cv2(cut, tmp_path, f"{name}.jpg")
         _, want = _reads(cut, tmp_path, f"{name}.jpg")
         assert all(v is None for (g, f), v in want.items() if not f), name
         # a marker after the scan data, and no EOI
@@ -320,9 +317,8 @@ def test_jpeg_without_its_eoi_reads_as_cv2_reads_it(tmp_path):
 def test_the_cuts_cv2_refuses(tmp_path):
     """What cv2 (OpenCV 5.0.0, libjpeg-turbo 3.1.2) does with a baseline
     file cut at the end of its scan (no EOI), in mid-scan, in its header,
-    and after its EOI (bytes appended), and what the port does: the same,
-    but for a mid-scan cut read from a path, which ``cv2.imread`` decodes
-    with the rest gray and the port refuses (a known difference)."""
+    and after its EOI (bytes appended), and what the port does: the same
+    (a mid-scan cut read from a path decodes with the rest gray)."""
     data = _sources()[0][1]
     scan = data.rfind(b"\xff\xda")
     cuts = {"scan_end": data[:-2], "mid_scan": data[:(scan + len(data)) // 2],
@@ -334,16 +330,15 @@ def test_the_cuts_cv2_refuses(tmp_path):
         _, want = _reads(cut, tmp_path, f"{name}.jpg")
         assert (want[False, False] is not None,
                 want[False, True] is not None) == cv2_does[name], name
-        known = {(False, True), (True, True)} if name == "mid_scan" else ()
-        assert_reads_like_cv2(cut, tmp_path, f"{name}.jpg", known)
+        assert_reads_like_cv2(cut, tmp_path, f"{name}.jpg")
 
 
 def test_known_differences_are_where_cv2_recovers(tmp_path):
-    """Corrupt or cut data that libjpeg recovers from with a warning, and
-    the port refuses: an EOI-less file whose last bits libjpeg's bit
-    reader took without looking past the end (``cv2.imdecode`` decodes
-    it: a few files in a hundred), and a restart interval whose markers
-    are missing (libjpeg resynchronises)."""
+    """Corrupt or cut data that libjpeg recovers from with a warning, once
+    refused by the port and now read as cv2 reads it: an EOI-less file
+    whose last bits libjpeg's bit reader took without looking past the end
+    (``cv2.imdecode`` decodes it: a few files in a hundred), and a restart
+    interval whose markers are missing (libjpeg resynchronises)."""
     for seed in range(200):
         img = _image((int(8 + seed % 40), int(9 + seed % 31)), seed)
         data = cv2.imencode(".jpg", img[..., ::-1])[1].tobytes()[:-2]
@@ -351,11 +346,11 @@ def test_known_differences_are_where_cv2_recovers(tmp_path):
         if got is not None:
             break
     assert got is not None
-    with pytest.raises(ValueError, match="without an EOI"):
-        codec.decode(data)
+    np.testing.assert_array_equal(codec.decode(data), got[..., ::-1])
+    assert_reads_like_cv2(data, tmp_path, "eoi_less.jpg")
     base = _sources()[0][1]
     no_rst = base[:2] + b"\xff\xdd\x00\x04\x00\x02" + base[2:]
-    assert cv2.imdecode(np.frombuffer(no_rst, np.uint8),
-                        cv2.IMREAD_COLOR) is not None
-    with pytest.raises(ValueError, match="restart marker"):
-        codec.decode(no_rst)
+    got = cv2.imdecode(np.frombuffer(no_rst, np.uint8), cv2.IMREAD_COLOR)
+    assert got is not None
+    np.testing.assert_array_equal(codec.decode(no_rst), got[..., ::-1])
+    assert assert_reads_like_cv2(no_rst, tmp_path, "no_rst.jpg") == 4

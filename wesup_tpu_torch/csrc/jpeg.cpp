@@ -21,8 +21,8 @@
 //     modes libjpeg-turbo converts losslessly (gray as gray, RGB as
 //     colour, CMYK).
 // It follows the steps of libjpeg-turbo's default decompressor:
-//   - jidctint.c's ISLOW inverse DCT (CONST_BITS 13, PASS1_BITS 2) and
-//     its range-limit table (the result masked to 10 bits);
+//   - the ISLOW inverse DCT (CONST_BITS 13, PASS1_BITS 2) as its x86-64
+//     SIMD code computes it, in 16-bit lanes (see idct_islow);
 //   - jdcoefct.c's block smoothing of a progressive file whose scans
 //     leave any of zigzag coefficients 1-9 short of full precision
 //     (smoothing_ok, decompress_smooth_data: the 5 x 5 DC neighbourhood,
@@ -43,14 +43,19 @@
 // It refuses what cv2 refuses, saying so: lossless arithmetic (SOF11) and
 // hierarchical files, DCT precisions other than 8 bits and lossless ones
 // above 8, 2-component files, MCUs of more than 10 blocks, images of more
-// than 2^30 pixels (OpenCV's limit).  Where the data ends is read as cv2
-// reads it: bytes as cv2.imdecode (libjpeg's memory source: a file of
-// several scans needs its EOI, and so does a lone scan whose data runs
-// to the end), a file as cv2.imread (libjpeg's stdio source supplies the
-// EOI at the end of the file).  It also raises on corrupt entropy data
-// and on data that runs short, which libjpeg recovers from with a
-// warning (cv2.imread fills the rest of a cut file with gray): those are
-// known differences.
+// than 2^30 pixels (OpenCV's limit), reserved markers.  Damaged data reads
+// as cv2 reads it, byte for byte: libjpeg's data source, bit reader and
+// marker reader are followed step by step (jdhuff.c, jdphuff.c,
+// jdarith.c, jdlhuff.c, jdmarker.c): a bad Huffman code reads as 0, a run
+// past coefficient 63 lands on 63, data that runs short into a marker is
+// fed zero bits once and then leaves the MCUs up to the next restart at
+// zero, restart markers lost, out of order or behind extraneous bytes are
+// resynchronised, an arithmetic decoding error ends its restart interval,
+// a component that no scan reached is a flat 128, and block smoothing
+// takes each iMCU row's bits from the scans that made it.  Bytes are
+// read as cv2.imdecode reads them (libjpeg's memory source: a read past
+// the end suspends, which OpenCV takes as a failure), a file as
+// cv2.imread (libjpeg's stdio source fakes an EOI marker at the end).
 //
 // Encoder: cv2.imencode(".jpg") at its defaults, byte for byte: quality
 // 95 (jpeg_quality_scaling, baseline-limited tables), a JFIF 1.01 APP0,
@@ -66,6 +71,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <stdexcept>
@@ -108,126 +114,70 @@ inline int64_t descale(int64_t x, int n) {
   return (x + (int64_t(1) << (n - 1))) >> n;
 }
 
-// The post-IDCT range limit of jdmaster.c prepare_range_limit_table:
-// value x (centred on 0) masked to 10 bits, then clamped or wrapped.
-uint8_t g_range[1024];
-bool g_range_ready = false;
+// libjpeg-turbo's ISLOW inverse DCT as its x86-64 SIMD code computes it
+// (jidctint-avx2.asm / -sse2.asm), which OpenCV's build runs: 16-bit
+// lanes, so the dequantised coefficients (pmullw) and the sums z2 + z3
+// of the even part and z3, z4 of the odd part wrap to 16 bits, products
+// sum in 32 bits (pmaddwd), each pass's outputs saturate to 16 bits
+// (packssdw) and the samples to 0-255 (packsswb, then + 128).  A block
+// whose rows 1-7 are all zero takes the DC shortcut of pass 1, a 16-bit
+// shift that wraps.  On coefficients in the range a real file holds this
+// is jidctint.c's result; on damaged data the wraps and saturations are
+// what cv2 shows.
+inline int32_t w16(int64_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+inline int32_t w32(int64_t x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
+inline int32_t s16(int32_t x) { return std::min(std::max(x, -32768), 32767); }
 
-void build_range() {
-  if (g_range_ready) return;
-  for (int i = 0; i < 1024; ++i) {
-    int v;
-    if (i < 128) v = i + 128;
-    else if (i < 512) v = 255;
-    else if (i < 896) v = 0;
-    else v = i - 896;
-    g_range[i] = static_cast<uint8_t>(v);
-  }
-  g_range_ready = true;
+// one pass over 8 inputs (16-bit values, stride `st`), descaled by `n`
+// bits into 8 saturated 16-bit outputs (stride `ot`)
+void idct_pass(const int32_t* v, int st, int n, int32_t* o, int ot) {
+  const int64_t z2 = v[2 * st], z3 = v[6 * st];
+  const int32_t tmp3 = w32(z2 * (F0_541 + F0_765) + z3 * F0_541);
+  const int32_t tmp2 = w32(z2 * F0_541 + z3 * (F0_541 - F1_847));
+  const int32_t tmp0 = w16(int64_t(v[0]) + v[4 * st]) * (1 << kConstBits);
+  const int32_t tmp1 = w16(int64_t(v[0]) - v[4 * st]) * (1 << kConstBits);
+  const int32_t t10 = w32(int64_t(tmp0) + tmp3), t13 = w32(int64_t(tmp0) - tmp3);
+  const int32_t t11 = w32(int64_t(tmp1) + tmp2), t12 = w32(int64_t(tmp1) - tmp2);
+  const int64_t i0 = v[7 * st], i1 = v[5 * st], i2 = v[3 * st], i3 = v[st];
+  const int64_t z3o = w16(i0 + i2), z4o = w16(i1 + i3);
+  const int32_t zz3 = w32(z3o * (F1_175 - F1_961) + z4o * F1_175);
+  const int32_t zz4 = w32(z3o * F1_175 + z4o * (F1_175 - F0_390));
+  const int32_t a0 = w32(w32(i0 * (F0_298 - F0_899) + i3 * -F0_899) + int64_t(zz3));
+  const int32_t a3 = w32(w32(i0 * -F0_899 + i3 * (F1_501 - F0_899)) + int64_t(zz4));
+  const int32_t a1 = w32(w32(i1 * (F2_053 - F2_562) + i2 * -F2_562) + int64_t(zz4));
+  const int32_t a2 = w32(w32(i1 * -F2_562 + i2 * (F3_072 - F2_562)) + int64_t(zz3));
+  auto out = [&](int64_t x) {
+    return s16(w32(int64_t(w32(x)) + (1 << (n - 1))) >> n);
+  };
+  o[0] = out(int64_t(t10) + a3);
+  o[7 * ot] = out(int64_t(t10) - a3);
+  o[ot] = out(int64_t(t11) + a2);
+  o[6 * ot] = out(int64_t(t11) - a2);
+  o[2 * ot] = out(int64_t(t12) + a1);
+  o[5 * ot] = out(int64_t(t12) - a1);
+  o[3 * ot] = out(int64_t(t13) + a0);
+  o[4 * ot] = out(int64_t(t13) - a0);
 }
 
 // coef: 64 coefficients in natural order; q: 64 quanta, natural order;
 // out: 8x8 samples with row stride `stride`.
 void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out,
                 int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* in = coef + c;
-    const uint16_t* qq = q + c;
-    auto dq = [&](int r) { return int64_t(in[8 * r]) * qq[8 * r]; };
-    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 &&
-        in[40] == 0 && in[48] == 0 && in[56] == 0) {
-      int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
-      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
-      continue;
-    }
-    int64_t z2 = dq(2), z3 = dq(6);
-    int64_t z1 = (z2 + z3) * F0_541;
-    int64_t tmp2 = z1 + z3 * (-F1_847);
-    int64_t tmp3 = z1 + z2 * F0_765;
-    z2 = dq(0);
-    z3 = dq(4);
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = dq(7);
-    tmp1 = dq(5);
-    tmp2 = dq(3);
-    tmp3 = dq(1);
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 *= -F1_961;
-    z4 *= -F0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = kConstBits - kPass1Bits;
-    ws[8 * 0 + c] = static_cast<int>(descale(tmp10 + tmp3, n));
-    ws[8 * 7 + c] = static_cast<int>(descale(tmp10 - tmp3, n));
-    ws[8 * 1 + c] = static_cast<int>(descale(tmp11 + tmp2, n));
-    ws[8 * 6 + c] = static_cast<int>(descale(tmp11 - tmp2, n));
-    ws[8 * 2 + c] = static_cast<int>(descale(tmp12 + tmp1, n));
-    ws[8 * 5 + c] = static_cast<int>(descale(tmp12 - tmp1, n));
-    ws[8 * 3 + c] = static_cast<int>(descale(tmp13 + tmp0, n));
-    ws[8 * 4 + c] = static_cast<int>(descale(tmp13 - tmp0, n));
+  int32_t dq[64], ws[64], row[8];
+  bool ac = false;
+  for (int i = 0; i < 64; ++i) {
+    dq[i] = w16(int64_t(coef[i]) * q[i]);
+    if (i >= 8 && coef[i]) ac = true;
   }
-  const int n = kConstBits + kPass1Bits + 3;
+  if (!ac) {
+    for (int i = 0; i < 64; ++i) ws[i] = w16(int64_t(dq[i % 8]) * (1 << kPass1Bits));
+  } else {
+    for (int c = 0; c < 8; ++c) idct_pass(dq + c, 8, kConstBits - kPass1Bits, ws + c, 8);
+  }
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + r * stride;
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F0_541;
-    int64_t tmp2 = z1 + z3 * (-F1_847);
-    int64_t tmp3 = z1 + z2 * F0_765;
-    int64_t tmp0 = (int64_t(w[0]) + w[4]) * (1 << kConstBits);
-    int64_t tmp1 = (int64_t(w[0]) - w[4]) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 *= -F1_961;
-    z4 *= -F0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    auto lim = [&](int64_t v) { return g_range[descale(v, n) & 1023]; };
-    o[0] = lim(tmp10 + tmp3);
-    o[7] = lim(tmp10 - tmp3);
-    o[1] = lim(tmp11 + tmp2);
-    o[6] = lim(tmp11 - tmp2);
-    o[2] = lim(tmp12 + tmp1);
-    o[5] = lim(tmp12 - tmp1);
-    o[3] = lim(tmp13 + tmp0);
-    o[4] = lim(tmp13 - tmp0);
+    idct_pass(ws + 8 * r, 1, kConstBits + kPass1Bits + 3, row, 1);
+    for (int x = 0; x < 8; ++x)
+      out[r * stride + x] = static_cast<uint8_t>(std::min(std::max(row[x], -128), 127) + 128);
   }
 }
 
@@ -389,10 +339,12 @@ struct HuffTable {
   int max_val = 0;
   uint8_t bits[17] = {0};
   uint8_t vals[256] = {0};
-  int maxcode[18];
+  int maxcode[18];  // [17]: the sentinel that stops a bad code
   int valptr[17];
   int mincode[17];
-  uint16_t lut[512];  // 9-bit lookahead: (length << 8) | value, 0 = longer
+  // jdhuff.c's 8-bit lookahead: a code of 8 bits or fewer gives its
+  // length and value, any other prefix the length 9
+  uint8_t look_nb[256], look_val[256];
 
   void build() {
     defined = true;
@@ -403,21 +355,24 @@ struct HuffTable {
       mincode[l] = code;
       code += bits[l];
       k += bits[l];
-      if (code >= (1 << l)) return;  // over-subscribed: the lut would overflow
+      if (code >= (1 << l)) return;  // over-subscribed, or an all-ones code
       maxcode[l] = bits[l] ? code - 1 : -1;
       code <<= 1;
     }
-    maxcode[17] = 0x7FFFFFFF;
+    maxcode[17] = 0xFFFFF;
     max_val = 0;
     for (int i = 0; i < k; ++i) max_val = std::max(max_val, int(vals[i]));
-    std::memset(lut, 0, sizeof(lut));
+    std::memset(look_nb, 9, sizeof(look_nb));
+    std::memset(look_val, 0, sizeof(look_val));
     code = 0;
     k = 0;
-    for (int l = 1; l <= 9; ++l) {
+    for (int l = 1; l <= 8; ++l) {
       for (int i = 0; i < bits[l]; ++i, ++k, ++code) {
-        int shift = 9 - l;
-        for (int f = 0; f < (1 << shift); ++f)
-          lut[(code << shift) | f] = static_cast<uint16_t>((l << 8) | vals[k]);
+        int shift = 8 - l;
+        for (int f = 0; f < (1 << shift); ++f) {
+          look_nb[(code << shift) | f] = static_cast<uint8_t>(l);
+          look_val[(code << shift) | f] = vals[k];
+        }
       }
       code <<= 1;
     }
@@ -431,70 +386,123 @@ struct Component {
   int bw = 0, bh = 0;                             // stored blocks
   int ds_w = 0, ds_h = 0;                         // downsampled size
   std::vector<int16_t> coef;                      // bw * bh * 64
-  uint16_t qlatch[64];
+  uint16_t qlatch[64] = {};  // zero for a component no scan reached
   bool latched = false;
   bool seen = false;
   int coef_bits[64];  // progressive: the Al each coefficient reached, -1
+  // jdphuff.c's coef_bits of zigzag 1-9 before the component's latest
+  // scan (0 where that was the file's first)
+  int prev_bits[10];
   // lossless: the differences a scan decoded, then the samples
   std::vector<int32_t> diff;
   std::vector<uint8_t> samples;
 };
 
-struct BitReader {
+// libjpeg's data source ran out: cv2.imdecode's memory source cannot
+// supply more bytes, and libjpeg suspends, which OpenCV takes as a failure
+struct Suspended {};
+
+// The bytes as libjpeg's data source hands them over: the file's, then at
+// each read past its end either a fake EOI marker (cv2.imread: jdatasrc.c's
+// stdio source warns JWRN_JPEG_EOF and inserts FF D9) or a suspension
+// (cv2.imdecode: OpenCV's memory source).
+struct Source {
   const uint8_t* d;
-  size_t n, pos;
-  uint64_t buf = 0;
-  int cnt = 0;
-  int pad_bytes = 0;     // zero bytes appended after a marker or the end
-  bool marker = false;
-
-  BitReader(const uint8_t* d_, size_t n_, size_t pos_) : d(d_), n(n_), pos(pos_) {}
-
-  void fill() {
-    while (cnt <= 56) {
-      uint32_t b = 0;
-      if (!marker && pos < n) {
-        b = d[pos];
-        if (b == 0xFF) {
-          if (pos + 1 < n && d[pos + 1] == 0x00) {
-            pos += 2;
-          } else {
-            marker = true;  // pos stays on the marker
-            b = 0;
-            ++pad_bytes;
-          }
-        } else {
-          ++pos;
-        }
-      } else {
-        ++pad_bytes;
-      }
-      buf |= uint64_t(b) << (56 - cnt);
-      cnt += 8;
-    }
-  }
-  inline uint32_t peek(int k) {
-    if (cnt < k) fill();
-    return static_cast<uint32_t>(buf >> (64 - k));
-  }
-  inline void skip(int k) {
-    buf <<= k;
-    cnt -= k;
-  }
-  inline int get(int k) {
-    if (k == 0) return 0;
-    uint32_t v = peek(k);
-    skip(k);
-    return static_cast<int>(v);
-  }
-  // true when bits past the end of the entropy data were used
-  bool overrun() const { return cnt < pad_bytes * 8; }
-  void reset() {
-    buf = 0;
-    cnt = 0;
-    pad_bytes = 0;
+  size_t n;
+  bool eof_is_eoi = false;
+  int at(size_t i) const {
+    if (i < n) return d[i];
+    if (!eof_is_eoi) throw Suspended();
+    return (i - n) % 2 ? 0xD9 : 0xFF;
   }
 };
+
+// jdmarker.c next_marker: skip to the next marker (0xFF, any fill bytes,
+// then a code other than 0), a stuffed FF 00 included, from pos; return
+// its code with pos after it (JWRN_EXTRANEOUS_DATA where bytes were
+// skipped)
+int next_marker(const Source& src, size_t& pos) {
+  for (;;) {
+    int c = src.at(pos++);
+    while (c != 0xFF) c = src.at(pos++);
+    do c = src.at(pos++);
+    while (c == 0xFF);
+    if (c != 0) return c;
+  }
+}
+
+// jdhuff.c's bit reader on the slow path of decode_mcu (its fast path,
+// taken while 512 bytes a block remain and no restart interval is set,
+// decodes the same values): jpeg_fill_bit_buffer loads whole bytes, FF 00
+// as FF, until 57 bits are held or a marker is met, which it leaves
+// unread; a request for more bits than the data holds then gets zero bits
+// and sets insufficient_data (JWRN_HIT_MARKER)
+struct BitReader {
+  const Source& src;
+  size_t& pos;
+  int& unread_marker;
+  uint64_t buf = 0;
+  int bits_left = 0;
+  bool insufficient = false;
+
+  BitReader(const Source& s, size_t& p, int& m) : src(s), pos(p), unread_marker(m) {}
+
+  void fill(int nbits) {
+    if (unread_marker == 0) {
+      while (bits_left < 57) {
+        int c = src.at(pos++);
+        if (c == 0xFF) {
+          do c = src.at(pos++);
+          while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            unread_marker = c;
+            break;
+          }
+        }
+        buf = (buf << 8) | uint64_t(c);
+        bits_left += 8;
+      }
+      if (unread_marker == 0) return;
+    }
+    if (nbits > bits_left) {
+      insufficient = true;
+      buf <<= 57 - bits_left;
+      bits_left = 57;
+    }
+  }
+  // CHECK_BIT_BUFFER and GET_BITS
+  inline int get(int k) {
+    if (k == 0) return 0;
+    if (bits_left < k) fill(k);
+    bits_left -= k;
+    return static_cast<int>((buf >> bits_left) & ((uint64_t(1) << k) - 1));
+  }
+  // HUFF_DECODE and jpeg_huff_decode: a code that no table entry matches
+  // within 16 bits takes 17 bits and decodes as 0 (JWRN_HUFF_BAD_CODE)
+  inline int huff(const struct HuffTable& t);
+};
+
+int BitReader::huff(const HuffTable& t) {
+  int nb = 1;
+  if (bits_left < 8) fill(0);
+  if (bits_left >= 8) {
+    int look = static_cast<int>((buf >> (bits_left - 8)) & 0xFF);
+    nb = t.look_nb[look];
+    if (nb <= 8) {
+      bits_left -= nb;
+      return t.look_val[look];
+    }
+  }
+  int code = get(nb);
+  while (code > t.maxcode[nb]) {
+    code = (code << 1) | get(1);
+    ++nb;
+  }
+  if (nb > 16) return 0;
+  return t.vals[t.valptr[nb] + code - t.mincode[nb]];
+}
 
 inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
@@ -546,40 +554,31 @@ const uint32_t kQe[114] = {
     qm(0x5597, 110, 109, 0), qm(0x504f, 111, 107, 0), qm(0x5a10, 110, 111, 1),
     qm(0x5522, 112, 109, 0), qm(0x59eb, 112, 111, 1), qm(0x5a1d, 113, 113, 0)};
 
-// The QM decoder of T.81 D.2 (jdarith.c arith_decode): a marker met in
-// the data, or the end of the file, feeds zero bytes from then on.
+// The QM decoder of T.81 D.2 (jdarith.c arith_decode): it reads a byte
+// at a time from the source; from a marker on (which it leaves unread) it
+// is fed zero bytes.  ct -1 marks an error in the data (JWRN_ARITH_BAD_CODE):
+// the rest of the restart interval decodes nothing.
 struct ArithReader {
-  const uint8_t* d;
-  size_t n, pos;
+  const Source& src;
+  size_t& pos;
+  int& unread_marker;
   int64_t c = 0, a = 0;
   int ct = -16;  // -16: the two first bytes are still to be read
-  bool marker = false;
 
-  ArithReader(const uint8_t* d_, size_t n_, size_t pos_) : d(d_), n(n_), pos(pos_) {}
+  ArithReader(const Source& s, size_t& p, int& m) : src(s), pos(p), unread_marker(m) {}
 
-  void reset(size_t p) {
-    pos = p;
+  void reset() {
     c = a = 0;
     ct = -16;
-    marker = false;
   }
   int byte() {
-    if (marker || pos >= n) {
-      marker = true;
-      return 0;
-    }
-    int b = d[pos];
-    if (b != 0xFF) {
-      ++pos;
-      return b;
-    }
-    size_t q = pos + 1;
-    while (q < n && d[q] == 0xFF) ++q;
-    if (q < n && d[q] == 0) {  // a stuffed zero
-      pos = q + 1;
-      return 0xFF;
-    }
-    marker = true;  // pos stays on the marker
+    if (unread_marker) return 0;
+    int b = src.at(pos++);
+    if (b != 0xFF) return b;
+    do b = src.at(pos++);
+    while (b == 0xFF);
+    if (b == 0) return 0xFF;
+    unread_marker = b;
     return 0;
   }
   int decode(uint8_t* st) {
@@ -619,16 +618,6 @@ struct ArithReader {
   }
 };
 
-// the position of the next marker (0xFF then a code other than 0x00 or
-// 0xFF) at or after q, or n
-size_t next_marker(const uint8_t* d, size_t n, size_t q) {
-  while (q + 1 < n) {
-    if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF) return q;
-    ++q;
-  }
-  return n;
-}
-
 struct Scan {
   std::vector<int> comp, tdc, tac;  // frame component, DC and AC table
   int ss = 0, se = 63, ah = 0, al = 0;
@@ -645,10 +634,18 @@ struct Decoder {
   bool lossless = false;
   int precision = 8;
   bool gray = false;         // the read asked for: cv2's IMREAD_GRAYSCALE
-  bool eof_is_eoi = false;   // a file read: the end of the data is its EOI
-  int scans = 0;
-  bool last_scan_at_end = false;  // the last scan's data ran to the end
-  bool saw_eoi = false, std_tables = false;
+  Source src;                // the bytes as libjpeg's source hands them over
+  size_t pos = 0;            // the source's next byte
+  int unread_marker = 0;     // a marker the entropy decoder stopped at
+  int next_restart_num = 0;
+  bool multi = false;        // has_multiple_scans: read to the EOI first
+  int scan_number = 0;       // the scans begun (input_scan_number)
+  // master->last_good_iMCU_row: the iMCU row of the last MCU that the
+  // entropy decoder decoded with data left; block smoothing takes the
+  // bits from before each component's latest scan below it (libjpeg-turbo
+  // smooths each row with the parameters of the scan that made it)
+  int last_good_row = 0;
+  bool std_tables = false;
   bool smoothing = false;  // libjpeg smooths the blocks (smoothing_ok)
   // DAC conditioning (jdmarker.c get_soi's defaults)
   uint8_t dc_l[16], dc_u[16], ac_k[16];
@@ -661,7 +658,7 @@ struct Decoder {
   int orientation = 1;
   bool exif_seen = false;
 
-  Decoder(const uint8_t* d_, size_t n_) : d(d_), n(n_) {
+  Decoder(const uint8_t* d_, size_t n_) : d(d_), n(n_), src{d_, n_} {
     std::memset(dc_l, 0, sizeof(dc_l));
     std::memset(dc_u, 1, sizeof(dc_u));
     std::memset(ac_k, 5, sizeof(ac_k));
@@ -851,74 +848,61 @@ struct Decoder {
     }
   }
 
-  void decode_block(BitReader& br, int16_t* blk, int& pred, HuffTable& dct,
-                    HuffTable& act) {
-    int s = huff(br, dct);
-    if (s > 16) fail("corrupt JPEG entropy data (bad DC size)");
-    int diff = s ? extend(br.get(s), s) : 0;
-    pred += diff;
-    blk[0] = static_cast<int16_t>(pred);
-    for (int k = 1; k < 64;) {
-      int rs = huff(br, act);
-      int r = rs >> 4, sz = rs & 15;
-      if (sz) {
-        k += r;
-        if (k > 63) fail("corrupt JPEG entropy data (coefficient past 63)");
-        blk[kNatural[k]] = static_cast<int16_t>(extend(br.get(sz), sz));
-        ++k;
-      } else if (r == 15) {
-        k += 16;
-      } else {
-        break;
-      }
-    }
-  }
+  // jpeg_natural_order with its 16 extra entries of 63 (jutils.c): in
+  // damaged data a run past coefficient 63 puts its value there
+  static int natural(int k) { return k < 64 ? kNatural[k] : 63; }
 
-  inline int huff(BitReader& br, HuffTable& t) {
-    uint32_t look = br.peek(9);
-    uint16_t e = t.lut[look];
-    if (e) {
-      br.skip(e >> 8);
-      return e & 0xFF;
-    }
-    uint32_t code = br.peek(16);
-    for (int l = 10; l <= 16; ++l) {
-      int c = static_cast<int>(code >> (16 - l));
-      if (c <= t.maxcode[l]) {
-        br.skip(l);
-        return t.vals[t.valptr[l] + c - t.mincode[l]];
-      }
-    }
-    fail("corrupt JPEG entropy data (bad Huffman code)");
-  }
-
-  // jdphuff.c: the first DC scan of a progressive file, and its
-  // refinement (one bit each)
-  void dc_first(BitReader& br, int16_t* blk, int& pred, HuffTable& t, int al) {
-    int s = huff(br, t);
+  // jdhuff.c decode_mcu_slow, one block; the DC predictor is an int and
+  // the coefficients JCOEF (16 bits)
+  void decode_block(BitReader& br, int16_t* blk, int& pred,
+                    const HuffTable& dct, const HuffTable& act) {
+    int s = br.huff(dct);
     if (s) s = extend(br.get(s), s);
+    pred = w32(int64_t(pred) + s);
+    blk[0] = static_cast<int16_t>(pred);
+    for (int k = 1; k < 64; ++k) {
+      int rs = br.huff(act);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        blk[natural(k)] = static_cast<int16_t>(extend(br.get(s), s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  // jdphuff.c: the first DC scan of a progressive file
+  void dc_first(BitReader& br, int16_t* blk, int& pred, const HuffTable& t,
+                int al) {
+    int s = br.huff(t);
+    if (s) s = extend(br.get(s), s);
+    if ((pred >= 0 && s > INT32_MAX - pred) || (pred < 0 && s < INT32_MIN - pred))
+      fail("corrupt JPEG entropy data (a DC coefficient out of range)" +
+           std::string(kCv2Too));
     pred += s;
     blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred) << al);
   }
 
-  void ac_first(BitReader& br, int16_t* blk, HuffTable& t, const Scan& sc,
-                int& eobrun) {
+  void ac_first(BitReader& br, int16_t* blk, const HuffTable& t,
+                const Scan& sc, unsigned& eobrun) {
     if (eobrun > 0) {
       --eobrun;
       return;
     }
     for (int k = sc.ss; k <= sc.se; ++k) {
-      int rs = huff(br, t);
+      int rs = br.huff(t);
       int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
-        if (k > 63) fail("corrupt JPEG entropy data (coefficient past 63)");
-        blk[kNatural[k]] = static_cast<int16_t>(
+        blk[natural(k)] = static_cast<int16_t>(
             static_cast<unsigned>(extend(br.get(s), s)) << sc.al);
       } else if (r == 15) {
         k += 15;
       } else {
-        eobrun = 1 << r;
+        eobrun = 1u << r;
         if (r) eobrun += br.get(r);
         --eobrun;
         break;
@@ -927,23 +911,23 @@ struct Decoder {
   }
 
   // a correction bit for a coefficient already nonzero
-  static void refine(BitReader& br, int16_t* c, int p1) {
+  static void refine(BitReader& br, int16_t* c, int p1, int m1) {
     if (br.get(1) && (*c & p1) == 0)
-      *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c - p1);
+      *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
   }
 
-  void ac_refine(BitReader& br, int16_t* blk, HuffTable& t, const Scan& sc,
-                 int& eobrun) {
-    const int p1 = 1 << sc.al;
+  void ac_refine(BitReader& br, int16_t* blk, const HuffTable& t,
+                 const Scan& sc, unsigned& eobrun) {
+    const int p1 = 1 << sc.al, m1 = -p1;
     int k = sc.ss;
     if (eobrun == 0) {
       for (; k <= sc.se; ++k) {
-        int rs = huff(br, t);
+        int rs = br.huff(t);
         int r = rs >> 4, s = rs & 15;
         if (s) {
-          s = br.get(1) ? p1 : -p1;  // a size other than 1 is read as 1
+          s = br.get(1) ? p1 : m1;  // a size other than 1 is read as 1
         } else if (r != 15) {
-          eobrun = 1 << r;
+          eobrun = 1u << r;
           if (r) eobrun += br.get(r);
           break;
         }
@@ -951,32 +935,30 @@ struct Decoder {
         // r zero ones
         do {
           int16_t* c = blk + kNatural[k];
-          if (*c != 0) refine(br, c, p1);
+          if (*c != 0) refine(br, c, p1, m1);
           else if (--r < 0) break;
           ++k;
         } while (k <= sc.se);
-        if (s) {
-          if (k > 63) fail("corrupt JPEG entropy data (coefficient past 63)");
-          blk[kNatural[k]] = static_cast<int16_t>(s);
-        }
+        if (s) blk[natural(k)] = static_cast<int16_t>(s);
       }
     }
     if (eobrun > 0) {
       for (; k <= sc.se; ++k) {
         int16_t* c = blk + kNatural[k];
-        if (*c != 0) refine(br, c, p1);
+        if (*c != 0) refine(br, c, p1, m1);
       }
       --eobrun;
     }
   }
 
   // jdarith.c: the DC difference (F.1.4.4.1) of scan component i, added
-  // to its prediction
-  void arith_dc(ArithReader& ar, int tbl, int& pred, int& ctx) {
+  // to its prediction; false where the magnitude overflows
+  // (JWRN_ARITH_BAD_CODE: ct -1)
+  bool arith_dc(ArithReader& ar, int tbl, int& pred, int& ctx) {
     uint8_t* st = dc_stats[tbl] + ctx;
     if (ar.decode(st) == 0) {
       ctx = 0;
-      return;
+      return true;
     }
     int sign = ar.decode(st + 1);
     st += 2 + sign;
@@ -984,7 +966,7 @@ struct Decoder {
     if (m) {
       st = dc_stats[tbl] + 20;
       while (ar.decode(st)) {
-        if ((m <<= 1) == 0x8000) fail("corrupt JPEG entropy data (bad arithmetic code)");
+        if ((m <<= 1) == 0x8000) return (ar.ct = -1, false);
         ++st;
       }
     }
@@ -997,47 +979,51 @@ struct Decoder {
       if (ar.decode(st)) v |= m;
     v += 1;
     pred = (pred + (sign ? -v : v)) & 0xFFFF;
+    return true;
   }
 
-  // the magnitude and sign of a nonzero AC value at k (F.1.4.4.2);
+  // the magnitude and sign of a nonzero AC value at k (F.1.4.4.2) into v;
   // st points at the coefficient's S0 + 2
-  int arith_ac_value(ArithReader& ar, uint8_t* st, int tbl, int k,
-                     uint8_t* fixed) {
+  bool arith_ac_value(ArithReader& ar, uint8_t* st, int tbl, int k,
+                      uint8_t* fixed, int& v) {
     int sign = ar.decode(fixed);
     int m = ar.decode(st);
     if (m && ar.decode(st)) {
       m <<= 1;
       st = ac_stats[tbl] + (k <= ac_k[tbl] ? 189 : 217);
       while (ar.decode(st)) {
-        if ((m <<= 1) == 0x8000) fail("corrupt JPEG entropy data (bad arithmetic code)");
+        if ((m <<= 1) == 0x8000) return (ar.ct = -1, false);
         ++st;
       }
     }
-    int v = m;
+    v = m;
     st += 14;
     while (m >>= 1)
       if (ar.decode(st)) v |= m;
     v += 1;
-    return sign ? -v : v;
+    if (sign) v = -v;
+    return true;
   }
 
   // AC coefficients ss..se of one block, first pass (sequential, or a
   // progressive first scan at al)
-  void arith_ac_first(ArithReader& ar, int16_t* blk, int tbl, int ss, int se,
+  bool arith_ac_first(ArithReader& ar, int16_t* blk, int tbl, int ss, int se,
                       int al, uint8_t* fixed) {
     for (int k = ss; k <= se; ++k) {
       uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
       if (ar.decode(st)) break;  // EOB
       while (ar.decode(st + 1) == 0) {
         st += 3;
-        if (++k > se) fail("corrupt JPEG entropy data (bad arithmetic code)");
+        if (++k > se) return (ar.ct = -1, false);
       }
-      int v = arith_ac_value(ar, st + 2, tbl, k, fixed);
+      int v;
+      if (!arith_ac_value(ar, st + 2, tbl, k, fixed, v)) return false;
       blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
     }
+    return true;
   }
 
-  void arith_ac_refine(ArithReader& ar, int16_t* blk, int tbl, const Scan& sc,
+  bool arith_ac_refine(ArithReader& ar, int16_t* blk, int tbl, const Scan& sc,
                        uint8_t* fixed) {
     const int p1 = 1 << sc.al;
     int kex = sc.se;  // the end of the block as the earlier scans left it
@@ -1058,9 +1044,10 @@ struct Decoder {
           break;
         }
         st += 3;
-        if (++k > sc.se) fail("corrupt JPEG entropy data (bad arithmetic code)");
+        if (++k > sc.se) return (ar.ct = -1, false);
       }
     }
+    return true;
   }
 
   void reset_stats(const Scan& sc) {
@@ -1082,37 +1069,42 @@ struct Decoder {
            std::string(kCv2Too));
   }
 
-  // the position after restart marker next_rst, expected at q (after any
-  // 0xFF fill bytes); next_rst moves on
-  size_t expect_rst(size_t q, int& next_rst) {
-    if (q >= n) fail("truncated JPEG entropy data");
-    if (d[q] != 0xFF) fail("corrupt JPEG entropy data (no restart marker)");
-    while (q < n && d[q] == 0xFF) ++q;
-    if (q >= n) fail("truncated JPEG entropy data");
-    if (d[q] != 0xD0 + next_rst)
-      fail("corrupt JPEG entropy data (restart marker out of order)");
-    next_rst = (next_rst + 1) & 7;
-    return q + 1;
+  // jdmarker.c read_restart_marker: the marker the entropy decoder stopped
+  // at, or the next one in the source (skipping what data is left); the
+  // expected RSTn is swallowed, anything else goes to
+  // jpeg_resync_to_restart
+  void read_restart_marker() {
+    if (unread_marker == 0) unread_marker = next_marker(src, pos);
+    if (unread_marker == 0xD0 + next_restart_num) unread_marker = 0;
+    else resync_to_restart(next_restart_num);
+    next_restart_num = (next_restart_num + 1) & 7;
   }
 
-  // a Huffman scan's restart: the encoder pads the last byte with 1 bits,
-  // so fewer than 8 bits of entropy data may be left, and then the marker
-  void huffman_restart(BitReader& br, int& next_rst) {
-    if (br.overrun()) fail("truncated JPEG entropy data");
-    if (br.cnt - br.pad_bytes * 8 >= 8)
-      fail("corrupt JPEG entropy data (data before a restart marker)");
-    br.pos = expect_rst(br.pos, next_rst);
-    br.marker = false;
-    br.reset();
+  // jdmarker.c jpeg_resync_to_restart (JWRN_MUST_RESYNC): a marker below
+  // SOF0, or one of the two RSTs before the one expected, is skipped to
+  // the next marker and judged again; another non-RST marker, or one of
+  // the two RSTs after it, is left unread, so that the decoder takes an
+  // empty segment; any other RST is taken as the one expected
+  void resync_to_restart(int desired) {
+    for (;;) {
+      const int m = unread_marker;
+      int action = 1;
+      if (m < 0xC0) action = 2;
+      else if (m < 0xD0 || m > 0xD7) action = 3;
+      else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7))
+        action = 3;
+      else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7))
+        action = 2;
+      if (action == 1) unread_marker = 0;
+      if (action != 2) return;
+      unread_marker = next_marker(src, pos);
+    }
   }
 
-  // Decode one scan starting at p (after the SOS header); returns the
-  // position of the marker that ends it.
-  size_t read_scan(size_t p, const Scan& sc) {
-    const size_t ns = sc.comp.size();
-    check_mcu(sc);
+  // the scan's tables, quantisation latch and the components it reaches
+  void start_scan(const Scan& sc) {
     const bool dc_band = sc.ss == 0;
-    for (size_t i = 0; i < ns; ++i) {
+    for (size_t i = 0; i < sc.comp.size(); ++i) {
       Component& c = comps[sc.comp[i]];
       if (!arith) {
         // as jdhuff.c / jdphuff.c derive them: only the tables the scan
@@ -1134,6 +1126,16 @@ struct Decoder {
       }
       c.seen = true;
     }
+  }
+
+  // Decode one scan from the source position (after the SOS header),
+  // MCU by MCU as decode_mcu does, restarts and recovery included; the
+  // source is left where libjpeg's marker reader goes on
+  void read_scan(const Scan& sc) {
+    const size_t ns = sc.comp.size();
+    check_mcu(sc);
+    start_scan(sc);
+    const bool dc_band = sc.ss == 0;
     // the scan's MCUs: one block of a lone component (its real blocks
     // only), or each component's h x v blocks
     const bool single = ns == 1;
@@ -1151,42 +1153,48 @@ struct Decoder {
                              &c.coef[(size_t(r * bh + yy) * c.bw + q * bw + xx) * 64]);
       }
     };
-    BitReader br(d, n, p);
-    ArithReader ar(d, n, p);
+    BitReader br(src, pos, unread_marker);
+    ArithReader ar(src, pos, unread_marker);
     uint8_t fixed = 113;
     if (arith) reset_stats(sc);
     std::vector<int> pred(ns, 0), ctx(ns, 0);
-    int eobrun = 0, next_rst = 0;
-    long units_left = restart_interval;
-    auto restart = [&]() {
+    unsigned eobrun = 0;
+    unsigned restarts_to_go = restart_interval;
+    auto process_restart = [&]() {
       if (arith) {
-        // data the decoder did not need before the marker is skipped, as
-        // jdmarker.c next_marker skips it
-        ar.reset(expect_rst(next_marker(d, n, ar.pos), next_rst));
+        read_restart_marker();
         reset_stats(sc);
+        ar.reset();
       } else {
-        huffman_restart(br, next_rst);
+        br.bits_left = 0;  // the bits left in the buffer are dropped
+        read_restart_marker();
         eobrun = 0;
+        // the data segment after a marker left unread is empty
+        if (unread_marker == 0) br.insufficient = false;
       }
       std::fill(pred.begin(), pred.end(), 0);
       std::fill(ctx.begin(), ctx.end(), 0);
-      units_left = restart_interval;
+      restarts_to_go = restart_interval;
     };
     const int p1 = 1 << sc.al;
+    const int per_row = single ? comps[sc.comp[0]].v : 1;  // MCU rows an iMCU row
     for (int r = 0; r < rows; ++r) {
       for (int q = 0; q < cols; ++q) {
-        if (restart_interval && units_left == 0) restart();
+        if (restart_interval && restarts_to_go == 0) process_restart();
+        if (restart_interval) --restarts_to_go;
         gather(r, q);
-        for (auto& [i, blk] : mcu) {
-          HuffTable& dt = dc[sc.tdc[i]];
-          HuffTable& at = ac[sc.tac[i]];
-          if (arith) {
+        // (jdarith.c never sets insufficient_data)
+        if (arith || !br.insufficient) last_good_row = r / per_row;
+        if (arith) {
+          // after an error the rest of the interval decodes nothing
+          for (auto& [i, blk] : mcu) {
+            if (ar.ct == -1) break;
             if (!progressive) {
-              arith_dc(ar, sc.tdc[i], pred[i], ctx[i]);
+              if (!arith_dc(ar, sc.tdc[i], pred[i], ctx[i])) break;
               blk[0] = static_cast<int16_t>(pred[i]);
               arith_ac_first(ar, blk, sc.tac[i], 1, 63, 0, &fixed);
             } else if (dc_band && sc.ah == 0) {
-              arith_dc(ar, sc.tdc[i], pred[i], ctx[i]);
+              if (!arith_dc(ar, sc.tdc[i], pred[i], ctx[i])) break;
               blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred[i]) << sc.al);
             } else if (dc_band) {
               if (ar.decode(&fixed)) blk[0] = static_cast<int16_t>(blk[0] | p1);
@@ -1195,7 +1203,16 @@ struct Decoder {
             } else {
               arith_ac_refine(ar, blk, sc.tac[i], sc, &fixed);
             }
-          } else if (!progressive) {
+          }
+          continue;
+        }
+        // once the data has run out, the MCUs up to the next restart keep
+        // zero coefficients (a DC refinement reads on: its bits are zero)
+        if (br.insufficient && !(progressive && dc_band && sc.ah)) continue;
+        for (auto& [i, blk] : mcu) {
+          const HuffTable& dt = dc[sc.tdc[i]];
+          const HuffTable& at = ac[sc.tac[i]];
+          if (!progressive) {
             decode_block(br, blk, pred[i], dt, at);
           } else if (dc_band && sc.ah == 0) {
             dc_first(br, blk, pred[i], dt, sc.al);
@@ -1207,12 +1224,8 @@ struct Decoder {
             ac_refine(br, blk, at, sc, eobrun);
           }
         }
-        --units_left;
       }
-      if (!arith && br.overrun()) fail("truncated JPEG entropy data");
     }
-    // the marker that ends the scan
-    return next_marker(d, n, arith ? ar.pos : br.pos);
   }
 
   // The lossless files that cv2 does not read in the mode asked for:
@@ -1235,10 +1248,11 @@ struct Decoder {
 
   // A lossless scan (T.81 Annex H; jdlhuff.c, jddiffct.c): each sample's
   // difference, a DC-style size (16: 32768, no extra bits) and its bits,
-  // MCU by MCU; restart intervals of whole MCU rows.  Then the samples,
-  // predicted as jdlossls.c predicts them.  Returns the position of the
-  // marker that ends the scan.
-  size_t read_lossless_scan(size_t p, const Scan& sc) {
+  // MCU row by MCU row; restart intervals of whole MCU rows.  A row that
+  // starts after the data ran out keeps zero differences, and restarts the
+  // predictor as a restart does (jdlhuff.c decode_mcus).  Then the
+  // samples, predicted as jdlossls.c predicts them.
+  void read_lossless_scan(const Scan& sc) {
     const size_t ns = sc.comp.size();
     check_mcu(sc);
     for (size_t i = 0; i < ns; ++i) {
@@ -1256,40 +1270,57 @@ struct Decoder {
       fail("lossless JPEG whose restart interval is not a whole number of "
            "MCU rows is not decoded" + std::string(kCv2Too));
     const int interval_rows = restart_interval / cols;
-    BitReader br(d, n, p);
-    int next_rst = 0;
+    BitReader br(src, pos, unread_marker);
+    std::vector<char> fresh(rows, 0);  // MCU rows the predictor restarts at
+    fresh[0] = 1;
+    int rows_to_go = interval_rows;
     for (int r = 0; r < rows; ++r) {
-      if (interval_rows && r && r % interval_rows == 0)
-        huffman_restart(br, next_rst);
+      if (interval_rows && rows_to_go == 0) {
+        br.bits_left = 0;
+        read_restart_marker();
+        if (unread_marker == 0) br.insufficient = false;
+        rows_to_go = interval_rows;
+        fresh[r] = 1;
+      }
+      const bool skip = br.insufficient;
+      if (skip) fresh[r] = 1;
       for (int q = 0; q < cols; ++q)
         for (size_t i = 0; i < ns; ++i) {
           Component& c = comps[sc.comp[i]];
           int bh = single ? 1 : c.v, bw = single ? 1 : c.h;
           for (int yy = 0; yy < bh; ++yy)
             for (int xx = 0; xx < bw; ++xx) {
-              int s = huff(br, dc[sc.tdc[i]]);
-              int v = s == 16 ? 32768 : (s ? extend(br.get(s), s) : 0);
+              int v = 0;
+              if (!skip) {
+                int s = br.huff(dc[sc.tdc[i]]);
+                v = s == 16 ? 32768 : (s ? extend(br.get(s), s) : 0);
+              }
               c.diff[size_t(r * bh + yy) * c.bw + q * bw + xx] = v;
             }
         }
-      if (br.overrun()) fail("truncated JPEG entropy data");
+      if (interval_rows) --rows_to_go;
     }
     for (size_t i = 0; i < ns; ++i) {
       Component& c = comps[sc.comp[i]];
-      undifference(c, sc.ss, sc.al, interval_rows * (single ? 1 : c.v));
+      const int per = single ? 1 : c.v;
+      std::vector<char> first(c.bh, 0);
+      for (int r = 0; r < rows; ++r)
+        if (fresh[r] && r * per < c.bh) first[r * per] = 1;
+      undifference(c, sc.ss, sc.al, first);
     }
-    return next_marker(d, n, br.pos);
   }
 
   // jdlossls.c: each sample its difference plus its prediction, modulo
-  // 2^16; the first row (and each restart interval's) from the left,
-  // 2^(precision - Pt - 1) first, the first column from above, the rest
-  // by the predictor; then shifted left by Pt into an 8-bit sample
-  void undifference(Component& c, int predictor, int pt, int interval) {
+  // 2^16; the first row (and each row where the predictor restarts) from
+  // the left, 2^(precision - Pt - 1) first, the first column from above,
+  // the rest by the predictor; then shifted left by Pt into an 8-bit
+  // sample
+  void undifference(Component& c, int predictor, int pt,
+                    const std::vector<char>& first_row) {
     std::vector<int> prev(c.bw), cur(c.bw);
     for (int r = 0; r < c.bh; ++r) {
       const int32_t* dr = &c.diff[size_t(r) * c.bw];
-      const bool first = r == 0 || (interval && r % interval == 0);
+      const bool first = first_row[r];
       for (int x = 0; x < c.bw; ++x) {
         int pred;
         if (first) {
@@ -1331,30 +1362,52 @@ struct Decoder {
     return useful;
   }
 
+  // jdmarker.c read_markers: the markers in order, from SOI to EOI (a
+  // file of several scans, which libjpeg reads whole before any output)
+  // or to the end of the first scan (a lone scan, which it decodes as it
+  // outputs: what follows it is read only by jpeg_finish_decompress, whose
+  // errors OpenCV ignores)
   void parse(bool header_only) {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("not a JPEG file");
-    size_t p = 2;
+    pos = 2;
     bool done_any_scan = false;
     while (true) {
-      // find the next marker
-      while (p < n && d[p] != 0xFF) ++p;
-      while (p < n && d[p] == 0xFF) ++p;
-      if (p >= n) {
-        if (!done_any_scan) fail("truncated JPEG file (no image data)");
-        // cv2.imread reads a file through libjpeg's stdio source, which
-        // supplies an EOI marker at the end of the file; the port takes it
-        // where it can tell that the scans' data is whole (not after
-        // arithmetic-coded data, which decodes on from zero bits)
-        if (eof_is_eoi && !(arith && last_scan_at_end)) saw_eoi = true;
-        break;
+      int m = unread_marker;
+      unread_marker = 0;
+      if (!m) {
+        try {
+          m = next_marker(src, pos);
+        } catch (const Suspended&) {
+          if (!done_any_scan) fail("truncated JPEG file (no image data)");
+          fail(std::string("JPEG of several scans without an EOI marker "
+                           "after them is not decoded") + kCv2Too);
+        }
       }
-      int m = d[p++];
       if (m == 0xD9) {  // EOI
-        saw_eoi = true;
-        break;
+        if (!done_any_scan) break;
+        return finish();
       }
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
       if (m == 0xD8) fail("corrupt JPEG file (second SOI)");
+      // jdmarker.c takes the reserved codes (JPGn, DHP, EXP, RESn) for
+      // incompatible extensions and stops
+      if (m < 0xC0 || m == 0xC8 || m == 0xDF || (m >= 0xF0 && m <= 0xFD)) {
+        char hex[8];
+        std::snprintf(hex, sizeof(hex), "0x%02X", m);
+        fail("corrupt JPEG file (unknown marker " + std::string(hex) + ")" +
+             kCv2Too);
+      }
+      size_t p = pos;
+      // jdmarker.c skip_variable: a segment that libjpeg skips unread, which
+      // cv2.imread's stdio source lets run past the end of the file
+      const bool skipped = m == 0xFE || m == 0xDC || (m >= 0xE0 && m <= 0xEF);
+      if (skipped && src.eof_is_eoi) {
+        const int len = (src.at(p) << 8) | src.at(p + 1);
+        if (len >= 2 && p + len > n) {
+          pos = p + len;
+          continue;
+        }
+      }
       int len = u16(p);
       if (len < 2 || p + len > n) fail("truncated JPEG header");
       size_t body = p + 2;
@@ -1449,43 +1502,51 @@ struct Decoder {
                                  : s.se < s.ss || s.se > 63 || ns != 1;
             if ((s.ah != 0 && s.al != s.ah - 1) || s.al > 13) bad = true;
             if (bad) fail("corrupt SOS segment (bad progression parameters)");
-            for (int ci : sc)
-              for (int k = s.ss; k <= s.se; ++k) comps[ci].coef_bits[k] = s.al;
+            for (int ci : sc) {
+              Component& c = comps[ci];
+              for (int k = 1; k <= 9; ++k)
+                c.prev_bits[k] = scan_number > 0 ? c.coef_bits[k] : 0;
+              for (int k = s.ss; k <= s.se; ++k) c.coef_bits[k] = s.al;
+            }
           }
           check_mcu(s);
           // the size: from the headers up to the first scan's
           if (header_only) return;
-          if (!arith && !std_tables) load_std_tables();
-          p = lossless ? read_lossless_scan(body + blen, s)
-                       : read_scan(body + blen, s);
+          if (!done_any_scan) {
+            // jdinput.c initial_setup: has_multiple_scans
+            multi = progressive || s.comp.size() < comps.size();
+            if (!arith && !std_tables) load_std_tables();
+          }
+          pos = body + blen;
+          next_restart_num = 0;  // jdmarker.c get_sos
+          ++scan_number;
+          try {
+            if (lossless) read_lossless_scan(s);
+            else read_scan(s);
+          } catch (const Suspended&) {
+            fail(std::string("truncated JPEG data (its scan runs past the end "
+                             "of the bytes)") + kCv2Too);
+          }
           done_any_scan = true;
-          ++scans;
-          last_scan_at_end = p >= n;
+          if (!multi) return finish();
           continue;
         }
         default:
           break;
       }
-      p += len;
+      pos = p + len;
     }
     if (!have_frame) fail("JPEG without a frame header");
-    for (const Component& c : comps)
-      if (!c.seen) fail("truncated JPEG file (a component has no scan)");
-    // cv2.imdecode's memory source has no byte past the end of the
-    // buffer, and libjpeg's read of one suspends, which OpenCV takes as a
-    // failure: libjpeg reads a file of several scans (every progressive
-    // one) to its EOI before any output, and a lone scan as far as its bit
-    // reader looks ahead
-    if (!saw_eoi && eof_is_eoi)
-      fail("arithmetic-coded JPEG whose scan data runs to the end of the "
-           "file is not decoded (cv2.imread decodes it on from zero bits)");
-    if (!saw_eoi && (progressive || scans > 1))
-      fail(std::string("JPEG of several scans without an EOI marker after "
-                       "them is not decoded") + kCv2Too);
-    if (!saw_eoi && last_scan_at_end)
-      fail("JPEG whose scan data runs to the end of the bytes without an "
-           "EOI marker is not decoded (cv2.imdecode returns None for it "
-           "unless libjpeg's bit reader looks no byte past the end)");
+    fail("truncated JPEG file (no image data)");
+  }
+
+  // after the scans: a lossless component that no scan reached would be
+  // uninitialised memory in libjpeg; a DCT one dequantises by zero to a
+  // flat 128 (jddctmgr.c skips its quantisation table)
+  void finish() {
+    if (lossless)
+      for (const Component& c : comps)
+        if (!c.seen) fail("truncated JPEG file (a component has no scan)");
     smoothing = progressive && would_smooth();
   }
 
@@ -1514,8 +1575,8 @@ struct Decoder {
   // none) are estimated from the 5 x 5 DC values around it, bounded
   // below 2^Al; where no AC scan coded any of them (change_dc), the DC is
   // replaced by its interpolation too
-  void smooth_block(const Component& c, const int* rows, bool change_dc,
-                    int by, int bx, int16_t* ws) const {
+  void smooth_block(const Component& c, const int* rows, const int* bits,
+                    bool change_dc, int by, int bx, int16_t* ws) const {
     int dc[25];
     for (int a = 0; a < 5; ++a) {
       int r = rows[size_t(by) * 5 + a];
@@ -1537,7 +1598,7 @@ struct Decoder {
     };
     for (int k = 1; k <= 9; ++k) {
       const SmoothKernel& sk = kSmooth[k - 1];
-      const int al = c.coef_bits[k];
+      const int al = bits[k];
       if (al == 0 || ws[sk.pos] != 0 || (!change_dc && !sk.has_without))
         continue;
       ws[sk.pos] = estimate(change_dc ? sk.with_dc : sk.without,
@@ -1558,19 +1619,25 @@ struct Decoder {
     int pw = c.bw * 8;
     std::vector<uint8_t> full(size_t(pw) * c.bh * 8);
     std::vector<int> rows;
-    bool change_dc = true;
-    if (smoothing) {
-      rows = smooth_rows(c);
-      for (int k = 1; k <= 9; ++k)
-        if (c.coef_bits[k] != -1) change_dc = false;
+    // smoothing_ok's latches: the bits now, and before each component's
+    // latest scan (none where only one scan was read)
+    int now[10], before[10];
+    for (int k = 0; k < 10; ++k) {
+      now[k] = c.coef_bits[k];
+      before[k] = scan_number > 1 ? c.prev_bits[k] : -1;
     }
+    if (smoothing) rows = smooth_rows(c);
     int16_t ws[64];
     for (int by = 0; by < c.bh; ++by)
       for (int bx = 0; bx < c.bw; ++bx) {
         const int16_t* blk = &c.coef[(size_t(by) * c.bw + bx) * 64];
         if (smoothing && by < c.height_in_blocks && bx < c.width_in_blocks) {
+          const int* bits = by / c.v > last_good_row ? before : now;
+          bool change_dc = true;
+          for (int k = 1; k <= 9; ++k)
+            if (bits[k] != -1) change_dc = false;
           std::memcpy(ws, blk, sizeof(ws));
-          smooth_block(c, rows.data(), change_dc, by, bx, ws);
+          smooth_block(c, rows.data(), bits, change_dc, by, bx, ws);
           blk = ws;
         }
         idct_islow(blk, c.qlatch, &full[size_t(by) * 8 * pw + bx * 8], pw);
@@ -1638,7 +1705,6 @@ struct Decoder {
   // decode into out: height x width (x 3 RGB unless gray), before
   // orientation
   void pixels(bool gray, uint8_t* out) {
-    build_range();
     const int W = width, H = height;
     auto row_of = [&](const std::vector<uint8_t>& pl, const Component& c,
                       int y) {
@@ -2133,7 +2199,7 @@ int jpeg_decode(const uint8_t* data, size_t n, int flags, uint8_t** out,
   try {
     Decoder dec(data, n);
     dec.gray = gray;
-    dec.eof_is_eoi = flags & 2;
+    dec.src.eof_is_eoi = flags & 2;
     dec.parse(false);
     int o = dec.orientation;
     bool t = o >= 5;

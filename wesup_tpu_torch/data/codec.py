@@ -41,11 +41,13 @@ the JAX package's (``cannot read image: <path>`` or ``cannot read mask:
 <path>``) and gives the reason.  A path is read as ``cv2.imread`` reads a
 file (libjpeg's stdio source supplies the EOI marker a JPEG lacks at its
 end), bytes as ``cv2.imdecode`` reads them (a JPEG of several scans
-without its EOI is refused).  Corrupt data that libjpeg recovers from with
-a warning also raises (ROADMAP, known differences): entropy data that runs
-short, which ``cv2.imread`` fills with gray, and restart markers that it
-resynchronises.  There is one route on every machine, whether OpenCV is
-installed or not.
+without its EOI is refused).  A damaged JPEG or PNG reads as cv2 reads it:
+the JPEG library recovers where libjpeg-turbo recovers with a warning
+(bad Huffman codes, runs past coefficient 63, entropy data that runs short
+and is filled with gray, restart markers lost or out of order, arithmetic
+decoding errors) and the PNG reader where libpng does (a CRC error in an
+ancillary chunk drops it); each refuses where cv2 returns None.  There is
+one route on every machine, whether OpenCV is installed or not.
 
 Encoding, for synthetic datasets and for the masks that the inference
 entry points and the server write, byte for byte as ``cv2.imencode``
@@ -151,25 +153,11 @@ def _decode_png(data: bytes):
     expanded; gray below 8 bits scaled to 0-255 as
     ``png_set_expand_gray_1_2_4_to_8``), the colour type and the depth."""
     h, w, depth, ctype, interlace = _png_header(data)
-    pos, idat, palette = 8, [], None
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        crc = data[pos + 8 + length:pos + 12 + length]
-        if len(crc) != 4 or zlib.crc32(kind + body) != struct.unpack(
-                ">I", crc)[0]:
-            raise ValueError(f"PNG chunk {kind!r} is corrupt")
-        if kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
+    idat, palette = _png_chunks(data, ctype)
     ch = _PNG_CHANNELS[ctype]
     bits = ch * depth
     fbpp = max(1, bits // 8)             # the filters' byte distance
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
     pix = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
     at = 0
     for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
@@ -191,6 +179,58 @@ def _decode_png(data: bytes):
     elif depth < 8:
         pix = pix * np.uint8(255 // ((1 << depth) - 1))
     return pix, ctype, depth
+
+
+def _png_chunks(data: bytes, ctype: int):
+    """The image data and the palette of a PNG, its chunks walked as
+    libpng 1.6 reads them for OpenCV: a CRC error drops an ancillary
+    chunk (a warning), is ignored in IEND and in a PLTE that a palette
+    does not need, and refuses any other critical chunk; an unknown
+    critical chunk, a second IHDR, a chunk type that is not four letters
+    and a file that ends before its IEND are refused; IDAT chunks after
+    another chunk are ignored where the data before it holds the whole
+    zlib stream (a benign error), and refused otherwise."""
+    pos, idat, palette, runs = 8, [], None, 0
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"PNG without its IEND chunk{CV2_TOO}")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        pos += 12 + length
+        if not kind.isalpha() or not kind.isascii():
+            raise ValueError(f"PNG chunk type {kind!r} is invalid{CV2_TOO}")
+        if len(crc) != 4 or length >= 1 << 31:
+            raise ValueError(f"PNG chunk {kind!r} is corrupt")
+        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            if kind[0] & 0x20:                        # ancillary
+                continue
+            if kind not in (b"IEND", b"PLTE") or (kind == b"PLTE"
+                                                  and ctype == 3):
+                raise ValueError(f"PNG chunk {kind!r} is corrupt")
+        if kind == b"IDAT":
+            if runs == 2:
+                # image data split by another chunk: libpng ran out of it
+                # at that chunk unless the stream ended before it
+                z = zlib.decompressobj()
+                z.decompress(b"".join(idat))
+                if not z.eof:
+                    raise ValueError(f"PNG image data is truncated{CV2_TOO}")
+                continue
+            runs = 1
+            idat.append(body)
+            continue
+        if runs == 1:
+            runs = 2
+        if kind == b"IEND":
+            return b"".join(idat), palette
+        if kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IHDR" and pos > 33:
+            raise ValueError(f"PNG with a second IHDR chunk{CV2_TOO}")
+        elif not kind[0] & 0x20 and kind != b"IHDR":
+            raise ValueError(f"PNG chunk {kind!r} is an unknown critical "
+                             f"chunk{CV2_TOO}")
 
 
 def _png_gray(rgb: np.ndarray) -> np.ndarray:
@@ -428,9 +468,9 @@ def decode(data: bytes, gray: bool = False, name: str = "<bytes>", *,
 
     Raises :class:`ImageReadError` ("cannot read <kind>: <name>: <reason>")
     for anything it cannot decode, a PNG, BMP or JPEG whose fields or data
-    run past its bytes included: ``cv2.imdecode`` returns None for a
-    truncated JPEG, and ``cv2.imread`` decodes it with the rest gray
-    (ROADMAP, known differences)."""
+    run past its bytes included (``cv2.imdecode`` returns None for a
+    truncated JPEG; ``cv2.imread``, and ``file``, decode it with the rest
+    gray)."""
     try:
         return _decode(bytes(data), gray, file)
     except (struct.error, zlib.error, IndexError, ValueError) as ex:

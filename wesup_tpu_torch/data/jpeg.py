@@ -4,9 +4,9 @@ numpy.
 :func:`decode_plain` and :func:`encode_plain` compute what
 ``native.jpeg_decode`` and ``native.jpeg_encode`` compute, written apart
 from them: the Huffman codes in a Python loop over a table of every
-16-bit window of the entropy bits, the QM decoder of T.81 Annex D over a
-restart interval's bytes, the DCTs, sampling and colour steps vectorised
-over all blocks of a component, quantisation as a rounding division.
+16-bit window of the bit buffer, the QM decoder of T.81 Annex D a byte at
+a time, the DCTs, sampling and colour steps vectorised over all blocks of
+a component, quantisation as a rounding division.
 The tests and ``chip_smoke.py`` hold the library against them; the
 codec's route (``data/codec.py``) uses the library on every machine.
 
@@ -14,13 +14,16 @@ What both compute is libjpeg-turbo's default path, as OpenCV runs it:
 sequential and progressive Huffman or arithmetic entropy decoding
 (``jdhuff.c``, ``jdphuff.c``, ``jdarith.c``; the Annex K tables where a
 scan's Huffman table was never defined), lossless files (``jdlhuff.c``,
-``jdlossls.c``), the ISLOW DCTs (``jidctint.c``, ``jfdctint.c``), block
+``jdlossls.c``), the ISLOW DCTs (``jfdctint.c``, and the inverse as the
+x86-64 SIMD code computes it), block
 smoothing (``jdcoefct.c``), fancy upsampling (``jdsample.c``), the fixed-point
 colour tables (``jdcolor.c``, ``jccolor.c``; YCCK to CMYK), OpenCV's
 CMYK to BGR and gray, ``h2v2_downsample`` (``jcsample.c``), and the EXIF
 orientation as OpenCV applies it; the encoder writes what
 ``cv2.imencode(".jpg")`` writes at its defaults (quality 95, 4:2:0,
-standard Huffman tables).
+standard Huffman tables).  Damaged files decode as libjpeg-turbo recovers
+them (its data sources, bit reader and marker reader, ``jdmarker.c``'s
+resynchronisation at restarts), or raise where cv2 returns None.
 """
 
 from __future__ import annotations
@@ -100,45 +103,54 @@ def _descale(x, n):
     return (x + (1 << (n - 1))) >> n
 
 
-def _idct_1d(v, n):
-    """One ISLOW pass along the last axis of ``v`` (..., 8), descaled by
-    ``n`` bits."""
+def _w16(x):
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _w32(x):
+    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
+def _idct_pass(v, n):
+    """One pass of libjpeg-turbo's x86-64 SIMD ISLOW inverse DCT along the
+    last axis of ``v`` (..., 8), 16-bit values: the even part's v0 + v4
+    and the odd part's v7 + v3 and v5 + v1 wrap to 16 bits, products sum
+    in 32 bits, and the outputs, descaled by ``n`` bits, saturate to 16
+    bits."""
     c = _C
-    z1 = (v[..., 2] + v[..., 6]) * c["F0_541"]
-    t2 = z1 - v[..., 6] * c["F1_847"]
-    t3 = z1 + v[..., 2] * c["F0_765"]
-    t0 = (v[..., 0] + v[..., 4]) << CONST_BITS
-    t1 = (v[..., 0] - v[..., 4]) << CONST_BITS
-    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
-    o0, o1, o2, o3 = v[..., 7], v[..., 5], v[..., 3], v[..., 1]
-    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
-    z5 = (z3 + z4) * c["F1_175"]
-    o0 = o0 * c["F0_298"]
-    o1 = o1 * c["F2_053"]
-    o2 = o2 * c["F3_072"]
-    o3 = o3 * c["F1_501"]
-    z1 = z1 * -c["F0_899"]
-    z2 = z2 * -c["F2_562"]
-    z3 = z3 * -c["F1_961"] + z5
-    z4 = z4 * -c["F0_390"] + z5
-    o0, o1, o2, o3 = o0 + z1 + z3, o1 + z2 + z4, o2 + z2 + z3, o3 + z1 + z4
-    out = [t10 + o3, t11 + o2, t12 + o1, t13 + o0,
-           t13 - o0, t12 - o1, t11 - o2, t10 - o3]
-    return _descale(np.stack(out, -1), n)
-
-
-_RANGE = np.concatenate([np.arange(128, 256), np.full(384, 255),
-                         np.zeros(384, int), np.arange(0, 128)]).astype(
-                             np.uint8)
+    z2, z3 = v[..., 2], v[..., 6]
+    t3 = _w32(z2 * (c["F0_541"] + c["F0_765"]) + z3 * c["F0_541"])
+    t2 = _w32(z2 * c["F0_541"] + z3 * (c["F0_541"] - c["F1_847"]))
+    t0 = _w16(v[..., 0] + v[..., 4]) << CONST_BITS
+    t1 = _w16(v[..., 0] - v[..., 4]) << CONST_BITS
+    t10, t13 = _w32(t0 + t3), _w32(t0 - t3)
+    t11, t12 = _w32(t1 + t2), _w32(t1 - t2)
+    i0, i1, i2, i3 = v[..., 7], v[..., 5], v[..., 3], v[..., 1]
+    z3, z4 = _w16(i0 + i2), _w16(i1 + i3)
+    zz3 = _w32(z3 * (c["F1_175"] - c["F1_961"]) + z4 * c["F1_175"])
+    zz4 = _w32(z3 * c["F1_175"] + z4 * (c["F1_175"] - c["F0_390"]))
+    a0 = _w32(_w32(i0 * (c["F0_298"] - c["F0_899"]) - i3 * c["F0_899"]) + zz3)
+    a3 = _w32(_w32(i3 * (c["F1_501"] - c["F0_899"]) - i0 * c["F0_899"]) + zz4)
+    a1 = _w32(_w32(i1 * (c["F2_053"] - c["F2_562"]) - i2 * c["F2_562"]) + zz4)
+    a2 = _w32(_w32(i2 * (c["F3_072"] - c["F2_562"]) - i1 * c["F2_562"]) + zz3)
+    out = [t10 + a3, t11 + a2, t12 + a1, t13 + a0,
+           t13 - a0, t12 - a1, t11 - a2, t10 - a3]
+    out = [_w32(_w32(o) + (1 << (n - 1))) >> n for o in out]
+    return np.clip(np.stack(out, -1), -32768, 32767)
 
 
 def idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
     """(N, 8, 8) uint8 samples of (N, 8, 8) coefficients (natural order)
-    dequantised by ``q`` (8, 8)."""
-    x = coef.astype(np.int64) * q.astype(np.int64)
-    ws = _idct_1d(x.swapaxes(1, 2), CONST_BITS - PASS1_BITS)  # columns
-    out = _idct_1d(ws.swapaxes(1, 2), CONST_BITS + PASS1_BITS + 3)  # rows
-    return _RANGE[out & 1023]
+    dequantised by ``q`` (8, 8), as OpenCV's libjpeg-turbo computes them
+    with its SIMD code: the dequantised values wrap to 16 bits; a block
+    whose rows 1-7 are zero takes pass 1's DC shortcut, a 16-bit shift;
+    the samples saturate to 0-255."""
+    dq = _w16(coef.astype(np.int64) * q.astype(np.int64))
+    ws = _idct_pass(dq.swapaxes(1, 2), CONST_BITS - PASS1_BITS).swapaxes(1, 2)
+    dc_only = ~coef[:, 1:, :].any((1, 2))
+    ws[dc_only] = _w16(dq[dc_only, :1, :] << PASS1_BITS)
+    out = _idct_pass(ws, CONST_BITS + PASS1_BITS + 3)
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 def _fdct_1d(v, even_bits, odd_bits, even_shift):
@@ -189,71 +201,45 @@ def quantize(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
 # decode
 # ---------------------------------------------------------------------------
 
+class _Huff:
+    """A Huffman table as jdhuff.c derives it: the (length, symbol) of
+    every 16-bit window (length 0 where no code of 16 bits or fewer starts
+    it), and for a code read bit by bit the largest code of each length
+    and the symbol offsets."""
+
+    def __init__(self, bits, vals):
+        self.vals = list(vals)
+        self.max_symbol = max(self.vals, default=0)
+        length = np.zeros(65536, np.int64)
+        symbol = np.zeros(65536, np.int64)
+        self.maxcode = [-1] * 17 + [0xFFFFF]
+        self.offset = [0] * 17
+        code = k = 0
+        for n, count in enumerate(bits, start=1):
+            self.offset[n] = k - code
+            for _ in range(count):
+                lo = code << (16 - n)
+                length[lo:lo + (1 << (16 - n))] = n
+                symbol[lo:lo + (1 << (16 - n))] = vals[k]
+                code += 1
+                k += 1
+            if count:
+                self.maxcode[n] = code - 1
+            code <<= 1
+        self.length, self.symbol = length.tolist(), symbol.tolist()
+
+
 def _lut(bits, vals):
-    """(length, symbol) of every 16-bit window: 65536-entry lists; None for
-    counts that are no prefix code or give an all-ones code, which jdhuff.c
-    refuses when a scan uses the table."""
+    """The :class:`_Huff` of a DHT table, or None for counts that are no
+    prefix code or give an all-ones code, which jdhuff.c refuses when a
+    scan uses the table."""
     code = 0
     for n, count in enumerate(bits, start=1):
         code += count
         if code >= 1 << n:
             return None
         code <<= 1
-    length = np.zeros(65536, np.int64)
-    symbol = np.zeros(65536, np.int64)
-    code = k = 0
-    for n, count in enumerate(bits, start=1):
-        for _ in range(count):
-            lo = code << (16 - n)
-            length[lo:lo + (1 << (16 - n))] = n
-            symbol[lo:lo + (1 << (16 - n))] = vals[k]
-            code += 1
-            k += 1
-        code <<= 1
-    return length.tolist(), symbol.tolist()
-
-
-def _segments(data: bytes, pos: int):
-    """The entropy-coded segments from ``pos``: byte strings between
-    restart markers with the stuffing removed, and the position of the
-    marker that ends the scan."""
-    segs, cur = [], bytearray()
-    n = len(data)
-    while pos < n:
-        b = data[pos]
-        if b != 0xFF:
-            cur.append(b)
-            pos += 1
-            continue
-        q = pos + 1
-        while q < n and data[q] == 0xFF:
-            q += 1
-        if q >= n:
-            pos = n
-            break
-        if data[q] == 0x00 and q == pos + 1:
-            cur.append(0xFF)
-            pos += 2
-        elif 0xD0 <= data[q] <= 0xD7:
-            segs.append((bytes(cur), data[q] - 0xD0))
-            cur = bytearray()
-            pos = q + 1
-        else:
-            break
-    segs.append((bytes(cur), None))
-    return segs, pos
-
-
-def _windows(seg: bytes):
-    """Every 16-bit window of the segment's bits (list), and its bit
-    count; the bits past the end read as zeros."""
-    bits = np.unpackbits(np.frombuffer(seg + b"\0\0\0\0", np.uint8)).astype(
-        np.int64)
-    n = len(seg) * 8
-    w = np.zeros(n + 16, np.int64)
-    for k in range(16):
-        w += bits[k:k + n + 16] << (15 - k)
-    return w.tolist(), n
+    return _Huff(bits, vals)
 
 
 def _extend(v, s):
@@ -262,6 +248,598 @@ def _extend(v, s):
 
 def _i16(v):
     return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+class _Suspended(Exception):
+    """``cv2.imdecode``'s memory source has no byte past the end of the
+    bytes: libjpeg suspends, and OpenCV takes that for a failure."""
+
+
+class _Input:
+    """The bytes as libjpeg's data source hands them over: the file's, then
+    at each read past the end a fake EOI marker (``cv2.imread``'s stdio
+    source) or a suspension (``cv2.imdecode``'s memory source); the read
+    position, the marker that the entropy decoder stopped at, and the
+    restart marker expected next."""
+
+    def __init__(self, data: bytes, file: bool):
+        self.data, self.n, self.file = data, len(data), file
+        self.pos, self.marker, self.next_rst = 2, 0, 0
+
+    def at(self, i: int) -> int:
+        if i < self.n:
+            return self.data[i]
+        if not self.file:
+            raise _Suspended
+        return 0xD9 if (i - self.n) % 2 else 0xFF
+
+    def next_marker(self) -> int:
+        """jdmarker.c next_marker: skip data (a stuffed FF 00 too) up to the
+        next marker, and return its code."""
+        while True:
+            c = self.at(self.pos)
+            self.pos += 1
+            while c != 0xFF:
+                c = self.at(self.pos)
+                self.pos += 1
+            while c == 0xFF:
+                c = self.at(self.pos)
+                self.pos += 1
+            if c:
+                return c
+
+    def restart(self):
+        """jdmarker.c read_restart_marker: take the expected RSTn, or let
+        jpeg_resync_to_restart judge the marker found: one below SOF0, or
+        one of the two RSTs before, is skipped to the next marker; another
+        marker, or one of the two RSTs after, stays unread (the segment is
+        empty); any other RST is taken for the one expected."""
+        if not self.marker:
+            self.marker = self.next_marker()
+        want = self.next_rst
+        self.next_rst = (want + 1) & 7
+        while self.marker != 0xD0 + want:
+            m = self.marker
+            rst = m - 0xD0 if 0xD0 <= m <= 0xD7 else None
+            if m >= 0xC0 and (rst is None or rst in ((want + 1) & 7,
+                                                      (want + 2) & 7)):
+                return
+            if m >= 0xC0 and rst not in ((want - 1) & 7, (want - 2) & 7):
+                break
+            self.marker = self.next_marker()
+        self.marker = 0
+
+
+class _Bits:
+    """jdhuff.c's bit reader (decode_mcu's slow path; its fast path gives
+    the same values): whole bytes, FF 00 read as FF, are loaded until 57
+    bits are held or a marker is met; a request for more bits than the
+    data holds then gets zero bits and sets ``insufficient``."""
+
+    def __init__(self, inp: _Input):
+        self.inp, self.buf, self.left, self.insufficient = inp, 0, 0, False
+
+    def fill(self, nbits: int):
+        inp = self.inp
+        if not inp.marker:
+            data, n, pos = inp.data, inp.n, inp.pos
+            buf, left = self.buf & ((1 << self.left) - 1), self.left
+            while left < 57:
+                c = data[pos] if pos < n else inp.at(pos)
+                pos += 1
+                if c == 0xFF:
+                    while c == 0xFF:
+                        c = data[pos] if pos < n else inp.at(pos)
+                        pos += 1
+                    if c:
+                        inp.marker = c
+                        break
+                    c = 0xFF
+                buf = (buf << 8) | c
+                left += 8
+            inp.pos, self.buf, self.left = pos, buf, left
+            if not inp.marker:
+                return
+        if nbits > self.left:
+            self.insufficient = True
+            self.buf = (self.buf & ((1 << self.left) - 1)) << (57 - self.left)
+            self.left = 57
+
+    def get(self, k: int) -> int:
+        if k == 0:
+            return 0
+        if self.left < k:
+            self.fill(k)
+        self.left -= k
+        return (self.buf >> self.left) & ((1 << k) - 1)
+
+    def huff(self, t: _Huff) -> int:
+        """One symbol; a code that matches nothing within 16 bits takes 17
+        bits and reads as 0 (JWRN_HUFF_BAD_CODE)."""
+        if self.left >= 16:
+            v = (self.buf >> (self.left - 16)) & 0xFFFF
+            n = t.length[v]
+            if n:
+                self.left -= n
+                return t.symbol[v]
+        # HUFF_DECODE's 8-bit lookahead, then jpeg_huff_decode bit by bit
+        n = 1
+        if self.left < 8:
+            self.fill(0)
+        if self.left >= 8:
+            v = ((self.buf >> (self.left - 8)) & 0xFF) << 8
+            if 0 < t.length[v] <= 8:
+                self.left -= t.length[v]
+                return t.symbol[v]
+            n = 9
+        code = self.get(n)
+        while code > t.maxcode[n]:
+            code = (code << 1) | self.get(1)
+            n += 1
+        return 0 if n > 16 else t.vals[code + t.offset[n]]
+
+
+# jpeg_natural_order and its 16 extra entries of 63 (jutils.c): in damaged
+# data a run past coefficient 63 puts its value there
+_NATURAL = NATURAL.tolist() + [63] * 16
+
+
+def _huffman_block(bits, blk, tables, pred, ci, scan, eobrun):
+    """One block of a Huffman scan, as decode_mcu (jdhuff.c) or the
+    progressive decoders (jdphuff.c) read it; returns the EOB run left."""
+    ss, se, ah, al = scan["band"]
+    dc, ac = tables
+    if scan["seq"]:
+        s = bits.huff(dc)
+        pred[ci] = _w32(pred[ci] + (_extend(bits.get(s), s) if s else 0))
+        blk[0] = _i16(pred[ci])
+        k = 1
+        while k < 64:
+            rs = bits.huff(ac)
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                blk[_NATURAL[k]] = _i16(_extend(bits.get(s), s))
+            elif r != 15:
+                break
+            else:
+                k += 15
+            k += 1
+        return eobrun
+    if ss == 0:
+        if ah:
+            if bits.get(1):
+                blk[0] |= 1 << al
+            return eobrun
+        s = bits.huff(dc)
+        s = _extend(bits.get(s), s) if s else 0
+        if not -2**31 <= pred[ci] + s < 2**31:
+            raise ValueError("corrupt JPEG entropy data (a DC coefficient "
+                             f"out of range){CV2_TOO}")
+        pred[ci] += s
+        blk[0] = _i16(pred[ci] << al)
+        return eobrun
+    if ah == 0:
+        if eobrun:
+            return eobrun - 1
+        k = ss
+        while k <= se:
+            rs = bits.huff(ac)
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                blk[_NATURAL[k]] = _i16(_extend(bits.get(s), s) << al)
+            elif r == 15:
+                k += 15
+            else:
+                return (1 << r) + bits.get(r) - 1
+            k += 1
+        return 0
+    p1 = 1 << al
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            rs = bits.huff(ac)
+            r, s = rs >> 4, rs & 15
+            new = 0
+            if s:                       # a size other than 1 is read as 1
+                new = p1 if bits.get(1) else -p1
+            elif r != 15:
+                eobrun = (1 << r) + bits.get(r)
+                break
+            while k <= se:
+                z = NATURAL[k]
+                if blk[z]:
+                    if bits.get(1) and not blk[z] & p1:
+                        blk[z] = _i16(blk[z] + (p1 if blk[z] >= 0 else -p1))
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if new:
+                blk[_NATURAL[k]] = new
+            k += 1
+    if eobrun:
+        for z in NATURAL[k:se + 1]:
+            if blk[z] and bits.get(1) and not blk[z] & p1:
+                blk[z] = _i16(blk[z] + (p1 if blk[z] >= 0 else -p1))
+        eobrun -= 1
+    return eobrun
+
+
+# T.81 Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) by
+# index; 113 is a fixed bin of probability one half
+_QE = [
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0),
+    (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
+    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0),
+    (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0CEF, 43, 21, 0),
+    (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
+    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0),
+    (0x2EF1, 67, 40, 0), (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0),
+    (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0),
+    (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0),
+    (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0),
+    (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0),
+    (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0),
+    (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0),
+    (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
+    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0),
+    (0x3C3D, 104, 100, 0), (0x375E, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0)]
+
+
+class _Arith:
+    """The QM decoder of T.81 D.2 (jdarith.c arith_decode), reading a byte
+    at a time from the input; from a marker on (left unread) it is fed
+    zero bytes.  ``ct`` -1 marks an error in the data
+    (JWRN_ARITH_BAD_CODE): the rest of the restart interval decodes
+    nothing.  A statistics bin is an int: its index in Table D.2 and its
+    MPS in bit 7."""
+
+    def __init__(self, inp: _Input):
+        self.inp = inp
+        self.c, self.a, self.ct = 0, 0, -16
+
+    def _byte(self) -> int:
+        inp = self.inp
+        if inp.marker:
+            return 0
+        b = inp.at(inp.pos)
+        inp.pos += 1
+        if b != 0xFF:
+            return b
+        while b == 0xFF:
+            b = inp.at(inp.pos)
+            inp.pos += 1
+        if b == 0:
+            return 0xFF
+        inp.marker = b
+        return 0
+
+    def decode(self, bins, i):
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                self.c = (self.c << 8) | self._byte()
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        state = bins[i]
+        mps = state >> 7
+        qe, nlps, nmps, switch = _QE[state & 0x7F]
+        self.a -= qe
+        chigh = self.a << self.ct
+        if self.c >= chigh:           # the upper sub-interval
+            self.c -= chigh
+            lps = self.a >= qe        # else the exchange gives it the MPS
+            self.a = qe
+        elif self.a < 0x8000:
+            lps = self.a < qe
+        else:
+            return mps
+        if lps:
+            bins[i] = nlps | ((mps ^ switch) << 7)
+            return mps ^ 1
+        bins[i] = nmps | (mps << 7)
+        return mps
+
+
+class _BadCode(Exception):
+    """JWRN_ARITH_BAD_CODE: a magnitude or a run past the band."""
+
+
+def _arith_value(ar, bins, s, kbins=None, x1=20):
+    """The magnitude category and bits of a nonzero value (T.81 F.1.4.4,
+    Figures F.21-F.24) after its sign, read from bin ``s`` on; an AC value
+    (``kbins``: its X1 bin) reads its first category decision twice.
+    Returns (value - 1 with the leading bit, category m)."""
+    m = ar.decode(bins, s)
+    if m:
+        if kbins is not None:
+            if not ar.decode(bins, s):
+                return 1, 1
+            m, s = 2, kbins
+        else:
+            s = x1
+        while ar.decode(bins, s):
+            m <<= 1
+            if m == 0x8000:
+                raise _BadCode
+            s += 1
+    v = m
+    s += 14
+    b = m >> 1
+    while b:
+        if ar.decode(bins, s):
+            v |= b
+        b >>= 1
+    return v, m
+
+
+class _ArithScan:
+    """An arithmetic-coded scan's decoding state (T.81 F.2.4 and G.1.3):
+    the statistics, DC predictions and contexts of its components."""
+
+    def __init__(self, inp, scan, tnums, progressive):
+        self.ar = _Arith(inp)
+        self.scan, self.tnums, self.progressive = scan, tnums, progressive
+        self.fixed = [113]
+        self.reset()
+
+    def reset(self):
+        """The scan's start, and each restart: every statistic, prediction
+        and context zero (those the scan does not use included)."""
+        self.dc_bins = {td: [0] * 64 for td, _ in self.tnums.values()}
+        self.ac_bins = {ta: [0] * 256 for _, ta in self.tnums.values()}
+        self.pred = dict.fromkeys(self.tnums, 0)
+        self.ctx = dict.fromkeys(self.tnums, 0)
+        ar = self.ar
+        ar.c, ar.a, ar.ct = 0, 0, -16
+
+    def dc_diff(self, ci):
+        ar, dac = self.ar, self.scan["dac"]
+        td = self.tnums[ci][0]
+        bins = self.dc_bins[td]
+        s = self.ctx[ci]
+        if not ar.decode(bins, s):
+            self.ctx[ci] = 0
+            return 0
+        sign = ar.decode(bins, s + 1)
+        v, m = _arith_value(ar, bins, s + 2 + sign)
+        if m < (1 << dac["L"][td]) >> 1:
+            self.ctx[ci] = 0
+        elif m > (1 << dac["U"][td]) >> 1:
+            self.ctx[ci] = 12 + 4 * sign
+        else:
+            self.ctx[ci] = 4 + 4 * sign
+        return -(v + 1) if sign else v + 1
+
+    def ac_band(self, ci, blk, lo, hi, shift):
+        ar, dac = self.ar, self.scan["dac"]
+        ta = self.tnums[ci][1]
+        bins = self.ac_bins[ta]
+        k = lo
+        while k <= hi:
+            s = 3 * (k - 1)
+            if ar.decode(bins, s):                    # EOB
+                return
+            while not ar.decode(bins, s + 1):
+                s += 3
+                k += 1
+                if k > hi:
+                    raise _BadCode
+            sign = ar.decode(self.fixed, 0)
+            v, _ = _arith_value(ar, bins, s + 2,
+                                kbins=189 if k <= dac["K"][ta] else 217)
+            blk[NATURAL[k]] = _i16((-(v + 1) if sign else v + 1) << shift)
+            k += 1
+
+    def ac_refine(self, ci, blk):
+        ar = self.ar
+        ss, se, _, al = self.scan["band"]
+        p1 = 1 << al
+        bins = self.ac_bins[self.tnums[ci][1]]
+        kex = se
+        while kex > 0 and not blk[NATURAL[kex]]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            s = 3 * (k - 1)
+            if k > kex and ar.decode(bins, s):        # EOB
+                return
+            while True:
+                z = NATURAL[k]
+                if blk[z]:
+                    if ar.decode(bins, s + 2):
+                        blk[z] = _i16(blk[z] + (p1 if blk[z] > 0 else -p1))
+                    break
+                if ar.decode(bins, s + 1):
+                    blk[z] = -p1 if ar.decode(self.fixed, 0) else p1
+                    break
+                s += 3
+                k += 1
+                if k > se:
+                    raise _BadCode
+            k += 1
+
+    def block(self, ci, blk):
+        ss, se, ah, al = self.scan["band"]
+        if not self.progressive:
+            self.pred[ci] = (self.pred[ci] + self.dc_diff(ci)) & 0xFFFF
+            blk[0] = _i16(self.pred[ci])
+            self.ac_band(ci, blk, 1, 63, 0)
+        elif ss == 0 and ah == 0:
+            self.pred[ci] = (self.pred[ci] + self.dc_diff(ci)) & 0xFFFF
+            blk[0] = _i16(self.pred[ci] << al)
+        elif ss == 0:
+            if self.ar.decode(self.fixed, 0):
+                blk[0] |= 1 << al
+        elif ah == 0:
+            self.ac_band(ci, blk, ss, se, al)
+        else:
+            self.ac_refine(ci, blk)
+
+
+def _scan_units(scan, frame_comps, geo):
+    """The scan's components (frame index, DC table, AC table) and its
+    MCUs: lists of (component, block index) in coding order, one block of
+    a lone component (its real blocks only) or each component's h x v;
+    and the number of MCUs a row."""
+    mcux, mcuy = geo
+    idx = {c["id"]: i for i, c in enumerate(frame_comps)}
+    parts = [(idx[cid], scan["dc"].get(td), scan["ac"].get(ta))
+             for cid, td, ta in scan["sc"]]
+    # jdinput.c per_scan_setup: at most 10 blocks (or samples) an MCU
+    if len(parts) > 1 and sum(frame_comps[ci]["h"] * frame_comps[ci]["v"]
+                              for ci, _, _ in parts) > 10:
+        raise ValueError("corrupt SOS segment (more than 10 blocks in an "
+                         f"MCU){CV2_TOO}")
+    if len(parts) == 1:
+        ci = parts[0][0]
+        c = frame_comps[ci]
+        units = [[(ci, by * c["bw"] + bx)] for by in range(c["hb"])
+                 for bx in range(c["wb"])]
+        return parts, units, c["wb"]
+    units = []
+    for my in range(mcuy):
+        for mx in range(mcux):
+            u = []
+            for ci, _, _ in parts:
+                c = frame_comps[ci]
+                u += [(ci, (my * c["v"] + yy) * c["bw"] + mx * c["h"] + xx)
+                      for yy in range(c["v"]) for xx in range(c["h"])]
+            units.append(u)
+    return parts, units, mcux
+
+
+def _decode_scan(inp, st, scan, coefs):
+    """One DCT scan from the input's position, MCU by MCU as decode_mcu
+    does, restarts and recovery included: after the data runs out the
+    MCUs up to the next restart keep their coefficients (a DC refinement
+    reads on, from zero bits), and after an arithmetic decoding error
+    nothing more is decoded up to it.  Sets ``st["last_good"]``, the iMCU
+    row of the last MCU decoded with data left."""
+    progressive, arith = st["mode"]
+    comps = st["frame"][2]
+    ss, se, ah, al = scan["band"]
+    parts, units, cols = _scan_units(scan, comps, st["geo"])
+    if not arith:
+        use_dc = not progressive or (ss == 0 and ah == 0)
+        use_ac = not progressive or ss > 0
+        for _, dc, ac in parts:     # DC symbols are sizes, 0..15
+            if (use_dc and (dc is None or dc.max_symbol > 15)) or (
+                    use_ac and ac is None):
+                raise ValueError("corrupt JPEG Huffman table")
+    per_row = cols * (comps[parts[0][0]]["v"] if len(parts) == 1 else 1)
+    ri = scan["ri"]
+    togo = ri
+    tables = {ci: (dc, ac) for ci, dc, ac in parts}
+    if arith:
+        tnums = {frame_ci: (td, ta) for (frame_ci, _, _), (_, td, ta)
+                 in zip(parts, scan["sc"])}
+        dec = _ArithScan(inp, scan, tnums, progressive)
+    bits = _Bits(inp)
+    pred = dict.fromkeys(tables, 0)
+    eobrun = 0
+    refine_dc = progressive and ss == 0 and ah > 0
+    for u, unit in enumerate(units):
+        if ri:
+            if togo == 0:
+                if arith:
+                    inp.restart()
+                    dec.reset()
+                else:
+                    bits.left = 0         # the bits left are dropped
+                    inp.restart()
+                    pred = dict.fromkeys(tables, 0)
+                    eobrun = 0
+                    if not inp.marker:
+                        bits.insufficient = False
+                togo = ri
+            togo -= 1
+        if arith:
+            st["last_good"] = u // per_row
+            if dec.ar.ct == -1:
+                continue
+            try:
+                for ci, b in unit:
+                    dec.block(ci, coefs[ci][b])
+            except _BadCode:
+                dec.ar.ct = -1
+            continue
+        if not bits.insufficient:
+            st["last_good"] = u // per_row
+        elif not refine_dc:
+            continue
+        for ci, b in unit:
+            eobrun = _huffman_block(bits, coefs[ci][b], tables[ci], pred, ci,
+                                    scan, eobrun)
+
+
+def _decode_lossless_scan(inp, st, scan, diffs):
+    """One lossless scan (T.81 Annex H; jdlhuff.c, jddiffct.c): each
+    sample's difference, a DC-style size (16: 32768, no extra bits) and
+    its bits, MCU row by MCU row, restart intervals of whole MCU rows.  A
+    row that starts after the data ran out keeps zero differences.
+    Returns the MCU rows at which the predictor starts afresh (the first,
+    each restart's, and each of those)."""
+    comps = st["frame"][2]
+    parts, units, cols = _scan_units(scan, comps, st["geo"])
+    for _, dc, _ in parts:
+        if dc is None or dc.max_symbol > 16:
+            raise ValueError("corrupt JPEG Huffman table")
+    if scan["ri"] % cols:
+        raise ValueError("lossless JPEG whose restart interval is not a "
+                         f"whole number of MCU rows is not decoded{CV2_TOO}")
+    interval = scan["ri"] // cols
+    tables = {ci: dc for ci, dc, _ in parts}
+    bits = _Bits(inp)
+    fresh = [0]
+    for r in range(len(units) // cols):
+        if interval and r and r % interval == 0:
+            bits.left = 0
+            inp.restart()
+            if not inp.marker:
+                bits.insufficient = False
+            fresh.append(r)
+        if bits.insufficient:
+            fresh.append(r)
+            for unit in units[r * cols:(r + 1) * cols]:
+                for ci, i in unit:
+                    diffs[ci][i] = 0
+            continue
+        for unit in units[r * cols:(r + 1) * cols]:
+            for ci, i in unit:
+                size = bits.huff(tables[ci])
+                diffs[ci][i] = (32768 if size == 16 else
+                                _extend(bits.get(size), size) if size else 0)
+    return sorted(set(fresh))
 
 
 # the frame markers decoded, and how: (progressive, arithmetic); SOF3 is
@@ -295,45 +873,92 @@ def _check_readable(st, gray: bool):
         raise ValueError(f"{why} is not decoded{CV2_TOO}")
 
 
-def _parse(data: bytes, gray: bool = False, file: bool = False):
+def _setup(st):
+    """The frame's geometry and its zero coefficients (or differences),
+    at the first scan."""
+    h, w, comps = st["frame"]
+    if h == 0:
+        raise ValueError("JPEG with its height in a DNL marker is not decoded")
+    if h * w > 1 << 30:
+        raise ValueError(f"JPEG of {w}x{h} pixels is too large (limit 2^30)"
+                         f"{CV2_TOO}")
+    du = 1 if st["lossless"] else 8       # a lossless data unit: a sample
+    max_h = max(c["h"] for c in comps)
+    max_v = max(c["v"] for c in comps)
+    mcux, mcuy = -(-w // (du * max_h)), -(-h // (du * max_v))
+    st["geo"], st["max"] = (mcux, mcuy), (max_h, max_v)
+    for c in comps:
+        c["wb"] = -(-w * c["h"] // (du * max_h))
+        c["hb"] = -(-h * c["v"] // (du * max_v))
+        c["bw"] = c["wb"] if len(comps) == 1 else mcux * c["h"]
+        c["bh"] = c["hb"] if len(comps) == 1 else mcuy * c["v"]
+        c["bits"] = [-1] * 64            # jdphuff.c coef_bits
+        c["prev"] = [-1] * 10            # coef_bits 1-9 before its last scan
+    if st["lossless"]:
+        st["coefs"] = [[0] * (c["bw"] * c["bh"]) for c in comps]
+    else:
+        st["coefs"] = [[[0] * 64 for _ in range(c["bw"] * c["bh"])]
+                       for c in comps]
+
+
+def _read(data: bytes, gray: bool, file: bool):
+    """jdmarker.c read_markers over the file, the scans decoded as they
+    come: from SOI to EOI for a file of several scans (libjpeg reads it
+    whole before any output), to the end of the first scan for a lone one
+    (what follows it only jpeg_finish_decompress reads, and OpenCV ignores
+    its errors)."""
     if len(data) < 4 or data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     st = dict(qt={}, dc={}, ac={}, ri=0, frame=None, jfif=False,
-              adobe=None, orientation=1, exif_seen=False, scans=[],
-              mode=(False, False), eoi=False, lossless=False, precision=8,
-              dac=dict(L=[0] * 16, U=[1] * 16, K=[5] * 16))
-    pos, n = 2, len(data)
+              adobe=None, orientation=1, exif_seen=False, scans=0,
+              mode=(False, False), lossless=False, precision=8,
+              dac=dict(L=[0] * 16, U=[1] * 16, K=[5] * 16), qlatch={},
+              last_good=0, fresh={})
+    inp = _Input(data, file)
+    n = len(data)
     while True:
-        while pos < n and data[pos] != 0xFF:
-            pos += 1
-        while pos < n and data[pos] == 0xFF:
-            pos += 1
-        if pos >= n:
-            if not st["scans"]:
-                raise ValueError("truncated JPEG file (no image data)")
-            # cv2.imread reads a file through libjpeg's stdio source, which
-            # supplies an EOI marker at the end of the file; taken where
-            # the scans' data is known whole (not after arithmetic-coded
-            # data, which decodes on from zero bits)
-            st["eoi"] = file and not (st["mode"][1] and st["last_at_end"])
-            st["file"] = file
-            break
-        m = data[pos]
-        pos += 1
+        m, inp.marker = inp.marker, 0
+        if not m:
+            try:
+                m = inp.next_marker()
+            except _Suspended:
+                if not st["scans"]:
+                    raise ValueError("truncated JPEG file (no image data)") \
+                        from None
+                raise ValueError("JPEG of several scans without an EOI "
+                                 f"marker after them is not decoded{CV2_TOO}"
+                                 ) from None
         if m == 0xD9:
-            st["eoi"] = True
+            if st["scans"]:
+                return st
             break
         if m == 0x01 or 0xD0 <= m <= 0xD7:
             continue
+        if m == 0xD8:
+            raise ValueError("corrupt JPEG file (second SOI)")
+        if m < 0xC0 or m in (0xC8, 0xDF) or 0xF0 <= m <= 0xFD:
+            # jdmarker.c: a reserved code (JPGn, DHP, EXP, RESn)
+            raise ValueError(f"corrupt JPEG file (unknown marker 0x{m:02X})"
+                             f"{CV2_TOO}")
+        pos = inp.pos
+        if (m in (0xFE, 0xDC) or 0xE0 <= m <= 0xEF) and file:
+            # skip_variable: cv2.imread's source lets it run past the end
+            length = (inp.at(pos) << 8) | inp.at(pos + 1)
+            if length >= 2 and pos + length > n:
+                inp.pos = pos + length
+                continue
         if pos + 2 > n:
             raise ValueError("truncated JPEG header")
         length = struct.unpack(">H", data[pos:pos + 2])[0]
         if length < 2 or pos + length > n:
             raise ValueError("truncated JPEG header")
         body = data[pos + 2:pos + length]
+        inp.pos = pos + length
         if m in _REFUSED:
             raise ValueError(f"{_REFUSED[m]} is not decoded{CV2_TOO}")
         if m in _FRAMES:
+            if st["frame"] is not None:
+                raise ValueError("JPEG with more than one frame")
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             lossless = m == 0xC3
             if lossless and not 2 <= prec <= 16:
@@ -396,29 +1021,80 @@ def _parse(data: bytes, gray: bool = False, file: bool = False):
             if st["frame"] is None:
                 raise ValueError("JPEG scan before its frame header")
             _check_readable(st, gray)
-            if not st["scans"] and not st["mode"][1]:
-                # Motion-JPEG frames leave out DHT: the Huffman decoder
-                # starts with the Annex K tables wherever slots 0 and 1
-                # are empty (jstdhuff.c)
-                for slot, (dc, ac) in enumerate(((DC_LUMA, AC_LUMA),
-                                                 (DC_CHROMA, AC_CHROMA))):
-                    st["dc"].setdefault(slot, _lut(*dc))
-                    st["ac"].setdefault(slot, _lut(*ac))
-            ns = body[0]
-            sc = [(body[1 + 2 * i], body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15)
-                  for i in range(ns)]
-            ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
-            segs, pos = _segments(data, pos + length)
-            st["last_at_end"] = pos >= n
-            st["scans"].append(dict(
-                sc=sc, segs=segs, dc=dict(st["dc"]), ac=dict(st["ac"]),
-                qt=dict(st["qt"]), ri=st["ri"], band=(ss, se, a >> 4, a & 15),
-                dac={k: list(v) for k, v in st["dac"].items()}))
-            continue
-        pos += length
+            if _scan(inp, st, body):
+                return st
     if st["frame"] is None:
         raise ValueError("JPEG without a frame header")
-    return st
+    raise ValueError("truncated JPEG file (no image data)")
+
+
+def _scan(inp, st, body) -> bool:
+    """Check and decode the scan of SOS ``body``; True where it was the
+    file's lone scan."""
+    comps = st["frame"][2]
+    progressive, arith = st["mode"]
+    ns = body[0] if body else 0
+    if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
+        raise ValueError("corrupt SOS segment")
+    ids = [c["id"] for c in comps]
+    sc = [(body[1 + 2 * i], body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15)
+          for i in range(ns)]
+    ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if any(cid not in ids for cid, _, _ in sc):
+        raise ValueError("corrupt SOS segment (unknown component)")
+    cis = [ids.index(cid) for cid, _, _ in sc]
+    # jdmarker.c: a component once a scan
+    if len(set(cis)) != len(cis):
+        raise ValueError("corrupt SOS segment (component listed twice)")
+    if any(td > 3 or ta > 3 for _, td, ta in sc):
+        raise ValueError("corrupt SOS segment")
+    if st["lossless"]:
+        if not 1 <= ss <= 7 or se or ah or al >= st["precision"]:
+            raise ValueError("corrupt SOS segment (bad lossless parameters)")
+    elif not progressive:
+        if (ss, se, ah, al) != (0, 63, 0, 0):
+            raise ValueError("corrupt SOS segment")
+    elif ((se != 0) if ss == 0 else (se < ss or se > 63 or len(cis) != 1)
+          ) or (ah and al != ah - 1) or al > 13:
+        raise ValueError("corrupt SOS segment (bad progression parameters)")
+    first = not st["scans"]
+    if first:
+        _setup(st)
+        # jdinput.c initial_setup: has_multiple_scans
+        st["multi"] = progressive or len(cis) < len(comps)
+        if not arith:
+            # Motion-JPEG frames leave out DHT: the Huffman decoder starts
+            # with the Annex K tables wherever slots 0 and 1 are empty
+            # (jstdhuff.c)
+            for slot, (dc, ac) in enumerate(((DC_LUMA, AC_LUMA),
+                                             (DC_CHROMA, AC_CHROMA))):
+                st["dc"].setdefault(slot, _lut(*dc))
+                st["ac"].setdefault(slot, _lut(*ac))
+    for ci in cis:
+        c = comps[ci]
+        if progressive:
+            c["prev"][1:] = c["bits"][1:10] if st["scans"] else [0] * 9
+            c["bits"][ss:se + 1] = [al] * (se + 1 - ss)
+        if ci not in st["qlatch"] and not st["lossless"]:
+            if c["tq"] not in st["qt"]:
+                raise ValueError("JPEG uses an undefined quant table")
+            st["qlatch"][ci] = st["qt"][c["tq"]]
+    st["scans"] += 1
+    inp.next_rst = 0
+    scan = dict(sc=sc, dc=st["dc"], ac=st["ac"], ri=st["ri"],
+                band=(ss, se, ah, al), dac=st["dac"], seq=not progressive)
+    try:
+        if st["lossless"]:
+            fresh = _decode_lossless_scan(inp, st, scan, st["coefs"])
+            for ci in cis:
+                st["fresh"][ci] = (fresh, len(cis) == 1, st["ri"], ss, al)
+        else:
+            _decode_scan(inp, st, scan, st["coefs"])
+    except _Suspended:
+        raise ValueError("truncated JPEG data (its scan runs past the end of "
+                         f"the bytes){CV2_TOO}") from None
+    return not st["multi"]
 
 
 def _exif_orientation(tiff: bytes) -> int:
@@ -436,429 +1112,6 @@ def _exif_orientation(tiff: bytes) -> int:
             v = struct.unpack(e + "H", tiff[p + 8:p + 10])[0]
             return v if 1 <= v <= 8 else 1
     return 1
-
-
-def _scan_units(scan, frame_comps, geo):
-    """The scan's components (frame index, DC table, AC table) and its
-    MCUs: lists of (component, block index) in coding order, one block of
-    a lone component (its real blocks only) or each component's h x v."""
-    mcux, mcuy = geo
-    idx = {c["id"]: i for i, c in enumerate(frame_comps)}
-    parts = [(idx[cid], scan["dc"].get(td), scan["ac"].get(ta))
-             for cid, td, ta in scan["sc"]]
-    # jdinput.c per_scan_setup: at most 10 blocks (or samples) an MCU
-    if len(parts) > 1 and sum(frame_comps[ci]["h"] * frame_comps[ci]["v"]
-                              for ci, _, _ in parts) > 10:
-        raise ValueError("corrupt SOS segment (more than 10 blocks in an "
-                         f"MCU){CV2_TOO}")
-    if len(parts) == 1:
-        ci = parts[0][0]
-        c = frame_comps[ci]
-        units = [[(ci, by * c["bw"] + bx)] for by in range(c["hb"])
-                 for bx in range(c["wb"])]
-    else:
-        units = []
-        for my in range(mcuy):
-            for mx in range(mcux):
-                u = []
-                for ci, _, _ in parts:
-                    c = frame_comps[ci]
-                    u += [(ci, (my * c["v"] + yy) * c["bw"] + mx * c["h"] + xx)
-                          for yy in range(c["v"]) for xx in range(c["h"])]
-                units.append(u)
-    return parts, units
-
-
-def _decode_scan(scan, frame_comps, coefs, geo, mode):
-    progressive, arith = mode
-    ss, se, ah, al = scan["band"]
-    parts, units = _scan_units(scan, frame_comps, geo)
-    if not arith:
-        use_dc = not progressive or (ss == 0 and ah == 0)
-        use_ac = not progressive or ss > 0
-        for _, dc, ac in parts:     # DC symbols are sizes, 0..15
-            if (use_dc and (dc is None or max(dc[1]) > 15)) or (
-                    use_ac and ac is None):
-                raise ValueError("corrupt JPEG Huffman table")
-    ri = scan["ri"]
-    segs = scan["segs"]
-    per_seg = ri if ri else len(units)
-    tables = {ci: (dc, ac) for ci, dc, ac in parts}
-    tnums = {frame_ci: (td, ta) for (frame_ci, _, _), (_, td, ta)
-             in zip(parts, scan["sc"])}
-    for s, start in enumerate(range(0, len(units), per_seg)):
-        if s >= len(segs):
-            raise ValueError("truncated JPEG entropy data")
-        seg, rst = segs[s]
-        if start + per_seg < len(units) and rst != s % 8:
-            raise ValueError("corrupt JPEG entropy data (restart marker)")
-        chunk = units[start:start + per_seg]
-        if arith:
-            _arith_units(chunk, tnums, coefs, seg, scan, progressive)
-            continue
-        win, nbits = _windows(seg)
-        try:
-            if progressive:
-                _progressive_units(chunk, tables, coefs, _Bits(win, nbits),
-                                   scan["band"])
-            else:
-                _decode_units(chunk, tables, coefs, win, nbits)
-        except IndexError as ex:      # read past the padding
-            raise ValueError("truncated JPEG entropy data") from ex
-
-
-def _decode_units(units, tables, coefs, win, nbits):
-    """Huffman-decode the blocks of ``units`` (lists of (component, block
-    index)) of a sequential scan from one restart interval's bit
-    windows."""
-    natural = NATURAL.tolist()
-    pos = 0
-    pred = dict.fromkeys(tables, 0)
-    for unit in units:
-        for ci, b in unit:
-            (dlen, dsym), (alen, asym) = tables[ci]
-            blk = [0] * 64
-            v = win[pos]
-            if dlen[v] == 0:
-                raise ValueError("corrupt JPEG entropy data")
-            size = dsym[v]
-            pos += dlen[v]
-            if size:
-                pred[ci] += _extend(win[pos] >> (16 - size), size)
-                pos += size
-            blk[0] = pred[ci]
-            k = 1
-            while k < 64:
-                v = win[pos]
-                if alen[v] == 0:
-                    raise ValueError("corrupt JPEG entropy data")
-                rs = asym[v]
-                pos += alen[v]
-                r, size = rs >> 4, rs & 15
-                if size:
-                    k += r
-                    if k > 63:
-                        raise ValueError("corrupt JPEG entropy data")
-                    blk[natural[k]] = _extend(win[pos] >> (16 - size), size)
-                    pos += size
-                    k += 1
-                elif r == 15:
-                    k += 16
-                else:
-                    break
-            if pos > nbits:
-                raise ValueError("truncated JPEG entropy data")
-            coefs[ci][b] = [_i16(x) for x in blk]
-
-
-class _Bits:
-    """A reader over one restart interval's bit windows."""
-
-    def __init__(self, win, nbits):
-        self.win, self.nbits, self.pos = win, nbits, 0
-
-    def huff(self, table):
-        length, symbol = table
-        v = self.win[self.pos]
-        if length[v] == 0:
-            raise ValueError("corrupt JPEG entropy data")
-        self.pos += length[v]
-        return symbol[v]
-
-    def get(self, n):
-        if n == 0:
-            return 0
-        v = self.win[self.pos] >> (16 - n)
-        self.pos += n
-        return v
-
-
-def _progressive_units(units, tables, coefs, bits, band):
-    """One restart interval of a progressive Huffman scan (T.81 G.1.2:
-    DC first and refinement, AC first with EOB runs, AC refinement with
-    its correction bits)."""
-    ss, se, ah, al = band
-    natural = NATURAL.tolist()
-    p1 = 1 << al
-    pred = dict.fromkeys(tables, 0)
-    eobrun = 0
-    for unit in units:
-        for ci, b in unit:
-            blk = coefs[ci][b]
-            if ss == 0:
-                if ah == 0:
-                    size = bits.huff(tables[ci][0])
-                    pred[ci] += _extend(bits.get(size), size) if size else 0
-                    blk[0] = _i16(pred[ci] << al)
-                elif bits.get(1):
-                    blk[0] |= p1
-                continue
-            ac = tables[ci][1]
-            if ah == 0:
-                if eobrun:
-                    eobrun -= 1
-                    continue
-                k = ss
-                while k <= se:
-                    rs = bits.huff(ac)
-                    r, size = rs >> 4, rs & 15
-                    if size:
-                        k += r
-                        if k > 63:
-                            raise ValueError("corrupt JPEG entropy data")
-                        blk[natural[k]] = _i16(
-                            _extend(bits.get(size), size) << al)
-                    elif r == 15:
-                        k += 15
-                    else:
-                        eobrun = (1 << r) + bits.get(r) - 1
-                        break
-                    k += 1
-                continue
-            k = ss
-            if eobrun == 0:
-                while k <= se:
-                    rs = bits.huff(ac)
-                    r, size = rs >> 4, rs & 15
-                    new = 0
-                    if size:
-                        new = p1 if bits.get(1) else -p1
-                    elif r != 15:
-                        eobrun = (1 << r) + bits.get(r)
-                        break
-                    while k <= se:
-                        z = natural[k]
-                        if blk[z]:
-                            if bits.get(1) and not blk[z] & p1:
-                                blk[z] += p1 if blk[z] > 0 else -p1
-                        else:
-                            r -= 1
-                            if r < 0:
-                                break
-                        k += 1
-                    if new:
-                        if k > 63:
-                            raise ValueError("corrupt JPEG entropy data")
-                        blk[natural[k]] = new
-                    k += 1
-            if eobrun:
-                for z in natural[k:se + 1]:
-                    if blk[z] and bits.get(1) and not blk[z] & p1:
-                        blk[z] += p1 if blk[z] > 0 else -p1
-                eobrun -= 1
-        if bits.pos > bits.nbits:
-            raise ValueError("truncated JPEG entropy data")
-
-
-# T.81 Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) by
-# index; 113 is a fixed bin of probability one half
-_QE = [
-    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
-    (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0),
-    (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0),
-    (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
-    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
-    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0),
-    (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0CEF, 43, 21, 0),
-    (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
-    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
-    (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
-    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0),
-    (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
-    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0),
-    (0x2EF1, 67, 40, 0), (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0),
-    (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
-    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
-    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0),
-    (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0),
-    (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0),
-    (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
-    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0),
-    (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0),
-    (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0),
-    (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
-    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
-    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0),
-    (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0), (0x5832, 80, 81, 1),
-    (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
-    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0),
-    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
-    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0),
-    (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
-    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0),
-    (0x3C3D, 104, 100, 0), (0x375E, 99, 93, 0), (0x5231, 105, 102, 0),
-    (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
-    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
-    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1),
-    (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0)]
-
-
-class _Arith:
-    """The QM decoder of T.81 D.2 over one restart interval's bytes (the
-    stuffing removed); past their end it reads zeros, as the decoder is fed
-    zeros at a marker.  A statistics bin is an int: its index in Table D.2
-    and its MPS in bit 7."""
-
-    def __init__(self, seg: bytes):
-        self.seg, self.pos = seg, 0
-        self.c, self.a, self.ct = 0, 0, -16
-
-    def decode(self, bins, i):
-        while self.a < 0x8000:
-            self.ct -= 1
-            if self.ct < 0:
-                b = self.seg[self.pos] if self.pos < len(self.seg) else 0
-                self.pos += 1
-                self.c = (self.c << 8) | b
-                self.ct += 8
-                if self.ct < 0:
-                    self.ct += 1
-                    if self.ct == 0:
-                        self.a = 0x8000
-            self.a <<= 1
-        state = bins[i]
-        mps = state >> 7
-        qe, nlps, nmps, switch = _QE[state & 0x7F]
-        self.a -= qe
-        chigh = self.a << self.ct
-        if self.c >= chigh:           # the upper sub-interval
-            self.c -= chigh
-            lps = self.a >= qe        # else the exchange gives it the MPS
-            self.a = qe
-        elif self.a < 0x8000:
-            lps = self.a < qe
-        else:
-            return mps
-        if lps:
-            bins[i] = nlps | ((mps ^ switch) << 7)
-            return mps ^ 1
-        bins[i] = nmps | (mps << 7)
-        return mps
-
-
-def _arith_value(ar, bins, s, kbins=None, x1=20):
-    """The magnitude category and bits of a nonzero value (T.81 F.1.4.4,
-    Figures F.21-F.24) after its sign, read from bin ``s`` on; an AC value
-    (``kbins``: its X1 bin) reads its first category decision twice.
-    Returns (value - 1 with the leading bit, category m)."""
-    m = ar.decode(bins, s)
-    if m:
-        if kbins is not None:
-            if not ar.decode(bins, s):
-                return 1, 1
-            m, s = 2, kbins
-        else:
-            s = x1
-        while ar.decode(bins, s):
-            m <<= 1
-            if m == 0x8000:
-                raise ValueError("corrupt JPEG entropy data (bad arithmetic "
-                                 "code)")
-            s += 1
-    v = m
-    s += 14
-    b = m >> 1
-    while b:
-        if ar.decode(bins, s):
-            v |= b
-        b >>= 1
-    return v, m
-
-
-def _arith_units(units, tnums, coefs, seg, scan, progressive):
-    """One restart interval of an arithmetic-coded scan, sequential or
-    progressive (T.81 F.2.4 and G.1.3; the statistics start at zero)."""
-    ss, se, ah, al = scan["band"]
-    dac = scan["dac"]
-    natural = NATURAL.tolist()
-    ar = _Arith(seg)
-    dc_bins = {td: [0] * 64 for td, _ in tnums.values()}
-    ac_bins = {ta: [0] * 256 for _, ta in tnums.values()}
-    fixed = [113]
-    pred = dict.fromkeys(tnums, 0)
-    ctx = dict.fromkeys(tnums, 0)
-    p1 = 1 << al
-
-    def dc_diff(ci):
-        td = tnums[ci][0]
-        bins = dc_bins[td]
-        s = ctx[ci]
-        if not ar.decode(bins, s):
-            ctx[ci] = 0
-            return 0
-        sign = ar.decode(bins, s + 1)
-        v, m = _arith_value(ar, bins, s + 2 + sign)
-        if m < (1 << dac["L"][td]) >> 1:
-            ctx[ci] = 0
-        elif m > (1 << dac["U"][td]) >> 1:
-            ctx[ci] = 12 + 4 * sign
-        else:
-            ctx[ci] = 4 + 4 * sign
-        return -(v + 1) if sign else v + 1
-
-    def ac_band(ci, blk, lo, hi, shift):
-        ta = tnums[ci][1]
-        bins = ac_bins[ta]
-        k = lo
-        while k <= hi:
-            s = 3 * (k - 1)
-            if ar.decode(bins, s):                    # EOB
-                return
-            while not ar.decode(bins, s + 1):
-                s += 3
-                k += 1
-                if k > hi:
-                    raise ValueError("corrupt JPEG entropy data (bad "
-                                     "arithmetic code)")
-            sign = ar.decode(fixed, 0)
-            v, _ = _arith_value(ar, bins, s + 2,
-                                kbins=189 if k <= dac["K"][ta] else 217)
-            blk[natural[k]] = _i16((-(v + 1) if sign else v + 1) << shift)
-            k += 1
-
-    def ac_refine(ci, blk):
-        bins = ac_bins[tnums[ci][1]]
-        kex = se
-        while kex > 0 and not blk[natural[kex]]:
-            kex -= 1
-        k = ss
-        while k <= se:
-            s = 3 * (k - 1)
-            if k > kex and ar.decode(bins, s):        # EOB
-                return
-            while True:
-                z = natural[k]
-                if blk[z]:
-                    if ar.decode(bins, s + 2):
-                        blk[z] += p1 if blk[z] > 0 else -p1
-                    break
-                if ar.decode(bins, s + 1):
-                    blk[z] = -p1 if ar.decode(fixed, 0) else p1
-                    break
-                s += 3
-                k += 1
-                if k > se:
-                    raise ValueError("corrupt JPEG entropy data (bad "
-                                     "arithmetic code)")
-            k += 1
-
-    for unit in units:
-        for ci, b in unit:
-            blk = coefs[ci][b]
-            if not progressive:
-                pred[ci] = (pred[ci] + dc_diff(ci)) & 0xFFFF
-                blk[0] = _i16(pred[ci])
-                ac_band(ci, blk, 1, 63, 0)
-            elif ss == 0 and ah == 0:
-                pred[ci] += dc_diff(ci)
-                blk[0] = _i16(pred[ci] << al)
-            elif ss == 0:
-                if ar.decode(fixed, 0):
-                    blk[0] |= p1
-            elif ah == 0:
-                ac_band(ci, blk, ss, se, al)
-            else:
-                ac_refine(ci, blk)
 
 
 def _upsample(p: np.ndarray, rh: int, rv: int) -> np.ndarray:
@@ -899,81 +1152,36 @@ def orient(img: np.ndarray, o: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def _check_eoi(st):
-    """cv2.imdecode's memory source has no byte past the end of the
-    buffer, and libjpeg's read of one suspends, which OpenCV takes as a
-    failure: libjpeg reads a file of several scans (every progressive one)
-    to its EOI before any output, and a lone scan as far as its bit reader
-    looks ahead."""
-    if st["eoi"]:
-        return
-    if st.get("file"):
-        raise ValueError("arithmetic-coded JPEG whose scan data runs to the "
-                         "end of the file is not decoded (cv2.imread decodes "
-                         "it on from zero bits)")
-    if st["mode"][0] or len(st["scans"]) > 1:
-        raise ValueError("JPEG of several scans without an EOI marker after "
-                         f"them is not decoded{CV2_TOO}")
-    if st["last_at_end"]:
-        raise ValueError("JPEG whose scan data runs to the end of the bytes "
-                         "without an EOI marker is not decoded (cv2.imdecode "
-                         "returns None for it unless libjpeg's bit reader "
-                         "looks no byte past the end)")
-
-
 def decode_plain(data: bytes, gray: bool = False,
                  file: bool = False) -> np.ndarray:
     """(H, W, 3) RGB or (H, W) uint8, as ``native.jpeg_decode``."""
-    st = _parse(bytes(data), gray, file)
+    st = _read(bytes(data), gray, file)
     h, w, comps = st["frame"]
-    progressive, arith = st["mode"]
-    if h == 0:
-        raise ValueError("JPEG with its height in a DNL marker is not decoded")
-    if h * w > 1 << 30:
-        raise ValueError(f"JPEG of {w}x{h} pixels is too large (limit 2^30)"
-                         f"{CV2_TOO}")
+    progressive = st["mode"][0]
     if st["lossless"]:
         return _decode_lossless(st, gray)
-    max_h = max(c["h"] for c in comps)
-    max_v = max(c["v"] for c in comps)
-    mcux, mcuy = -(-w // (8 * max_h)), -(-h // (8 * max_v))
-    coefs = []
-    for c in comps:
-        c["wb"] = -(-w * c["h"] // (8 * max_h))
-        c["hb"] = -(-h * c["v"] // (8 * max_v))
-        c["bw"] = c["wb"] if len(comps) == 1 else mcux * c["h"]
-        c["bh"] = c["hb"] if len(comps) == 1 else mcuy * c["v"]
-        coefs.append([[0] * 64 for _ in range(c["bw"] * c["bh"])])
-    ids = [c["id"] for c in comps]
-    seen, qlatch = set(), {}
-    coef_bits = [[-1] * 64 for _ in comps]
-    for scan in st["scans"]:
-        ss, se, ah, al = scan["band"]
-        cis = [ids.index(cid) for cid, _, _ in scan["sc"]]
-        if not progressive:
-            if (ss, se, ah, al) != (0, 63, 0, 0):
-                raise ValueError("corrupt SOS segment")
-        elif ((se != 0) if ss == 0 else (se < ss or se > 63 or len(cis) != 1)
-              ) or (ah and al != ah - 1) or al > 13:
-            raise ValueError("corrupt SOS segment (bad progression "
-                             "parameters)")
-        for ci in cis:
-            seen.add(ci)
-            qlatch.setdefault(ci, scan["qt"][comps[ci]["tq"]])
-            coef_bits[ci][ss:se + 1] = [al] * (se + 1 - ss)
-        _decode_scan(scan, comps, coefs, (mcux, mcuy), st["mode"])
-    if len(seen) != len(comps):
-        raise ValueError("truncated JPEG file (a component has no scan)")
-    _check_eoi(st)
-    smooth = progressive and _smoothed(
-        coef_bits, [qlatch[i] for i in range(len(comps))])
+    max_h, max_v = st["max"]
+    mcuy = st["geo"][1]
+    # a component that no scan reached dequantises by zero (jddctmgr.c)
+    qlatch = [st["qlatch"].get(ci, np.zeros((8, 8), np.int64))
+              for ci in range(len(comps))]
+    smooth = progressive and _smoothed([c["bits"] for c in comps], qlatch)
     planes = []
     for ci, c in enumerate(comps):
         bh, bw = c["bh"], c["bw"]
-        blocks = np.array(coefs[ci], np.int64).reshape(bh, bw, 64)
+        blocks = np.array(st["coefs"][ci], np.int64).reshape(bh, bw, 64)
         if smooth:
-            blocks = _smooth_blocks(blocks, c["hb"], c["wb"], c["v"], mcuy,
-                                   coef_bits[ci], qlatch[ci])
+            # each iMCU row smoothed with the bits of the scans that made
+            # it: before the component's latest scan past the last row
+            # decoded with data left (libjpeg-turbo's last_good_iMCU_row)
+            args = (c["hb"], c["wb"], c["v"], mcuy)
+            now = _smooth_blocks(blocks, *args, c["bits"], qlatch[ci])
+            before = c["prev"] if st["scans"] > 1 else [-1] * 10
+            late = np.arange(bh) // c["v"] > st["last_good"]
+            if late.any():
+                old = _smooth_blocks(blocks, *args, before, qlatch[ci])
+                now[late] = old[late]
+            blocks = now
         blocks = blocks.reshape(-1, 8, 8)
         px = idct_islow(blocks, qlatch[ci]).reshape(bh, bw, 8, 8)
         px = px.swapaxes(1, 2).reshape(bh * 8, bw * 8)
@@ -1027,71 +1235,22 @@ def decode_plain(data: bytes, gray: bool = False,
 
 
 def _decode_lossless(st, gray: bool) -> np.ndarray:
-    """A lossless file (T.81 Annex H; jdlhuff.c, jddiffct.c, jdlossls.c):
-    each scan's differences in MCU order (restart intervals of whole MCU
-    rows), the samples undifferenced by the scan's predictor and shifted
-    by its point transform into 8 bits, components upsampled by
-    replication."""
+    """The samples of a lossless file (jdlossls.c): each scan's
+    differences undifferenced by its predictor and shifted by its point
+    transform into 8 bits, components upsampled by replication."""
     h, w, comps = st["frame"]
-    max_h = max(c["h"] for c in comps)
-    max_v = max(c["v"] for c in comps)
-    mcux, mcuy = -(-w // max_h), -(-h // max_v)
-    for c in comps:          # a data unit is a sample
-        c["wb"] = -(-w * c["h"] // max_h)
-        c["hb"] = -(-h * c["v"] // max_v)
-        c["bw"] = c["wb"] if len(comps) == 1 else mcux * c["h"]
-        c["bh"] = c["hb"] if len(comps) == 1 else mcuy * c["v"]
-    ids = [c["id"] for c in comps]
-    samples = {}
-    for scan in st["scans"]:
-        ss, se, ah, al = scan["band"]
-        if not 1 <= ss <= 7 or se or ah or al >= st["precision"]:
-            raise ValueError("corrupt SOS segment (bad lossless parameters)")
-        parts, units = _scan_units(scan, comps, (mcux, mcuy))
-        for _, dc, _ in parts:
-            if dc is None or max(dc[1]) > 16:
-                raise ValueError("corrupt JPEG Huffman table")
-        single = len(parts) == 1
-        cols = comps[parts[0][0]]["wb"] if single else mcux
-        if scan["ri"] % cols:
-            raise ValueError("lossless JPEG whose restart interval is not a "
-                             f"whole number of MCU rows is not decoded"
-                             f"{CV2_TOO}")
-        diffs = {ci: [0] * (comps[ci]["bw"] * comps[ci]["bh"])
-                 for ci, _, _ in parts}
-        tables = {ci: dc for ci, dc, _ in parts}
-        per_seg = scan["ri"] or len(units)
-        for s, start in enumerate(range(0, len(units), per_seg)):
-            if s >= len(scan["segs"]):
-                raise ValueError("truncated JPEG entropy data")
-            seg, rst = scan["segs"][s]
-            if start + per_seg < len(units) and rst != s % 8:
-                raise ValueError("corrupt JPEG entropy data (restart marker)")
-            win, nbits = _windows(seg)
-            bits = _Bits(win, nbits)
-            try:
-                for unit in units[start:start + per_seg]:
-                    for ci, i in unit:
-                        size = bits.huff(tables[ci])
-                        diffs[ci][i] = (32768 if size == 16 else
-                                        _extend(bits.get(size), size)
-                                        if size else 0)
-            except IndexError as ex:
-                raise ValueError("truncated JPEG entropy data") from ex
-            if bits.pos > bits.nbits:
-                raise ValueError("truncated JPEG entropy data")
-        for ci, _, _ in parts:
-            c = comps[ci]
-            d = np.array(diffs[ci], np.int64).reshape(c["bh"], c["bw"])
-            rows = scan["ri"] // cols * (1 if single else c["v"])
-            x = _undifference(d, ss, st["precision"] - al, rows)
-            samples[ci] = ((x << al) & 0xFF).astype(np.uint8)
-    if len(samples) != len(comps):
+    max_h, max_v = st["max"]
+    if len(st["fresh"]) != len(comps):
+        # libjpeg would show uninitialised memory
         raise ValueError("truncated JPEG file (a component has no scan)")
-    _check_eoi(st)
     planes = []
     for ci, c in enumerate(comps):
-        p = samples[ci][:-(-h * c["v"] // max_v), :-(-w * c["h"] // max_h)]
+        fresh, single, ri, ss, al = st["fresh"][ci]
+        d = np.array(st["coefs"][ci], np.int64).reshape(c["bh"], c["bw"])
+        first = np.zeros(c["bh"], bool)
+        first[np.array(fresh) * (1 if single else c["v"])] = True
+        x = _undifference(d, ss, st["precision"] - al, first)
+        p = ((x << al) & 0xFF)[:-(-h * c["v"] // max_v), :-(-w * c["h"] // max_h)]
         p = np.repeat(np.repeat(p, max_v // c["v"], 0), max_h // c["h"], 1)
         planes.append(p[:h, :w].astype(np.int64))
     if len(comps) == 1:
@@ -1106,16 +1265,16 @@ def _decode_lossless(st, gray: bool) -> np.ndarray:
     return orient(out.astype(np.uint8), st["orientation"])
 
 
-def _undifference(d, predictor: int, bits: int, interval: int):
+def _undifference(d, predictor: int, bits: int, first):
     """jdlossls.c's samples of the (rows, cols) differences ``d``, modulo
-    2**16: a restart interval's first row (every ``interval`` rows, or the
-    first) predicted from the left with ``2**(bits - 1)`` first, the first
-    column from above, the rest by ``predictor`` (1-7)."""
+    2**16: a row where the predictor starts afresh (``first``) predicted
+    from the left with ``2**(bits - 1)`` first, the first column from
+    above, the rest by ``predictor`` (1-7)."""
     rows, cols = d.shape
     x = np.zeros((rows, cols), np.int64)
     for r in range(rows):
         t = d[r].copy()
-        if r % (interval or rows) == 0:
+        if first[r]:
             t[0] += 1 << (bits - 1)
             x[r] = np.cumsum(t) & 0xFFFF
             continue

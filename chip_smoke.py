@@ -14,7 +14,7 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    on the CPU (plain versions), same weights and seg;
 5. the main path: ``make_predict_step`` at B=8 on the 288x416 canvas in
    bf16 with full-width WESUP, launch counts per step, step time and a
-   per-phase breakdown from CUDA events;
+   per-phase breakdown from the CUDA events of the program's spans;
 6. serving: a ``Predictor`` answering GlaS-sized requests at scale 0.5,
    and the HTTP server's health endpoint;
 7. per-kernel times against the plain version, a library call and the
@@ -351,29 +351,67 @@ def share(nbytes: float, ms: float) -> str:
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s bound")
 
 
-class PhaseTimer:
-    """``mark(name)`` callback recording a CUDA event after each phase."""
+STEP_SPANS = ("wesup.step.train", "wesup.step.eval", "wesup.step.predict")
 
-    def __init__(self, torch):
-        self.torch = torch
-        self.events = []
 
-    def start(self):
-        ev = self.torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events = [("start", ev)]
+def phase_times(spans) -> list:
+    """Each step's device ms by phase, from the program's spans: every
+    ``wesup.step.*`` span's device time less its children's, summed by
+    name (without the prefix; the step's own work outside its phases
+    under its kind), in the order the phases first ran."""
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append(s)
+    steps = {}
+    for s in spans:
+        root, up = None, s
+        while up is not None:
+            if up.name in STEP_SPANS:
+                root = up
+            up = up.parent
+        if root is None or not s.name.startswith("wesup.step."):
+            continue
+        own = s.device_ms - sum(c.device_ms for c in kids.get(s, ()))
+        phases = steps.setdefault(root, {})
+        name = s.name.removeprefix("wesup.step.")
+        phases[name] = phases.get(name, 0.0) + own
+    return list(steps.values())
 
-    def __call__(self, name):
-        ev = self.torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events.append((name, ev))
 
-    def durations(self) -> dict:
-        self.torch.cuda.synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.events, self.events[1:]):
-            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-        return out
+def breakdown(torch, tag, run, n=10) -> None:
+    """Log the median device ms of each phase over ``n`` steps
+    (``phase_times``); ``run()`` runs one step.  The spans record while a
+    torch profiler does: the steps run under ``emit_itt``, which records
+    no op (a ``torch.profiler`` session's per-op records slow the host,
+    and with it every host-paced phase).  Beside the phases' sum the line
+    gives the median of ``n`` untraced steps, each between two CUDA
+    events, and their ratio: what the tracing still adds."""
+    from wesup_tpu_torch import tracing
+
+    untraced = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        untraced.append(a.elapsed_time(b))
+    start = time.time_ns()      # an earlier session's spans are older
+    with torch.autograd.profiler.emit_itt():
+        for _ in range(n):
+            run()
+    phases = phase_times([s for s in tracing.spans()
+                          if s.start_ns >= start])
+    if len(phases) != n:
+        fail(f"{len(phases)} steps traced of {n}")
+    parts = {k: statistics.median(p.get(k, 0.0) for p in phases)
+             for k in phases[0]}
+    total, step_ms = sum(parts.values()), statistics.median(untraced)
+    log(f"{tag} breakdown (median ms of {n} traced steps): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum {total:.3f}, untraced step {step_ms:.3f} "
+        f"(x{total / step_ms:.2f})")
 
 
 def profile_steps(torch, run_step, n=5, top=12, tag="profile") -> None:
@@ -603,22 +641,12 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         f"{ms:.3f} ms/step, {BATCH / ms * 1e3:.2f} img/s (B={BATCH}, "
         f"{H}x{W}, bf16, median of {len(step_ms)}; min {min(step_ms):.3f} "
         f"max {max(step_ms):.3f}; peak {peak_gb:.2f} GiB; {card})")
-    timer = PhaseTimer(torch)
-    phases = []
-    for _ in range(10):
-        timer.start()
-        acc = step(model, optimizer, acc, batch, tkey, mark=timer)
-        phases.append(timer.durations())
-    breakdown = {k: statistics.median(p[k] for p in phases)
-                 for k in phases[0]}
-    log("[train] breakdown (median ms of 10 marked steps): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in breakdown.items())
-        + f"; sum {sum(breakdown.values()):.3f}")
     holder = [acc]
 
     def run_step():
         holder[0] = step(model, optimizer, holder[0], batch, tkey)
 
+    breakdown(torch, "[train]", run_step)
     profile_steps(torch, run_step)
     acc = holder[0]
     count = acc["count"].item()
@@ -820,15 +848,6 @@ def step_times(torch, run, n=25):
     return statistics.median(out), min(out), max(out)
 
 
-def breakdown(torch, run, n=10) -> dict:
-    """Median ms of each marked phase over ``n`` steps; ``run(mark)``."""
-    timer = PhaseTimer(torch)
-    phases = []
-    for _ in range(n):
-        timer.start()
-        run(timer)
-        phases.append(timer.durations())
-    return {k: statistics.median(p[k] for p in phases) for k in phases[0]}
 
 
 def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
@@ -1024,11 +1043,8 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
             f"{BATCH / statistics.mean(r[0] for r in rounds) * 1e3:.2f} "
             f"img/s (B={BATCH}, {H}x{W}, bf16; {card})")
     for label, step in step_fns.items():
-        parts = breakdown(torch, lambda mark: step(model, imgs_dev, valid,
-                                                   mark=mark))
-        log(f"[step {label}] breakdown (median ms of 10 marked steps): "
-            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-            + f"; sum {sum(parts.values()):.3f}")
+        breakdown(torch, f"[step {label}]",
+                  lambda: step(model, imgs_dev, valid))
         # device busy time: the comparison that host noise does not reach
         profile_steps(torch, lambda: step(model, imgs_dev, valid), top=6,
                       tag=f"profile {label}")
@@ -1318,9 +1334,8 @@ def adjoint_train_phase(torch, card, seg_m, gen) -> list:
         tkey = prng.PRNGKey(7)
         holder = [steps.init_metric_acc()]
 
-        def run(mark=None):
-            holder[0] = step(model, optimizer, holder[0], batch, tkey,
-                             mark=mark)
+        def run():
+            holder[0] = step(model, optimizer, holder[0], batch, tkey)
 
         for _ in range(3):
             run()
@@ -1342,10 +1357,7 @@ def adjoint_train_phase(torch, card, seg_m, gen) -> list:
             f"ms/step, {BATCH / med * 1e3:.2f} img/s (B={BATCH}, {H}x{W}, "
             f"bf16, median of 15; min {lo:.3f} max {hi:.3f}; peak "
             f"{peak:.2f} GiB; {card})")
-        parts = breakdown(torch, run)
-        log(f"[train {pooling_}] breakdown (median ms of 10 marked steps): "
-            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-            + f"; sum {sum(parts.values()):.3f}")
+        breakdown(torch, f"[train {pooling_}]", run)
         profile_steps(torch, run, top=8, tag=f"profile train {pooling_}")
         acc = holder[0]
         count = acc["count"].item()
@@ -2029,11 +2041,8 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
             f"(B={BATCH}, {H}x{W}, bf16; peak {peaks[label]:.2f} GiB; "
             f"{card})")
     for label, run in fns.items():
-        parts = breakdown(torch, lambda mark: run(model, imgs_dev, valid,
-                                                  mark=mark))
-        log(f"[step {label}] breakdown (median ms of 10 marked steps): "
-            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-            + f"; sum {sum(parts.values()):.3f}")
+        breakdown(torch, f"[step {label}]",
+                  lambda: run(model, imgs_dev, valid))
         profile_steps(torch, lambda: run(model, imgs_dev, valid), top=6,
                       tag=f"profile {label}")
     del model, step, gated, fns
@@ -4969,17 +4978,7 @@ def main(argv=None) -> int:
         f"(B={BATCH}, {H}x{W}, bf16, median of {len(step_ms)}; "
         f"min {min(step_ms):.3f} max {max(step_ms):.3f}; peak "
         f"{peak_gb:.2f} GiB; {card})")
-    timer = PhaseTimer(torch)
-    phases = []
-    for _ in range(10):
-        timer.start()
-        step(model, imgs_dev, valid, mark=timer)
-        phases.append(timer.durations())
-    breakdown = {k: statistics.median(p[k] for p in phases)
-                 for k in phases[0]}
-    log("[step] breakdown (median ms of 10 marked steps): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in breakdown.items())
-        + f"; sum {sum(breakdown.values()):.3f}")
+    breakdown(torch, "[step]", lambda: step(model, imgs_dev, valid))
     profile_steps(torch, lambda: step(model, imgs_dev, valid))
 
     # ---- 6. serving ------------------------------------------------------

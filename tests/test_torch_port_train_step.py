@@ -7,6 +7,7 @@ limits, the preprocessing and SLIC limits) and their reasons; its
 fixtures and helpers are imported from there.
 """
 
+import itertools
 import sys
 from pathlib import Path
 
@@ -31,6 +32,7 @@ from wesup_tpu.models import steps as j_steps  # noqa: E402
 from wesup_tpu.models import wesup as j_wesup  # noqa: E402
 from wesup_tpu.ops import segments as j_segments  # noqa: E402
 from wesup_tpu.ops import slic as j_slic  # noqa: E402
+from wesup_tpu_torch import tracing  # noqa: E402
 from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.models import steps, wesup  # noqa: E402
 from wesup_tpu_torch.models.convert import from_jax_params  # noqa: E402
@@ -298,9 +300,16 @@ def test_train_step_runs_on_cpu(pooling_, point_mode):
     acc = steps.init_metric_acc(device="cpu")
     step = steps.make_train_step(cfg, (H, W), point_mode=point_mode,
                                  device="cpu")
-    phases = []
-    for key in prng.split(prng.PRNGKey(0)):
-        acc = step(model, optimizer, acc, batch, key, mark=phases.append)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for key in prng.split(prng.PRNGKey(0)):
+            acc = step(model, optimizer, acc, batch, key)
+    first = next(s for s in tracing.spans() if s.name == "wesup.step.train")
+    # the phases in order (augment is two spans: the draws, then the
+    # augmentation)
+    phases = [name for name, _ in itertools.groupby(
+        s.name.removeprefix("wesup.step.") for s in tracing.spans()
+        if s.parent is first)]
     assert phases[:6] == ["augment", "slic", "forward", "loss", "backward",
                           "optimizer"]
     assert acc["count"].item() == 2 * B and not acc["nan"].item()

@@ -4,7 +4,7 @@ infer.py, itself the reference's infer.py).
 Usage:
     python -m wesup_tpu_torch.infer <data_dir> [checkpoint=<ckpt>]
         [scales=0.6,0.55,0.5,0.45,0.4] [input_size=H,W] [output_dir=...]
-        [device=cpu] [<any WESUPConfig field>=...]
+        [device=cpu] [profile_dir=...] [<any WESUPConfig field>=...]
 
 ``data_dir`` holds ``images/`` (PNG, BMP or JPEG as ``cv2.imread`` reads
 them, ``data/codec.py``).
@@ -12,9 +12,12 @@ them, ``data/codec.py``).
 trainer's ``.msgpack``; without ``output_dir=`` the masks go to
 ``<record dir>/results``.  Each image gives ``{stem}.png``, a {0, 255}
 mask.  ``device=`` as in ``train.py``: the card by default, ``cpu`` for
-the host.
+the host.  ``profile_dir=`` runs the prediction under ``torch.profiler``
+and writes it as a Chrome trace, ``trace.infer.json``, with the inference
+path's spans (``wesup.predict.*``, ``wesup.step.*``; ``tracing.py``).
 """
 
+import functools
 from pathlib import Path
 
 from wesup_tpu_torch import cli
@@ -22,6 +25,7 @@ from wesup_tpu_torch.data import codec
 from wesup_tpu_torch.data.datasets import SegmentationDataset
 from wesup_tpu_torch.inference import Predictor, predict_multiscale_batch
 from wesup_tpu_torch.models import initialize_trainer
+from wesup_tpu_torch.tracing import profiled
 
 
 def save_predictions(predictions, dataset, output_dir="predictions"):
@@ -48,8 +52,15 @@ def infer(trainer, data_dir, output_dir=None, input_size=None, scales=(0.5,),
 
     imgs = [codec.imread_rgb(dataset.img_paths[dataset.picked[i]])
             for i in range(len(dataset))]
-    predictions = predict_multiscale_batch(predictor, imgs, scales=scales,
-                                           input_size=input_size)
+    predict = functools.partial(predict_multiscale_batch, predictor, imgs,
+                                scales=scales, input_size=input_size)
+    profile_dir = trainer.kwargs.get("profile_dir")
+    if profile_dir:
+        path = Path(profile_dir) / "trace.infer.json"
+        predictions = profiled(predict, path, trainer.device)
+        print(f"Profiler trace written to {path}")
+    else:
+        predictions = predict()
 
     if output_dir is not None:
         save_predictions(predictions, dataset, output_dir)

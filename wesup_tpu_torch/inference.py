@@ -29,7 +29,7 @@ from __future__ import annotations
 import copy
 import math
 import os
-from itertools import product
+from itertools import count, product
 
 import numpy as np
 import torch
@@ -40,6 +40,10 @@ from .ops.resize import _interp_matrix, _nearest_index
 from .parallel import collectives, shard_params
 from .parallel.mesh import is_sharded
 from .runtime import resolve_device
+from .tracing import span
+
+# numbers predict_multiscale_batch's shape groups, for its chunks' trace ids
+_groups = count()
 
 
 def _round_up(x, m=32):
@@ -155,18 +159,20 @@ class Predictor:
 
         The float32 canvas is (B, H, W) rounded up to multiples of 32, the
         content repeated into the pad (last column, then last row), with
-        ``valid`` over the content."""
+        ``valid`` over the content; it is made in a ``wesup.tile.cut``
+        span."""
         B, h, w = images_f.shape[:3]
         H, W = _round_up(h), _round_up(w)
         Bp = _round_up(B, self.data_shards)   # blank rows shard evenly
-        canvas = np.zeros((Bp, H, W, 3), np.float32)
-        canvas[:B, :h, :w] = images_f
-        if w < W:
-            canvas[:B, :h, w:] = images_f[:, :, w - 1:w]
-        if h < H:
-            canvas[:B, h:, :] = canvas[:B, h - 1:h, :]
-        valid = np.zeros((Bp, H, W), bool)
-        valid[:B, :h, :w] = True
+        with span("wesup.tile.cut"):
+            canvas = np.zeros((Bp, H, W, 3), np.float32)
+            canvas[:B, :h, :w] = images_f
+            if w < W:
+                canvas[:B, :h, w:] = images_f[:, :, w - 1:w]
+            if h < H:
+                canvas[:B, h:, :] = canvas[:B, h - 1:h, :]
+            valid = np.zeros((Bp, H, W), bool)
+            valid[:B, :h, :w] = True
         pred = self.run_rows(self.predict_step((H, W)), canvas, valid)
         return pred, B, h, w
 
@@ -200,6 +206,14 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
     before the previous chunk's results are copied back, so host
     preparation overlaps device work.  The predictor's mode picks the
     strategy (module docstring).
+
+    Spans, each chunk's trace id ``("chunk", g, start)`` (``g`` numbers
+    the shape groups of every call in the process, ``start`` is the
+    chunk's first position in its group): a chunk's
+    ``wesup.predict.dispatch`` (its ``wesup.predict.fill``, the canvas
+    fill, pinning and copy, and its steps), its ``wesup.predict.drain``
+    (the copy back and the accumulation) and each image's
+    ``wesup.predict.fuse`` (the rounding and opening).
     """
     if max_batch is None:
         max_batch = int(os.environ.get("WESUP_INFER_MAX_BATCH", "8"))
@@ -220,25 +234,31 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
             sizes = [(int(H0 * s), int(W0 * s)) for s in scales]
         Hc, Wc = _round_up(H0), _round_up(W0)
         acc = [None] * len(idxs)
+        group = next(_groups)
 
         def dispatch(start):
             chunk = idxs[start:start + max_batch]
-            n = _round_up(len(chunk), predictor.data_shards)
-            canvas = np.zeros((n, Hc, Wc, 3), np.uint8)
-            for j, i in enumerate(chunk):
-                canvas[j, :H0, :W0] = imgs_u8[i]
-            rows = predictor.own_rows(canvas)
-            return start, len(chunk), [predictor.gather(
-                predictor._scaled_step((H0, W0), sz, (Hc, Wc))(
-                    predictor.model, rows)) for sz in sizes]
+            with span("wesup.predict.dispatch",
+                      trace=("chunk", group, start)):
+                with span("wesup.predict.fill"):
+                    n = _round_up(len(chunk), predictor.data_shards)
+                    canvas = np.zeros((n, Hc, Wc, 3), np.uint8)
+                    for j, i in enumerate(chunk):
+                        canvas[j, :H0, :W0] = imgs_u8[i]
+                    rows = predictor.own_rows(canvas)
+                return start, len(chunk), [predictor.gather(
+                    predictor._scaled_step((H0, W0), sz, (Hc, Wc))(
+                        predictor.model, rows)) for sz in sizes]
 
         def drain(start, n_real, outs):
-            for out in outs:
-                out = out.cpu().numpy()
-                for j in range(n_real):
-                    pos = start + j
-                    acc[pos] = (out[j] if acc[pos] is None
-                                else acc[pos] + out[j])
+            with span("wesup.predict.drain",
+                      trace=("chunk", group, start)):
+                for out in outs:
+                    out = out.cpu().numpy()
+                    for j in range(n_real):
+                        pos = start + j
+                        acc[pos] = (out[j] if acc[pos] is None
+                                    else acc[pos] + out[j])
 
         in_flight = None
         for start in range(0, len(idxs), max_batch):
@@ -250,13 +270,15 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
             drain(*in_flight)
 
         for pos, i in enumerate(idxs):
-            fused = acc[pos] / len(sizes)
-            if not sp_mode:
-                fused = np.round(fused)
-            elif input_size is None:
-                fused = np.round(fused)
-                if len(scales) > 1:
-                    fused = opening(fused, reference_cross_selem(9))
+            with span("wesup.predict.fuse",
+                      trace=("chunk", group, pos - pos % max_batch)):
+                fused = acc[pos] / len(sizes)
+                if not sp_mode:
+                    fused = np.round(fused)
+                elif input_size is None:
+                    fused = np.round(fused)
+                    if len(scales) > 1:
+                        fused = opening(fused, reference_cross_selem(9))
             results[i] = fused
     return results
 
@@ -300,6 +322,7 @@ def combine_patches_to_image(patches: np.ndarray, target_height: int,
     return np.squeeze(combined[..., :-1])
 
 
+@span("wesup.tile.slide")
 def predict_tiled(predictor: Predictor, img_u8: np.ndarray, patch_size: int,
                   chunk: int = 8, round_patches: bool = True) -> np.ndarray:
     """Tiled prediction of one (H0, W0, 3) uint8 image: patches in chunks
@@ -309,22 +332,31 @@ def predict_tiled(predictor: Predictor, img_u8: np.ndarray, patch_size: int,
 
     ``round_patches=True`` rounds each patch before stitching, as the
     superpixel tile path does (infer_tile.py:108-110); the pixel tile path
-    stitches raw probabilities (pixel_infer_tile.py:52-57)."""
+    stitches raw probabilities (pixel_infer_tile.py:52-57).
+
+    A call is a ``wesup.tile.slide`` span (a trace of its own) around the
+    patch cut and each chunk's float conversion and canvas
+    (``wesup.tile.cut``), the chunks' copies back (``wesup.tile.drain``)
+    and the stitch (``wesup.tile.stitch``)."""
     H0, W0 = img_u8.shape[:2]
-    patches = divide_image_to_patches(img_u8, patch_size)
+    with span("wesup.tile.cut"):
+        patches = divide_image_to_patches(img_u8, patch_size)
     outs = []
 
     def drain(pred, n, h, w):
-        prob = pred[:n, :h, :w].cpu().numpy()
-        outs.append(np.round(prob) if round_patches else prob)
+        with span("wesup.tile.drain"):
+            prob = pred[:n, :h, :w].cpu().numpy()
+            outs.append(np.round(prob) if round_patches else prob)
 
     in_flight = None
     for i in range(0, len(patches), chunk):
-        block = patches[i:i + chunk].astype(np.float32) / 255.0
+        with span("wesup.tile.cut"):
+            block = patches[i:i + chunk].astype(np.float32) / 255.0
         dispatched = predictor.dispatch_padded(block)
         if in_flight is not None:
             drain(*in_flight)
         in_flight = dispatched
     if in_flight is not None:
         drain(*in_flight)
-    return combine_patches_to_image(np.concatenate(outs, axis=0), H0, W0)
+    with span("wesup.tile.stitch"):
+        return combine_patches_to_image(np.concatenate(outs, axis=0), H0, W0)

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import logging
 import threading
-import time
 from abc import ABC, abstractmethod
 from pathlib import Path
 
@@ -275,19 +274,3 @@ class BaseTrainer(ABC):
     def setup_dataloaders(self, train_path, val_path, proportion=1.0):
         ...
 
-
-def timed_phase(logger, name):
-    """Logs a phase's start and its wall time; the context keeps the time
-    as ``seconds``."""
-    class _Ctx:
-        def __enter__(self):
-            logger.info(f"{name.capitalize()} phase:")
-            self.start = time.perf_counter()
-            return self
-
-        def __exit__(self, *exc):
-            self.seconds = time.perf_counter() - self.start
-            logger.info(f"Took {self.seconds:.2f}s.")
-            return False
-
-    return _Ctx()

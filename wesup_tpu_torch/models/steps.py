@@ -49,6 +49,7 @@ from ..ops.slic import make_plan, n_clusters, slic
 from ..parallel import collectives
 from ..runtime import compute_dtype as _compute_dtype
 from ..runtime import resolve_device
+from ..tracing import span
 from ..utils import prng
 from ..utils.metrics import device_accuracy, device_dice
 from . import wesup
@@ -74,52 +75,52 @@ def _to_float(image: torch.Tensor) -> torch.Tensor:
 
 
 def _slic(config, img, valid):
-    return slic(img, valid, sp_area=config.sp_area,
-                compactness=config.sp_compactness, n_iters=config.slic_iters,
-                update_stride=config.slic_update_stride)
+    with span("wesup.step.slic"):
+        return slic(img, valid, sp_area=config.sp_area,
+                    compactness=config.sp_compactness,
+                    n_iters=config.slic_iters,
+                    update_stride=config.slic_update_stride)
 
 
 def make_predict_step(config, canvas_hw, mode: str = "superpixel",
                       device=None):
     """Prediction step for a (H, W) canvas.
 
-    Returns ``step(model, image, valid, mark=None) -> (B, H, W) f32`` fg
+    Returns ``step(model, image, valid) -> (B, H, W) f32`` fg
     probability; ``image`` is (B, H, W, 3) uint8 or float, ``valid``
     (B, H, W) bool (tensors or arrays; they are moved to the device).
     ``mode="superpixel"`` runs SLIC and :func:`wesup.forward_superpixel`
     (reference WESUP.forward); ``mode="pixel"`` runs
     :func:`wesup.forward_pixel` (reference WESUPPixelInference), which
-    takes no SLIC and no ``valid``.  ``mark`` is passed on to the forward
-    (after a ``"slic"`` mark of its own in superpixel mode) for phase
-    timing; the phases it marks depend on the mode and
-    ``config.pooling``.
+    takes no SLIC and no ``valid``.  A call is a ``wesup.step.predict``
+    span around the phases' spans (``wesup.step.slic`` and the forward's,
+    which depend on the mode and ``config.pooling``).
     """
     _check_mode(mode)
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
     cdtype = _compute_dtype(config)
     if mode == "pixel":
+        @span("wesup.step.predict")
         @torch.inference_mode()
-        def pixel_step(model, image, valid, mark=None):
+        def pixel_step(model, image, valid):
             _check_model(model, dev)
             img = _to_float(torch.as_tensor(image, device=dev))
-            return wesup.forward_pixel(model, img, cdtype, mark=mark)[..., 1]
+            return wesup.forward_pixel(model, img, cdtype)[..., 1]
 
         return pixel_step
     K = n_clusters(H, W, config.sp_area)
     plan = make_plan(H, W, config.sp_area)
 
+    @span("wesup.step.predict")
     @torch.inference_mode()
-    def step(model, image, valid, mark=None):
+    def step(model, image, valid):
         _check_model(model, dev)
         img = _to_float(torch.as_tensor(image, device=dev))
         valid = torch.as_tensor(valid, device=dev)
         seg = _slic(config, img, valid)
-        if mark is not None:
-            mark("slic")
         out = wesup.forward_superpixel(model, img, seg, K, valid, cdtype,
-                                       pooling=config.pooling, plan=plan,
-                                       mark=mark)
+                                       pooling=config.pooling, plan=plan)
         return out.pred
 
     return step
@@ -137,7 +138,9 @@ def make_scaled_predict_step(config, content_hw, target_hw, canvas_hw,
     SLIC and the superpixel forward, rounds the prediction and
     nearest-resizes it back: (B, Ho, Wo) uint8 in {0, 1}.  Pixel mode runs
     the pixel head and resizes the f32 foreground probability back
-    (bilinear, align_corners=True), unrounded: (B, Ho, Wo) f32.
+    (bilinear, align_corners=True), unrounded: (B, Ho, Wo) f32.  A call
+    is a ``wesup.step.predict`` span; the resizes run in
+    ``wesup.step.resize`` spans.
     """
     _check_mode(mode)
     dev = resolve_device(device)
@@ -155,26 +158,30 @@ def make_scaled_predict_step(config, content_hw, target_hw, canvas_hw,
     iy = torch.arange(Hs, device=dev).clamp_max(th - 1)
     ix = torch.arange(Ws, device=dev).clamp_max(tw - 1)
 
+    @span("wesup.step.predict")
     @torch.inference_mode()
     def step(model, image):
         _check_model(model, dev)
-        image = torch.as_tensor(image, device=dev)
-        img = _to_float(image[:, :Ho, :Wo])
-        scaled = resize_bilinear(img, (th, tw), align_corners=not sp_mode)
-        scaled = scaled[:, iy][:, :, ix]
+        with span("wesup.step.resize"):
+            image = torch.as_tensor(image, device=dev)
+            img = _to_float(image[:, :Ho, :Wo])
+            scaled = resize_bilinear(img, (th, tw), align_corners=not sp_mode)
+            scaled = scaled[:, iy][:, :, ix]
         if not sp_mode:
             prob = wesup.forward_pixel(model, scaled, cdtype)[:, :th, :tw, 1]
-            return resize_bilinear(prob[..., None], (Ho, Wo),
-                                   align_corners=True)[..., 0]
+            with span("wesup.step.resize"):
+                return resize_bilinear(prob[..., None], (Ho, Wo),
+                                       align_corners=True)[..., 0]
         B = scaled.shape[0]
         valid = torch.zeros((B, Hs, Ws), dtype=torch.bool, device=dev)
         valid[:, :th, :tw] = True
         seg = _slic(config, scaled, valid)
         out = wesup.forward_superpixel(model, scaled, seg, K, valid, cdtype,
                                        pooling=config.pooling, plan=plan)
-        pred = torch.round(out.pred[:, :th, :tw])
-        up = resize_nearest(pred[..., None], (Ho, Wo))[..., 0]
-        return up.to(torch.uint8)
+        with span("wesup.step.resize"):
+            pred = torch.round(out.pred[:, :th, :tw])
+            up = resize_nearest(pred[..., None], (Ho, Wo))[..., 0]
+            return up.to(torch.uint8)
 
     return step
 
@@ -278,8 +285,9 @@ def sample_augmentation(config, B: int, hw, point_mode: bool, key,
     one f32 array, copied from pinned memory without blocking (nothing is
     read back), and unpacked there."""
     dev = torch.device(device)
-    app, affine, elastic = draw_augmentation(config, B, hw, point_mode, key,
-                                             rows)
+    with span("wesup.step.rng"):
+        app, affine, elastic = draw_augmentation(config, B, hw, point_mode,
+                                                 key, rows)
     B = len(affine.hflip)   # the rows drawn
     cols = {f"app.{f}": v for f, v in app._asdict().items() if v is not None}
     cols.update({f"aff.{f}": v for f, v in affine._asdict().items()})
@@ -308,65 +316,63 @@ def sample_augmentation(config, B: int, hw, point_mode: bool, key,
 
 def _preprocess_sample(params: AugParams | None, image_u8, valid, pixel_mask,
                        points, point_valid, use_mask_as_points, *, config,
-                       train: bool, point_mode: bool,
-                       mark=None) -> Preprocessed:
+                       train: bool, point_mode: bool) -> Preprocessed:
     """Augment + rasterize + SLIC for a batch (the JAX function's vmap).
 
     ``params`` are the drawn augmentation parameters (unused unless
-    ``train``).  ``mark`` is called with ``"augment"`` before SLIC and
-    ``"slic"`` after it."""
-    mark = mark or (lambda name: None)
-    H, W = image_u8.shape[1:3]
-    C = config.n_classes
-    img = image_u8.to(torch.float32) / 255.0
-    pts_xy = points[..., :2].to(torch.float32)
+    ``train``).  The augmentation and rasterisation run in a
+    ``wesup.step.augment`` span, SLIC in ``wesup.step.slic``."""
+    with span("wesup.step.augment"):
+        H, W = image_u8.shape[1:3]
+        C = config.n_classes
+        img = image_u8.to(torch.float32) / 255.0
+        pts_xy = points[..., :2].to(torch.float32)
 
-    if train:
-        img = aug.random_appearance(img, params.appearance)
-        if params.elastic is not None:
-            el_img, el_mask = aug.random_elastic(
-                img, pixel_mask.to(torch.float32), params.elastic.coarse)
-            do = params.elastic.apply
-            img = torch.where(do[:, None, None, None], el_img, img)
-            pixel_mask = torch.where(do[:, None, None],
-                                     el_mask.to(torch.int32), pixel_mask)
-        A = params.affine
-        warp_fn = aug.warp_exact if config.warp_method == "exact" else aug.warp
-        img = warp_fn(img, A, order=1)
-        # mask and valid share the order-0 warp (two channels, per-channel
-        # fill)
-        aux = torch.stack([pixel_mask.to(torch.float32),
-                           valid.to(torch.float32)], dim=-1)
-        aux = warp_fn(aux, A, order=0, fill=[-1.0, 0.0])
-        pixel_mask = aux[..., 0].to(torch.int32)
-        valid = aux[..., 1] > 0.5
-        pts_xy = aug.transform_points(pts_xy, A)
+        if train:
+            img = aug.random_appearance(img, params.appearance)
+            if params.elastic is not None:
+                el_img, el_mask = aug.random_elastic(
+                    img, pixel_mask.to(torch.float32), params.elastic.coarse)
+                do = params.elastic.apply
+                img = torch.where(do[:, None, None, None], el_img, img)
+                pixel_mask = torch.where(do[:, None, None],
+                                         el_mask.to(torch.int32), pixel_mask)
+            A = params.affine
+            warp_fn = (aug.warp_exact if config.warp_method == "exact"
+                       else aug.warp)
+            img = warp_fn(img, A, order=1)
+            # mask and valid share the order-0 warp (two channels, per-channel
+            # fill)
+            aux = torch.stack([pixel_mask.to(torch.float32),
+                               valid.to(torch.float32)], dim=-1)
+            aux = warp_fn(aux, A, order=0, fill=[-1.0, 0.0])
+            pixel_mask = aux[..., 0].to(torch.int32)
+            valid = aux[..., 1] > 0.5
+            pts_xy = aug.transform_points(pts_xy, A)
 
-    pts_int = torch.cat([torch.floor(pts_xy + 0.5).to(torch.int32),
-                         points[..., 2:3].to(torch.int32)], dim=-1)
-    point_mask = _rasterize_points(pts_int, point_valid, (H, W), C)
+        pts_int = torch.cat([torch.floor(pts_xy + 0.5).to(torch.int32),
+                             points[..., 2:3].to(torch.int32)], dim=-1)
+        point_mask = _rasterize_points(pts_int, point_valid, (H, W), C)
 
-    classes = torch.arange(C, dtype=pixel_mask.dtype, device=img.device)
-    pixel_onehot = ((pixel_mask[..., None] == classes)
-                    & (pixel_mask[..., None] >= 0)).to(torch.float32)
+        classes = torch.arange(C, dtype=pixel_mask.dtype, device=img.device)
+        pixel_onehot = ((pixel_mask[..., None] == classes)
+                        & (pixel_mask[..., None] >= 0)).to(torch.float32)
 
-    # supervision (reference preprocess, models/wesup.py:480-485): point
-    # mask if present, else pixel mask, else nothing
-    per_image = (slice(None), None, None, None)
-    point_sup = torch.where(use_mask_as_points[per_image], pixel_onehot,
-                            point_mask)
-    has_points = point_valid.any(-1) | use_mask_as_points
-    has_pixel = (pixel_mask >= 0).flatten(1).any(-1)
-    sup = torch.where(has_points[per_image], point_sup,
-                      torch.where(has_pixel[per_image], pixel_onehot,
-                                  torch.zeros_like(pixel_onehot)))
-    # annotations only count on valid canvas pixels
-    sup = sup * valid[..., None].to(torch.float32)
+        # supervision (reference preprocess, models/wesup.py:480-485): point
+        # mask if present, else pixel mask, else nothing
+        per_image = (slice(None), None, None, None)
+        point_sup = torch.where(use_mask_as_points[per_image], pixel_onehot,
+                                point_mask)
+        has_points = point_valid.any(-1) | use_mask_as_points
+        has_pixel = (pixel_mask >= 0).flatten(1).any(-1)
+        sup = torch.where(has_points[per_image], point_sup,
+                          torch.where(has_pixel[per_image], pixel_onehot,
+                                      torch.zeros_like(pixel_onehot)))
+        # annotations only count on valid canvas pixels
+        sup = sup * valid[..., None].to(torch.float32)
 
-    img = torch.clamp(img, 0.0, 1.0)
-    mark("augment")
+        img = torch.clamp(img, 0.0, 1.0)
     seg = _slic(config, img, valid)
-    mark("slic")
     return Preprocessed(img, valid, pixel_mask, seg, sup)
 
 
@@ -375,33 +381,34 @@ def _preprocess_sample(params: AugParams | None, image_u8, valid, pixel_mask,
 # ---------------------------------------------------------------------------
 
 def _forward_and_loss(model, prep: Preprocessed, K, config, sample_valid,
-                      plan=None, mark=None, normalise: bool = True):
+                      plan=None, normalise: bool = True):
     """Forward + mean WESUP loss over the valid samples (their sum when
     not ``normalise``: a data shard's gradients are divided by the global
-    count after the sum over the shards).
+    count after the sum over the shards), in ``wesup.step.forward`` and
+    ``wesup.step.loss`` spans.
 
     Returns ``(loss, (out, losses))`` with ``losses`` per image."""
-    mark = mark or (lambda name: None)
-    out = wesup.forward_superpixel(model, prep.image, prep.seg, K, prep.valid,
-                                   _compute_dtype(config),
-                                   pooling=config.pooling, plan=plan)
-    mark("forward")
-    stats = superpixel_stats(prep.seg, K, prep.sup_mask, prep.valid,
-                             plan=plan)
-    losses = wesup_loss(
-        out.sp_pred, out.sp_features, stats.labels, stats.labeled, stats.real,
-        # the reference never applies its class_weights config
-        class_weights=(config.class_weights
-                       if config.apply_class_weights else None),
-        enable_propagation=config.enable_propagation,
-        propagate_threshold=config.propagate_threshold,
-        propagate_weight=config.propagate_weight,
-        epsilon=config.epsilon)
-    w = sample_valid.to(torch.float32)
-    loss = (losses.loss * w).sum()
-    if normalise:
-        loss = loss / w.sum().clamp_min(1.0)
-    mark("loss")
+    with span("wesup.step.forward"):
+        out = wesup.forward_superpixel(model, prep.image, prep.seg, K,
+                                       prep.valid, _compute_dtype(config),
+                                       pooling=config.pooling, plan=plan)
+    with span("wesup.step.loss"):
+        stats = superpixel_stats(prep.seg, K, prep.sup_mask, prep.valid,
+                                 plan=plan)
+        losses = wesup_loss(
+            out.sp_pred, out.sp_features, stats.labels, stats.labeled,
+            stats.real,
+            # the reference never applies its class_weights config
+            class_weights=(config.class_weights
+                           if config.apply_class_weights else None),
+            enable_propagation=config.enable_propagation,
+            propagate_threshold=config.propagate_threshold,
+            propagate_weight=config.propagate_weight,
+            epsilon=config.epsilon)
+        w = sample_valid.to(torch.float32)
+        loss = (losses.loss * w).sum()
+        if normalise:
+            loss = loss / w.sum().clamp_min(1.0)
     return loss, (out, losses)
 
 
@@ -496,6 +503,14 @@ def _rng_idx(value) -> tuple:
                          "from the device would sync every batch")
     pair = np.asarray(value).reshape(-1, 2)[0]
     return int(pair[0]), int(pair[1])
+
+
+def _trace_id(batch, phase: str):
+    """A staged batch's trace id: (``phase``, epoch, batch index) from its
+    ``rng_idx``, or None (the step's span starts a trace of its own)."""
+    if "rng_idx" not in batch:
+        return None
+    return (phase,) + _rng_idx(batch["rng_idx"])
 
 
 def step_key(rng, batch, phase: str):
@@ -603,8 +618,8 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None,
                     mesh=None):
     """Train step for a (H, W) canvas.
 
-    Returns ``step(model, optimizer, acc, batch, rng, mark=None,
-    cache=None) -> acc``.  It updates ``model`` and ``optimizer`` (from
+    Returns ``step(model, optimizer, acc, batch, rng, cache=None) ->
+    acc``.  It updates ``model`` and ``optimizer`` (from
     :func:`make_optimizer`) in place and returns the new metric
     accumulator (:func:`init_metric_acc`); nothing leaves the device.
     ``batch`` holds ``image`` (B, H, W, 3) uint8, ``valid`` (B, H, W) bool
@@ -617,8 +632,12 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None,
     a key (``utils.prng.PRNGKey``) from which the batch's augmentation is
     drawn, or, when the batch carries ``rng_idx`` (epoch, batch index;
     host integers), the base key of :func:`batch_key` (:func:`step_key`).
-    ``mark(name)`` is called after each phase: augment, slic, forward,
-    loss, backward, (allreduce,) optimizer.
+    A call is a ``wesup.step.train`` span (trace id ``("train",)`` and
+    the batch's ``rng_idx``) around one span per phase:
+    ``wesup.step.augment`` (twice: the batch's tensors, device resize, key
+    and draws; then :func:`_preprocess_sample`'s augmentation), ``.slic``,
+    ``.forward``, ``.loss``, ``.backward``, (``.allreduce``,)
+    ``.optimizer``.
 
     With a ``mesh`` of a process group (``parallel.make_mesh``) the batch
     is this rank's rows of the global batch (``mesh.data_rows``) and the
@@ -638,52 +657,53 @@ def make_train_step(config, canvas_hw, *, point_mode: bool, device=None,
     plan = make_plan(H, W, config.sp_area)
     distributed = mesh is not None and mesh.distributed
 
-    def prepare(batch, rng, mark, cache):
-        _check_staged(batch)
-        key = step_key(rng, batch, "train")
-        b = _batch_on(batch, dev)
-        image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
-        B = b["sample_valid"].shape[0]
-        shard = {}   # the rank's rows of the global batch's draws
-        if distributed:
-            B *= mesh.shape["data"]
-            shard["rows"] = mesh.data_rows(B)
-        params = sample_augmentation(config, B, (H, W), point_mode, key,
-                                     dev, **shard)
-        prep = _preprocess_sample(
+    def prepare(batch, rng, cache):
+        with span("wesup.step.augment"):
+            _check_staged(batch)
+            with span("wesup.step.rng"):
+                key = step_key(rng, batch, "train")
+            b = _batch_on(batch, dev)
+            image, valid, pixel_mask = _batch_inputs(b, cache, H, W)
+            B = b["sample_valid"].shape[0]
+            shard = {}   # the rank's rows of the global batch's draws
+            if distributed:
+                B *= mesh.shape["data"]
+                shard["rows"] = mesh.data_rows(B)
+            params = sample_augmentation(config, B, (H, W), point_mode, key,
+                                         dev, **shard)
+        return b, _preprocess_sample(
             params, image, valid, pixel_mask, b["points"],
             b["point_valid"], b["use_mask_as_points"], config=config,
-            train=True, point_mode=point_mode, mark=mark)
-        return b, prep
+            train=True, point_mode=point_mode)
 
-    def forward_backward(model, b, prep, mark):
+    def forward_backward(model, b, prep):
         model.zero_grad(set_to_none=True)
         loss, (out, losses) = _forward_and_loss(
-            model, prep, K, config, b["sample_valid"], plan, mark=mark,
+            model, prep, K, config, b["sample_valid"], plan,
             normalise=not distributed)
-        loss.backward()
-        mark("backward")
+        with span("wesup.step.backward"):
+            loss.backward()
         return out, losses
 
-    def step(model, optimizer, acc, batch, rng, mark=None, cache=None):
-        _check_model(model, dev)
-        mark = mark or (lambda name: None)
-        if not distributed:
-            b, prep = prepare(batch, rng, mark, cache)
-            out, losses = forward_backward(model, b, prep, mark)
-        else:
-            (b, prep), (out, losses), (count,) = _agreed(
-                lambda: prepare(batch, rng, mark, cache),
-                lambda bp: forward_backward(model, *bp, mark), mesh, dev,
-                [torch.as_tensor(batch["sample_valid"]).sum()])
-            # each data row's count was summed once per model column
-            _sync_gradients(model, mesh, count / mesh.shape["model"])
-            mark("allreduce")
-        optimizer.step()
-        mark("optimizer")
-        with torch.no_grad():
-            return _accumulate(acc, _train_metrics(out, losses, prep),
-                               b["sample_valid"])
+    def step(model, optimizer, acc, batch, rng, cache=None):
+        with span("wesup.step.train", trace=_trace_id(batch, "train")):
+            _check_model(model, dev)
+            if not distributed:
+                b, prep = prepare(batch, rng, cache)
+                out, losses = forward_backward(model, b, prep)
+            else:
+                (b, prep), (out, losses), (count,) = _agreed(
+                    lambda: prepare(batch, rng, cache),
+                    lambda bp: forward_backward(model, *bp), mesh, dev,
+                    [torch.as_tensor(batch["sample_valid"]).sum()])
+                # each data row's count was summed once per model column
+                with span("wesup.step.allreduce"):
+                    _sync_gradients(model, mesh, count / mesh.shape["model"])
+            with span("wesup.step.optimizer"):
+                optimizer.step()
+            with torch.no_grad():
+                return _accumulate(acc, _train_metrics(out, losses, prep),
+                                   b["sample_valid"])
 
     return step
 
@@ -698,7 +718,9 @@ def make_eval_step(config, canvas_hw, device=None, mesh=None):
     step draws nothing).  With a ``mesh`` of a process group the batch is
     this rank's rows, and the ranks agree on a failure flag as the train
     step's do (the accumulator is summed over the data axis at the end
-    of the phase, by the trainer)."""
+    of the phase, by the trainer).  A call is a ``wesup.step.eval`` span
+    (trace id ``("val",)`` and the batch's ``rng_idx``) around the
+    augmentation's, SLIC's and the forward's."""
     dev = resolve_device(device)
     H, W = int(canvas_hw[0]), int(canvas_hw[1])
     K = n_clusters(H, W, config.sp_area)
@@ -707,11 +729,13 @@ def make_eval_step(config, canvas_hw, device=None, mesh=None):
 
     @torch.inference_mode()
     def step(model, acc, batch, cache=None):
-        _check_model(model, dev)
-        if mesh is None or not mesh.distributed:
-            return predict(model, acc, *prepare(batch, cache))
-        return _agreed(lambda: prepare(batch, cache),
-                       lambda bp: predict(model, acc, *bp), mesh, dev)[1]
+        with span("wesup.step.eval", trace=_trace_id(batch, "val")):
+            _check_model(model, dev)
+            if mesh is None or not mesh.distributed:
+                return predict(model, acc, *prepare(batch, cache))
+            return _agreed(lambda: prepare(batch, cache),
+                           lambda bp: predict(model, acc, *bp), mesh,
+                           dev)[1]
 
     def prepare(batch, cache):
         _check_staged(batch)

@@ -64,8 +64,10 @@ steps agree on a failure flag.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -79,9 +81,10 @@ from ..parallel import (collectives, gather_state_dict, make_mesh,
                         shard_params, shard_state_dict)
 from ..parallel.mesh import gather_tensor
 from ..runtime import resolve_device
+from ..tracing import profiled, span
 from ..utils import prng
 from . import jax_init, steps, wesup
-from .base import BaseTrainer, timed_phase
+from .base import BaseTrainer
 
 
 def _host_copy(obj):
@@ -97,6 +100,21 @@ def _host_copy(obj):
 
 def _counts() -> dict:
     return {"batches": 0, "samples": 0, "failed": 0}
+
+
+def _waited(chain, phase: str, epoch: int):
+    """A staging chain's items, the wait for batch i in a
+    ``wesup.stage.wait`` span with trace id (phase, epoch, i)."""
+    items = iter(chain)
+    try:
+        for i in itertools.count():
+            with span("wesup.stage.wait", trace=(phase, epoch, i)):
+                item = next(items, None)
+            if item is None:
+                return
+            yield item
+    finally:
+        items.close()
 
 
 class _Chain:
@@ -482,25 +500,33 @@ class WESUPTrainer(BaseTrainer):
             event.record(stream)
         return dev_batch, event
 
-    def _start_staged(self, batch_iter, epoch: int) -> "_Chain":
+    def _start_staged(self, batch_iter, epoch: int,
+                      phase: str = "train") -> "_Chain":
         """Start the staging chain over ``batch_iter`` now: a thread that
         advances it (the loader's producer thread builds the batches),
         copies each batch to the device with ``rng_idx`` = (epoch, batch
         index) and queues (batch, device batch, base key, event),
         ``_STAGE_DEPTH`` deep, until the chain is cancelled.  Loader errors
-        surface in the consumer."""
+        surface in the consumer.  The worker's ``next()`` on the iterator
+        is a ``wesup.stage.load`` span, each copy a ``wesup.stage.put``
+        span, with trace id (``phase``, epoch, batch index)."""
         stream = (torch.cuda.Stream(self.device)
                   if self.device.type == "cuda" else None)
         chain = _Chain(self._STAGE_DEPTH)
 
         def worker():
             try:
-                for i, batch in enumerate(batch_iter):
-                    if chain.cancel.is_set():
+                items = iter(batch_iter)
+                for i in itertools.count():
+                    with span("wesup.stage.load", trace=(phase, epoch, i)):
+                        batch = next(items, None)
+                    if batch is None or chain.cancel.is_set():
                         return
                     try:
-                        dev_batch, event = self._stage(batch, (epoch, i),
-                                                       stream)
+                        with span("wesup.stage.put",
+                                  trace=(phase, epoch, i)):
+                            dev_batch, event = self._stage(batch, (epoch, i),
+                                                           stream)
                     except RuntimeError as ex:
                         # the step fails on it on every rank (a rank that
                         # skipped it would leave its peers in the step's
@@ -539,7 +565,7 @@ class WESUPTrainer(BaseTrainer):
     def _staged_batches(self, loader):
         """One phase's staged batches at the current epoch (the val
         phase; the train phase takes the lookahead path)."""
-        return self._start_staged(iter(loader), self._epoch_idx)
+        return self._start_staged(iter(loader), self._epoch_idx, "val")
 
     def _take_lookahead(self, loader):
         """The pre-warmed chain if it is this loader's at this epoch; any
@@ -573,15 +599,19 @@ class WESUPTrainer(BaseTrainer):
     def train_one_epoch(self, no_val=False):
         phases = ["train"] if no_val else ["train", "val"]
         for phase in phases:
-            with timed_phase(self.logger, phase) as timer:
+            self.logger.info(f"{phase.capitalize()} phase:")
+            start = time.perf_counter()
+            with span("wesup.train.phase", trace=(phase, self._epoch_idx)):
                 if phase == "train":
                     self.tracker.train()
                     counts = self._run_train_phase()
                 else:
                     self.tracker.eval()
                     counts = self._run_val_phase()
+            seconds = time.perf_counter() - start
+            self.logger.info(f"Took {seconds:.2f}s.")
             self.phase_stats[(self._epoch_idx, phase)] = dict(
-                counts, seconds=timer.seconds)
+                counts, seconds=seconds)
             self.logger.info(self.tracker.log())
 
     def _run_train_phase(self):
@@ -591,17 +621,10 @@ class WESUPTrainer(BaseTrainer):
         profile_dir = self.kwargs.get("profile_dir")
         if not profile_dir or self._profiled:
             return self._train_phase_loop(loader)
-        from torch.profiler import ProfilerActivity, profile
-
         self._profiled = True
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            counts = self._train_phase_loop(loader)
         path = Path(profile_dir) / f"trace.epoch{self._epoch_idx}.json"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(path))
+        counts = profiled(lambda: self._train_phase_loop(loader), path,
+                          self.device)
         self.logger.info(f"Profiler trace written to {path}")
         return counts
 
@@ -623,7 +646,8 @@ class WESUPTrainer(BaseTrainer):
         self._train_iters += 1
         cache = self._resize_cache.get("train")
         model = self.model
-        for batch, dev_batch, rng, event in chain:
+        for batch, dev_batch, rng, event in _waited(chain, "train",
+                                                      self._epoch_idx):
             counts["batches"] += 1
             counts["samples"] += int(batch["sample_valid"].sum())
             try:
@@ -639,7 +663,8 @@ class WESUPTrainer(BaseTrainer):
         # record is written
         self._lookahead = (self._epoch_idx + 1, loader, self._start_staged(
             loader.epoch_iter(self._train_iters), self._epoch_idx + 1))
-        self._track_acc(acc)
+        with span("wesup.train.drain"):
+            self._track_acc(acc)
         return counts
 
     # device prediction maps kept in flight on the host-metrics path:
@@ -688,7 +713,8 @@ class WESUPTrainer(BaseTrainer):
         host_preds, host_targets = [], []
         counts = _counts()
         model = self.model
-        for batch, dev_batch, _, event in self._staged_batches(loader):
+        for batch, dev_batch, _, event in _waited(
+                self._staged_batches(loader), "val", self._epoch_idx):
             counts["batches"] += 1
             counts["samples"] += int(batch["sample_valid"].sum())
             try:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pool import fused_relu_pool_pad
+from ..tracing import span
 
 # torchvision vgg16 'D' configuration
 VGG16_CFG: Tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -82,15 +83,14 @@ def _fused_pool1_ok(pre: torch.Tensor) -> bool:
 
 
 def backbone_features(backbone: nn.Sequential, img: torch.Tensor,
-                      compute_dtype=torch.float32,
-                      mark=None) -> List[torch.Tensor]:
+                      compute_dtype=torch.float32) -> List[torch.Tensor]:
     """Run VGG16 features on (B, H, W, 3) input in [0, 1].
 
     Returns the 13 pre-ReLU conv outputs, each a (B, Hs, Ws, Cs) NHWC view
     in ``compute_dtype``.  As in the reference, the image is not
     ImageNet-normalized.  Each conv adds its bias after the convolution has
-    been rounded to ``compute_dtype``, as the JAX package does.  ``mark``,
-    if given, is called with ``"backbone"`` before K7 and ``"k7"`` after it.
+    been rounded to ``compute_dtype``, as the JAX package does.  K7 runs
+    in a ``wesup.step.k7`` span.
     """
     x = img.permute(0, 3, 1, 2).to(compute_dtype).contiguous(
         memory_format=torch.channels_last)
@@ -111,13 +111,10 @@ def backbone_features(backbone: nn.Sequential, img: torch.Tensor,
             x = None
         elif isinstance(layer, nn.MaxPool2d):
             if _fused_pool1_ok(taps[-1]):
-                if mark is not None:
-                    mark("backbone")
                 # one pass over the PRE-ReLU tap: relu + pool + zero-pad to
                 # conv2_1's 128-channel input; its NCHW view is channels_last
-                x = fused_relu_pool_pad(taps[-1], 128).permute(0, 3, 1, 2)
-                if mark is not None:
-                    mark("k7")
+                with span("wesup.step.k7"):
+                    x = fused_relu_pool_pad(taps[-1], 128).permute(0, 3, 1, 2)
             else:
                 x = F.max_pool2d(F.relu(pre), 2, 2)
     return taps

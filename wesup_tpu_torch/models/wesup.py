@@ -72,6 +72,7 @@ from ..ops import pooling as seg_pool
 from ..ops.resize import _interp_matrix, fused_upsample_sum, resize_w_only
 from ..ops.segments import paint
 from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..tracing import span
 from . import vgg
 
 D_DEFAULT = 32
@@ -249,10 +250,22 @@ def _upsample_h(taps: torch.Tensor, H: int) -> torch.Tensor:
     return torch.matmul(A_h, taps.reshape(B, Hs, Ws * C)).reshape(B, H, Ws, C)
 
 
+def _backbone(model: WESUP, img: torch.Tensor, compute_dtype):
+    """The backbone's taps and the fused projection parts, in a
+    ``wesup.step.backbone`` span: (taps, fc1 blocks, side weights, fused
+    bias)."""
+    with span("wesup.step.backbone"):
+        taps = vgg.backbone_features(model.backbone, img, compute_dtype)
+        w1_blocks = _fc1_blocks(model)
+        side_ws, side_bs = _side_params(model)
+        bias = _fused_bias(model, side_bs, w1_blocks)
+    return taps, w1_blocks, side_ws, bias
+
+
 def forward_superpixel(model: WESUP, img: torch.Tensor, seg: torch.Tensor,
                        K: int, valid: torch.Tensor | None = None,
                        compute_dtype=torch.float32, pooling: str = "adjoint",
-                       plan=None, mark=None) -> SuperpixelForward:
+                       plan=None) -> SuperpixelForward:
     """Superpixel-wise forward (reference WESUP.forward).
 
     Args:
@@ -263,14 +276,14 @@ def forward_superpixel(model: WESUP, img: torch.Tensor, seg: torch.Tensor,
             ``plan``) or ``"fullres"`` (ignores ``plan``); see the module
             docstring.
         plan: optional ``SlicPlan`` that ``seg`` came from.
-        mark: optional ``mark(phase_name)`` callback, called after each
-            phase (backbone, k7 under ``WESUP_FUSED_POOL1``, masks,
-            windows, k1, k2, tapsH, k5, k6, zmap, proj, head, paint) so a
-            caller can time them; it does not change the result.
+
+    Each phase runs in a ``wesup.step.<phase>`` span (backbone, k7 under
+    ``WESUP_FUSED_POOL1``, masks, then per stage taps and one of k1, k5,
+    windows + k2, tapsH + k6, and proj; head, paint).
     """
     if pooling == "fullres":
         return forward_superpixel_fullres(model, img, seg, K, valid,
-                                          compute_dtype, mark=mark)
+                                          compute_dtype)
     if pooling not in ("adjoint", "local"):
         raise ValueError(f"unknown pooling {pooling!r}")
     if plan is not None and plan.n_clusters != K:
@@ -278,134 +291,128 @@ def forward_superpixel(model: WESUP, img: torch.Tensor, seg: torch.Tensor,
     local = pooling == "local"
     if local and plan is None:
         raise ValueError("pooling='local' requires a SlicPlan")
-    mark = mark or (lambda name: None)
     B, H, W = img.shape[:3]
 
-    taps = vgg.backbone_features(model.backbone, img, compute_dtype, mark)
-    w1_blocks = _fc1_blocks(model)
-    side_ws, side_bs = _side_params(model)
-    bias = _fused_bias(model, side_bs, w1_blocks)
-    mark("backbone")
+    taps, w1_blocks, side_ws, bias = _backbone(model, img, compute_dtype)
 
-    seg_m = _masked_seg(seg, valid)
-    if plan is not None:
-        counts = cellgrid.cell_counts(plan, seg, valid)         # (B, K) f32
-    else:
-        counts = _onehot_counts(seg_m, K, compute_dtype)
-    if local:
-        e9 = cellgrid.offset_masks(plan, seg, valid, compute_dtype)
-    else:
-        lists = seg_pool.segment_lists(seg_m, K)    # shared by K5 and K6
-    mark("masks")
+    with span("wesup.step.masks"):
+        seg_m = _masked_seg(seg, valid)
+        if plan is not None:
+            counts = cellgrid.cell_counts(plan, seg, valid)     # (B, K) f32
+        else:
+            counts = _onehot_counts(seg_m, K, compute_dtype)
+        if local:
+            e9 = cellgrid.offset_masks(plan, seg, valid, compute_dtype)
+        else:
+            lists = seg_pool.segment_lists(seg_m, K)  # shared by K5 and K6
 
     pooled = None
     for s in range(5):
-        stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks, s,
-                                                compute_dtype)
+        with span("wesup.step.taps"):
+            stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks,
+                                                    s, compute_dtype)
         Hs, Ws, C = stage_taps.shape[1:]
         if (Hs, Ws) == (H, W) and local:
-            sums = cellpool.cell_pool0(plan, seg_m, stage_taps)
-            mark("k1")
+            with span("wesup.step.k1"):
+                sums = cellpool.cell_pool0(plan, seg_m, stage_taps)
         elif (Hs, Ws) == (H, W):
-            sums = seg_pool.segment_sum(
-                seg_m.reshape(B, H * W), stage_taps.reshape(B, H * W, C), K,
-                lists)
-            mark("k5")
+            with span("wesup.step.k5"):
+                sums = seg_pool.segment_sum(
+                    seg_m.reshape(B, H * W), stage_taps.reshape(B, H * W, C),
+                    K, lists)
         elif local:
-            spp = cellgrid.make_stage_pool_plan(plan, Hs, Ws, True)
-            mc = cellgrid.stage_window_weights(spp, e9)
-            mark("windows")
-            sums = cellpool.cell_pool_stage(spp, mc, stage_taps)
-            mark("k2")
+            with span("wesup.step.windows"):
+                spp = cellgrid.make_stage_pool_plan(plan, Hs, Ws, True)
+                mc = cellgrid.stage_window_weights(spp, e9)
+            with span("wesup.step.k2"):
+                sums = cellpool.cell_pool_stage(spp, mc, stage_taps)
         else:
             # JAX contracts M = A_w^T (A_h^T OH) with the taps; here the
             # taps are upsampled along H (channels last, viewed as
             # (B, C, H, Ws)) and K6 applies the W-adjoint of the one-hot
-            tapsH = _upsample_h(stage_taps, H)
-            mark("tapsH")
-            A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
-            table = cellgrid._device_const(
-                ("adjoint_table", Ws, W, str(compute_dtype),
-                 str(tapsH.device)),
-                lambda: adjoint.column_table(A_wT, compute_dtype,
-                                             tapsH.device))
-            sums = adjoint.adjoint_pool_stage(
-                seg_m, tapsH.permute(0, 3, 1, 2), A_wT, K, lists,
-                table).transpose(1, 2)
-            mark("k6")
+            with span("wesup.step.tapsH"):
+                tapsH = _upsample_h(stage_taps, H)
+            with span("wesup.step.k6"):
+                A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
+                table = cellgrid._device_const(
+                    ("adjoint_table", Ws, W, str(compute_dtype),
+                     str(tapsH.device)),
+                    lambda: adjoint.column_table(A_wT, compute_dtype,
+                                                 tapsH.device))
+                sums = adjoint.adjoint_pool_stage(
+                    seg_m, tapsH.permute(0, 3, 1, 2), A_wT, K, lists,
+                    table).transpose(1, 2)
         # bf16-rounded sums times the bf16 projection, accumulated in f32
-        (sums,) = copy_to_model(_tp(model), sums)
-        contrib = sums.to(compute_dtype).float() @ proj.float()
-        pooled = contrib if pooled is None else pooled + contrib
-        mark("proj")
+        with span("wesup.step.proj"):
+            (sums,) = copy_to_model(_tp(model), sums)
+            contrib = sums.to(compute_dtype).float() @ proj.float()
+            pooled = contrib if pooled is None else pooled + contrib
 
-    pooled = pooled / counts[..., None].clamp_min(1.0)          # (B, K, width)
-    sp_pred, sp_feats = _mlp_head(model, pooled + bias)
-    mark("head")
+    with span("wesup.step.head"):
+        pooled = pooled / counts[..., None].clamp_min(1.0)   # (B, K, width)
+        sp_pred, sp_feats = _mlp_head(model, pooled + bias)
 
-    vals = sp_pred[..., 1].to(compute_dtype)
-    if plan is not None:
-        fg = cellgrid.cell_paint(plan, seg, vals).float()
-    else:
-        # the unmasked one-hot, as in JAX: invalid pixels are painted too
-        fg = _onehot_paint(seg, vals, K).float()
-    mark("paint")
+    with span("wesup.step.paint"):
+        vals = sp_pred[..., 1].to(compute_dtype)
+        if plan is not None:
+            fg = cellgrid.cell_paint(plan, seg, vals).float()
+        else:
+            # the unmasked one-hot, as in JAX: invalid pixels are painted
+            fg = _onehot_paint(seg, vals, K).float()
     return SuperpixelForward(sp_pred, sp_feats, fg)
 
 
 def forward_superpixel_fullres(model: WESUP, img: torch.Tensor,
                                seg: torch.Tensor, K: int,
                                valid: torch.Tensor | None = None,
-                               compute_dtype=torch.float32,
-                               mark=None) -> SuperpixelForward:
+                               compute_dtype=torch.float32
+                               ) -> SuperpixelForward:
     """The round-1 formulation (ablation baseline): stages 1-4 projected at
     native resolution, W-resized, then H-upsampled and summed in ONE
     contraction into the full-resolution (B, H, W, 1024) map, which K5
     pools; stage 0 pools its 128-channel taps with K5 and projects the sums
     (rounded to the compute dtype, as in JAX).  Counts are the one-hot
-    form; the plan, if any, is not used."""
-    mark = mark or (lambda name: None)
+    form; the plan, if any, is not used.  Phases run in ``wesup.step.*``
+    spans (backbone, zmap, taps, masks, k5, proj, head, paint)."""
     B, H, W = img.shape[:3]
-    taps = vgg.backbone_features(model.backbone, img, compute_dtype, mark)
-    w1_blocks = _fc1_blocks(model)
-    side_ws, side_bs = _side_params(model)
-    bias = _fused_bias(model, side_bs, w1_blocks)
-    mark("backbone")
+    taps, w1_blocks, side_ws, bias = _backbone(model, img, compute_dtype)
 
-    stage_maps = []
-    for s in range(1, 5):
-        stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks, s,
-                                                compute_dtype)
-        (stage_taps,) = copy_to_model(_tp(model), stage_taps)
-        stage_maps.append(resize_w_only(stage_taps @ proj, W))
-    z_rest = fused_upsample_sum(stage_maps, H)                  # (B, H, W, D)
-    del stage_maps
-    mark("zmap")
+    with span("wesup.step.zmap"):
+        stage_maps = []
+        for s in range(1, 5):
+            stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks,
+                                                    s, compute_dtype)
+            (stage_taps,) = copy_to_model(_tp(model), stage_taps)
+            stage_maps.append(resize_w_only(stage_taps @ proj, W))
+        z_rest = fused_upsample_sum(stage_maps, H)              # (B, H, W, D)
+        del stage_maps
 
-    taps0, proj0 = _stage_taps_and_proj(side_ws, taps, w1_blocks, 0,
-                                        compute_dtype)
-    seg_m = _masked_seg(seg, valid)
-    counts = _onehot_counts(seg_m, K, compute_dtype)
-    lists = seg_pool.segment_lists(seg_m, K)
-    mark("masks")
-    seg_p = seg_m.reshape(B, H * W)
-    sum0 = seg_pool.segment_sum(seg_p, taps0.reshape(B, H * W, -1), K, lists)
-    sum_rest = seg_pool.segment_sum(seg_p, z_rest.reshape(B, H * W, -1), K,
+    with span("wesup.step.taps"):
+        taps0, proj0 = _stage_taps_and_proj(side_ws, taps, w1_blocks, 0,
+                                            compute_dtype)
+    with span("wesup.step.masks"):
+        seg_m = _masked_seg(seg, valid)
+        counts = _onehot_counts(seg_m, K, compute_dtype)
+        lists = seg_pool.segment_lists(seg_m, K)
+    with span("wesup.step.k5"):
+        seg_p = seg_m.reshape(B, H * W)
+        sum0 = seg_pool.segment_sum(seg_p, taps0.reshape(B, H * W, -1), K,
                                     lists)
-    mark("k5")
-    (sum0,) = copy_to_model(_tp(model), sum0)
-    total = (sum0.to(compute_dtype) @ proj0).float() + sum_rest
-    pooled = total / counts[..., None].clamp_min(1.0)           # (B, K, D)
-    mark("proj")
-    sp_pred, sp_feats = _mlp_head(model, pooled + bias)
-    mark("head")
-    fg = _onehot_paint(seg, sp_pred[..., 1].to(compute_dtype), K).float()
-    mark("paint")
+        sum_rest = seg_pool.segment_sum(seg_p, z_rest.reshape(B, H * W, -1),
+                                        K, lists)
+    with span("wesup.step.proj"):
+        (sum0,) = copy_to_model(_tp(model), sum0)
+        total = (sum0.to(compute_dtype) @ proj0).float() + sum_rest
+        pooled = total / counts[..., None].clamp_min(1.0)       # (B, K, D)
+    with span("wesup.step.head"):
+        sp_pred, sp_feats = _mlp_head(model, pooled + bias)
+    with span("wesup.step.paint"):
+        fg = _onehot_paint(seg, sp_pred[..., 1].to(compute_dtype), K).float()
     return SuperpixelForward(sp_pred, sp_feats, fg)
 
 
 def hypercolumn_projection_parts(model: WESUP, img: torch.Tensor,
-                                 compute_dtype=torch.float32, mark=None):
+                                 compute_dtype=torch.float32):
     """The shared pre-ReLU fc1 map WITHOUT its bias, and the bias:
     ((B, H, W, width) in the compute dtype, (width,) f32).
 
@@ -413,26 +420,20 @@ def hypercolumn_projection_parts(model: WESUP, img: torch.Tensor,
     resolution and W-resized; then ONE contraction against the stacked
     H-interpolation matrices upsamples and sums all five stages, stage 0
     (whose block is the identity) included, so bf16 rounds where it does in
-    JAX.  ``mark``, if given, is called with ``"backbone"``, ``"proj"``
-    (the stage projections and W-resizes) and ``"upsample"`` after each
-    phase."""
-    mark = mark or (lambda name: None)
-    H, W = img.shape[1:3]
-    taps = vgg.backbone_features(model.backbone, img, compute_dtype, mark)
-    w1_blocks = _fc1_blocks(model)
-    side_ws, side_bs = _side_params(model)
-    bias = _fused_bias(model, side_bs, w1_blocks)
-    mark("backbone")
-    stage_maps = []
-    for s in range(5):
-        stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks, s,
-                                                compute_dtype)
-        (stage_taps,) = copy_to_model(_tp(model), stage_taps)
-        stage_maps.append(resize_w_only(stage_taps @ proj, W))
-    del taps, stage_taps
-    mark("proj")
-    z = fused_upsample_sum(stage_maps, H)
-    mark("upsample")
+    JAX.  The phases run in ``wesup.step.backbone``, ``.proj`` (the stage
+    projections and W-resizes) and ``.upsample`` spans."""
+    W = img.shape[2]
+    taps, w1_blocks, side_ws, bias = _backbone(model, img, compute_dtype)
+    with span("wesup.step.proj"):
+        stage_maps = []
+        for s in range(5):
+            stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks,
+                                                    s, compute_dtype)
+            (stage_taps,) = copy_to_model(_tp(model), stage_taps)
+            stage_maps.append(resize_w_only(stage_taps @ proj, W))
+        del taps, stage_taps
+    with span("wesup.step.upsample"):
+        z = fused_upsample_sum(stage_maps, img.shape[1])
     return z, bias
 
 
@@ -444,18 +445,17 @@ def hypercolumn_projection(model: WESUP, img: torch.Tensor,
 
 
 def forward_pixel(model: WESUP, img: torch.Tensor,
-                  compute_dtype=torch.float32, mark=None) -> torch.Tensor:
+                  compute_dtype=torch.float32) -> torch.Tensor:
     """Pixel-wise forward (reference WESUPPixelInference.forward): every
     pixel's hypercolumn through the head.  Returns the (B, H, W, C) f32
     softmax probabilities.
 
     The bias is cast to the map's dtype and added there, so in bf16 the
-    whole head runs in bf16 and only the softmax in f32, as in JAX.
-    ``mark`` is passed to :func:`hypercolumn_projection_parts` and called
-    with ``"head"`` at the end."""
-    z, bias = hypercolumn_projection_parts(model, img, compute_dtype, mark)
-    z = z + bias.to(z.dtype)
-    probs, _ = _mlp_head(model, z)
-    if mark is not None:
-        mark("head")
+    whole head runs in bf16 and only the softmax in f32, as in JAX.  The
+    phases are :func:`hypercolumn_projection_parts`'s and a
+    ``wesup.step.head`` span."""
+    z, bias = hypercolumn_projection_parts(model, img, compute_dtype)
+    with span("wesup.step.head"):
+        z = z + bias.to(z.dtype)
+        probs, _ = _mlp_head(model, z)
     return probs

@@ -47,17 +47,19 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from .cellgrid import _device_const
 from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
 from .pooling import SegmentLists, segment_lists
 
-# kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"adjoint_pool_stage": 0, "adjoint_pool_stage_bwd": 0}
+# kernel launches since the last reset_launches(), by kernel name: a view
+# of the tracer's counters launches.<kernel>
+LAUNCHES = tracing.CounterView(
+    "launches.", ("adjoint_pool_stage", "adjoint_pool_stage_bwd"))
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 def _rounded_p(seg: torch.Tensor, A_wT: torch.Tensor, K: int, dt):
@@ -187,7 +189,7 @@ def _launch_fwd(seg, tapsH_T, K, lists, table) -> torch.Tensor:
             table.a1.data_ptr(), out.data_ptr(), B, W, Ws, C, K,
             _DTYPE_CODE[tapsH_T.dtype], _stream_ptr(tapsH_T.device))
     _raise_on_error("adjoint_pool_stage", err)
-    LAUNCHES["adjoint_pool_stage"] += 1
+    tracing.count("launches.adjoint_pool_stage")
     return out
 
 
@@ -233,7 +235,7 @@ def adjoint_pool_stage_bwd(seg: torch.Tensor, dsums: torch.Tensor,
             table.lo.data_ptr(), table.hi.data_ptr(), out.data_ptr(), B, H, W,
             Ws, C, K, table.cap, _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
     _raise_on_error("adjoint_pool_stage_bwd", err)
-    LAUNCHES["adjoint_pool_stage_bwd"] += 1
+    tracing.count("launches.adjoint_pool_stage_bwd")
     return out.permute(0, 3, 1, 2)
 
 

@@ -32,20 +32,21 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from .cellgrid import (StagePoolPlan, _device_const, _spp_const,
                        expand_window_weights)
 from .slic import SlicPlan
 
-# kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"cell_pool0": 0, "cell_pool_stage": 0, "cell_pool0_bwd": 0,
-            "cell_pool_stage_bwd": 0}
+# kernel launches since the last reset_launches(), by kernel name: a view
+# of the tracer's counters launches.<kernel>
+LAUNCHES = tracing.CounterView("launches.", (
+    "cell_pool0", "cell_pool_stage", "cell_pool0_bwd", "cell_pool_stage_bwd"))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 def _window_ranges(idx: np.ndarray, lo_val: np.ndarray, hi_val: np.ndarray):
@@ -145,7 +146,7 @@ def _pool0_fwd(plan: SlicPlan, seg: torch.Tensor,
             *(t.data_ptr() for t in tables), B, H, W, C, plan.Kh, plan.Kw,
             _DTYPE_CODE[taps.dtype], _stream_ptr(taps.device))
     _raise_on_error("cell_pool0", err)
-    LAUNCHES["cell_pool0"] += 1
+    tracing.count("launches.cell_pool0")
     return out
 
 
@@ -190,7 +191,7 @@ def cell_pool0_bwd(plan: SlicPlan, seg: torch.Tensor, dsums: torch.Tensor,
             seg.data_ptr(), dsums.data_ptr(), out.data_ptr(), B, H, W, C,
             plan.n_clusters, _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
     _raise_on_error("cell_pool0_bwd", err)
-    LAUNCHES["cell_pool0_bwd"] += 1
+    tracing.count("launches.cell_pool0_bwd")
     return out
 
 
@@ -259,7 +260,7 @@ def _stage_fwd(spp: StagePoolPlan, mc: torch.Tensor,
             spp.Kh, spp.Kw, spp.rmin_y, spp.rmin_x, _DTYPE_CODE[taps.dtype],
             _stream_ptr(taps.device))
     _raise_on_error("cell_pool_stage", err)
-    LAUNCHES["cell_pool_stage"] += 1
+    tracing.count("launches.cell_pool_stage")
     return out
 
 
@@ -307,7 +308,7 @@ def cell_pool_stage_bwd(spp: StagePoolPlan, mc: torch.Tensor,
             spp.Kw, spp.rmin_y, spp.rmin_x, _DTYPE_CODE[mc.dtype],
             _stream_ptr(dsums.device))
     _raise_on_error("cell_pool_stage_bwd", err)
-    LAUNCHES["cell_pool_stage_bwd"] += 1
+    tracing.count("launches.cell_pool_stage_bwd")
     return out
 
 

@@ -28,15 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
 
-# kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"fused_relu_pool_pad": 0}
+# kernel launches since the last reset_launches(), by kernel name: a view
+# of the tracer's counters launches.<kernel>
+LAUNCHES = tracing.CounterView("launches.", ("fused_relu_pool_pad",))
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 def reference(pre: torch.Tensor, out_channels: int) -> torch.Tensor:
@@ -62,7 +63,7 @@ def _kernel(pre: torch.Tensor, out_channels: int) -> torch.Tensor:
             pre.data_ptr(), out.data_ptr(), B, H, W, C, out_channels,
             _DTYPE_CODE[pre.dtype], _stream_ptr(pre.device))
     _raise_on_error("fused_relu_pool_pad", err)
-    LAUNCHES["fused_relu_pool_pad"] += 1
+    tracing.count("launches.fused_relu_pool_pad")
     return out
 
 

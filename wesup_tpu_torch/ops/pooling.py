@@ -30,15 +30,17 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import tracing
 from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
 
-# kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"segment_sum": 0, "segment_sum_bwd": 0}
+# kernel launches since the last reset_launches(), by kernel name: a view
+# of the tracer's counters launches.<kernel>
+LAUNCHES = tracing.CounterView("launches.",
+                               ("segment_sum", "segment_sum_bwd"))
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 class SegmentLists(NamedTuple):
@@ -101,7 +103,7 @@ def _segment_sum_fwd(seg: torch.Tensor, feat: torch.Tensor, K: int,
             out.data_ptr(), B, P, C, K, _DTYPE_CODE[feat.dtype],
             _stream_ptr(feat.device))
     _raise_on_error("segment_sum", err)
-    LAUNCHES["segment_sum"] += 1
+    tracing.count("launches.segment_sum")
     return out
 
 
@@ -152,7 +154,7 @@ def segment_sum_bwd(seg: torch.Tensor, dsums: torch.Tensor,
             ids.data_ptr(), dsums.data_ptr(), out.data_ptr(), B, 1, P, C, K,
             _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
     _raise_on_error("segment_sum_bwd", err)
-    LAUNCHES["segment_sum_bwd"] += 1
+    tracing.count("launches.segment_sum_bwd")
     return out
 
 

@@ -4,19 +4,31 @@ Port of ``scripts/profile_epoch.py``.  The metric is images/sec as a
 user's wall clock sees it: a full epoch including host decode, resize and
 canvas prep, the copy to the card, the launches and the device step, not
 the device step alone.  This script measures both side by side and splits
-the per-batch host path so the gap is attributable:
+the per-batch host path so the gap is attributable.  The instrumented
+epoch is the production loop (``trainer._train_phase_loop``) under a
+``torch.profiler`` session, its stages read from the program's spans
+(``wesup_tpu_torch.tracing``):
 
-  wait_host   blocking on the loader's queue (decode + resize + canvas)
+  wait_host   the loop waiting on the staging chain's queue for each
+              batch (``wesup.stage.wait``: decode + resize + canvas +
+              copy, where the chain has not kept ahead)
+  load        the staging worker's waits on the loader for each batch
+              (``wesup.stage.load``, on the worker's thread: decode +
+              resize + canvas where the loader has not kept ahead)
   rng         the batch's key chain and its augmentation draws on the
-              host (``steps.step_key`` and ``steps.draw_augmentation``,
-              timed inside the step)
-  put         ``trainer._put_batch`` (pinned, non-blocking copies)
-  dispatch    the step call, less its ``rng`` time (the launches)
+              host (``wesup.step.rng``, inside the step)
+  put         the staging worker's pinned, non-blocking copies
+              (``wesup.stage.put``, on the worker's thread)
+  dispatch    the step calls (``wesup.step.train``), less their ``rng``
+              time (the launches)
   drain       the phase-end read of the metric accumulator
+              (``wesup.train.drain``)
 
-Beside them it prints each epoch's img/s, the production loop's
-(``trainer._train_phase_loop``) and the step-only rate (one batch staged
-on the device, 10 steps between two synchronisations).
+Its staging chain starts inside the session (a pre-warmed one is
+cancelled), so that every batch's load and copy is traced.  Beside them
+it prints each epoch's img/s, the production loop's without the profiler
+and the step-only rate (one batch staged on the device, 10 steps between
+two synchronisations).
 
 Usage:
     python -m wesup_tpu_torch.scripts.profile_epoch [epochs] [batch]
@@ -41,7 +53,6 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from unittest import mock
 
 GLAS_HW = (522, 775)
 
@@ -83,63 +94,39 @@ def _sync(trainer):
         torch.cuda.synchronize()
 
 
-def _timed(fn, clock):
-    def run(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            clock[0] += time.perf_counter() - t0
-    return run
-
-
 def instrumented_epoch(trainer, loader, epoch_idx):
-    """The train phase's loop with a stopwatch on each stage."""
-    import torch
+    """The production train-phase loop under a profiler, each stage's
+    seconds summed from the program's spans."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from ..models import steps
+    from .. import tracing
 
+    trainer._cancel_lookahead()
     trainer._epoch_idx = epoch_idx
-    t = {"wait_host": 0.0, "rng": 0.0, "put": 0.0, "dispatch": 0.0,
-         "drain": 0.0}
-    rng_clock = [0.0]
-    acc = steps.init_metric_acc(steps.TRAIN_METRIC_KEYS, trainer.device)
+    trainer.tracker.start_new_epoch(trainer.current_lr())
+    trainer.tracker.train()
     _sync(trainer)
-    t_epoch = time.time()
-    it = iter(loader)
-    i = n_images = 0
-    with mock.patch.object(steps, "step_key",
-                           _timed(steps.step_key, rng_clock)), \
-            mock.patch.object(steps, "draw_augmentation",
-                              _timed(steps.draw_augmentation, rng_clock)):
-        while True:
-            t0 = time.time()
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-            t1 = time.time()
-            step = trainer._get_step("train", trainer._batch_hw(batch))
-            dev_batch = trainer._put_batch(batch, (epoch_idx, i))
-            t2 = time.time()
-            cache = (trainer._resize_cache.get("train")
-                     if "img_idx" in batch else None)
-            before = rng_clock[0]
-            acc = step(trainer.model, trainer.optimizer, acc, dev_batch,
-                       trainer._rng, cache=cache)
-            t3 = time.time()
-            rng = rng_clock[0] - before
-            t["wait_host"] += t1 - t0
-            t["put"] += t2 - t1
-            t["rng"] += rng
-            t["dispatch"] += t3 - t2 - rng
-            i += 1
-            n_images += int(batch["sample_valid"].sum())
-    t0 = time.time()
-    torch.stack(list(acc["sums"].values()) + [acc["count"]]).cpu()
-    t["drain"] = time.time() - t0
-    wall = time.time() - t_epoch
-    return wall, t, i, n_images
+    with profile(activities=[ProfilerActivity.CPU]):
+        t_epoch = time.time()
+        counts = trainer._train_phase_loop(loader)
+        _sync(trainer)
+        wall = time.time() - t_epoch
+    spans = tracing.spans()
+
+    def seconds(name):
+        # the next epoch's chain stages its first batches in the session
+        return 1e-9 * sum(s.duration_ns for s in spans if s.name == name
+                          and s.end_ns is not None
+                          and (name == "wesup.train.drain"
+                               or s.trace[:2] == ("train", epoch_idx)))
+
+    rng = seconds("wesup.step.rng")
+    t = {"wait_host": seconds("wesup.stage.wait"),
+         "load": seconds("wesup.stage.load"), "rng": rng,
+         "put": seconds("wesup.stage.put"),
+         "dispatch": seconds("wesup.step.train") - rng,
+         "drain": seconds("wesup.train.drain")}
+    return wall, t, counts["batches"], counts["samples"]
 
 
 def pipelined_epoch(trainer, loader, epoch_idx):

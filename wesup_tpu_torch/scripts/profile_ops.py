@@ -16,7 +16,10 @@ standard library: no protobuf, no tensorflow) and prints:
 
 A trace taken on the CPU has no device kernels; the table then sums the
 CPU ops (``cpu_op``) in their place and its header says so: that is the
-tool's input on the CPU, not a fallback of the device.
+tool's input on the CPU, not a fallback of the device.  The program's
+spans (``wesup.*``, ``wesup_tpu_torch/tracing.py``) are CPU ranges
+around the ops, not ops: the table leaves them out, the idle gaps name
+them.
 
 The same functions take a profiler object still in memory
 (:func:`events_from_profiler`), so that ``chip_smoke.py``'s busy shares
@@ -38,6 +41,7 @@ from pathlib import Path
 
 KERNEL = "kernel"
 HOST = ("cpu_op", "user_annotation")
+SPANS = "wesup."       # the program's spans' names
 
 
 def load_trace(path) -> list:
@@ -76,7 +80,8 @@ def device_events(events) -> tuple:
     kern = [e for e in events if e.get("cat") == KERNEL]
     if kern:
         return kern, "device kernels"
-    return _outermost([e for e in events if e.get("cat") == "cpu_op"]), \
+    return _outermost([e for e in events if e.get("cat") == "cpu_op"
+                       and not e["name"].startswith(SPANS)]), \
         "CPU ops (the trace has no device kernels)"
 
 

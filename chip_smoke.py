@@ -19,6 +19,12 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    and the HTTP server's health endpoint;
 7. per-kernel times against the plain version, a library call and the
    card's bound (for K1 and K2 also the achieved share of the HBM rate);
+   then the tile cut and stitch (``csrc/tile.cu``) at the tile cell's
+   shapes, a 1512x1516 uint8 slide cut into patches of 400: every cut in
+   chunks of 8 and 16 and the stitch of the 16 patches (float32 raw and
+   rounded, uint8) bitwise their plain versions on the card, launches
+   counted (one cut per chunk, one stitch per slide), and each kernel's
+   time beside its plain version's and the HBM bound;
 8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
    against their plain versions at the main-path shapes (K3 also at
    C = 1024, the width of fullres training's K5 backward); one f32
@@ -1203,6 +1209,100 @@ def pooling_phase(torch, card, imgs_u8, valid, seg_m, gen) -> list:
     return out
 
 
+TILE_SLIDE, TILE_PATCH = (1512, 1516), 400   # the tile cell's slides
+
+
+def tile_phase(torch, seed) -> list:
+    """Phase 7, the tile cut and stitch: both kernels bitwise their plain
+    versions at the tile cell's shapes, their launches, and their times
+    beside the plain versions' and the HBM bound; returns the two entries
+    of the kernels' JSON line.
+
+    The plain versions are held on the CPU, as the tests hold them: on the
+    card PyTorch divides by a scalar as a multiply by its reciprocal, so
+    the plain cut there is not numpy's IEEE division.  They are timed on
+    the card."""
+    from wesup_tpu_torch.inference import _round_up, patch_grid
+    from wesup_tpu_torch.ops import tile
+
+    dev = torch.device("cuda")
+    (H0, W0), P = TILE_SLIDE, TILE_PATCH
+    rng = np.random.default_rng(seed)
+    slide = torch.from_numpy(rng.integers(0, 256, (H0, W0, 3),
+                                          dtype=np.uint8)).to(dev)
+    tops, lefts = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                   for a in patch_grid(H0, W0, P))
+    n = tops.numel() * lefts.numel()
+    patch_hw, canvas_hw = (P, P), (_round_up(P), _round_up(P))
+    probs = rng.random((n, P, P), dtype=np.float32)
+    probs[:, 0, :3] = [0.5, 1.5, 2.5]                    # ties to even
+    probs = torch.from_numpy(probs).to(dev)
+    probs_u8 = torch.round(probs).to(torch.uint8)
+
+    def cut_args(first, chunk, on=dev):
+        return (slide.to(on), tops.to(on), lefts.to(on), first,
+                min(chunk, n - first), chunk, patch_hw, canvas_hw)
+
+    def stitch_plain(p, rounded):
+        return tile.stitch_plain(p.cpu(), tops.cpu(), lefts.cpu(), (H0, W0),
+                                 rounded)
+
+    def same_bits(got, want, view):
+        return torch.equal(got.cpu().view(view), want.view(view))
+
+    # one slide of the tile cell (chunks of 8), then the other cases
+    tile.reset_launches()
+    cell = [(f"cut chunk 8 at {first}",
+             tile.cut(*cut_args(first, 8)),
+             tile.cut_plain(*cut_args(first, 8, "cpu")), torch.int32)
+            for first in range(0, n, 8)]
+    cell.append(("stitch float32", tile.stitch(probs, tops, lefts, (H0, W0)),
+                 stitch_plain(probs, False), torch.int64))
+    torch.cuda.synchronize()
+    launches = dict(tile.LAUNCHES)
+    want = {"tile_cut": -(-n // 8), "tile_stitch": 1}
+    if launches != want:
+        fail(f"one slide launched {launches}, expected {want}")
+    cases = cell + [
+        (f"cut chunk 16 at {first}", tile.cut(*cut_args(first, 16)),
+         tile.cut_plain(*cut_args(first, 16, "cpu")), torch.int32)
+        for first in range(0, n, 16)] + [
+        (f"stitch {label}", tile.stitch(p, tops, lefts, (H0, W0), rounded),
+         stitch_plain(p, rounded), torch.int64)
+        for label, p, rounded in (("float32 rounded", probs, True),
+                                  ("uint8", probs_u8, False))]
+    for label, got, want_t, view in cases:
+        if not same_bits(got, want_t, view):
+            fail(f"tile {label} on {H0}x{W0} at {P} differs from its plain "
+                 f"version")
+    log(f"[tile] {H0}x{W0} slide, patches of {P}: {len(cases)} cuts and "
+        f"stitches bitwise their plain versions; one slide's launches "
+        f"{launches}")
+    del cases, cell
+
+    out = []
+    for name, call, plain, nbytes in (
+            ("tile_cut", lambda: tile.cut(*cut_args(0, 8)),
+             lambda: tile.cut_plain(*cut_args(0, 8)),
+             8 * P * P * 3 + 8 * canvas_hw[0] * canvas_hw[1] * 3 * 4),
+            ("tile_stitch", lambda: tile.stitch(probs, tops, lefts, (H0, W0)),
+             lambda: tile.stitch_plain(probs, tops, lefts, (H0, W0), False),
+             probs.numel() * 4 + H0 * W0 * 8)):
+        t_k = cuda_ms(torch, call)
+        t_p = cuda_ms(torch, plain, n=5, warmup=1)
+        b_ms, b_by = bound(nbytes, 0.0, torch.float32)
+        log(f"[{name} time] {H0}x{W0} at {P}: kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f}, bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB); "
+            f"{share(nbytes, t_k)}")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "wesup_tpu_torch/csrc/tile.cu",
+            "replaces": "none: numpy in wesup_tpu/inference.py",
+            "launches": launches[name], "max_abs_err": 0.0, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
 def adjoint_train_phase(torch, card, seg_m, gen) -> list:
     """Phase 10: training through the adjoint and fullres pools.  Returns
     the K8 and ``segment_sum_bwd`` entries of the kernels' JSON line."""
@@ -2110,6 +2210,9 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
         n = fwd.call_count
         want = ({"cell_pool0": n, "cell_pool_stage": 4 * n} if superpixel
                 else {})
+        if "_tile" in label:
+            # GLAS_HW at patch 400 or 464: one chunk of 4 patches an image
+            want.update(tile_cut=n_images, tile_stitch=n_images)
         log(f"[cli {label}] {n_images} masks in {sec:.2f} s, "
             f"{sec * 1e3 / n_images:.1f} ms per 522x775 image (wall: "
             f"decode, predict, write); {n} forwards, launches "
@@ -5087,6 +5190,7 @@ def main(argv=None) -> int:
         "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": tot["lib"]})
     del taps0, taps
+    kernels += tile_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
     # ---- 8. training -----------------------------------------------------

@@ -28,13 +28,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
+from wesup_tpu_torch import inference  # noqa: E402
 from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.models import wesup  # noqa: E402
 from wesup_tpu_torch.models import steps  # noqa: E402
 from wesup_tpu_torch.models.steps import make_predict_step  # noqa: E402
 from wesup_tpu_torch.ops import (adjoint, cellgrid, cellpool,  # noqa: E402
                                  launch_counts, pool, pooling,
-                                 reset_launches)
+                                 reset_launches, tile)
 from wesup_tpu_torch.ops.resize import _interp_matrix  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
 from wesup_tpu_torch.utils import prng  # noqa: E402
@@ -1089,3 +1090,130 @@ def test_train_augmentation_on_card_matches_cpu(cuda, point_mode):
         same = getattr(got, name).cpu() == getattr(want, name)
         assert same.float().mean().item() >= 0.999, name
     assert want.sup_mask.sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The tile cut and stitch (csrc/tile.cu) and predict_tiled on the card
+# ---------------------------------------------------------------------------
+
+TILE_SLIDES = [((1512, 1516), 400), ((64, 80), 48), ((48, 48), 48)]
+
+
+def _tiling(hw, patch):
+    """The grid's tops and lefts (CPU int32), the patch and canvas sizes."""
+    tops, lefts = (torch.from_numpy(a.astype(np.int32))
+                   for a in inference.patch_grid(*hw, patch))
+    h, w = min(patch, hw[0]), min(patch, hw[1])
+    return tops, lefts, (h, w), (-(-h // 32) * 32, -(-w // 32) * 32)
+
+
+@pytest.mark.parametrize("hw,patch", TILE_SLIDES)
+def test_tile_cut_kernel_matches_plain(cuda, hw, patch):
+    """Every chunk of 8, every chunk of 3 padded to 4 rows, and a shard of
+    blank rows: bitwise the plain cut (IEEE division by 255 on both)."""
+    slide = torch.from_numpy(np.random.default_rng(20).integers(
+        0, 256, hw + (3,), dtype=np.uint8))
+    tops, lefts, patch_hw, canvas_hw = _tiling(hw, patch)
+    on_card = [t.to(cuda) for t in (slide, tops, lefts)]
+    n = len(tops) * len(lefts)
+    cases = [(first, min(chunk, n - first), min(chunk, n - first) + extra)
+             for chunk, extra in ((8, 0), (3, 1))
+             for first in range(0, n, chunk)] + [(n, 0, 1)]
+    for first, n_real, n_rows in cases:
+        before = tile.LAUNCHES["tile_cut"]
+        got = tile.cut(*on_card, first, n_real, n_rows, patch_hw, canvas_hw)
+        assert tile.LAUNCHES["tile_cut"] == before + 1
+        want = tile.cut(slide, tops, lefts, first, n_real, n_rows, patch_hw,
+                        canvas_hw)
+        assert got.shape == want.shape == (n_rows, *canvas_hw, 3)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)), (first, n_real)
+
+
+@pytest.mark.parametrize("hw,patch", TILE_SLIDES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("round_patches", [False, True])
+def test_tile_stitch_kernel_matches_plain(cuda, hw, patch, dtype,
+                                          round_patches):
+    """The float64 running average bitwise the plain stitch's (which is
+    ``combine_patches_to_image``'s, tests/test_torch_port_infer.py), on
+    float32 probabilities with ties to round and on uint8 values."""
+    tops, lefts, (h, w), _ = _tiling(hw, patch)
+    n = len(tops) * len(lefts)
+    rng = np.random.default_rng(21)
+    if dtype == torch.uint8:
+        probs = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
+    else:
+        probs = rng.random((n, h, w), dtype=np.float32)
+        probs[:, 0, :3] = [0.5, 1.5, 2.5]
+    probs = torch.from_numpy(probs)
+    before = tile.LAUNCHES["tile_stitch"]
+    got = tile.stitch(probs.to(cuda), tops.to(cuda), lefts.to(cuda), hw,
+                      round_patches)
+    assert tile.LAUNCHES["tile_stitch"] == before + 1
+    want = tile.stitch(probs, tops, lefts, hw, round_patches)
+    assert got.dtype == torch.float64 and got.shape == hw
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+
+
+def test_predict_tiled_on_card_matches_the_host_route(cuda):
+    """A pixel-mode ``predict_tiled`` of a CRAG-size slide (16 patches of
+    400 in chunks of 8, bfloat16) on the card equals, bitwise, the route
+    that cut, copied back and stitched on the host: the same canvases
+    through the same steps, ``combine_patches_to_image`` over
+    ``predict_padded``.  Two cuts and one stitch are launched."""
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(0))
+    pred = inference.Predictor(model, WESUPConfig(), mode="pixel",
+                               device=cuda)
+    img = np.random.default_rng(22).integers(0, 256, (1512, 1516, 3),
+                                             dtype=np.uint8)
+    patches = inference.divide_image_to_patches(img, 400)
+    probs = np.concatenate([pred.predict_padded(
+        patches[i:i + 8].astype(np.float32) / 255.0) for i in (0, 8)])
+    want = inference.combine_patches_to_image(probs, 1512, 1516)
+    reset_launches()
+    got = inference.predict_tiled(pred, img, 400, chunk=8,
+                                  round_patches=False)
+    assert dict(tile.LAUNCHES) == {"tile_cut": 2, "tile_stitch": 1}
+    assert got.dtype == np.float64 and got.shape == (1512, 1516)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+def test_tile_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """Bad dtypes, devices, layouts and sizes raise before a launch."""
+    tops, lefts, patch_hw, canvas_hw = _tiling((64, 80), 48)
+    tops, lefts = tops.to(cuda), lefts.to(cuda)
+    slide = torch.zeros((64, 80, 3), dtype=torch.uint8, device=cuda)
+    probs = torch.zeros((4, 48, 48), device=cuda)
+    before = dict(tile.LAUNCHES)
+    for kind, call in [
+            (TypeError, lambda: tile.cut(slide.float(), tops, lefts, 0, 2, 2,
+                                         patch_hw, canvas_hw)),
+            (TypeError, lambda: tile.cut(slide, tops.long(), lefts, 0, 2, 2,
+                                         patch_hw, canvas_hw)),
+            (ValueError, lambda: tile.cut(slide, tops.cpu(), lefts, 0, 2, 2,
+                                          patch_hw, canvas_hw)),
+            (ValueError, lambda: tile.cut(slide[:, ::2], tops, lefts, 0, 2,
+                                          2, patch_hw, canvas_hw)),
+            (ValueError, lambda: tile.cut(slide, tops, lefts, 0, 2, 2,
+                                          patch_hw, (32, 64))),
+            (ValueError, lambda: tile.cut(slide, tops, lefts, 3, 2, 2,
+                                          patch_hw, canvas_hw)),
+            (ValueError, lambda: tile.cut(slide, tops, lefts, 0, 3, 2,
+                                          patch_hw, canvas_hw)),
+            (ValueError, lambda: tile.cut(slide, tops, lefts, 0, 0, 0,
+                                          patch_hw, canvas_hw)),
+            (TypeError, lambda: tile.stitch(probs.double(), tops, lefts,
+                                            (64, 80))),
+            (TypeError, lambda: tile.stitch(probs.half(), tops, lefts,
+                                            (64, 80))),
+            (ValueError, lambda: tile.stitch(probs[:3], tops, lefts,
+                                             (64, 80))),
+            (ValueError, lambda: tile.stitch(probs.transpose(1, 2), tops,
+                                             lefts, (64, 80))),
+            (ValueError, lambda: tile.stitch(probs, tops, lefts.cpu(),
+                                             (64, 80))),
+            (ValueError, lambda: tile.stitch(probs, tops, lefts, (0, 80)))]:
+        with pytest.raises(kind):
+            call()
+    assert dict(tile.LAUNCHES) == before

@@ -262,6 +262,122 @@ def test_predict_tiled_matches_jax(predictors, mode):
 
 
 # ---------------------------------------------------------------------------
+# the tile cut and stitch on the device (their plain versions here)
+# ---------------------------------------------------------------------------
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view({4: np.uint32, 8: np.uint64, 1: np.uint8}[a.itemsize])
+
+
+@pytest.mark.parametrize("hw,chunk,shards,mode", [
+    ((64, 80), 4, 1, "pixel"), ((48, 48), 4, 1, "superpixel"),
+    ((64, 80), 5, 2, "superpixel")])
+def test_tile_cut_equals_the_host_canvas(weights, monkeypatch, hw, chunk,
+                                         shards, mode):
+    """Each chunk's canvas and ``valid``, cut from the slide by
+    ``dispatch_tiles``, equal bitwise those that ``predict_padded`` builds
+    on the host from ``divide_image_to_patches``, on every data shard's
+    rows.  Six 48-pixel patches of 64x80 in chunks of 5 over 2 shards
+    leave a chunk of 1 padded to 2 rows, the second shard's blank."""
+    from wesup_tpu_torch.parallel.mesh import Mesh
+
+    img = _images(hw + (3,), 12)
+    patches = t_inf.divide_image_to_patches(img, 48)
+    for rank in range(shards):
+        mesh = (Mesh(shards, 1, rank=rank, world_group=object())
+                if shards > 1 else None)
+        pred = t_inf.Predictor(weights[1], WESUPConfig(**SMALL), mode=mode,
+                               device="cpu", mesh=mesh)
+        host, dev = [], []
+        monkeypatch.setattr(pred, "run_rows", lambda step, *a: (
+            host.append(a) or torch.zeros(a[1].shape)))
+        monkeypatch.setattr(pred, "gather", lambda out: out)
+        monkeypatch.setattr(pred, "predict_step", lambda hw: (
+            lambda model, canvas, valid: dev.append((canvas, valid))))
+        grid = pred.tile_grid(hw, 48)
+        slide = torch.from_numpy(img)
+        for first in range(0, len(patches), chunk):
+            block = patches[first:first + chunk]
+            pred.predict_padded(block.astype(np.float32) / 255.0)
+            pred.dispatch_tiles(slide, grid, first, len(block))
+        assert len(host) == len(dev) == -(-len(patches) // chunk)
+        for (canvas, valid), (got, got_valid) in zip(host, dev):
+            rows = (mesh.data_rows(len(canvas)) if mesh is not None
+                    else slice(None))
+            assert got.dtype == torch.float32
+            assert np.array_equal(_bits(got), _bits(canvas[rows]))
+            if mode == "pixel":
+                assert got_valid is None
+            else:
+                assert np.array_equal(got_valid.numpy(), valid[rows])
+
+
+@pytest.mark.parametrize("hw,patch", [((500, 700), 300), ((64, 80), 48),
+                                      ((48, 48), 48)])
+@pytest.mark.parametrize("kind", ["float32", "rounded", "uint8"])
+def test_plain_tile_stitch_equals_combine_patches(hw, patch, kind):
+    """The stitch's plain version equals, bitwise,
+    ``combine_patches_to_image`` on float32 probabilities, raw or rounded
+    inside the stitch, and on rounded uint8 ones."""
+    from wesup_tpu_torch.ops import tile
+
+    tops, lefts = t_inf.patch_grid(*hw, patch)
+    n = len(tops) * len(lefts)
+    h, w = min(patch, hw[0]), min(patch, hw[1])
+    probs = np.random.default_rng(13).random((n, h, w)).astype(np.float32)
+    probs[:, 0, :3] = [0.5, 1.5, 2.5]                    # ties to even
+    if kind == "uint8":
+        probs = np.round(probs).astype(np.uint8)
+    rounded = kind == "rounded"
+    want = t_inf.combine_patches_to_image(
+        np.round(probs) if rounded else probs, *hw)
+    got = tile.stitch(torch.from_numpy(probs),
+                      *(torch.from_numpy(a.astype(np.int32))
+                        for a in (tops, lefts)), hw, rounded)
+    assert got.dtype == torch.float64 and got.shape == hw
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("call", [
+    lambda tile, s, t, l: tile.cut(s, t, l, 0, 0, 0, (48, 48), (64, 64)),
+    lambda tile, s, t, l: tile.stitch(torch.zeros((4, 48, 48)), t, l,
+                                      (0, 80)),
+    lambda tile, s, t, l: tile.stitch(torch.zeros((4, 48, 48)), t, l,
+                                      (64, 0))])
+def test_tile_wrappers_refuse_empty_work(call):
+    """A cut of no canvas rows and a stitch into an empty map raise, so
+    no launch is counted that would not run."""
+    from wesup_tpu_torch.ops import tile
+
+    tops, lefts = (torch.from_numpy(a.astype(np.int32))
+                   for a in t_inf.patch_grid(64, 80, 48))
+    slide = torch.zeros((64, 80, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        call(tile, slide, tops, lefts)
+
+
+@pytest.mark.parametrize("mode", ["superpixel", "pixel"])
+def test_predict_tiled_equals_the_host_route(predictors, mode):
+    """``predict_tiled`` equals, bitwise, ``combine_patches_to_image`` over
+    ``predict_padded`` of ``divide_image_to_patches`` chunk by chunk (the
+    route that cut, copied back and stitched on the host): six patches in
+    chunks of 4, rounded in superpixel mode."""
+    tp = predictors[mode][1]
+    img = _images((64, 80, 3), 11)
+    rounded = mode == "superpixel"
+    patches = t_inf.divide_image_to_patches(img, 48)
+    probs = np.concatenate([tp.predict_padded(
+        patches[i:i + 4].astype(np.float32) / 255.0)
+        for i in range(0, len(patches), 4)])
+    want = t_inf.combine_patches_to_image(
+        np.round(probs) if rounded else probs, 64, 80)
+    got = t_inf.predict_tiled(tp, img, 48, chunk=4, round_patches=rounded)
+    assert got.dtype == np.float64
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+# ---------------------------------------------------------------------------
 # the five CLIs against the repository's
 # ---------------------------------------------------------------------------
 

@@ -13,7 +13,8 @@ one card or sharded over a mesh (``Predictor(mesh=)``):
   rounding and no opening;
 - tiled variants (reference infer_tile.py:23-91): np.linspace-spaced
   overlapping tiles, running-average stitching with an overlap counter;
-  tiles go to the device in chunks, one chunk in flight.
+  the slide goes to the device once, is cut there chunk by chunk and
+  stitched there (``ops.tile``), and its map comes back once.
 
 With a mesh (``parallel.make_mesh``) every batch (a padded chunk, a
 multi-scale group, a chunk of tiles) is padded with blank rows to a
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from .models import steps
+from .ops import tile
 from .ops.morphology import opening, reference_cross_selem
 from .ops.resize import _interp_matrix, _nearest_index
 from .parallel import collectives, shard_params
@@ -90,6 +92,7 @@ class Predictor:
         self.config = config
         self.mode = mode
         self._scaled_cache = {}
+        self._tile_cache = {}
 
     @property
     def data_shards(self) -> int:
@@ -152,37 +155,75 @@ class Predictor:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def dispatch_padded(self, images_f: np.ndarray):
-        """Enqueue a padded forward of (B, h, w, 3) float [0, 1] images;
-        returns (device pred, B, h, w) WITHOUT copying it back, so a caller
-        can keep a chunk in flight.
-
-        The float32 canvas is (B, H, W) rounded up to multiples of 32, the
-        content repeated into the pad (last column, then last row), with
-        ``valid`` over the content; it is made in a ``wesup.tile.cut``
-        span."""
-        B, h, w = images_f.shape[:3]
-        H, W = _round_up(h), _round_up(w)
-        Bp = _round_up(B, self.data_shards)   # blank rows shard evenly
-        with span("wesup.tile.cut"):
-            canvas = np.zeros((Bp, H, W, 3), np.float32)
-            canvas[:B, :h, :w] = images_f
-            if w < W:
-                canvas[:B, :h, w:] = images_f[:, :, w - 1:w]
-            if h < H:
-                canvas[:B, h:, :] = canvas[:B, h - 1:h, :]
-            valid = np.zeros((Bp, H, W), bool)
-            valid[:B, :h, :w] = True
-        pred = self.run_rows(self.predict_step((H, W)), canvas, valid)
-        return pred, B, h, w
-
     def predict_padded(self, images_f: np.ndarray) -> np.ndarray:
         """(B, h, w, 3) float [0, 1] -> (B, h, w) f32 fg probability.
 
-        Floats go to the step as they are (no uint8 re-quantization; the
-        reference keeps float images after F.interpolate, infer.py:74)."""
-        pred, B, h, w = self.dispatch_padded(images_f)
+        The float32 canvas is (B, H, W) rounded up to multiples of 32, the
+        content repeated into the pad (last column, then last row), with
+        ``valid`` over the content.  Floats go to the step as they are (no
+        uint8 re-quantization; the reference keeps float images after
+        F.interpolate, infer.py:74)."""
+        B, h, w = images_f.shape[:3]
+        H, W = _round_up(h), _round_up(w)
+        Bp = _round_up(B, self.data_shards)   # blank rows shard evenly
+        canvas = np.zeros((Bp, H, W, 3), np.float32)
+        canvas[:B, :h, :w] = images_f
+        if w < W:
+            canvas[:B, :h, w:] = images_f[:, :, w - 1:w]
+        if h < H:
+            canvas[:B, h:, :] = canvas[:B, h - 1:h, :]
+        valid = np.zeros((Bp, H, W), bool)
+        valid[:B, :h, :w] = True
+        pred = self.run_rows(self.predict_step((H, W)), canvas, valid)
         return pred[:B, :h, :w].cpu().numpy()
+
+    def tile_grid(self, hw, patch_size: int):
+        """The patch grid of a (H0, W0) slide (:func:`patch_grid`) on the
+        device, cached per shape: ``(tops, lefts, (h, w))``, int32 tensors
+        and the patches' size."""
+        key = ("grid", tuple(hw), int(patch_size))
+        if key not in self._tile_cache:
+            tops, lefts = patch_grid(*hw, patch_size)
+            self._tile_cache[key] = (
+                *(torch.from_numpy(a.astype(np.int32)).to(self.device)
+                  for a in (tops, lefts)),
+                (min(patch_size, hw[0]), min(patch_size, hw[1])))
+        return self._tile_cache[key]
+
+    def _tile_valid(self, n_rows, n_real, patch_hw, canvas_hw):
+        """The superpixel step's ``valid`` for a chunk's canvas: the
+        first ``n_real`` rows' patches; cached per shape."""
+        key = ("valid", n_rows, n_real, tuple(patch_hw), tuple(canvas_hw))
+        if key not in self._tile_cache:
+            valid = torch.zeros((n_rows, *canvas_hw), dtype=torch.bool,
+                                device=self.device)
+            valid[:n_real, :patch_hw[0], :patch_hw[1]] = True
+            self._tile_cache[key] = valid
+        return self._tile_cache[key]
+
+    def dispatch_tiles(self, slide: torch.Tensor, grid, first: int, n: int):
+        """Enqueue the padded forward of the patches ``first`` .. ``first
+        + n - 1`` of a (H0, W0, 3) uint8 slide on the device, on
+        :meth:`tile_grid`'s ``grid``; returns the gathered (Bp, H, W)
+        device prediction WITHOUT copying it back.
+
+        The canvas is :meth:`predict_padded`'s, cut on the device
+        (:func:`ops.tile.cut`) for this shard's rows only, in a
+        ``wesup.tile.cut`` span."""
+        tops, lefts, (h, w) = grid
+        H, W = _round_up(h), _round_up(w)
+        Bp = _round_up(n, self.data_shards)   # blank rows shard evenly
+        rows = (self.mesh.data_rows(Bp) if self.mesh is not None
+                else slice(0, Bp))
+        n_rows = rows.stop - rows.start
+        n_real = max(0, min(rows.stop, n) - rows.start)
+        with span("wesup.tile.cut"):
+            canvas = tile.cut(slide, tops, lefts, first + rows.start, n_real,
+                              n_rows, (h, w), (H, W))
+            valid = (None if self.mode == "pixel" else
+                     self._tile_valid(n_rows, n_real, (h, w), (H, W)))
+        return self.gather(self.predict_step((H, W))(self.model, canvas,
+                                                     valid))
 
 
 def predict_multiscale(predictor: Predictor, img_u8: np.ndarray,
@@ -287,12 +328,18 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
 # Tiling (math parity with reference infer_tile.py:23-91)
 # ---------------------------------------------------------------------------
 
-def get_top_left_coordinates(height, width, patch_size):
+def patch_grid(height, width, patch_size):
+    """The patches' tops and lefts; the patches are their product, row
+    by row."""
     n_h = math.ceil(height / patch_size)
     n_w = math.ceil(width / patch_size)
     tops = np.linspace(0, height - patch_size, n_h, dtype=int)
     lefts = np.linspace(0, width - patch_size, n_w, dtype=int)
-    return list(product(tops, lefts))
+    return tops, lefts
+
+
+def get_top_left_coordinates(height, width, patch_size):
+    return list(product(*patch_grid(height, width, patch_size)))
 
 
 def divide_image_to_patches(img: np.ndarray, patch_size: int) -> np.ndarray:
@@ -325,38 +372,39 @@ def combine_patches_to_image(patches: np.ndarray, target_height: int,
 @span("wesup.tile.slide")
 def predict_tiled(predictor: Predictor, img_u8: np.ndarray, patch_size: int,
                   chunk: int = 8, round_patches: bool = True) -> np.ndarray:
-    """Tiled prediction of one (H0, W0, 3) uint8 image: patches in chunks
-    of ``chunk`` through :meth:`Predictor.dispatch_padded`, one chunk in
-    flight (chunk i is copied back while chunk i + 1 runs), then the
-    overlap-averaged stitch, (H0, W0) float64.
+    """Tiled prediction of one (H0, W0, 3) uint8 image: the slide goes to
+    the device once; its patches are cut there in chunks of ``chunk``
+    (:meth:`Predictor.dispatch_tiles`), each chunk's forward queued behind
+    the last with nothing copied back; the overlap-averaged stitch runs
+    there too (:func:`ops.tile.stitch`), and the (H0, W0) float64 map is
+    copied back once.  Bitwise :func:`combine_patches_to_image` over
+    :meth:`Predictor.predict_padded` of :func:`divide_image_to_patches`.
 
     ``round_patches=True`` rounds each patch before stitching, as the
     superpixel tile path does (infer_tile.py:108-110); the pixel tile path
     stitches raw probabilities (pixel_infer_tile.py:52-57).
 
     A call is a ``wesup.tile.slide`` span (a trace of its own) around the
-    patch cut and each chunk's float conversion and canvas
-    (``wesup.tile.cut``), the chunks' copies back (``wesup.tile.drain``)
-    and the stitch (``wesup.tile.stitch``)."""
+    slide's upload and each chunk's cut (``wesup.tile.cut``), the chunks'
+    steps, the stitch's launch (``wesup.tile.stitch``) and the copy back
+    of the map, which waits for the device (``wesup.tile.drain``)."""
+    if img_u8.ndim != 3 or img_u8.shape[-1] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {img_u8.shape}")
     H0, W0 = img_u8.shape[:2]
+    grid = predictor.tile_grid((H0, W0), patch_size)
+    tops, lefts, (h, w) = grid
+    n = tops.shape[0] * lefts.shape[0]
     with span("wesup.tile.cut"):
-        patches = divide_image_to_patches(img_u8, patch_size)
-    outs = []
-
-    def drain(pred, n, h, w):
-        with span("wesup.tile.drain"):
-            prob = pred[:n, :h, :w].cpu().numpy()
-            outs.append(np.round(prob) if round_patches else prob)
-
-    in_flight = None
-    for i in range(0, len(patches), chunk):
-        with span("wesup.tile.cut"):
-            block = patches[i:i + chunk].astype(np.float32) / 255.0
-        dispatched = predictor.dispatch_padded(block)
-        if in_flight is not None:
-            drain(*in_flight)
-        in_flight = dispatched
-    if in_flight is not None:
-        drain(*in_flight)
+        slide = predictor._to_device(np.ascontiguousarray(img_u8, np.uint8))
+    probs = None
+    for first in range(0, n, chunk):
+        m = min(chunk, n - first)
+        pred = predictor.dispatch_tiles(slide, grid, first, m)
+        if probs is None:
+            probs = torch.empty((n, h, w), dtype=pred.dtype,
+                                device=pred.device)
+        probs[first:first + m] = pred[:m, :h, :w]
     with span("wesup.tile.stitch"):
-        return combine_patches_to_image(np.concatenate(outs, axis=0), H0, W0)
+        out = tile.stitch(probs, tops, lefts, (H0, W0), round_patches)
+    with span("wesup.tile.drain"):
+        return out.cpu().numpy()

@@ -1,13 +1,13 @@
 """Tensor ops of the port: colour space, SLIC, resizes, cell-grid pooling,
 label vote, CLAHE, augmentation and the CUDA kernels' wrappers (K1-K4
 ``cellpool``, K5 and its backward ``pooling``, K6 and its backward K8
-``adjoint``, K7 ``pool``)."""
+``adjoint``, K7 ``pool``, the tile cut and stitch ``tile``)."""
 
 
 def _kernel_modules():
-    from . import adjoint, cellpool, pool, pooling
+    from . import adjoint, cellpool, pool, pooling, tile
 
-    return (cellpool, pooling, adjoint, pool)
+    return (cellpool, pooling, adjoint, pool, tile)
 
 
 def launch_counts() -> dict:

@@ -39,6 +39,7 @@ from wesup_tpu_torch.ops import (adjoint, cellgrid, cellpool,  # noqa: E402
 from wesup_tpu_torch.ops.resize import _interp_matrix  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
 from wesup_tpu_torch.utils import prng  # noqa: E402
+import torch_predict_host_fuse as host_fuse  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1217,3 +1218,90 @@ def test_tile_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         with pytest.raises(kind):
             call()
     assert dict(tile.LAUNCHES) == before
+
+
+# two shape groups, interleaved
+CARD_SHAPES = [(130, 190), (96, 150), (130, 190), (130, 190), (96, 150),
+               (130, 190), (130, 190)]
+
+
+@pytest.fixture(scope="module")
+def card_predictors():
+    """A predictor per mode on the card, at the published widths in
+    bfloat16, on a head balanced over the test images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    model = host_fuse.balanced(
+        wesup.WESUP(generator=torch.Generator().manual_seed(0)),
+        host_fuse.images(CARD_SHAPES, seed=30), hw=(64, 96))
+    return {mode: inference.Predictor(model, WESUPConfig(), mode=mode,
+                                      device=torch.device("cuda"))
+            for mode in ("superpixel", "pixel")}
+
+
+@pytest.mark.parametrize("max_batch", host_fuse.MAX_BATCHES)
+@pytest.mark.parametrize("mode,scales,input_size", host_fuse.CASES)
+def test_predict_multiscale_batch_on_card_equals_the_host_fuse(
+        cuda, card_predictors, monkeypatch, mode, scales, input_size,
+        max_batch):
+    """On the card, bitwise the host-fuse route (zeroed canvas, each
+    scale's map copied back, fused on the host), value and dtype, in
+    chunks of 1, 3 and 32 over two shape groups; the forwards inside
+    return bitwise the same probabilities on both routes."""
+    predictor = card_predictors[mode]
+    imgs = host_fuse.images(CARD_SHAPES, seed=31)
+    seen = host_fuse.record_forwards(monkeypatch)
+    want = host_fuse.predict_multiscale_batch(predictor, imgs, scales,
+                                           input_size, max_batch)
+    want_probs = seen[:]
+    seen.clear()
+    got = inference.predict_multiscale_batch(
+        predictor, imgs, scales=scales, input_size=input_size,
+        max_batch=max_batch)
+    host_fuse.assert_same(got, want)
+    host_fuse.assert_same_tensors(seen, want_probs)
+
+
+@pytest.mark.parametrize("mode,scales", [("superpixel", (0.5,)),
+                                         ("pixel", (0.5, 0.4))])
+def test_predict_multiscale_batch_on_card_results_are_not_reused(
+        cuda, card_predictors, mode, scales):
+    """A second call, on other images of the same shape and of another,
+    leaves the first call's results as they were, though its chunks pass
+    through the pinned blocks the first call's chunks freed."""
+    predictor = card_predictors[mode]
+    first = inference.predict_multiscale_batch(
+        predictor, host_fuse.images(CARD_SHAPES[:4], seed=32), scales=scales,
+        max_batch=2)
+    kept = [a.copy() for a in first]
+    second = inference.predict_multiscale_batch(
+        predictor, host_fuse.images([(130, 190), (64, 90), (130, 190)],
+                                 seed=33), scales=scales, max_batch=2)
+    host_fuse.assert_same(first, kept)
+    assert any(not np.array_equal(a, b) for a, b in zip(first, second))
+    arrays = first + second
+    assert not any(np.shares_memory(a, b) for k, a in enumerate(arrays)
+                   for b in arrays[k + 1:])
+
+
+@pytest.mark.parametrize("mode,scales", [("superpixel", (0.5,)),
+                                         ("pixel", (0.5, 0.4))])
+def test_predict_multiscale_batch_reuses_pinned_memory(cuda, card_predictors,
+                                                       mode, scales):
+    """After a first call has grown the caching host allocator's pool,
+    later calls of the same shapes take every pinned block from it: no
+    new pinned allocation, the pool's bytes unchanged."""
+    predictor = card_predictors[mode]
+    imgs = host_fuse.images(CARD_SHAPES, seed=34)
+
+    def run():
+        inference.predict_multiscale_batch(predictor, imgs, scales=scales,
+                                           max_batch=3)
+
+    run()
+    before = torch.cuda.host_memory_stats()
+    for _ in range(4):
+        run()
+    after = torch.cuda.host_memory_stats()
+    for key in ("num_host_alloc", "allocated_bytes.current"):
+        assert after[key] == before[key], key

@@ -35,6 +35,7 @@ from wesup_tpu_torch.inference import (Predictor,  # noqa: E402
                                        predict_multiscale_batch)
 from wesup_tpu_torch.models import steps, wesup  # noqa: E402
 from wesup_tpu_torch.models.convert import from_jax_params  # noqa: E402
+import torch_predict_host_fuse as host_fuse  # noqa: E402
 
 FC_WIDTH = 64
 
@@ -152,6 +153,86 @@ def test_multiscale_opening(weights):
         np.uint8)
     (mask,) = predict_multiscale_batch(predictor, [img], scales=(0.5, 0.4))
     assert mask.shape == (44, 60) and set(np.unique(mask)) <= {0.0, 1.0}
+
+
+# two shape groups, interleaved
+SHAPES = [(40, 56), (33, 47), (40, 56), (40, 56), (33, 47), (40, 56),
+          (40, 56)]
+
+
+@pytest.fixture(scope="module")
+def port_predictors(weights):
+    """One CPU predictor per mode, shared so that each step shape is built
+    once, on a head balanced over the test images."""
+    model = host_fuse.balanced(weights[1], host_fuse.images(SHAPES, seed=20))
+    cfg = WESUPConfig(compute_dtype="float32", sp_area=100, slic_iters=2)
+    return {mode: Predictor(model, cfg, mode=mode, device="cpu")
+            for mode in ("superpixel", "pixel")}
+
+
+@pytest.mark.parametrize("max_batch", host_fuse.MAX_BATCHES)
+@pytest.mark.parametrize("mode,scales,input_size", host_fuse.CASES)
+def test_predict_multiscale_batch_equals_the_host_fuse(
+        port_predictors, monkeypatch, mode, scales, input_size, max_batch):
+    """Bitwise the host-fuse route, value and dtype (float64 superpixel
+    masks, float32 pixel masks), whatever the chunk size: two shape groups
+    of 5 and 2 images in chunks of 1, 3 and 32; the forwards inside return
+    bitwise the same probabilities on both routes."""
+    predictor = port_predictors[mode]
+    imgs = host_fuse.images(SHAPES, seed=20)
+    seen = host_fuse.record_forwards(monkeypatch)
+    want = host_fuse.predict_multiscale_batch(predictor, imgs, scales,
+                                           input_size, max_batch)
+    want_probs = seen[:]
+    seen.clear()
+    got = predict_multiscale_batch(predictor, imgs, scales=scales,
+                                   input_size=input_size, max_batch=max_batch)
+    host_fuse.assert_same(got, want)
+    host_fuse.assert_same_tensors(seen, want_probs)
+    assert {g.dtype for g in got} == {
+        np.dtype(np.float64 if mode == "superpixel" else np.float32)}
+
+
+@pytest.mark.parametrize("mode,scales", [("superpixel", (0.5,)),
+                                         ("pixel", (0.5, 0.4))])
+def test_predict_multiscale_batch_results_are_not_reused(port_predictors,
+                                                         mode, scales):
+    """A second call, on other images of the same shape and of another,
+    leaves the first call's results as they were; no two results share
+    memory."""
+    predictor = port_predictors[mode]
+    first = predict_multiscale_batch(
+        predictor, host_fuse.images(SHAPES[:4], seed=21), scales=scales,
+        max_batch=2)
+    kept = [a.copy() for a in first]
+    second = predict_multiscale_batch(
+        predictor, host_fuse.images([(40, 56), (36, 40), (40, 56)], seed=22),
+        scales=scales, max_batch=2)
+    host_fuse.assert_same(first, kept)
+    arrays = first + second
+    assert not any(np.shares_memory(a, b) for k, a in enumerate(arrays)
+                   for b in arrays[k + 1:])
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_upload_rows_are_the_padded_batch(weights, shards):
+    """Each data shard's uploaded rows are its rows of the batch of the
+    images followed by blank rows: 3 images in 4 rows, one of them a
+    mirrored view (a negative stride)."""
+    from wesup_tpu_torch.parallel.mesh import Mesh
+
+    imgs = host_fuse.images([(33, 47)] * 3, seed=23)
+    imgs[1] = imgs[1][:, ::-1]
+    batch = np.zeros((4, 33, 47, 3), np.uint8)
+    batch[:3] = imgs
+    for rank in range(shards):
+        mesh = (Mesh(shards, 1, rank=rank, world_group=object())
+                if shards > 1 else None)
+        pred = Predictor(weights[1], WESUPConfig(), device="cpu", mesh=mesh)
+        rows = (mesh.data_rows(4) if mesh is not None else slice(None))
+        got = pred.upload_rows(imgs, 4)
+        assert got.dtype == torch.uint8
+        assert np.array_equal(got.numpy(), batch[rows])
 
 
 @pytest.mark.parametrize("align_corners", [False, True])

@@ -155,6 +155,38 @@ class Predictor:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def upload_rows(self, images, n_rows: int):
+        """This shard's rows of an (n_rows, H, W, 3) uint8 batch, on the
+        device: row ``r`` is ``images[r]`` (each (H, W, 3)), the rows past
+        them are blank.  Each row is copied once (by torch, on all cores),
+        straight into a pinned host buffer (the caching host allocator's,
+        reused once the copies queued from it are done), and goes to the
+        card without blocking."""
+        rows = (self.mesh.data_rows(n_rows) if self.mesh is not None
+                else slice(0, n_rows))
+        buf = torch.empty((rows.stop - rows.start, *images[0].shape[:2], 3),
+                          dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        for j, r in enumerate(range(rows.start, rows.stop)):
+            if r < len(images):
+                buf[j].copy_(torch.from_numpy(np.ascontiguousarray(images[r])))
+            else:
+                buf[j].zero_()
+        return buf.to(self.device, non_blocking=True)
+
+    def to_host(self, outs):
+        """Host copies of device tensors, started without blocking, and
+        the event to wait on before reading them: on the card each copy
+        goes to pinned memory and queues behind the work that makes it;
+        on the CPU the tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return outs, None
+        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
+            o, non_blocking=True) for o in outs]
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
     def predict_padded(self, images_f: np.ndarray) -> np.ndarray:
         """(B, h, w, 3) float [0, 1] -> (B, h, w) f32 fg probability.
 
@@ -243,18 +275,28 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
     of up to ``max_batch``; the output is identical to the per-image path
     and does not depend on the chunk size.  ``max_batch=None`` reads
     ``WESUP_INFER_MAX_BATCH`` (default 8), so a caller can rerun an
-    inference with other batch shapes.  Each chunk's forwards are enqueued
-    before the previous chunk's results are copied back, so host
-    preparation overlaps device work.  The predictor's mode picks the
+    inference with other batch shapes.  The predictor's mode picks the
     strategy (module docstring).
+
+    Each chunk's images go up from pinned memory at their own shape (the
+    steps read only the content), and its result comes back into pinned
+    memory right behind its steps: in superpixel mode one uint8 map an
+    image, summed over the scales on the device (the sum is exact).  A
+    chunk's results are finished on the host after the next chunk is
+    dispatched: at one scale in superpixel mode the painted 0/1 map,
+    converted to float64 by torch on all cores (the mean over one scale
+    and its rounding change nothing); otherwise the mean over the
+    scales (pixel mode: the f32 sum in scale order), rounded, and in
+    superpixel mode opened.  Every result is a new array.
 
     Spans, each chunk's trace id ``("chunk", g, start)`` (``g`` numbers
     the shape groups of every call in the process, ``start`` is the
     chunk's first position in its group): a chunk's
-    ``wesup.predict.dispatch`` (its ``wesup.predict.fill``, the canvas
-    fill, pinning and copy, and its steps), its ``wesup.predict.drain``
-    (the copy back and the accumulation) and each image's
-    ``wesup.predict.fuse`` (the rounding and opening).
+    ``wesup.predict.dispatch`` (its ``wesup.predict.fill``, the images'
+    copy into pinned memory and the upload, then its steps and the copy
+    back's launch), its ``wesup.predict.drain`` (the wait for that copy,
+    and in pixel mode the sum over the scales) and each of its images'
+    ``wesup.predict.fuse`` (the finishing above).
     """
     if max_batch is None:
         max_batch = int(os.environ.get("WESUP_INFER_MAX_BATCH", "8"))
@@ -273,8 +315,6 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
         else:
             # reference pixel path floors (pixel_infer.py:44-45)
             sizes = [(int(H0 * s), int(W0 * s)) for s in scales]
-        Hc, Wc = _round_up(H0), _round_up(W0)
-        acc = [None] * len(idxs)
         group = next(_groups)
 
         def dispatch(start):
@@ -282,24 +322,32 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
             with span("wesup.predict.dispatch",
                       trace=("chunk", group, start)):
                 with span("wesup.predict.fill"):
-                    n = _round_up(len(chunk), predictor.data_shards)
-                    canvas = np.zeros((n, Hc, Wc, 3), np.uint8)
-                    for j, i in enumerate(chunk):
-                        canvas[j, :H0, :W0] = imgs_u8[i]
-                    rows = predictor.own_rows(canvas)
-                return start, len(chunk), [predictor.gather(
-                    predictor._scaled_step((H0, W0), sz, (Hc, Wc))(
+                    rows = predictor.upload_rows(
+                        [imgs_u8[i] for i in chunk],
+                        _round_up(len(chunk), predictor.data_shards))
+                outs = [predictor.gather(
+                    predictor._scaled_step((H0, W0), sz, (H0, W0))(
                         predictor.model, rows)) for sz in sizes]
+                if sp_mode:
+                    outs = [sum(outs[1:], outs[0])]
+                return (start, chunk, *predictor.to_host(outs))
 
-        def drain(start, n_real, outs):
-            with span("wesup.predict.drain",
-                      trace=("chunk", group, start)):
-                for out in outs:
-                    out = out.cpu().numpy()
-                    for j in range(n_real):
-                        pos = start + j
-                        acc[pos] = (out[j] if acc[pos] is None
-                                    else acc[pos] + out[j])
+        def drain(start, chunk, host, done):
+            trace = ("chunk", group, start)
+            with span("wesup.predict.drain", trace=trace):
+                if done is not None:
+                    done.synchronize()
+                acc = host[0].numpy()
+                for out in host[1:]:
+                    acc = acc + out.numpy()
+            for j, i in enumerate(chunk):
+                with span("wesup.predict.fuse", trace=trace):
+                    if sp_mode and len(sizes) == 1:
+                        results[i] = host[0][j].to(torch.float64).numpy()
+                    else:
+                        fused = np.round(acc[j] / len(sizes))
+                        results[i] = (opening(fused, reference_cross_selem(9))
+                                      if sp_mode else fused)
 
         in_flight = None
         for start in range(0, len(idxs), max_batch):
@@ -309,18 +357,6 @@ def predict_multiscale_batch(predictor: Predictor, imgs_u8, scales=(0.5,),
             in_flight = dispatched
         if in_flight is not None:
             drain(*in_flight)
-
-        for pos, i in enumerate(idxs):
-            with span("wesup.predict.fuse",
-                      trace=("chunk", group, pos - pos % max_batch)):
-                fused = acc[pos] / len(sizes)
-                if not sp_mode:
-                    fused = np.round(fused)
-                elif input_size is None:
-                    fused = np.round(fused)
-                    if len(scales) > 1:
-                        fused = opening(fused, reference_cross_selem(9))
-            results[i] = fused
     return results
 
 

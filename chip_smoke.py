@@ -24,7 +24,13 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    chunks of 8 and 16 and the stitch of the 16 patches (float32 raw and
    rounded, uint8) bitwise their plain versions on the card, launches
    counted (one cut per chunk, one stitch per slide), and each kernel's
-   time beside its plain version's and the HBM bound;
+   time beside its plain version's and the HBM bound; then the pixel
+   head's ``hypercol_upsample`` (``csrc/hypercol.cu``) at the tile cell's
+   chunk (B=8, 416x416, C=1024, bf16): within ``tests/torch_hypercol.py``'s
+   limits of its plain version (the composition it replaces: W-resize
+   einsums, concatenation, dense H-upsample GEMM, bias add, ReLU), one
+   launch, and its time beside the plain version's and the
+   HBM bound (the five stage maps read once, the map written once);
 8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
    against their plain versions at the main-path shapes (K3 also at
    C = 1024, the width of fullres training's K5 backward); one f32
@@ -83,8 +89,9 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    outputs against their plain versions on the step's own inputs;
 12. the pixel head and inference: the f32 pixel forward on the card
    against the CPU (full width, 2x96x128); ``make_predict_step(...,
-   "pixel")`` at B=8 on the 288x416 canvas in bf16, with no kernel launched
-   per step, and under ``WESUP_FUSED_POOL1=1`` with K7 once (on the step's
+   "pixel")`` at B=8 on the 288x416 canvas in bf16, with
+   ``hypercol_upsample`` launched once per step, and under
+   ``WESUP_FUSED_POOL1=1`` with K7 once too (on the step's
    own input bitwise its plain version; the probabilities within 3e-2 of
    the ungated step's), step times in two rounds, img/s, peak memory,
    breakdowns (backbone, proj, upsample, head) and the device busy share;
@@ -94,10 +101,10 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    (testA and testB of 8 522x775 BMPs each, made from ``--seed``): every
    mask written with the right name, format and shape in {0, 255}, ms per
    image, K1 once and K2 four times per superpixel forward (the first
-   forward's K1/K2 held against their plain versions on its inputs) and no
-   kernel in the pixel CLIs; ``POST /predict`` of a PNG to a superpixel and
-   a pixel server, which must answer with masks (and a malformed JPEG with
-   400);
+   forward's K1/K2 held against their plain versions on its inputs) and
+   ``hypercol_upsample`` once per forward in the pixel CLIs; ``POST
+   /predict`` of a PNG to a superpixel and a pixel server, which must
+   answer with masks (and a malformed JPEG with 400);
 13. the GlaS protocol as a user runs it on this machine: a raw set in
    GlaS's own layout (85 train images, testA and testB cut to 8 + 8,
    522x775 BMPs with gland-id annotations, ``Grade.csv`` with two grades;
@@ -148,9 +155,10 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    (``make_image_hard`` from ``--seed``), patch 1000, superpixel at
    400x400 (K1 once and K2 four times per forward, the first forward's
    held against their plain versions) and ``--pixel`` at 0.4 under
-   ``WESUP_FUSED_POOL1=1`` (K7 once per forward, bitwise its plain
-   version), each from a checkpoint of a fresh trainer (the seconds of
-   its JAX-bit weight draw timed) whose classifier reads one fc3 feature
+   ``WESUP_FUSED_POOL1=1`` (K7 and ``hypercol_upsample`` once per forward,
+   K7 bitwise its plain version), each from a checkpoint of a fresh
+   trainer (the seconds of its JAX-bit weight draw timed) whose
+   classifier reads one fc3 feature
    against a threshold, so that every combined mask is 5-95% foreground;
    every combined mask equal to its patch masks stitched in numpy, and
    the printed Accuracy and Dice equal to numpy's on them; one JPEG
@@ -438,6 +446,62 @@ def profile_steps(torch, run_step, n=5, top=12, tag="profile") -> None:
         f"span, idle share {1 - busy / span:.3f}")
     for name, (us, _) in list(profile_ops.op_table(kern).items())[:top]:
         log(f"[{tag}]   {us / n / 1e3:8.3f} ms/step  {name[:110]}")
+
+
+HYPERCOL_CHUNK = (8, 416, 416, 1024)   # the tile cell's chunk, fc1's width
+
+
+def hypercol_phase(torch) -> list:
+    """Phase 7, the pixel head's upsample (``csrc/hypercol.cu``) at the tile
+    cell's chunk in bf16: the kernel against its plain version with the
+    card tests' limits, its launch, and its time beside the plain
+    version's and the HBM bound; returns the kernels' JSON entry."""
+    jpeg_writer()                  # puts tests/ on the path
+    import torch_hypercol
+    from wesup_tpu_torch.ops import hypercol
+
+    dev = torch.device("cuda")
+    B, H, W, C = HYPERCOL_CHUNK
+    dt = torch.bfloat16
+    maps, bias = torch_hypercol.stage_maps(B, H, W, C, dt, dev, seed=23)
+    hypercol.reset_launches()
+    got = hypercol.upsample(maps, bias)
+    torch.cuda.synchronize()
+    launches = hypercol.LAUNCHES["hypercol_upsample"]
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False   # the kernel's f32
+    beyond, worst, err = 0, 0.0, 0.0
+    try:
+        for i in range(B):        # an image at a time: the limits' memory
+            one = [m[i:i + 1] for m in maps]
+            want = hypercol.upsample_plain(one, bias)
+            n, w = torch_hypercol.gap(got[i:i + 1], one, bias, want)
+            beyond, worst = beyond + n, max(worst, w)
+            err = max(err, (got[i].float() - want[0].float()).abs().max()
+                      .item())
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+    del got, want
+    log(f"[hypercol] {B}x{H}x{W}x{C} {dt}: {beyond} values beyond the "
+        f"limits of tests/torch_hypercol.py from the plain version's "
+        f"(widest {worst:.3f} of its limit), max_abs_err {err:.3e}; "
+        f"launches {launches}")
+    if beyond or launches != 1:
+        fail("hypercol_upsample disagrees with its plain version")
+    nbytes = (sum(m.numel() for m in maps) + B * H * W * C + C) * 2
+    t_k = cuda_ms(torch, lambda: hypercol.upsample(maps, bias))
+    t_p = cuda_ms(torch, lambda: hypercol.upsample_plain(maps, bias), n=5,
+                  warmup=1)
+    b_ms, b_by = bound(nbytes, 0.0, dt)
+    log(f"[hypercol time] {B}x{H}x{W}x{C} {dt}: kernel {t_k:.4f} ms, plain "
+        f"(the composition it replaces) {t_p:.4f}, bound {b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e9:.3f} GB); {share(nbytes, t_k)}")
+    return [{"name": "hypercol_upsample", "route": "cuda",
+             "source": "wesup_tpu_torch/csrc/hypercol.cu",
+             "replaces": "none: dense einsums in wesup_tpu/ops/resize.py",
+             "launches": launches, "max_abs_err": err, "ms": t_k,
+             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by}]
 
 
 def train_batch(batch, point_mode=True):
@@ -2075,7 +2139,7 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
         f"2e-4); launches {({k: v for k, v in counts.items() if v})}")
     if not (tuple(out.shape) == (2, 96, 128, 2) and err <= 2e-4):
         fail("the f32 pixel forward on the card disagrees with the CPU")
-    if counts != expected({}):
+    if counts != expected({"hypercol_upsample": 1}):
         fail(f"the pixel forward launched {counts}")
     del model_cpu, model_gpu, ref, out
 
@@ -2090,9 +2154,9 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
             run(model, imgs_dev, valid)
     probs, peaks = {}, {}
     for label, run, launches in (
-            ("pixel", step, {}),
+            ("pixel", step, {"hypercol_upsample": 1}),
             ("pixel, WESUP_FUSED_POOL1=1", gated,
-             {"fused_relu_pool_pad": 1})):
+             {"fused_relu_pool_pad": 1, "hypercol_upsample": 1})):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2209,7 +2273,7 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
         counts = launch_counts()
         n = fwd.call_count
         want = ({"cell_pool0": n, "cell_pool_stage": 4 * n} if superpixel
-                else {})
+                else {"hypercol_upsample": n})
         if "_tile" in label:
             # GLAS_HW at patch 400 or 464: one chunk of 4 patches an image
             want.update(tile_cut=n_images, tile_stitch=n_images)
@@ -2238,7 +2302,7 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
               "BMP": codec.encode_bmp(request_img)}
     for mode, per_request in (("superpixel", {"cell_pool0": 1,
                                               "cell_pool_stage": 4}),
-                              ("pixel", {})):
+                              ("pixel", {"hypercol_upsample": 1})):
         server = create_server(port=0, host="127.0.0.1", mode=mode,
                                seed=seed)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3335,8 +3399,8 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
     fresh = {k: v.detach().clone() for k, v in cls.state_dict().items()}
     feats, head = [], wesup._mlp_head
 
-    def spy(model, x):
-        probs, f = head(model, x)
+    def spy(model, x, **kwargs):
+        probs, f = head(model, x, **kwargs)
         feats.append(f.reshape(-1, f.shape[-1]))
         return probs, f
 
@@ -3401,7 +3465,7 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
         sec = time.perf_counter() - t0
         counts = launch_counts()
         n = fwd.call_count
-        want = ({"fused_relu_pool_pad": n} if gated
+        want = ({"fused_relu_pool_pad": n, "hypercol_upsample": n} if gated
                 else {"cell_pool0": n, "cell_pool_stage": 4 * n})
         lines = [ln for ln in out.getvalue().splitlines()
                  if ln.startswith(("Accuracy:", "Dice:"))]
@@ -5191,6 +5255,7 @@ def main(argv=None) -> int:
         "bound_by": b_by, "library_ms": tot["lib"]})
     del taps0, taps
     kernels += tile_phase(torch, args.seed)
+    kernels += hypercol_phase(torch)
     torch.cuda.empty_cache()
 
     # ---- 8. training -----------------------------------------------------

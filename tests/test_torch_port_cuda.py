@@ -34,11 +34,12 @@ from wesup_tpu_torch.models import wesup  # noqa: E402
 from wesup_tpu_torch.models import steps  # noqa: E402
 from wesup_tpu_torch.models.steps import make_predict_step  # noqa: E402
 from wesup_tpu_torch.ops import (adjoint, cellgrid, cellpool,  # noqa: E402
-                                 launch_counts, pool, pooling,
+                                 hypercol, launch_counts, pool, pooling,
                                  reset_launches, tile)
 from wesup_tpu_torch.ops.resize import _interp_matrix  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
 from wesup_tpu_torch.utils import prng  # noqa: E402
+import torch_hypercol  # noqa: E402
 import torch_predict_host_fuse as host_fuse  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1162,7 +1163,8 @@ def test_predict_tiled_on_card_matches_the_host_route(cuda):
     400 in chunks of 8, bfloat16) on the card equals, bitwise, the route
     that cut, copied back and stitched on the host: the same canvases
     through the same steps, ``combine_patches_to_image`` over
-    ``predict_padded``.  Two cuts and one stitch are launched."""
+    ``predict_padded``.  Two cuts, one stitch and two pixel-head
+    upsamples (one a chunk) are launched."""
     model = wesup.WESUP(generator=torch.Generator().manual_seed(0))
     pred = inference.Predictor(model, WESUPConfig(), mode="pixel",
                                device=cuda)
@@ -1176,6 +1178,7 @@ def test_predict_tiled_on_card_matches_the_host_route(cuda):
     got = inference.predict_tiled(pred, img, 400, chunk=8,
                                   round_patches=False)
     assert dict(tile.LAUNCHES) == {"tile_cut": 2, "tile_stitch": 1}
+    assert hypercol.LAUNCHES["hypercol_upsample"] == 2
     assert got.dtype == np.float64 and got.shape == (1512, 1516)
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
@@ -1305,3 +1308,98 @@ def test_predict_multiscale_batch_reuses_pinned_memory(cuda, card_predictors,
     after = torch.cuda.host_memory_stats()
     for key in ("num_host_alloc", "allocated_bytes.current"):
         assert after[key] == before[key], key
+
+
+# ---------------------------------------------------------------------------
+# hypercol_upsample: the pixel head's W-resize, H-upsample and sum of the
+# five stage maps, bias and ReLU in one kernel (ops/hypercol.py), against
+# its plain version with tests/torch_hypercol.py's limits (why two bf16
+# ulps and not one: its docstring), and bitwise against the replay of its
+# arithmetic in bf16.  Canvases: the tile cell's
+# 416x416 and a 32-aligned non-square multi-scale canvas; widths: fc1's
+# 1024, a tensor-parallel rank's 512 and 24 (the one-channel path).
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def exact_bf16_gemms():
+    """bf16 GEMMs that reduce in f32 only, as the kernel sums, for the
+    plain version's contraction on the card."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    matmul.allow_bf16_reduced_precision_reduction = before
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 416, 416), (2, 96, 160)])
+@pytest.mark.parametrize("C", [1024, 512, 24])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hypercol_kernel_matches_plain(cuda, exact_bf16_gemms, B, H, W, C,
+                                       dtype):
+    maps, bias = torch_hypercol.stage_maps(B, H, W, C, dtype, cuda, seed=C)
+    reset_launches()
+    got = hypercol.upsample(maps, bias)
+    torch.cuda.synchronize()
+    assert launch_counts() == _expected({"hypercol_upsample": 1})
+    assert got.dtype == dtype and got.shape == (B, H, W, C)
+    assert got.is_contiguous()
+    beyond, worst = torch_hypercol.gap(got, maps, bias)
+    assert beyond == 0, worst
+    replayed = torch_hypercol.replay(maps, bias)
+    if dtype is torch.bfloat16:
+        assert torch.equal(got, replayed)
+    else:
+        assert torch_hypercol.gap(got, maps, bias, replayed)[0] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hypercol_kernel_on_misaligned_maps(cuda, exact_bf16_gemms, dtype):
+    """Maps that start off a 16-byte boundary take the one-channel path."""
+    maps, bias = torch_hypercol.stage_maps(2, 64, 96, 64, dtype, cuda,
+                                           seed=7)
+    shifted = []
+    for m in maps:
+        buf = torch.empty(m.numel() + 1, dtype=dtype, device=cuda)
+        shifted.append(buf[1:].view(m.shape).copy_(m))
+    assert shifted[1].data_ptr() % 16 != 0
+    got = hypercol.upsample(shifted, bias)
+    beyond, worst = torch_hypercol.gap(got, maps, bias)
+    assert beyond == 0, worst
+    if dtype is torch.bfloat16:
+        assert torch.equal(got, torch_hypercol.replay(maps, bias))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_forward_pixel_through_the_kernel_matches_cpu(cuda, dtype, tol):
+    """The pixel forward at the published widths through the kernel
+    against the CPU's (the plain composition), with the limits that
+    tests/test_torch_port_infer.py::test_forward_pixel_matches_jax holds
+    the CPU's against JAX; one launch a forward."""
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(4)).eval()
+    img = torch.rand((2, 96, 128, 3),
+                     generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        want = wesup.forward_pixel(model, img, dtype)
+        model.to(cuda)
+        reset_launches()
+        got = wesup.forward_pixel(model, img.to(cuda), dtype)
+        torch.cuda.synchronize()
+    assert launch_counts() == _expected({"hypercol_upsample": 1})
+    assert got.shape == want.shape == (2, 96, 128, 2)
+    assert (got.cpu() - want).abs().max().item() <= tol
+
+
+def test_hypercol_refuses_grad_on_card(cuda):
+    """The kernel has no backward: an input that requires grad, or a pixel
+    forward with grad enabled, raises before a launch."""
+    maps, bias = torch_hypercol.stage_maps(1, 32, 32, 8, torch.bfloat16,
+                                           cuda)
+    reset_launches()
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        hypercol.upsample([maps[0].requires_grad_()] + maps[1:], bias)
+    model = wesup.WESUP(fc_width=16,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        wesup.forward_pixel(model, torch.rand((1, 32, 32, 3), device=cuda))
+    assert hypercol.LAUNCHES["hypercol_upsample"] == 0

@@ -363,7 +363,8 @@ def test_launch_counts_are_the_tracers_counters():
     names = ["cell_pool0", "cell_pool_stage", "cell_pool0_bwd",
              "cell_pool_stage_bwd", "segment_sum", "segment_sum_bwd",
              "adjoint_pool_stage", "adjoint_pool_stage_bwd",
-             "fused_relu_pool_pad", "tile_cut", "tile_stitch"]
+             "fused_relu_pool_pad", "tile_cut", "tile_stitch",
+             "hypercol_upsample"]
     ops.reset_launches()
     assert ops.launch_counts() == dict.fromkeys(names, 0)
     assert list(ops.launch_counts()) == names

@@ -27,15 +27,21 @@ resolution and projected after pooling.  Three poolings, as in JAX:
 
 The pixel head (:func:`forward_pixel`, the reference's
 WESUPPixelInference) classifies every pixel: each stage's taps are
-projected at native resolution and W-resized, and ONE contraction against
-the stacked H-interpolation matrices upsamples and sums all five stages
-(stage 0's block is the identity) into the (B, H, W, 1024) pre-ReLU fc1
-map, which the head reads in the compute dtype.  It runs no pooling
-kernel; the backbone's K7 under ``WESUP_FUSED_POOL1`` is its only one.
+projected at native resolution, and one kernel, ``hypercol_upsample``
+(``ops/hypercol.py``), W-interpolates stages 1-4, H-upsamples and sums
+all five, adds the bias and applies fc1's ReLU, writing the (B, H, W,
+1024) map that fc2 reads in the compute dtype; it rounds where JAX's
+dense contractions round.  The fullres pooling and
+:func:`hypercolumn_projection` keep those contractions (W-resize, then
+ONE contraction against the stacked H-interpolation matrices, stage 0's
+block the identity): the fullres path is trained through them.  Besides
+that kernel, the pixel head runs only the backbone's K7, under
+``WESUP_FUSED_POOL1``.
 
-Every path is differentiable in the weights: the kernels are autograd
-Functions whose backward bodies are kernels too (K3, K4; K5's on K3's
-kernel; K6's is K8), and the rest is plain torch.
+Every superpixel path is differentiable in the weights: the kernels are
+autograd Functions whose backward bodies are kernels too (K3, K4; K5's on
+K3's kernel; K6's is K8), and the rest is plain torch.  The pixel head is
+inference only: ``hypercol_upsample`` has no backward.
 
 Tensor parallelism (``parallel.shard_params``, ``model.tp``): each rank
 holds fc_width / model columns of fc1 and builds its column slice of
@@ -67,7 +73,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import adjoint, cellgrid, cellpool
+from ..ops import adjoint, cellgrid, cellpool, hypercol
 from ..ops import pooling as seg_pool
 from ..ops.resize import _interp_matrix, fused_upsample_sum, resize_w_only
 from ..ops.segments import paint
@@ -190,16 +196,17 @@ def _fused_bias(model: WESUP, side_bs, w1_blocks) -> torch.Tensor:
     return bias
 
 
-def _mlp_head(model: WESUP, x: torch.Tensor):
+def _mlp_head(model: WESUP, x: torch.Tensor, relu: bool = True):
     """ReLU -> fc2 -> ReLU -> fc3 -> ReLU -> classifier softmax, in x's dtype
     with the softmax in f32.  Returns (probs, f32 fc3 features).
+    ``relu=False`` takes an ``x`` that is already through fc1's ReLU.
 
     Under tensor parallelism ``x`` is the rank's column slice of fc1's
     output and fc2 holds the matching input rows: the partial products
     are summed over the model axis, in x's dtype, before fc2's bias."""
     dt = x.dtype
     fc2, fc3, cls = model.fc_layers[2], model.fc_layers[4], model.classifier[0]
-    h = F.relu(x)
+    h = F.relu(x) if relu else x
     h = reduce_from_model(_tp(model), h @ fc2.weight.t().to(dt))
     h = F.relu(h + fc2.bias.to(dt))
     feats = F.relu(h @ fc3.weight.t().to(dt) + fc3.bias.to(dt))
@@ -411,36 +418,34 @@ def forward_superpixel_fullres(model: WESUP, img: torch.Tensor,
     return SuperpixelForward(sp_pred, sp_feats, fg)
 
 
-def hypercolumn_projection_parts(model: WESUP, img: torch.Tensor,
-                                 compute_dtype=torch.float32):
-    """The shared pre-ReLU fc1 map WITHOUT its bias, and the bias:
-    ((B, H, W, width) in the compute dtype, (width,) f32).
-
-    Each stage's concatenated taps are projected with one matmul at native
-    resolution and W-resized; then ONE contraction against the stacked
-    H-interpolation matrices upsamples and sums all five stages, stage 0
-    (whose block is the identity) included, so bf16 rounds where it does in
-    JAX.  The phases run in ``wesup.step.backbone``, ``.proj`` (the stage
-    projections and W-resizes) and ``.upsample`` spans."""
-    W = img.shape[2]
+def _projected_stages(model: WESUP, img: torch.Tensor, compute_dtype):
+    """The five stages' projected maps at native resolution, each
+    (B, H_s, W_s, width) in the compute dtype, and the fused (width,) f32
+    bias.  Each stage's concatenated taps are projected with one matmul;
+    the phases run in ``wesup.step.backbone`` and ``.proj`` spans."""
     taps, w1_blocks, side_ws, bias = _backbone(model, img, compute_dtype)
     with span("wesup.step.proj"):
-        stage_maps = []
+        maps = []
         for s in range(5):
             stage_taps, proj = _stage_taps_and_proj(side_ws, taps, w1_blocks,
                                                     s, compute_dtype)
             (stage_taps,) = copy_to_model(_tp(model), stage_taps)
-            stage_maps.append(resize_w_only(stage_taps @ proj, W))
-        del taps, stage_taps
-    with span("wesup.step.upsample"):
-        z = fused_upsample_sum(stage_maps, img.shape[1])
-    return z, bias
+            maps.append(stage_taps @ proj)
+    return maps, bias
 
 
 def hypercolumn_projection(model: WESUP, img: torch.Tensor,
                            compute_dtype=torch.float32) -> torch.Tensor:
-    """The biased pre-ReLU fc1 map (B, H, W, width) in f32."""
-    z, bias = hypercolumn_projection_parts(model, img, compute_dtype)
+    """The biased pre-ReLU fc1 map (B, H, W, width) in f32, through JAX's
+    contractions: each stage's map W-resized, then ONE contraction against
+    the stacked H-interpolation matrices upsamples and sums all five
+    stages, stage 0 (whose block is the identity) included, so bf16 rounds
+    where it does in JAX (spans ``wesup.step.backbone``, ``.proj``,
+    ``.upsample``)."""
+    maps, bias = _projected_stages(model, img, compute_dtype)
+    with span("wesup.step.upsample"):
+        z = fused_upsample_sum([resize_w_only(m, img.shape[2]) for m in maps],
+                               img.shape[1])
     return z.float() + bias
 
 
@@ -450,12 +455,17 @@ def forward_pixel(model: WESUP, img: torch.Tensor,
     pixel's hypercolumn through the head.  Returns the (B, H, W, C) f32
     softmax probabilities.
 
-    The bias is cast to the map's dtype and added there, so in bf16 the
-    whole head runs in bf16 and only the softmax in f32, as in JAX.  The
-    phases are :func:`hypercolumn_projection_parts`'s and a
-    ``wesup.step.head`` span."""
-    z, bias = hypercolumn_projection_parts(model, img, compute_dtype)
+    The stage maps go through ``hypercol_upsample`` (``ops/hypercol.py``;
+    its plain version on the CPU): the W-resize, the H-upsample and sum,
+    the bias cast to the maps' dtype and added there, and fc1's ReLU, so
+    in bf16 the whole head runs in bf16 and only the softmax in f32, as
+    in JAX.  Not differentiable.  The phases are
+    :func:`_projected_stages`'s, ``wesup.step.upsample`` (the kernel) and
+    ``wesup.step.head``."""
+    maps, bias = _projected_stages(model, img, compute_dtype)
+    with span("wesup.step.upsample"):
+        h = hypercol.upsample(maps, bias)
+    del maps
     with span("wesup.step.head"):
-        z = z + bias.to(z.dtype)
-        probs, _ = _mlp_head(model, z)
+        probs, _ = _mlp_head(model, h, relu=False)
     return probs

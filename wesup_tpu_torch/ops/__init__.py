@@ -1,13 +1,14 @@
 """Tensor ops of the port: colour space, SLIC, resizes, cell-grid pooling,
 label vote, CLAHE, augmentation and the CUDA kernels' wrappers (K1-K4
 ``cellpool``, K5 and its backward ``pooling``, K6 and its backward K8
-``adjoint``, K7 ``pool``, the tile cut and stitch ``tile``)."""
+``adjoint``, K7 ``pool``, the tile cut and stitch ``tile``, the pixel
+head's upsample ``hypercol``)."""
 
 
 def _kernel_modules():
-    from . import adjoint, cellpool, pool, pooling, tile
+    from . import adjoint, cellpool, hypercol, pool, pooling, tile
 
-    return (cellpool, pooling, adjoint, pool, tile)
+    return (cellpool, pooling, adjoint, pool, tile, hypercol)
 
 
 def launch_counts() -> dict:

@@ -31,7 +31,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the kernels' launch functions: K1, K2 and their backward
 # bodies K3, K4 (csrc/cellpool.cu), K5 (csrc/pooling.cu), K6 and its
 # backward K8 (csrc/adjoint.cu), K7 (csrc/pool.cu), the tile cut and
-# stitch (csrc/tile.cu)
+# stitch (csrc/tile.cu), the pixel head's upsample (csrc/hypercol.cu)
 _SIGNATURES = {
     "wesup_cell_pool0": [_P] * 7 + [_I] * 7 + [_P],
     "wesup_cell_pool_stage": [_P] * 9 + [_I] * 11 + [_P],
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "wesup_fused_relu_pool_pad": [_P] * 2 + [_I] * 6 + [_P],
     "wesup_tile_cut": [_P] * 4 + [_I] * 9 + [_P],
     "wesup_tile_stitch": [_P] * 4 + [_I] * 8 + [_P],
+    "wesup_hypercol_upsample": [_P] * 11 + [_I] * 14 + [_P],
 }
 
 

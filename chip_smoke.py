@@ -458,16 +458,16 @@ def hypercol_phase(torch) -> list:
     version's and the HBM bound; returns the kernels' JSON entry."""
     jpeg_writer()                  # puts tests/ on the path
     import torch_hypercol
-    from wesup_tpu_torch.ops import hypercol
+    from wesup_tpu_torch.ops import hypercol, launch_counts, reset_launches
 
     dev = torch.device("cuda")
     B, H, W, C = HYPERCOL_CHUNK
     dt = torch.bfloat16
     maps, bias = torch_hypercol.stage_maps(B, H, W, C, dt, dev, seed=23)
-    hypercol.reset_launches()
+    reset_launches()
     got = hypercol.upsample(maps, bias)
     torch.cuda.synchronize()
-    launches = hypercol.LAUNCHES["hypercol_upsample"]
+    launches = launch_counts()["hypercol_upsample"]
     matmul = torch.backends.cuda.matmul
     before = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False   # the kernel's f32
@@ -539,7 +539,7 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     kernels' JSON line."""
     from wesup_tpu_torch.config import WESUPConfig
     from wesup_tpu_torch.models import steps, wesup
-    from wesup_tpu_torch.ops import cellgrid, cellpool
+    from wesup_tpu_torch.ops import cellgrid, cellpool, reset_launches
     from wesup_tpu_torch.ops.slic import make_plan, slic
     from wesup_tpu_torch.utils import prng
 
@@ -618,13 +618,13 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
     for d in ("cpu", "cuda"):
         model = wesup.WESUP(generator=torch.Generator().manual_seed(3)).to(d)
         p = steps.Preprocessed(*(t.to(d) for t in prep))
-        cellpool.reset_launches()
+        reset_launches()
         loss, _ = steps._forward_and_loss(model, p, pplan.n_clusters, cfg32,
                                           tb["sample_valid"].to(d), pplan)
         loss.backward()
         if d == "cuda":
             torch.cuda.synchronize()
-            bwd = dict(cellpool.LAUNCHES)
+            bwd = launched(*CELLPOOL)
         res[d] = (loss.item(), {n: q.grad.cpu()
                                 for n, q in model.named_parameters()})
         del model
@@ -687,10 +687,10 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         acc = step(model, optimizer, acc, batch, tkey)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cellpool.reset_launches()
+    reset_launches()
     acc = step(model, optimizer, acc, batch, tkey)
     torch.cuda.synchronize()
-    launches = dict(cellpool.LAUNCHES)
+    launches = launched(*CELLPOOL)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train] launches in one step: {launches}")
     if launches != {"cell_pool0": 1, "cell_pool_stage": 4,
@@ -734,12 +734,12 @@ def train_phase(torch, card, imgs, valid, seg, seg_m, gen) -> list:
         BATCH, point_mode=False).items()}
     macc = steps.init_metric_acc()
     torch.cuda.reset_peak_memory_stats()
-    cellpool.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(2):
         macc = mstep(model, optimizer, macc, mbatch, tkey)
     torch.cuda.synchronize()
-    mlaunch = dict(cellpool.LAUNCHES)
+    mlaunch = launched(*CELLPOOL)
     log(f"[train mask] 2 steps in {(time.perf_counter() - t0) * 1e3:.1f} ms "
         f"(the first includes its set-up); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
@@ -902,6 +902,18 @@ def expected(nonzero: dict) -> dict:
     from wesup_tpu_torch.ops import launch_counts
 
     return {name: nonzero.get(name, 0) for name in launch_counts()}
+
+
+CELLPOOL = ("cell_pool0", "cell_pool_stage", "cell_pool0_bwd",
+            "cell_pool_stage_bwd")
+
+
+def launched(*names) -> dict:
+    """The launch counts of the kernels ``names``."""
+    from wesup_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    return {name: counts[name] for name in names}
 
 
 def step_times(torch, run, n=25):
@@ -1287,7 +1299,7 @@ def tile_phase(torch, seed) -> list:
     the plain cut there is not numpy's IEEE division.  They are timed on
     the card."""
     from wesup_tpu_torch.inference import _round_up, patch_grid
-    from wesup_tpu_torch.ops import tile
+    from wesup_tpu_torch.ops import reset_launches, tile
 
     dev = torch.device("cuda")
     (H0, W0), P = TILE_SLIDE, TILE_PATCH
@@ -1315,7 +1327,7 @@ def tile_phase(torch, seed) -> list:
         return torch.equal(got.cpu().view(view), want.view(view))
 
     # one slide of the tile cell (chunks of 8), then the other cases
-    tile.reset_launches()
+    reset_launches()
     cell = [(f"cut chunk 8 at {first}",
              tile.cut(*cut_args(first, 8)),
              tile.cut_plain(*cut_args(first, 8, "cpu")), torch.int32)
@@ -1323,7 +1335,7 @@ def tile_phase(torch, seed) -> list:
     cell.append(("stitch float32", tile.stitch(probs, tops, lefts, (H0, W0)),
                  stitch_plain(probs, False), torch.int64))
     torch.cuda.synchronize()
-    launches = dict(tile.LAUNCHES)
+    launches = launched("tile_cut", "tile_stitch")
     want = {"tile_cut": -(-n // 8), "tile_stitch": 1}
     if launches != want:
         fail(f"one slide launched {launches}, expected {want}")
@@ -5010,7 +5022,8 @@ def main(argv=None) -> int:
     from wesup_tpu_torch.inference import Predictor, predict_multiscale_batch
     from wesup_tpu_torch.models import wesup
     from wesup_tpu_torch.models.steps import make_predict_step
-    from wesup_tpu_torch.ops import (_build, cellgrid, cellpool,
+    from wesup_tpu_torch import native
+    from wesup_tpu_torch.ops import (cellgrid, cellpool, kernels,
                                      launch_counts, reset_launches)
     from wesup_tpu_torch.ops.slic import make_plan, slic
     from wesup_tpu_torch.serve import create_server
@@ -5025,10 +5038,11 @@ def main(argv=None) -> int:
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    _build.library()
-    log(f"[build] {_build.info.path.name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.info.seconds:.2f} s)")
-    for line in _build.info.log.splitlines():
+    kernels.library()
+    built = native.builds["wesup_cuda"]
+    log(f"[build] {built.path.name} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {built.seconds:.2f} s)")
+    for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log(f"[build] {line.strip()}")
 

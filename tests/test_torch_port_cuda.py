@@ -44,6 +44,16 @@ import torch_predict_host_fuse as host_fuse  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
+CELLPOOL = ("cell_pool0", "cell_pool_stage", "cell_pool0_bwd",
+            "cell_pool_stage_bwd")
+TILE = ("tile_cut", "tile_stitch")
+
+
+def _counts(*names) -> dict:
+    """The launch counts of the kernels ``names``."""
+    counts = launch_counts()
+    return {name: counts[name] for name in names}
+
 
 @pytest.fixture
 def cuda():
@@ -75,9 +85,9 @@ def test_cell_pool0_kernel_matches_plain(cuda, B, H, W, sp_area, dtype, tol):
     plan, seg, valid = _seg(cuda, B, H, W, sp_area)
     seg_m = torch.where(valid, seg, -1)
     taps = torch.randn((B, H, W, 40), device=cuda).to(dtype)
-    before = cellpool.LAUNCHES["cell_pool0"]
+    before = launch_counts()["cell_pool0"]
     got = cellpool.cell_pool0(plan, seg_m, taps)
-    assert cellpool.LAUNCHES["cell_pool0"] == before + 1
+    assert launch_counts()["cell_pool0"] == before + 1
     want = cellpool.cell_pool0_plain(plan, seg_m, taps)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
@@ -122,10 +132,11 @@ def test_predict_step_on_card_matches_cpu(cuda):
     valid = np.zeros((2, 64, 160), bool)
     valid[:, :58, :141] = True
     want = make_predict_step(cfg, (64, 160), device="cpu")(model, imgs, valid)
-    cellpool.reset_launches()
+    reset_launches()
     got = make_predict_step(cfg, (64, 160))(model.to(cuda), imgs, valid)
-    assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
-                                 "cell_pool0_bwd": 0, "cell_pool_stage_bwd": 0}
+    assert _counts(*CELLPOOL) == {"cell_pool0": 1, "cell_pool_stage": 4,
+                                  "cell_pool0_bwd": 0,
+                                  "cell_pool_stage_bwd": 0}
     # SLIC on the card sums its centre updates in another order than on the
     # CPU, which may flip a near-tie pixel's superpixel; elsewhere the two
     # agree to the f32 forward's tolerance
@@ -141,9 +152,9 @@ def test_cell_pool0_bwd_kernel_matches_plain(cuda, B, H, W, sp_area, dtype):
     seg_m = torch.where(valid, seg, -1)
     for C in (40, 37):  # vector and scalar paths
         dsums = torch.randn((B, plan.n_clusters, C), device=cuda)
-        before = cellpool.LAUNCHES["cell_pool0_bwd"]
+        before = launch_counts()["cell_pool0_bwd"]
         got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dtype)
-        assert cellpool.LAUNCHES["cell_pool0_bwd"] == before + 1
+        assert launch_counts()["cell_pool0_bwd"] == before + 1
         want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dtype)
         torch.cuda.synchronize()
         assert got.dtype == dtype and torch.equal(got, want)
@@ -221,15 +232,16 @@ def test_train_step_grads_on_card_match_cpu(cuda):
         model = wesup.WESUP(fc_width=64,
                             generator=torch.Generator().manual_seed(0)).to(dev)
         p = steps.Preprocessed(*(t.to(dev) for t in prep))
-        cellpool.reset_launches()
+        reset_launches()
         loss, _ = steps._forward_and_loss(model, p, plan.n_clusters, cfg,
                                           b["sample_valid"].to(dev), plan)
         loss.backward()
         if dev == cuda:
             torch.cuda.synchronize()
-            assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
-                                         "cell_pool0_bwd": 1,
-                                         "cell_pool_stage_bwd": 4}
+            assert _counts(*CELLPOOL) == {"cell_pool0": 1,
+                                          "cell_pool_stage": 4,
+                                          "cell_pool0_bwd": 1,
+                                          "cell_pool_stage_bwd": 4}
         losses[str(dev)] = loss.item()
         grads[str(dev)] = {n: q.grad.cpu() for n, q in model.named_parameters()}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
@@ -251,11 +263,12 @@ def test_train_step_launches_on_card(cuda, point_mode):
     key = prng.PRNGKey(0)
     batch = _train_batch(2, H, W, (58, 141))
     acc = step(model, optimizer, acc, batch, key)
-    cellpool.reset_launches()
+    reset_launches()
     acc = step(model, optimizer, acc, batch, key)
     torch.cuda.synchronize()
-    assert cellpool.LAUNCHES == {"cell_pool0": 1, "cell_pool_stage": 4,
-                                 "cell_pool0_bwd": 1, "cell_pool_stage_bwd": 4}
+    assert _counts(*CELLPOOL) == {"cell_pool0": 1, "cell_pool_stage": 4,
+                                  "cell_pool0_bwd": 1,
+                                  "cell_pool_stage_bwd": 4}
     assert acc["count"].item() == 4 and not acc["nan"].item()
     assert all(np.isfinite(v.item()) for v in acc["sums"].values())
 
@@ -279,9 +292,9 @@ def test_segment_sum_kernel_matches_plain(cuda, B, P, C, offset, dtype):
                         dtype=torch.int32)
     flat = torch.randn(B * P * C + offset, generator=gen, device=cuda)
     feat = flat.to(dtype)[offset:].view(B, P, C)
-    before = pooling.LAUNCHES["segment_sum"]
+    before = launch_counts()["segment_sum"]
     got = pooling.segment_sum(seg, feat, K)
-    assert pooling.LAUNCHES["segment_sum"] == before + 1
+    assert launch_counts()["segment_sum"] == before + 1
     want = pooling.segment_sum_plain(seg, feat, K)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5 * max(
@@ -446,9 +459,9 @@ def test_cell_pool0_kernel_ragged(cuda, C, dtype, tol, kind):
     gen = torch.Generator(device=cuda).manual_seed(0)
     taps = torch.randn(seg_m.shape + (C,), generator=gen,
                        device=cuda).to(dtype)
-    before = cellpool.LAUNCHES["cell_pool0"]
+    before = launch_counts()["cell_pool0"]
     got = cellpool.cell_pool0(plan, seg_m, taps)
-    assert cellpool.LAUNCHES["cell_pool0"] == before + 1
+    assert launch_counts()["cell_pool0"] == before + 1
     want = cellpool.cell_pool0_plain(plan, seg_m, taps)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
@@ -473,9 +486,9 @@ def test_cell_pool0_bwd_kernel_ragged(cuda, C, dtype, kind, offset):
     n = B * plan.n_clusters * C
     dsums = torch.randn(n + offset, generator=gen, device=cuda)[
         offset:].view(B, plan.n_clusters, C)
-    before = cellpool.LAUNCHES["cell_pool0_bwd"]
+    before = launch_counts()["cell_pool0_bwd"]
     got = cellpool.cell_pool0_bwd(plan, seg_m, dsums, dtype)
-    assert cellpool.LAUNCHES["cell_pool0_bwd"] == before + 1
+    assert launch_counts()["cell_pool0_bwd"] == before + 1
     want = cellpool.cell_pool0_bwd_plain(plan, seg_m, dsums, dtype)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
@@ -531,9 +544,9 @@ def test_cell_pool_stage_bwd_kernel_ragged(cuda, C, dtype, kind):
         mc = cellgrid.stage_window_weights(spp, e9)
         dsums = torch.randn((B, plan.n_clusters, C), generator=gen,
                             device=cuda)
-        before = cellpool.LAUNCHES["cell_pool_stage_bwd"]
+        before = launch_counts()["cell_pool_stage_bwd"]
         got = cellpool.cell_pool_stage_bwd(spp, mc, dsums)
-        assert cellpool.LAUNCHES["cell_pool_stage_bwd"] == before + 1
+        assert launch_counts()["cell_pool_stage_bwd"] == before + 1
         want = cellpool.cell_pool_stage_bwd_plain(spp, mc, dsums, dtype)
         torch.cuda.synchronize()
         assert got.dtype == dtype
@@ -565,10 +578,10 @@ def test_fused_relu_pool_pad_kernel_matches_reference(cuda, B, H, W, C, cout,
     round nothing; the backward replays it)."""
     pre = torch.randn((B, C, H, W), device=cuda).to(dtype).contiguous(
         memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    before = pool.LAUNCHES["fused_relu_pool_pad"]
+    before = launch_counts()["fused_relu_pool_pad"]
     p = pre.detach().requires_grad_(True)
     got = pool.fused_relu_pool_pad(p, cout)
-    assert pool.LAUNCHES["fused_relu_pool_pad"] == before + 1
+    assert launch_counts()["fused_relu_pool_pad"] == before + 1
     assert got.is_contiguous() and got.shape == (B, H // 2, W // 2, cout)
     want = pool.reference(pre, cout)
     assert torch.equal(got, want)
@@ -588,10 +601,10 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     plan, seg, valid = _seg(cuda, 1, 64, 160, 200)
     feat = torch.randn((1, 64 * 160, 8), device=cuda, requires_grad=True)
     dsums = torch.randn((1, plan.n_clusters, 8), device=cuda)
-    before = pooling.LAUNCHES["segment_sum_bwd"]
+    before = launch_counts()["segment_sum_bwd"]
     pooling.segment_sum(seg.reshape(1, -1), feat, plan.n_clusters).backward(
         dsums)
-    assert pooling.LAUNCHES["segment_sum_bwd"] == before + 1
+    assert launch_counts()["segment_sum_bwd"] == before + 1
     assert torch.equal(feat.grad, pooling.segment_sum_bwd_plain(
         seg.reshape(1, -1), dsums, torch.float32))
     with pytest.raises(TypeError):
@@ -629,9 +642,9 @@ def test_segment_sum_bwd_kernel_matches_plain(cuda, B, P, C, offset, dtype):
     assert (seg >= K).any() and (seg < 0).any()
     dsums = torch.randn(B * K * C + offset, generator=gen, device=cuda)[
         offset:].view(B, K, C)
-    before = pooling.LAUNCHES["segment_sum_bwd"]
+    before = launch_counts()["segment_sum_bwd"]
     got = pooling.segment_sum_bwd(seg, dsums, dtype)
-    assert pooling.LAUNCHES["segment_sum_bwd"] == before + 1
+    assert launch_counts()["segment_sum_bwd"] == before + 1
     want = pooling.segment_sum_bwd_plain(seg, dsums, dtype)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, P, C)
@@ -672,9 +685,9 @@ def test_adjoint_pool_stage_bwd_kernel_matches_plain(cuda, C, dtype, kind,
         sg = seg[..., :Wc].contiguous()
         A_wT = torch.from_numpy(_interp_matrix(Ws, Wc, True)).t()
         dsums = _dsums(cuda, B, K, C, layout, gen)
-        before = adjoint.LAUNCHES["adjoint_pool_stage_bwd"]
+        before = launch_counts()["adjoint_pool_stage_bwd"]
         got = adjoint.adjoint_pool_stage_bwd(sg, dsums, A_wT, K, dtype)
-        assert adjoint.LAUNCHES["adjoint_pool_stage_bwd"] == before + 1
+        assert launch_counts()["adjoint_pool_stage_bwd"] == before + 1
         want = adjoint.adjoint_pool_stage_bwd_plain(sg, dsums, A_wT, K, dtype)
         mass = adjoint.adjoint_pool_stage_bwd_plain(sg, dsums.abs(), A_wT, K,
                                                     torch.float32)
@@ -1122,9 +1135,9 @@ def test_tile_cut_kernel_matches_plain(cuda, hw, patch):
              for chunk, extra in ((8, 0), (3, 1))
              for first in range(0, n, chunk)] + [(n, 0, 1)]
     for first, n_real, n_rows in cases:
-        before = tile.LAUNCHES["tile_cut"]
+        before = launch_counts()["tile_cut"]
         got = tile.cut(*on_card, first, n_real, n_rows, patch_hw, canvas_hw)
-        assert tile.LAUNCHES["tile_cut"] == before + 1
+        assert launch_counts()["tile_cut"] == before + 1
         want = tile.cut(slide, tops, lefts, first, n_real, n_rows, patch_hw,
                         canvas_hw)
         assert got.shape == want.shape == (n_rows, *canvas_hw, 3)
@@ -1149,10 +1162,10 @@ def test_tile_stitch_kernel_matches_plain(cuda, hw, patch, dtype,
         probs = rng.random((n, h, w), dtype=np.float32)
         probs[:, 0, :3] = [0.5, 1.5, 2.5]
     probs = torch.from_numpy(probs)
-    before = tile.LAUNCHES["tile_stitch"]
+    before = launch_counts()["tile_stitch"]
     got = tile.stitch(probs.to(cuda), tops.to(cuda), lefts.to(cuda), hw,
                       round_patches)
-    assert tile.LAUNCHES["tile_stitch"] == before + 1
+    assert launch_counts()["tile_stitch"] == before + 1
     want = tile.stitch(probs, tops, lefts, hw, round_patches)
     assert got.dtype == torch.float64 and got.shape == hw
     assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
@@ -1177,8 +1190,8 @@ def test_predict_tiled_on_card_matches_the_host_route(cuda):
     reset_launches()
     got = inference.predict_tiled(pred, img, 400, chunk=8,
                                   round_patches=False)
-    assert dict(tile.LAUNCHES) == {"tile_cut": 2, "tile_stitch": 1}
-    assert hypercol.LAUNCHES["hypercol_upsample"] == 2
+    assert _counts(*TILE) == {"tile_cut": 2, "tile_stitch": 1}
+    assert launch_counts()["hypercol_upsample"] == 2
     assert got.dtype == np.float64 and got.shape == (1512, 1516)
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
@@ -1189,7 +1202,7 @@ def test_tile_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     tops, lefts = tops.to(cuda), lefts.to(cuda)
     slide = torch.zeros((64, 80, 3), dtype=torch.uint8, device=cuda)
     probs = torch.zeros((4, 48, 48), device=cuda)
-    before = dict(tile.LAUNCHES)
+    before = _counts(*TILE)
     for kind, call in [
             (TypeError, lambda: tile.cut(slide.float(), tops, lefts, 0, 2, 2,
                                          patch_hw, canvas_hw)),
@@ -1220,7 +1233,7 @@ def test_tile_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             (ValueError, lambda: tile.stitch(probs, tops, lefts, (0, 80)))]:
         with pytest.raises(kind):
             call()
-    assert dict(tile.LAUNCHES) == before
+    assert _counts(*TILE) == before
 
 
 # two shape groups, interleaved
@@ -1402,4 +1415,4 @@ def test_hypercol_refuses_grad_on_card(cuda):
                         generator=torch.Generator().manual_seed(0)).to(cuda)
     with pytest.raises(RuntimeError, match="not differentiable"):
         wesup.forward_pixel(model, torch.rand((1, 32, 32, 3), device=cuda))
-    assert hypercol.LAUNCHES["hypercol_upsample"] == 0
+    assert launch_counts()["hypercol_upsample"] == 0

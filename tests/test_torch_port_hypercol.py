@@ -54,7 +54,7 @@ def test_upsample_on_cpu_is_the_composition(shape, dtype):
     assert got.dtype == dtype and got.shape == shape
     assert torch.equal(got, want)
     assert torch.equal(hypercol.upsample_plain(maps, bias), want)
-    assert hypercol.LAUNCHES["hypercol_upsample"] == 0
+    assert ops.launch_counts()["hypercol_upsample"] == 0
 
 
 @pytest.mark.parametrize("in_size,out_size", [

@@ -10,8 +10,8 @@
   ``prof.events()`` and matches it within 100 us at the 95th percentile,
   and self times add up to each root's duration;
 - the predictor builds each canvas's step once;
-- counters: the kernel modules' ``LAUNCHES`` and ``ops.launch_counts()``
-  are views of the tracer's ``launches.<kernel>`` counters.
+- counters: ``ops.launch_counts()`` reads the tracer's
+  ``launches.<kernel>`` counters, one per kernel of the registry.
 """
 
 import statistics
@@ -32,7 +32,6 @@ from torch_threads import worker_threads  # noqa: E402,F401
 from wesup_tpu_torch import inference, ops, tracing  # noqa: E402
 from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.models import initialize_trainer, wesup  # noqa: E402
-from wesup_tpu_torch.ops import adjoint, cellpool, pool, pooling  # noqa: E402
 
 CFG = dict(slic_iters=2, compute_dtype="float32", sp_area=100, fc_width=64)
 EPOCH = 3
@@ -371,18 +370,19 @@ def test_launch_counts_are_the_tracers_counters():
     tracing.count("launches.cell_pool_stage", 4)
     tracing.count("launches.segment_sum_bwd")
     tracing.count("launches.fused_relu_pool_pad")
-    assert cellpool.LAUNCHES == {"cell_pool0": 0, "cell_pool_stage": 4,
-                                 "cell_pool0_bwd": 0,
-                                 "cell_pool_stage_bwd": 0}
-    assert dict(pooling.LAUNCHES) == {"segment_sum": 0, "segment_sum_bwd": 1}
-    assert pool.LAUNCHES["fused_relu_pool_pad"] == 1
-    assert sum(adjoint.LAUNCHES.values()) == 0
+    tracing.count("test.not_a_launch", 2)
+    counts = ops.launch_counts()
+    assert counts == dict(dict.fromkeys(names, 0), cell_pool_stage=4,
+                          segment_sum_bwd=1, fused_relu_pool_pad=1)
+    assert counts["cell_pool0_bwd"] == 0   # segment_sum_bwd's C function
     assert tracing.counters()["launches.cell_pool_stage"] == 4
-    pooling.reset_launches()
+    tracing.reset(["launches.segment_sum_bwd"])
     assert ops.launch_counts() == dict(dict.fromkeys(names, 0),
                                        cell_pool_stage=4,
                                        fused_relu_pool_pad=1)
     ops.reset_launches()
     assert not any(ops.launch_counts().values())
+    assert tracing.counters()["test.not_a_launch"] == 2
+    tracing.reset(["test.not_a_launch"])
     with pytest.raises(KeyError):
-        cellpool.LAUNCHES["segment_sum"]
+        ops.launch_counts()["wesup_cell_pool0_bwd"]

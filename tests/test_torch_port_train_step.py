@@ -36,7 +36,7 @@ from wesup_tpu_torch import tracing  # noqa: E402
 from wesup_tpu_torch.config import WESUPConfig  # noqa: E402
 from wesup_tpu_torch.models import steps, wesup  # noqa: E402
 from wesup_tpu_torch.models.convert import from_jax_params  # noqa: E402
-from wesup_tpu_torch.ops import cellgrid  # noqa: E402
+from wesup_tpu_torch.ops import kernels  # noqa: E402
 from wesup_tpu_torch.ops import slic as t_slic  # noqa: E402
 from wesup_tpu_torch.utils import prng  # noqa: E402
 
@@ -346,7 +346,7 @@ def test_predict_then_train_in_one_process():
     trainer validates between epochs) can use them under autograd: the
     "local" path's plan tables and the "adjoint" path's upsample matrices
     and column tables alike."""
-    cellgrid._const_cache.clear()
+    kernels._const_cache.clear()
     t_slic._GRID_CACHE.clear()
     batch = _batch(seed=20)
     cfgs = [WESUPConfig(**_CFG, pooling=p) for p in ("local", "adjoint")]
@@ -354,13 +354,13 @@ def test_predict_then_train_in_one_process():
     for cfg in cfgs:
         steps.make_predict_step(cfg, (H, W), device="cpu")(
             model, batch["image"], batch["valid"])
-    cached = [t for v in list(cellgrid._const_cache.values())
+    cached = [t for v in list(kernels._const_cache.values())
               + list(t_slic._GRID_CACHE.values())
               for t in (v if isinstance(v, tuple) else (v,))
               for t in (t if isinstance(t, tuple) else (t,))
               if isinstance(t, torch.Tensor)]
     assert cached and not any(t.is_inference() for t in cached)
-    assert any(k[0] == "adjoint_table" for k in cellgrid._const_cache)
+    assert any(k[0] == "adjoint_table" for k in kernels._const_cache)
     for cfg in cfgs:
         step = steps.make_train_step(cfg, (H, W), point_mode=True,
                                      device="cpu")

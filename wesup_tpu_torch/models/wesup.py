@@ -74,6 +74,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import adjoint, cellgrid, cellpool, hypercol
+from ..ops.kernels import device_const
 from ..ops import pooling as seg_pool
 from ..ops.resize import _interp_matrix, fused_upsample_sum, resize_w_only
 from ..ops.segments import paint
@@ -250,7 +251,7 @@ def _upsample_h(taps: torch.Tensor, H: int) -> torch.Tensor:
     """(B, Hs, Ws, C) -> (B, H, Ws, C) align-corners upsample along H, one
     matmul in taps' dtype; the result is contiguous (channels last)."""
     B, Hs, Ws, C = taps.shape
-    A_h = cellgrid._device_const(
+    A_h = device_const(
         ("interp", Hs, H, str(taps.dtype), str(taps.device)),
         lambda: torch.as_tensor(_interp_matrix(Hs, H, True), dtype=taps.dtype,
                                 device=taps.device))
@@ -341,7 +342,7 @@ def forward_superpixel(model: WESUP, img: torch.Tensor, seg: torch.Tensor,
                 tapsH = _upsample_h(stage_taps, H)
             with span("wesup.step.k6"):
                 A_wT = torch.from_numpy(_interp_matrix(Ws, W, True)).t()
-                table = cellgrid._device_const(
+                table = device_const(
                     ("adjoint_table", Ws, W, str(compute_dtype),
                      str(tapsH.device)),
                     lambda: adjoint.column_table(A_wT, compute_dtype,

@@ -1,18 +1,22 @@
-"""ctypes bindings for the port's host libraries: the evaluation kernels of
+"""The port's native code: how it is built and loaded, and the bindings
+of its host libraries, the evaluation kernels of
 ``wesup_tpu_torch/csrc/wesup_native.cpp`` and the JPEG codec of
 ``wesup_tpu_torch/csrc/jpeg.cpp``.
 
-The first is a copy of ``wesup_tpu.native``.  Each library is built by
-the port itself: on first use, with the host's C++ compiler (``$CXX``,
-else ``g++``) and the flags of ``csrc/Makefile`` (``$CXXFLAGS``, else
-``-O3 -march=native -fPIC -std=c++17 -Wall``), into
-``wesup_tpu_torch/_build/`` under a name keyed by a hash of the
-compiler, the flags and the source; the finished file is moved into
-place atomically, so processes that build at once never load half a
-file.  A failed build raises ``RuntimeError`` with the compiler's log:
-there is no quiet fallback.
+:func:`load` builds and loads every native library of the port: the CUDA
+kernels' (``csrc/*.cu``, with nvcc: ``ops/kernels.py``) and these two host
+libraries (with the host's C++ compiler, ``$CXX``, else ``g++``, and the
+flags of ``csrc/Makefile``, ``$CXXFLAGS``, else ``-O3 -march=native -fPIC
+-std=c++17 -Wall``).  On first use it compiles each source by its own
+compiler process, all started together, and links the objects into
+``wesup_tpu_torch/_build/`` under a name keyed by a hash of the compiler
+command, the flags and every source and header; the finished file is
+moved into place atomically, so processes that build at once never load
+half a file.  A failed build raises ``RuntimeError`` with the failing
+sources' names and the compiler's log, and leaves no file: there is no
+quiet fallback.
 
-Provided:
+The first host library is a copy of ``wesup_tpu.native``.  Provided:
     label8(mask)             -- 8-connectivity CCL (skimage.label semantics),
                                 labels numbered in raster order
     edt_sq(mask)             -- exact squared EDT to the nonzero set (f32)
@@ -45,13 +49,16 @@ import os
 import shlex
 import subprocess
 import threading
+import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "wesup_native.cpp"
-JPEG_SOURCE = _PKG / "csrc" / "jpeg.cpp"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "wesup_native.cpp"
+JPEG_SOURCE = CSRC / "jpeg.cpp"
 BUILD_DIR = _PKG / "_build"
 DEFAULT_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17 -Wall"
 
@@ -75,65 +82,114 @@ _JPEG_SIGNATURES = {
     "jpeg_free": (None, [_U8P]),
 }
 
+
+class Built(NamedTuple):
+    """One library's build: its path, the compiler's seconds and log (0
+    and empty where a finished library was reused)."""
+
+    path: Path
+    seconds: float = 0.0
+    log: str = ""
+
+
 _lock = threading.Lock()
-_libs = {}
+_libs: dict = {}
+builds: dict = {}    # each library this process loaded, by name: its Built
 
 
-def _command(out: Path, source: Path = SOURCE) -> list:
-    cxx = shlex.split(os.environ.get("CXX") or "g++")
-    flags = shlex.split(os.environ.get("CXXFLAGS") or DEFAULT_CXXFLAGS)
-    return [*cxx, *flags, "-shared", "-o", str(out), str(source)]
+def _run(steps: list, log: list) -> list:
+    """Run the (name, command) ``steps`` all together, appending each
+    command and its output to ``log``; the names of those that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for _, cmd in steps]
+    failed = []
+    for (name, cmd), proc in zip(steps, procs):
+        log.append(f"== {name}: {shlex.join(cmd)}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(name)
+    return failed
 
 
-def build(source: Path = SOURCE) -> Path:
-    """Compile the library of ``source`` if this source, compiler and
-    flags were not built yet; return its path."""
-    probe = _command(Path("OUT"), source)
-    digest = hashlib.sha256(" ".join(probe).encode())
-    digest.update(source.read_bytes())
-    stem = "wesup_native" if source == SOURCE else source.stem
-    out = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
+def build(name: str, compiler: list, flags: list, sources: list,
+          headers: list = ()) -> Built:
+    """Compile each of ``sources`` by its own ``compiler`` process with
+    ``flags``, all started together, and link the objects into
+    ``lib<name>_<key>.so`` under :data:`BUILD_DIR`, unless that library is
+    there already; ``<key>`` hashes the compiler command, the flags and
+    every source's and header's name and bytes."""
+    digest = hashlib.sha256(shlex.join([*compiler, *flags]).encode())
+    for path in sorted([*sources, *headers]):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
-        return out
+        return Built(out)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp.so"
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    lines: list = []
+    t0 = time.perf_counter()
     try:
-        proc = subprocess.run(_command(tmp, source), capture_output=True,
-                              text=True)
-    except OSError as ex:  # the compiler itself is missing
-        raise RuntimeError(f"cannot build {source.name}: {ex}") from ex
-    if proc.returncode != 0:
+        failed = _run([(src.name,
+                        [*compiler, *flags, "-c", "-o", str(obj), str(src)])
+                       for src, obj in zip(sources, objs)], lines)
+        if not failed:
+            failed = _run([(out.name,
+                            [*compiler, "-shared", "-o", str(tmp),
+                             *map(str, objs)])], lines)
+    except OSError as ex:    # the compiler cannot be started
+        failed = [src.name for src in sources]
+        lines.append(str(ex))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    log = "".join(lines)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building {source.name} failed (exit {proc.returncode}): "
-            f"{' '.join(_command(tmp, source))}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+        raise RuntimeError(f"building {', '.join(failed)} failed:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return Built(out, time.perf_counter() - t0, log)
 
 
-def _load(source: Path, signatures: dict) -> ctypes.CDLL:
-    lib = _libs.get(source)
+def load(name: str, signatures: dict, recipe) -> ctypes.CDLL:
+    """The library ``name``, built on first call from ``recipe()`` (the
+    compiler command, flags, sources and headers of :func:`build`) and
+    loaded once, its functions given ``signatures`` (symbol: (restype,
+    argtypes))."""
+    lib = _libs.get(name)
     if lib is None:
         with _lock:
-            lib = _libs.get(source)
+            lib = _libs.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(build(source)))
-                for name, (restype, argtypes) in signatures.items():
-                    fn = getattr(lib, name)
+                built = build(name, *recipe())
+                lib = ctypes.CDLL(str(built.path))
+                for symbol, (restype, argtypes) in signatures.items():
+                    fn = getattr(lib, symbol)
                     fn.restype = restype
                     fn.argtypes = argtypes
-                _libs[source] = lib
+                builds[name] = built
+                _libs[name] = lib
     return lib
+
+
+def _cxx(source: Path):
+    """The host compiler command, its flags and ``source``, for
+    :func:`build`."""
+    return (shlex.split(os.environ.get("CXX") or "g++"),
+            shlex.split(os.environ.get("CXXFLAGS") or DEFAULT_CXXFLAGS),
+            [source])
 
 
 def library() -> ctypes.CDLL:
     """The loaded evaluation library, built on first call."""
-    return _load(SOURCE, _SIGNATURES)
+    return load("wesup_native", _SIGNATURES, lambda: _cxx(SOURCE))
 
 
 def jpeg_library() -> ctypes.CDLL:
     """The loaded JPEG library, built on first call."""
-    return _load(JPEG_SOURCE, _JPEG_SIGNATURES)
+    return load("jpeg", _JPEG_SIGNATURES, lambda: _cxx(JPEG_SOURCE))
 
 
 def _as_u8(mask) -> np.ndarray:

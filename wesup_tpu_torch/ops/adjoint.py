@@ -35,8 +35,7 @@ exact transpose of K6 as K6 computes it:
 
 summed in f32 with the same rounded ``p_h``, T the taps' dtype.  The JAX
 package has no kernel here: it differentiates its einsums.  The seg, the
-lists and the table get no gradient.  ``LAUNCHES`` counts the kernel
-launches.
+lists and the table get no gradient.
 """
 
 from __future__ import annotations
@@ -47,19 +46,8 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .. import tracing
-from .cellgrid import _device_const
-from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
+from .kernels import DTYPE_CODE, check, device_const, launch
 from .pooling import SegmentLists, segment_lists
-
-# kernel launches since the last reset_launches(), by kernel name: a view
-# of the tracer's counters launches.<kernel>
-LAUNCHES = tracing.CounterView(
-    "launches.", ("adjoint_pool_stage", "adjoint_pool_stage_bwd"))
-
-
-def reset_launches() -> None:
-    LAUNCHES.reset()
 
 
 def _rounded_p(seg: torch.Tensor, A_wT: torch.Tensor, K: int, dt):
@@ -114,7 +102,7 @@ def column_table(A_wT: torch.Tensor, dtype, device) -> ColumnTable:
     matrix: a caller that pools many times keeps the table and passes it)."""
     A = A_wT.detach().cpu().to(dtype).to(torch.float32).numpy()
     key = ("adjoint_columns", A.shape, str(dtype), str(device), A.tobytes())
-    return _device_const(key, lambda: _build_column_table(A, device))
+    return device_const(key, lambda: _build_column_table(A, device))
 
 
 def _build_column_table(A: np.ndarray, device):
@@ -158,10 +146,10 @@ def _check_stage(seg, tapsH_T, A_wT, K, lists, table):
                          f"{tuple(seg.shape)}")
     if tuple(A_wT.shape) != (Ws, W):
         raise ValueError(f"A_wT is {tuple(A_wT.shape)}, expected {(Ws, W)}")
-    if tapsH_T.dtype not in _DTYPE_CODE:
+    if tapsH_T.dtype not in DTYPE_CODE:
         raise TypeError(f"tapsH_T has dtype {tapsH_T.dtype}, expected one "
-                        f"of {tuple(_DTYPE_CODE)}")
-    _check("seg", seg, (B, H, W), (torch.int32,), tapsH_T.device)
+                        f"of {tuple(DTYPE_CODE)}")
+    check("seg", seg, (B, H, W), (torch.int32,), tapsH_T.device)
     if lists is None:
         lists = segment_lists(seg, K)
     elif lists.K != K or lists.order.numel() != B * H * W:
@@ -178,18 +166,11 @@ def _launch_fwd(seg, tapsH_T, K, lists, table) -> torch.Tensor:
     """K6 on checked CUDA inputs: the (B, K, C) float32 sums."""
     B, W = seg.shape[0], seg.shape[2]
     C, Ws = tapsH_T.shape[1], tapsH_T.shape[3]
-    from ._build import library
-
-    lib = library()
     out = torch.empty((B, K, C), dtype=torch.float32, device=tapsH_T.device)
-    with torch.cuda.device(tapsH_T.device):   # launch on the tensors' card
-        err = lib.wesup_adjoint_pool_stage(
-            lists.order.data_ptr(), lists.start.data_ptr(), tapsH_T.data_ptr(),
-            *tapsH_T.stride(), table.v0.data_ptr(), table.a0.data_ptr(),
-            table.a1.data_ptr(), out.data_ptr(), B, W, Ws, C, K,
-            _DTYPE_CODE[tapsH_T.dtype], _stream_ptr(tapsH_T.device))
-    _raise_on_error("adjoint_pool_stage", err)
-    tracing.count("launches.adjoint_pool_stage")
+    launch("adjoint_pool_stage", tapsH_T.device, lists.order.data_ptr(),
+           lists.start.data_ptr(), tapsH_T.data_ptr(), *tapsH_T.stride(),
+           table.v0.data_ptr(), table.a0.data_ptr(), table.a1.data_ptr(),
+           out.data_ptr(), B, W, Ws, C, K, DTYPE_CODE[tapsH_T.dtype])
     return out
 
 
@@ -207,7 +188,7 @@ def adjoint_pool_stage_bwd(seg: torch.Tensor, dsums: torch.Tensor,
     if dsums.device.type != "cuda":
         raise ValueError(f"adjoint_pool_stage_bwd: unsupported device "
                          f"{dsums.device}")
-    if dtype not in _DTYPE_CODE:
+    if dtype not in DTYPE_CODE:
         raise TypeError(f"adjoint_pool_stage_bwd: unsupported dtype {dtype}")
     B, H, W = seg.shape
     Ws = A_wT.shape[0]
@@ -218,24 +199,18 @@ def adjoint_pool_stage_bwd(seg: torch.Tensor, dsums: torch.Tensor,
     if tuple(A_wT.shape) != (Ws, W):
         raise ValueError(f"A_wT is {tuple(A_wT.shape)}, seg is "
                          f"{tuple(seg.shape)}")
-    _check("seg", seg, (B, H, W), (torch.int32,), dsums.device)
+    check("seg", seg, (B, H, W), (torch.int32,), dsums.device)
     if table is None:
         table = column_table(A_wT, dtype, dsums.device)
     if (table.v0.numel() != W or table.lo.numel() != Ws
             or table.v0.device != dsums.device):
         raise ValueError("table was built for another A_wT or device")
-    from ._build import library
-
-    lib = library()
     out = torch.empty((B, H, Ws, C), dtype=dtype, device=dsums.device)
-    with torch.cuda.device(dsums.device):   # launch on the tensors' card
-        err = lib.wesup_adjoint_pool_stage_bwd(
-            seg.data_ptr(), dsums.data_ptr(), *dsums.stride(),
-            table.v0.data_ptr(), table.a0.data_ptr(), table.a1.data_ptr(),
-            table.lo.data_ptr(), table.hi.data_ptr(), out.data_ptr(), B, H, W,
-            Ws, C, K, table.cap, _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
-    _raise_on_error("adjoint_pool_stage_bwd", err)
-    tracing.count("launches.adjoint_pool_stage_bwd")
+    launch("adjoint_pool_stage_bwd", dsums.device, seg.data_ptr(),
+           dsums.data_ptr(), *dsums.stride(), table.v0.data_ptr(),
+           table.a0.data_ptr(), table.a1.data_ptr(), table.lo.data_ptr(),
+           table.hi.data_ptr(), out.data_ptr(), B, H, W, Ws, C, K, table.cap,
+           DTYPE_CODE[dtype])
     return out.permute(0, 3, 1, 2)
 
 

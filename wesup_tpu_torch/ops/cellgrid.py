@@ -29,33 +29,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .kernels import device_const
 from .resize import _interp_matrix
 from .slic import _OFFSETS, SlicPlan, _bin_cells, _cached_grid
-
-_const_cache: dict = {}
-
-
-def _device_const(key, build):
-    """Per-device copy of a numpy constant, built once.
-
-    Built outside inference mode even when the first caller runs under
-    ``torch.inference_mode`` (the predict steps): a cached inference tensor
-    would raise later when a train step's autograd saves it."""
-    got = _const_cache.get(key)
-    if got is None:
-        with torch.inference_mode(False):
-            got = build()
-        _const_cache[key] = got
-    return got
 
 
 def local_offsets(plan: SlicPlan, seg: torch.Tensor) -> torch.Tensor:
     """(..., H, W) local-offset index ``(dy+1)*3 + (dx+1)`` in [0, 9) of each
     pixel's cluster relative to the pixel's own cell."""
     dev = seg.device
-    cy = _device_const(("cy", plan.H, plan.Kh, str(dev)), lambda: torch.as_tensor(
+    cy = device_const(("cy", plan.H, plan.Kh, str(dev)), lambda: torch.as_tensor(
         plan.cell_y.astype(np.int64), device=dev))
-    cx = _device_const(("cx", plan.W, plan.Kw, str(dev)), lambda: torch.as_tensor(
+    cx = device_const(("cx", plan.W, plan.Kw, str(dev)), lambda: torch.as_tensor(
         plan.cell_x.astype(np.int64), device=dev))
     seg = seg.long()
     sy = torch.div(seg, plan.Kw, rounding_mode="floor")
@@ -190,7 +175,7 @@ def make_stage_pool_plan(plan: SlicPlan, Hs: int, Ws: int,
 def _spp_const(spp: StagePoolPlan, key, build):
     """A device constant derived from ``spp``, cached per plan object (the
     entry holds the plan, so its id stays unique while cached)."""
-    return _device_const((id(spp),) + key, lambda: (spp, build()))[1]
+    return device_const((id(spp),) + key, lambda: (spp, build()))[1]
 
 
 def _spp_consts(spp: StagePoolPlan, name: str, dtype, device):

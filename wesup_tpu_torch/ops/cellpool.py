@@ -22,8 +22,8 @@ runs K3 / K4, the segment ids and window weights get no gradient (they
 descend from integer SLIC assignments).  For CUDA tensors every wrapper
 launches its hand-written kernel in ``csrc/cellpool.cu`` (or raises); only
 for CPU tensors does it take the plain PyTorch version beside it, which the
-tests and ``chip_smoke.py`` hold the kernel against.  ``LAUNCHES`` counts
-the kernel launches, one per wrapper call that reaches the card.
+tests and ``chip_smoke.py`` hold the kernel against.  Each wrapper call
+that reaches the card is one :func:`~wesup_tpu_torch.ops.kernels.launch`.
 """
 
 from __future__ import annotations
@@ -32,21 +32,9 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .. import tracing
-from .cellgrid import (StagePoolPlan, _device_const, _spp_const,
-                       expand_window_weights)
+from .cellgrid import StagePoolPlan, _spp_const, expand_window_weights
+from .kernels import DTYPE_CODE, check, device_const, launch
 from .slic import SlicPlan
-
-# kernel launches since the last reset_launches(), by kernel name: a view
-# of the tracer's counters launches.<kernel>
-LAUNCHES = tracing.CounterView("launches.", (
-    "cell_pool0", "cell_pool_stage", "cell_pool0_bwd", "cell_pool_stage_bwd"))
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    LAUNCHES.reset()
 
 
 def _window_ranges(idx: np.ndarray, lo_val: np.ndarray, hi_val: np.ndarray):
@@ -69,7 +57,7 @@ def _pool0_tables(plan: SlicPlan, device):
         return tuple(torch.as_tensor(t, device=device) for t in rows + cols)
 
     key = ("pool0", plan.H, plan.W, plan.Kh, plan.Kw, str(device))
-    return _device_const(key, build)
+    return device_const(key, build)
 
 
 def _stage_tables(spp: StagePoolPlan, device):
@@ -87,27 +75,6 @@ def _stage_tables(spp: StagePoolPlan, device):
                      for t in arrs + prow + qcol)
 
     return _spp_const(spp, ("tables", str(device)), build)
-
-
-def _check(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -132,21 +99,14 @@ def _pool0_fwd(plan: SlicPlan, seg: torch.Tensor,
     B, H, W, C = taps.shape
     if (H, W) != (plan.H, plan.W):
         raise ValueError(f"taps are {H}x{W}, plan is {plan.H}x{plan.W}")
-    _check("taps", taps, (B, H, W, C), _DTYPE_CODE, taps.device)
-    _check("seg", seg, (B, H, W), (torch.int32,), taps.device)
-    from ._build import library
-
-    lib = library()
+    check("taps", taps, (B, H, W, C), DTYPE_CODE, taps.device)
+    check("seg", seg, (B, H, W), (torch.int32,), taps.device)
     tables = _pool0_tables(plan, taps.device)
     out = torch.empty((B, plan.n_clusters, C), dtype=torch.float32,
                       device=taps.device)
-    with torch.cuda.device(taps.device):   # launch on the tensors' card
-        err = lib.wesup_cell_pool0(
-            seg.data_ptr(), taps.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in tables), B, H, W, C, plan.Kh, plan.Kw,
-            _DTYPE_CODE[taps.dtype], _stream_ptr(taps.device))
-    _raise_on_error("cell_pool0", err)
-    tracing.count("launches.cell_pool0")
+    launch("cell_pool0", taps.device, seg.data_ptr(), taps.data_ptr(),
+           out.data_ptr(), *(t.data_ptr() for t in tables), B, H, W, C,
+           plan.Kh, plan.Kw, DTYPE_CODE[taps.dtype])
     return out
 
 
@@ -170,28 +130,21 @@ def cell_pool0_bwd(plan: SlicPlan, seg: torch.Tensor, dsums: torch.Tensor,
         return cell_pool0_bwd_plain(plan, seg, dsums, dtype)
     if dsums.device.type != "cuda":
         raise ValueError(f"cell_pool0_bwd: unsupported device {dsums.device}")
-    if dtype not in _DTYPE_CODE:
+    if dtype not in DTYPE_CODE:
         raise TypeError(f"cell_pool0_bwd: unsupported dtype {dtype}")
     B, H, W = seg.shape
     C = dsums.shape[-1]
     if (H, W) != (plan.H, plan.W):
         raise ValueError(f"seg is {H}x{W}, plan is {plan.H}x{plan.W}")
-    _check("dsums", dsums, (B, plan.n_clusters, C), (torch.float32,),
+    check("dsums", dsums, (B, plan.n_clusters, C), (torch.float32,),
            dsums.device)
-    _check("seg", seg, (B, H, W), (torch.int32,), dsums.device)
+    check("seg", seg, (B, H, W), (torch.int32,), dsums.device)
     if max(B * H * W + 32, B * plan.n_clusters) >= 2**31:
         raise ValueError("cell_pool0_bwd: pixel and row indices must fit "
                          "in int32")
-    from ._build import library
-
-    lib = library()
     out = torch.empty((B, H, W, C), dtype=dtype, device=dsums.device)
-    with torch.cuda.device(dsums.device):   # launch on the tensors' card
-        err = lib.wesup_cell_pool0_bwd(
-            seg.data_ptr(), dsums.data_ptr(), out.data_ptr(), B, H, W, C,
-            plan.n_clusters, _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
-    _raise_on_error("cell_pool0_bwd", err)
-    tracing.count("launches.cell_pool0_bwd")
+    launch("cell_pool0_bwd", dsums.device, seg.data_ptr(), dsums.data_ptr(),
+           out.data_ptr(), B, H, W, C, plan.n_clusters, DTYPE_CODE[dtype])
     return out
 
 
@@ -245,22 +198,15 @@ def _stage_fwd(spp: StagePoolPlan, mc: torch.Tensor,
     if (Hs, Ws) != (spp.Hs, spp.Ws):
         raise ValueError(f"taps are {Hs}x{Ws}, stage plan is "
                          f"{spp.Hs}x{spp.Ws}")
-    _check("taps", taps, (B, Hs, Ws, C), _DTYPE_CODE, taps.device)
-    _check("mc", mc, (B, Hs, spp.Ih, Ws, spp.Jw), (taps.dtype,), taps.device)
-    from ._build import library
-
-    lib = library()
+    check("taps", taps, (B, Hs, Ws, C), DTYPE_CODE, taps.device)
+    check("mc", mc, (B, Hs, spp.Ih, Ws, spp.Jw), (taps.dtype,), taps.device)
     tables = _stage_tables(spp, taps.device)
     out = torch.empty((B, spp.Kh * spp.Kw, C), dtype=torch.float32,
                       device=taps.device)
-    with torch.cuda.device(taps.device):   # launch on the tensors' card
-        err = lib.wesup_cell_pool_stage(
-            mc.data_ptr(), taps.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in tables), B, Hs, Ws, C, spp.Ih, spp.Jw,
-            spp.Kh, spp.Kw, spp.rmin_y, spp.rmin_x, _DTYPE_CODE[taps.dtype],
-            _stream_ptr(taps.device))
-    _raise_on_error("cell_pool_stage", err)
-    tracing.count("launches.cell_pool_stage")
+    launch("cell_pool_stage", taps.device, mc.data_ptr(), taps.data_ptr(),
+           out.data_ptr(), *(t.data_ptr() for t in tables), B, Hs, Ws, C,
+           spp.Ih, spp.Jw, spp.Kh, spp.Kw, spp.rmin_y, spp.rmin_x,
+           DTYPE_CODE[taps.dtype])
     return out
 
 
@@ -290,25 +236,18 @@ def cell_pool_stage_bwd(spp: StagePoolPlan, mc: torch.Tensor,
         raise ValueError(f"cell_pool_stage_bwd: unsupported device "
                          f"{dsums.device}")
     B, C = dsums.shape[0], dsums.shape[-1]
-    _check("dsums", dsums, (B, spp.Kh * spp.Kw, C), (torch.float32,),
+    check("dsums", dsums, (B, spp.Kh * spp.Kw, C), (torch.float32,),
            dsums.device)
-    _check("mc", mc, (B, spp.Hs, spp.Ih, spp.Ws, spp.Jw), _DTYPE_CODE,
+    check("mc", mc, (B, spp.Hs, spp.Ih, spp.Ws, spp.Jw), DTYPE_CODE,
            dsums.device)
-    from ._build import library
-
-    lib = library()
     ay, ax = _stage_tables(spp, dsums.device)[:2]
     ds = dsums.to(mc.dtype)
     out = torch.empty((B, spp.Hs, spp.Ws, C), dtype=mc.dtype,
                       device=dsums.device)
-    with torch.cuda.device(dsums.device):   # launch on the tensors' card
-        err = lib.wesup_cell_pool_stage_bwd(
-            mc.data_ptr(), ds.data_ptr(), out.data_ptr(), ay.data_ptr(),
-            ax.data_ptr(), B, spp.Hs, spp.Ws, C, spp.Ih, spp.Jw, spp.Kh,
-            spp.Kw, spp.rmin_y, spp.rmin_x, _DTYPE_CODE[mc.dtype],
-            _stream_ptr(dsums.device))
-    _raise_on_error("cell_pool_stage_bwd", err)
-    tracing.count("launches.cell_pool_stage_bwd")
+    launch("cell_pool_stage_bwd", dsums.device, mc.data_ptr(), ds.data_ptr(),
+           out.data_ptr(), ay.data_ptr(), ax.data_ptr(), B, spp.Hs, spp.Ws, C,
+           spp.Ih, spp.Jw, spp.Kh, spp.Kw, spp.rmin_y, spp.rmin_x,
+           DTYPE_CODE[mc.dtype])
     return out
 
 

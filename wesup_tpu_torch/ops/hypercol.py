@@ -19,7 +19,7 @@ where the composition rounds; only the order of z's f32 sum differs.
 For a CUDA tensor :func:`upsample` launches the kernel (or raises); only
 for a CPU tensor does it take :func:`upsample_plain`, the composition
 itself.  The kernel is not differentiable: :func:`upsample` raises on an
-input that requires grad.  ``LAUNCHES`` counts the kernel launches.
+input that requires grad.
 """
 
 from __future__ import annotations
@@ -28,24 +28,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import tracing
-from .cellgrid import _device_const
-from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
+from .kernels import DTYPE_CODE, check, device_const, launch
 from .resize import _interp_matrix, fused_upsample_sum, resize_w_only
-
-# kernel launches since the last reset_launches(), by kernel name: a view
-# of the tracer's counters launches.<kernel>
-LAUNCHES = tracing.CounterView("launches.", ("hypercol_upsample",))
 
 # output rows each block of the kernel walks (csrc/hypercol.cu, at most
 # 128): longer bands recompute fewer W-resized rows at their tops (at the
 # tile cell's chunk, bands of 32, 64 and 128 rows took 3.08, 3.01 and 2.99
 # ms on an H100)
 ROWS = 128
-
-
-def reset_launches() -> None:
-    LAUNCHES.reset()
 
 
 def upsample_plain(maps, bias: torch.Tensor) -> torch.Tensor:
@@ -85,8 +75,8 @@ def _tables(maps, dtype, device):
             out += [idx.to(device), w.to(dtype).float().to(device)]
         return tuple(out)
 
-    return _device_const(("hypercol", H, W, sizes, str(dtype), str(device)),
-                         build)
+    return device_const(("hypercol", H, W, sizes, str(dtype), str(device)),
+                        build)
 
 
 def upsample(maps, bias: torch.Tensor) -> torch.Tensor:
@@ -100,10 +90,10 @@ def upsample(maps, bias: torch.Tensor) -> torch.Tensor:
     if any(t.requires_grad for t in (*maps, bias)):
         raise RuntimeError("hypercol_upsample is not differentiable: its "
                            "inputs must not require grad")
-    _check("maps[0]", maps[0], (B, H, W, C), _DTYPE_CODE, dev)
+    check("maps[0]", maps[0], (B, H, W, C), DTYPE_CODE, dev)
     for s, m in enumerate(maps[1:], 1):
-        _check(f"maps[{s}]", m, (B, *m.shape[1:3], C), (dt,), dev)
-    _check("bias", bias, (C,), (torch.float32, dt), dev)
+        check(f"maps[{s}]", m, (B, *m.shape[1:3], C), (dt,), dev)
+    check("bias", bias, (C,), (torch.float32, dt), dev)
     if dev.type == "cpu":
         return upsample_plain(maps, bias)
     if dev.type != "cuda":
@@ -111,16 +101,9 @@ def upsample(maps, bias: torch.Tensor) -> torch.Tensor:
     bias_t = bias.to(dt)
     xidx, xw, yidx, yw = _tables(maps, dt, dev)
     out = torch.empty_like(maps[0])
-    from ._build import library
-
-    lib = library()
-    with torch.cuda.device(dev):   # launch on the tensors' card
-        err = lib.wesup_hypercol_upsample(
-            *(m.data_ptr() for m in maps), bias_t.data_ptr(),
-            xidx.data_ptr(), xw.data_ptr(), yidx.data_ptr(), yw.data_ptr(),
-            out.data_ptr(), B, H, W, C, *(m.shape[1] for m in maps[1:]),
-            *(m.shape[2] for m in maps[1:]), _DTYPE_CODE[dt], ROWS,
-            _stream_ptr(dev))
-    _raise_on_error("hypercol_upsample", err)
-    tracing.count("launches.hypercol_upsample")
+    launch("hypercol_upsample", dev, *(m.data_ptr() for m in maps),
+           bias_t.data_ptr(), xidx.data_ptr(), xw.data_ptr(), yidx.data_ptr(),
+           yw.data_ptr(), out.data_ptr(), B, H, W, C,
+           *(m.shape[1] for m in maps[1:]), *(m.shape[2] for m in maps[1:]),
+           DTYPE_CODE[dt], ROWS)
     return out

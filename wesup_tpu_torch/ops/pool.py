@@ -19,7 +19,6 @@ raises); on a CPU tensor it runs :func:`reference`, the plain composition
 relu -> ``max_pool2d`` -> pad.  Its backward replays :func:`reference`
 under autograd, as the JAX custom VJP replays it with ``jax.vjp``, so the
 gradient routes through ``max_pool2d`` exactly as the unfused path's does.
-``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -28,16 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from .. import tracing
-from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
-
-# kernel launches since the last reset_launches(), by kernel name: a view
-# of the tracer's counters launches.<kernel>
-LAUNCHES = tracing.CounterView("launches.", ("fused_relu_pool_pad",))
-
-
-def reset_launches() -> None:
-    LAUNCHES.reset()
+from .kernels import DTYPE_CODE, check, launch
 
 
 def reference(pre: torch.Tensor, out_channels: int) -> torch.Tensor:
@@ -52,18 +42,11 @@ def reference(pre: torch.Tensor, out_channels: int) -> torch.Tensor:
 
 def _kernel(pre: torch.Tensor, out_channels: int) -> torch.Tensor:
     B, H, W, C = pre.shape
-    _check("pre", pre, (B, H, W, C), _DTYPE_CODE, pre.device)
-    from ._build import library
-
-    lib = library()
+    check("pre", pre, (B, H, W, C), DTYPE_CODE, pre.device)
     out = torch.empty((B, H // 2, W // 2, out_channels), dtype=pre.dtype,
                       device=pre.device)
-    with torch.cuda.device(pre.device):   # launch on the tensors' card
-        err = lib.wesup_fused_relu_pool_pad(
-            pre.data_ptr(), out.data_ptr(), B, H, W, C, out_channels,
-            _DTYPE_CODE[pre.dtype], _stream_ptr(pre.device))
-    _raise_on_error("fused_relu_pool_pad", err)
-    tracing.count("launches.fused_relu_pool_pad")
+    launch("fused_relu_pool_pad", pre.device, pre.data_ptr(), out.data_ptr(),
+           B, H, W, C, out_channels, DTYPE_CODE[pre.dtype])
     return out
 
 

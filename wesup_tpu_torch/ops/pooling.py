@@ -20,7 +20,6 @@ one stable sort of the ids; the adjoint stage kernel K6
 features' dtype T, 0 where the id lies outside [0, K), and launches K3's
 kernel (``csrc/cellpool.cu``, ``wesup_cell_pool0_bwd``), which computes
 exactly that over a flat pixel axis.  The ids get no gradient.
-``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -30,17 +29,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from .. import tracing
-from .cellpool import _DTYPE_CODE, _check, _raise_on_error, _stream_ptr
-
-# kernel launches since the last reset_launches(), by kernel name: a view
-# of the tracer's counters launches.<kernel>
-LAUNCHES = tracing.CounterView("launches.",
-                               ("segment_sum", "segment_sum_bwd"))
-
-
-def reset_launches() -> None:
-    LAUNCHES.reset()
+from .kernels import DTYPE_CODE, check, launch
 
 
 class SegmentLists(NamedTuple):
@@ -87,23 +76,16 @@ def _segment_sum_fwd(seg: torch.Tensor, feat: torch.Tensor, K: int,
     if feat.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {feat.device}")
     B, P, C = feat.shape
-    _check("feat", feat, (B, P, C), _DTYPE_CODE, feat.device)
-    _check("seg", seg, (B, P), (torch.int32,), feat.device)
+    check("feat", feat, (B, P, C), DTYPE_CODE, feat.device)
+    check("seg", seg, (B, P), (torch.int32,), feat.device)
     if lists is None:
         lists = segment_lists(seg, K)
     elif lists.K != K or lists.order.numel() != B * P:
         raise ValueError("lists were built for another seg or K")
-    from ._build import library
-
-    lib = library()
     out = torch.empty((B, K, C), dtype=torch.float32, device=feat.device)
-    with torch.cuda.device(feat.device):   # launch on the tensors' card
-        err = lib.wesup_segment_sum(
-            lists.order.data_ptr(), lists.start.data_ptr(), feat.data_ptr(),
-            out.data_ptr(), B, P, C, K, _DTYPE_CODE[feat.dtype],
-            _stream_ptr(feat.device))
-    _raise_on_error("segment_sum", err)
-    tracing.count("launches.segment_sum")
+    launch("segment_sum", feat.device, lists.order.data_ptr(),
+           lists.start.data_ptr(), feat.data_ptr(), out.data_ptr(), B, P, C,
+           K, DTYPE_CODE[feat.dtype])
     return out
 
 
@@ -135,26 +117,19 @@ def segment_sum_bwd(seg: torch.Tensor, dsums: torch.Tensor,
     if dsums.device.type != "cuda":
         raise ValueError(f"segment_sum_bwd: unsupported device "
                          f"{dsums.device}")
-    if dtype not in _DTYPE_CODE:
+    if dtype not in DTYPE_CODE:
         raise TypeError(f"segment_sum_bwd: unsupported dtype {dtype}")
     B, P = seg.shape
     K, C = dsums.shape[1:]
-    _check("dsums", dsums, (B, K, C), (torch.float32,), dsums.device)
-    _check("seg", seg, (B, P), (torch.int32,), dsums.device)
+    check("dsums", dsums, (B, K, C), (torch.float32,), dsums.device)
+    check("seg", seg, (B, P), (torch.int32,), dsums.device)
     if max(B * P + 32, B * K) >= 2**31:
         raise ValueError("segment_sum_bwd: pixel and row indices must fit "
                          "in int32")
-    from ._build import library
-
-    lib = library()
     ids = torch.where((seg >= 0) & (seg < K), seg, -1)
     out = torch.empty((B, P, C), dtype=dtype, device=dsums.device)
-    with torch.cuda.device(dsums.device):   # launch on the tensors' card
-        err = lib.wesup_cell_pool0_bwd(
-            ids.data_ptr(), dsums.data_ptr(), out.data_ptr(), B, 1, P, C, K,
-            _DTYPE_CODE[dtype], _stream_ptr(dsums.device))
-    _raise_on_error("segment_sum_bwd", err)
-    tracing.count("launches.segment_sum_bwd")
+    launch("segment_sum_bwd", dsums.device, ids.data_ptr(), dsums.data_ptr(),
+           out.data_ptr(), B, 1, P, C, K, DTYPE_CODE[dtype])
     return out
 
 

@@ -20,26 +20,17 @@ each h x w.
 For a CUDA tensor each wrapper launches its kernel (or raises); only for a
 CPU tensor does it take the plain version beside it, which the tests hold
 the kernel against.  Both kernels are bound by HBM bytes (the source's
-note).  ``LAUNCHES`` counts the kernel launches.
+note).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import tracing
-from .cellpool import _check, _raise_on_error, _stream_ptr
-
-# kernel launches since the last reset_launches(), by kernel name: a view
-# of the tracer's counters launches.<kernel>
-LAUNCHES = tracing.CounterView("launches.", ("tile_cut", "tile_stitch"))
+from .kernels import check, launch
 
 # the stitch's probability dtypes and their codes in csrc/tile.cu
 _STITCH_DTYPE = {torch.float32: 0, torch.uint8: 1}
-
-
-def reset_launches() -> None:
-    LAUNCHES.reset()
 
 
 def cut_plain(slide, tops, lefts, first, n_real, n_rows, patch_hw,
@@ -72,9 +63,9 @@ def cut(slide: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     H, W = map(int, canvas_hw)
     H0, W0 = slide.shape[:2]
     n_h, n_w = tops.shape[0], lefts.shape[0]
-    _check("slide", slide, (H0, W0, 3), (torch.uint8,), slide.device)
-    _check("tops", tops, (n_h,), (torch.int32,), slide.device)
-    _check("lefts", lefts, (n_w,), (torch.int32,), slide.device)
+    check("slide", slide, (H0, W0, 3), (torch.uint8,), slide.device)
+    check("tops", tops, (n_h,), (torch.int32,), slide.device)
+    check("lefts", lefts, (n_w,), (torch.int32,), slide.device)
     if not (0 < h <= min(H, H0) and 0 < w <= min(W, W0)):
         raise ValueError(f"tile_cut: patch {h}x{w} does not fit the canvas "
                          f"{H}x{W} and the slide {H0}x{W0}")
@@ -89,16 +80,9 @@ def cut(slide: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
         raise ValueError(f"tile_cut: unsupported device {slide.device}")
     out = torch.empty((n_rows, H, W, 3), dtype=torch.float32,
                       device=slide.device)
-    from ._build import library
-
-    lib = library()
-    with torch.cuda.device(slide.device):   # launch on the tensors' card
-        err = lib.wesup_tile_cut(
-            slide.data_ptr(), tops.data_ptr(), lefts.data_ptr(),
-            out.data_ptr(), W0, n_w, first, n_real, n_rows, h, w, H, W,
-            _stream_ptr(slide.device))
-    _raise_on_error("tile_cut", err)
-    tracing.count("launches.tile_cut")
+    launch("tile_cut", slide.device, slide.data_ptr(), tops.data_ptr(),
+           lefts.data_ptr(), out.data_ptr(), W0, n_w, first, n_real, n_rows,
+           h, w, H, W)
     return out
 
 
@@ -126,9 +110,9 @@ def stitch(probs: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     H0, W0 = map(int, out_hw)
     n_h, n_w = tops.shape[0], lefts.shape[0]
     h, w = probs.shape[1:] if probs.dim() == 3 else (0, 0)
-    _check("probs", probs, (n_h * n_w, h, w), _STITCH_DTYPE, probs.device)
-    _check("tops", tops, (n_h,), (torch.int32,), probs.device)
-    _check("lefts", lefts, (n_w,), (torch.int32,), probs.device)
+    check("probs", probs, (n_h * n_w, h, w), _STITCH_DTYPE, probs.device)
+    check("tops", tops, (n_h,), (torch.int32,), probs.device)
+    check("lefts", lefts, (n_w,), (torch.int32,), probs.device)
     if h == 0 or w == 0 or H0 < 1 or W0 < 1:
         raise ValueError(f"tile_stitch: empty patches ({h}x{w}) or map "
                          f"({H0}x{W0})")
@@ -137,15 +121,7 @@ def stitch(probs: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
     if probs.device.type != "cuda":
         raise ValueError(f"tile_stitch: unsupported device {probs.device}")
     out = torch.empty((H0, W0), dtype=torch.float64, device=probs.device)
-    from ._build import library
-
-    lib = library()
-    with torch.cuda.device(probs.device):   # launch on the tensors' card
-        err = lib.wesup_tile_stitch(
-            probs.data_ptr(), tops.data_ptr(), lefts.data_ptr(),
-            out.data_ptr(), H0, W0, n_h, n_w, h, w,
-            _STITCH_DTYPE[probs.dtype], int(bool(round_patches)),
-            _stream_ptr(probs.device))
-    _raise_on_error("tile_stitch", err)
-    tracing.count("launches.tile_stitch")
+    launch("tile_stitch", probs.device, probs.data_ptr(), tops.data_ptr(),
+           lefts.data_ptr(), out.data_ptr(), H0, W0, n_h, n_w, h, w,
+           _STITCH_DTYPE[probs.dtype], int(bool(round_patches)))
     return out

@@ -36,8 +36,8 @@ throwaway ``wesup.session`` range, which takes the profiler's first-call
 cost).
 
 Counters are always on, plain integer adds (:func:`count`): each CUDA
-kernel's launches (``launches.<kernel>``, viewed per kernel module as its
-``LAUNCHES`` mapping).
+kernel's launches (``launches.<kernel>``, counted by
+``ops.kernels.launch`` and read as ``ops.launch_counts()``).
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ import functools
 import itertools
 import threading
 import time
-from collections.abc import Mapping
 
 import torch
 from torch._C._profiler import _RecordFunctionFast
@@ -243,29 +242,7 @@ def counters() -> dict:
     return dict(_counters)
 
 
-class CounterView(Mapping):
-    """Counters ``prefix + key`` for a fixed set of keys, read as a
-    mapping of key to value (0 for one never counted)."""
-
-    def __init__(self, prefix: str, keys):
-        self.prefix = prefix
-        self._keys = tuple(keys)
-
-    def __getitem__(self, key):
-        if key not in self._keys:
-            raise KeyError(key)
-        return _counters.get(self.prefix + key, 0)
-
-    def __iter__(self):
-        return iter(self._keys)
-
-    def __len__(self):
-        return len(self._keys)
-
-    def __repr__(self):
-        return repr(dict(self))
-
-    def reset(self) -> None:
-        """Set these counters to 0."""
-        for key in self._keys:
-            _counters.pop(self.prefix + key, None)
+def reset(names) -> None:
+    """Set the counters ``names`` to 0."""
+    for name in names:
+        _counters.pop(name, None)

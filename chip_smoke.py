@@ -30,7 +30,13 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    limits of its plain version (the composition it replaces: W-resize
    einsums, concatenation, dense H-upsample GEMM, bias add, ReLU), one
    launch, and its time beside the plain version's and the
-   HBM bound (the five stage maps read once, the map written once);
+   HBM bound (the five stage maps read once, the map written once); then
+   the pixel head's ``pixel_head`` (``csrc/pixhead.cu``) at the same
+   chunk: within ``tests/torch_pixhead.py``'s intervals, as its plain
+   version (the composition it replaces: fc2's bias add and ReLU, fc3,
+   its bias and ReLU, the classifier, the softmax) must be too, one
+   launch, and its time beside the plain version's and the HBM bound
+   (fc2's output read once, 2.835 GB);
 8. training: K3 (``cell_pool0_bwd``) and K4 (``cell_pool_stage_bwd``)
    against their plain versions at the main-path shapes (K3 also at
    C = 1024, the width of fullres training's K5 backward); one f32
@@ -90,7 +96,8 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
 12. the pixel head and inference: the f32 pixel forward on the card
    against the CPU (full width, 2x96x128); ``make_predict_step(...,
    "pixel")`` at B=8 on the 288x416 canvas in bf16, with
-   ``hypercol_upsample`` launched once per step, and under
+   ``hypercol_upsample`` and ``pixel_head`` launched once per step, and
+   under
    ``WESUP_FUSED_POOL1=1`` with K7 once too (on the step's
    own input bitwise its plain version; the probabilities within 3e-2 of
    the ungated step's), step times in two rounds, img/s, peak memory,
@@ -102,7 +109,8 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    mask written with the right name, format and shape in {0, 255}, ms per
    image, K1 once and K2 four times per superpixel forward (the first
    forward's K1/K2 held against their plain versions on its inputs) and
-   ``hypercol_upsample`` once per forward in the pixel CLIs; ``POST
+   ``hypercol_upsample`` and ``pixel_head`` once per forward in the pixel
+   CLIs; ``POST
    /predict`` of a PNG to a superpixel and a pixel server, which must
    answer with masks (and a malformed JPEG with 400);
 13. the GlaS protocol as a user runs it on this machine: a raw set in
@@ -155,7 +163,8 @@ Phases, each of which fails loudly (a failed phase is a non-zero exit):
    (``make_image_hard`` from ``--seed``), patch 1000, superpixel at
    400x400 (K1 once and K2 four times per forward, the first forward's
    held against their plain versions) and ``--pixel`` at 0.4 under
-   ``WESUP_FUSED_POOL1=1`` (K7 and ``hypercol_upsample`` once per forward,
+   ``WESUP_FUSED_POOL1=1`` (K7, ``hypercol_upsample`` and ``pixel_head``
+   once per forward,
    K7 bitwise its plain version), each from a checkpoint of a fresh
    trainer (the seconds of its JAX-bit weight draw timed) whose
    classifier reads one fc3 feature
@@ -500,6 +509,62 @@ def hypercol_phase(torch) -> list:
     return [{"name": "hypercol_upsample", "route": "cuda",
              "source": "wesup_tpu_torch/csrc/hypercol.cu",
              "replaces": "none: dense einsums in wesup_tpu/ops/resize.py",
+             "launches": launches, "max_abs_err": err, "ms": t_k,
+             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by}]
+
+
+def pixel_head_phase(torch) -> list:
+    """Phase 7, the pixel head after fc2 (``csrc/pixhead.cu``) at the tile
+    cell's chunk in bf16: the kernel and its plain version within the
+    card tests' intervals, its launch, and its time beside the plain
+    version's and the HBM bound; returns the kernels' JSON entry."""
+    jpeg_writer()                  # puts tests/ on the path
+    import torch_pixhead
+    from wesup_tpu_torch.ops import launch_counts, pixhead, reset_launches
+
+    dev = torch.device("cuda")
+    B, H, W, C = HYPERCOL_CHUNK
+    dt = torch.bfloat16
+    z, params = torch_pixhead.head_inputs(B * H * W, C, 32, 2, dt, dev,
+                                          seed=25)
+    z = z.view(B, H, W, C)
+    reset_launches()
+    got = pixhead.head(z, *params)
+    torch.cuda.synchronize()
+    launches = launch_counts()["pixel_head"]
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False   # the kernel's f32
+    try:
+        beyond, worst, width = torch_pixhead.gap(got, z, params)
+        want = pixhead.head_plain(z, *params)
+        plain_beyond = torch_pixhead.gap(want, z, params)[0]
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+    err = (got - want).abs().max().item()
+    same = (got == want).all(dim=-1).float().mean().item()
+    del got, want
+    log(f"[pixel_head] {B}x{H}x{W}x{C} {dt}: {beyond} probabilities outside "
+        f"the intervals of tests/torch_pixhead.py (widest {width:.3e}), the "
+        f"plain version {plain_beyond}; max_abs_err {err:.3e}, rows equal "
+        f"{same:.4f}; launches {launches}")
+    if beyond or plain_beyond or launches != 1:
+        fail("pixel_head disagrees with its plain version")
+    nbytes = z.numel() * 2 + B * H * W * 2 * 4 + sum(
+        p.numel() for p in params) * 2
+    flops = 2.0 * B * H * W * C * 32
+    t_k = cuda_ms(torch, lambda: pixhead.head(z, *params))
+    t_p = cuda_ms(torch, lambda: pixhead.head_plain(z, *params), n=5,
+                  warmup=1)
+    b_ms, b_by = bound(nbytes, flops, dt)
+    log(f"[pixel_head time] {B}x{H}x{W}x{C} {dt}: kernel {t_k:.4f} ms, "
+        f"plain (the composition it replaces) {t_p:.4f}, bound {b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP); "
+        f"{share(nbytes, t_k)}")
+    return [{"name": "pixel_head", "route": "cuda",
+             "source": "wesup_tpu_torch/csrc/pixhead.cu",
+             "replaces": "none: _mlp_head's tail, left to XLA in "
+                         "wesup_tpu/models/wesup.py",
              "launches": launches, "max_abs_err": err, "ms": t_k,
              "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by}]
 
@@ -2151,7 +2216,7 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
         f"2e-4); launches {({k: v for k, v in counts.items() if v})}")
     if not (tuple(out.shape) == (2, 96, 128, 2) and err <= 2e-4):
         fail("the f32 pixel forward on the card disagrees with the CPU")
-    if counts != expected({"hypercol_upsample": 1}):
+    if counts != expected({"hypercol_upsample": 1, "pixel_head": 1}):
         fail(f"the pixel forward launched {counts}")
     del model_cpu, model_gpu, ref, out
 
@@ -2166,9 +2231,10 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
             run(model, imgs_dev, valid)
     probs, peaks = {}, {}
     for label, run, launches in (
-            ("pixel", step, {"hypercol_upsample": 1}),
+            ("pixel", step, {"hypercol_upsample": 1, "pixel_head": 1}),
             ("pixel, WESUP_FUSED_POOL1=1", gated,
-             {"fused_relu_pool_pad": 1, "hypercol_upsample": 1})):
+             {"fused_relu_pool_pad": 1, "hypercol_upsample": 1,
+              "pixel_head": 1})):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2285,7 +2351,7 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
         counts = launch_counts()
         n = fwd.call_count
         want = ({"cell_pool0": n, "cell_pool_stage": 4 * n} if superpixel
-                else {"hypercol_upsample": n})
+                else {"hypercol_upsample": n, "pixel_head": n})
         if "_tile" in label:
             # GLAS_HW at patch 400 or 464: one chunk of 4 patches an image
             want.update(tile_cut=n_images, tile_stitch=n_images)
@@ -2314,7 +2380,8 @@ def inference_phase(torch, card, imgs_u8, valid, seed) -> None:
               "BMP": codec.encode_bmp(request_img)}
     for mode, per_request in (("superpixel", {"cell_pool0": 1,
                                               "cell_pool_stage": 4}),
-                              ("pixel", {"hypercol_upsample": 1})):
+                              ("pixel", {"hypercol_upsample": 1,
+                                         "pixel_head": 1})):
         server = create_server(port=0, host="127.0.0.1", mode=mode,
                                seed=seed)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3287,7 +3354,7 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
     from wesup_tpu_torch.data import jpeg as plain
     from wesup_tpu_torch.inference import Predictor, predict_multiscale_batch
     from wesup_tpu_torch.models import initialize_trainer, jax_init, wesup
-    from wesup_tpu_torch.ops import cellpool, launch_counts, pool, \
+    from wesup_tpu_torch.ops import cellpool, launch_counts, pixhead, pool, \
         reset_launches
     from wesup_tpu_torch.scripts.make_dataset import make_image_hard
     from wesup_tpu_torch.serve import create_server
@@ -3409,12 +3476,18 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
             for x in range(0, img.shape[1], DP_PATCH)]
     cls = trainer.model.classifier[0]
     fresh = {k: v.detach().clone() for k, v in cls.state_dict().items()}
-    feats, head = [], wesup._mlp_head
+    feats, head, tail = [], wesup._mlp_head, pixhead.head
 
     def spy(model, x, **kwargs):
         probs, f = head(model, x, **kwargs)
         feats.append(f.reshape(-1, f.shape[-1]))
         return probs, f
+
+    def spy_tail(z, b2, w3, b3, wc, bc):
+        # the pixel route's fc3 features, as the composition gives them
+        f = torch.relu(torch.relu(z + b2) @ w3.t() + b3)
+        feats.append(f.float().reshape(-1, f.shape[-1]))
+        return tail(z, b2, w3, b3, wc, bc)
 
     ckpts, picked = {}, {}
     for mode, size in (("superpixel", {"input_size": (400, 400)}),
@@ -3423,6 +3496,7 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
         predictor = Predictor(trainer.model, trainer.config, mode=mode)
         feats.clear()
         with mock.patch.object(wesup, "_mlp_head", spy), \
+                mock.patch.object(pixhead, "head", spy_tail), \
                 fused_pool1(mode == "pixel"):
             predict_multiscale_batch(predictor, probe, **size)
         fc3 = torch.cat(feats)
@@ -3477,7 +3551,8 @@ def jpeg_pipeline_phase(torch, card, seed) -> None:
         sec = time.perf_counter() - t0
         counts = launch_counts()
         n = fwd.call_count
-        want = ({"fused_relu_pool_pad": n, "hypercol_upsample": n} if gated
+        want = ({"fused_relu_pool_pad": n, "hypercol_upsample": n,
+                 "pixel_head": n} if gated
                 else {"cell_pool0": n, "cell_pool_stage": 4 * n})
         lines = [ln for ln in out.getvalue().splitlines()
                  if ln.startswith(("Accuracy:", "Dice:"))]
@@ -5270,6 +5345,7 @@ def main(argv=None) -> int:
     del taps0, taps
     kernels += tile_phase(torch, args.seed)
     kernels += hypercol_phase(torch)
+    kernels += pixel_head_phase(torch)
     torch.cuda.empty_cache()
 
     # ---- 8. training -----------------------------------------------------

@@ -34,12 +34,13 @@ from wesup_tpu_torch.models import wesup  # noqa: E402
 from wesup_tpu_torch.models import steps  # noqa: E402
 from wesup_tpu_torch.models.steps import make_predict_step  # noqa: E402
 from wesup_tpu_torch.ops import (adjoint, cellgrid, cellpool,  # noqa: E402
-                                 hypercol, launch_counts, pool, pooling,
-                                 reset_launches, tile)
+                                 hypercol, launch_counts, pixhead, pool,
+                                 pooling, reset_launches, tile)
 from wesup_tpu_torch.ops.resize import _interp_matrix  # noqa: E402
 from wesup_tpu_torch.ops.slic import make_plan, slic  # noqa: E402
 from wesup_tpu_torch.utils import prng  # noqa: E402
 import torch_hypercol  # noqa: E402
+import torch_pixhead  # noqa: E402
 import torch_predict_host_fuse as host_fuse  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1176,8 +1177,8 @@ def test_predict_tiled_on_card_matches_the_host_route(cuda):
     400 in chunks of 8, bfloat16) on the card equals, bitwise, the route
     that cut, copied back and stitched on the host: the same canvases
     through the same steps, ``combine_patches_to_image`` over
-    ``predict_padded``.  Two cuts, one stitch and two pixel-head
-    upsamples (one a chunk) are launched."""
+    ``predict_padded``.  Two cuts, one stitch, two pixel-head upsamples
+    and two pixel-head tails (one each a chunk) are launched."""
     model = wesup.WESUP(generator=torch.Generator().manual_seed(0))
     pred = inference.Predictor(model, WESUPConfig(), mode="pixel",
                                device=cuda)
@@ -1192,6 +1193,7 @@ def test_predict_tiled_on_card_matches_the_host_route(cuda):
                                   round_patches=False)
     assert _counts(*TILE) == {"tile_cut": 2, "tile_stitch": 1}
     assert launch_counts()["hypercol_upsample"] == 2
+    assert launch_counts()["pixel_head"] == 2
     assert got.dtype == np.float64 and got.shape == (1512, 1516)
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
@@ -1388,7 +1390,8 @@ def test_forward_pixel_through_the_kernel_matches_cpu(cuda, dtype, tol):
     """The pixel forward at the published widths through the kernel
     against the CPU's (the plain composition), with the limits that
     tests/test_torch_port_infer.py::test_forward_pixel_matches_jax holds
-    the CPU's against JAX; one launch a forward."""
+    the CPU's against JAX; one launch of each pixel-head kernel a
+    forward."""
     model = wesup.WESUP(generator=torch.Generator().manual_seed(4)).eval()
     img = torch.rand((2, 96, 128, 3),
                      generator=torch.Generator().manual_seed(5))
@@ -1398,7 +1401,8 @@ def test_forward_pixel_through_the_kernel_matches_cpu(cuda, dtype, tol):
         reset_launches()
         got = wesup.forward_pixel(model, img.to(cuda), dtype)
         torch.cuda.synchronize()
-    assert launch_counts() == _expected({"hypercol_upsample": 1})
+    assert launch_counts() == _expected({"hypercol_upsample": 1,
+                                         "pixel_head": 1})
     assert got.shape == want.shape == (2, 96, 128, 2)
     assert (got.cpu() - want).abs().max().item() <= tol
 
@@ -1416,3 +1420,87 @@ def test_hypercol_refuses_grad_on_card(cuda):
     with pytest.raises(RuntimeError, match="not differentiable"):
         wesup.forward_pixel(model, torch.rand((1, 32, 32, 3), device=cuda))
     assert launch_counts()["hypercol_upsample"] == 0
+    assert launch_counts()["pixel_head"] == 0
+
+
+# ---------------------------------------------------------------------------
+# pixel_head: the pixel head after fc2 (fc2's bias and ReLU, fc3, its bias
+# and ReLU, the classifier, the softmax) in one kernel (ops/pixhead.py),
+# against its plain version: both must lie in tests/torch_pixhead.py's
+# intervals (why: its docstring).  Rows: the tile cell's chunk (B=8,
+# 416x416) and ragged counts; widths: fc1's 1024 and 48 (a chunk ends
+# inside 64 columns), with fc3 narrower than 32 and three classes.
+# ---------------------------------------------------------------------------
+
+PIXHEAD_CASES = [(8 * 416 * 416, 1024, 32, 2, torch.bfloat16),
+                 (70001, 1024, 32, 2, torch.bfloat16),
+                 (70001, 1024, 32, 2, torch.float32),
+                 (3001, 48, 20, 3, torch.bfloat16),
+                 (3001, 48, 20, 3, torch.float32)]
+
+
+@pytest.mark.parametrize("N,C,D,n,dtype", PIXHEAD_CASES)
+def test_pixel_head_kernel_matches_plain(cuda, exact_bf16_gemms, N, C, D, n,
+                                         dtype):
+    z, params = torch_pixhead.head_inputs(N, C, D, n, dtype, cuda, seed=N)
+    reset_launches()
+    got = pixhead.head(z, *params)
+    torch.cuda.synchronize()
+    assert launch_counts() == _expected({"pixel_head": 1})
+    assert got.dtype == torch.float32 and got.shape == (N, n)
+    assert got.is_contiguous()
+    beyond, worst, width = torch_pixhead.gap(got, z, params)
+    assert beyond == 0, (worst, width)
+    want = pixhead.head_plain(z, *params)
+    assert torch_pixhead.gap(want, z, params)[0] == 0
+    # the same rows through a (B, H, W, C) view give the same bits
+    assert torch.equal(pixhead.head(z.reshape(1, 1, N, C), *params),
+                       got.reshape(1, 1, N, n))
+    if N <= 70001:
+        replayed = torch_pixhead.replay(z, *params)
+        assert torch_pixhead.gap(replayed, z, params)[0] == 0
+
+
+def test_pixel_head_forward_runs_no_tail_op_after_fc2(cuda):
+    """In the bf16 pixel forward the head's span holds fc2's one matmul
+    and the kernel: no add, ReLU, second matmul or softmax."""
+    model = wesup.WESUP(generator=torch.Generator().manual_seed(4)).to(
+        cuda).eval()
+    img = torch.rand((1, 64, 96, 3), device=cuda)
+    with torch.inference_mode():
+        wesup.forward_pixel(model, img, torch.bfloat16)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            wesup.forward_pixel(model, img, torch.bfloat16)
+        torch.cuda.synchronize()
+    heads = [e for e in prof.events() if e.name == "wesup.step.head"]
+    assert len(heads) == 1
+
+    def names(e):
+        return [e.name] + [m for c in e.cpu_children for m in names(c)]
+
+    inside = names(heads[0])
+    assert inside.count("aten::matmul") == 1
+    for op in ("aten::add", "aten::relu", "aten::softmax", "aten::_softmax",
+               "aten::clamp_min"):
+        assert op not in inside, (op, inside)
+
+
+def test_pixel_head_refuses_on_card_what_the_kernel_does_not_take(cuda):
+    """A bf16 width that is no multiple of 8 and a z that starts off a
+    16-byte boundary raise before a launch; f32 takes any width."""
+    reset_launches()
+    z, params = torch_pixhead.head_inputs(64, 44, 32, 2, torch.bfloat16,
+                                          cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pixhead.head(z, *params)
+    z, params = torch_pixhead.head_inputs(64, 48, 32, 2, torch.bfloat16,
+                                          cuda)
+    buf = torch.empty(z.numel() + 1, dtype=z.dtype, device=cuda)
+    shifted = buf[1:].view(z.shape).copy_(z)
+    with pytest.raises(ValueError, match="16-byte"):
+        pixhead.head(shifted, *params)
+    assert launch_counts()["pixel_head"] == 0
+    z, params = torch_pixhead.head_inputs(64, 44, 32, 2, torch.float32, cuda)
+    assert torch_pixhead.gap(pixhead.head(z, *params), z, params)[0] == 0
+    assert launch_counts()["pixel_head"] == 1

@@ -363,7 +363,7 @@ def test_launch_counts_are_the_tracers_counters():
              "cell_pool_stage_bwd", "segment_sum", "segment_sum_bwd",
              "adjoint_pool_stage", "adjoint_pool_stage_bwd",
              "fused_relu_pool_pad", "tile_cut", "tile_stitch",
-             "hypercol_upsample"]
+             "hypercol_upsample", "pixel_head"]
     ops.reset_launches()
     assert ops.launch_counts() == dict.fromkeys(names, 0)
     assert list(ops.launch_counts()) == names

@@ -31,17 +31,19 @@ projected at native resolution, and one kernel, ``hypercol_upsample``
 (``ops/hypercol.py``), W-interpolates stages 1-4, H-upsamples and sums
 all five, adds the bias and applies fc1's ReLU, writing the (B, H, W,
 1024) map that fc2 reads in the compute dtype; it rounds where JAX's
-dense contractions round.  The fullres pooling and
+dense contractions round.  After fc2's matmul a second kernel,
+``pixel_head`` (``ops/pixhead.py``), runs the rest of the head in one
+read of fc2's output.  The fullres pooling and
 :func:`hypercolumn_projection` keep those contractions (W-resize, then
 ONE contraction against the stacked H-interpolation matrices, stage 0's
 block the identity): the fullres path is trained through them.  Besides
-that kernel, the pixel head runs only the backbone's K7, under
+those kernels, the pixel head runs only the backbone's K7, under
 ``WESUP_FUSED_POOL1``.
 
 Every superpixel path is differentiable in the weights: the kernels are
 autograd Functions whose backward bodies are kernels too (K3, K4; K5's on
 K3's kernel; K6's is K8), and the rest is plain torch.  The pixel head is
-inference only: ``hypercol_upsample`` has no backward.
+inference only: ``hypercol_upsample`` and ``pixel_head`` have no backward.
 
 Tensor parallelism (``parallel.shard_params``, ``model.tp``): each rank
 holds fc_width / model columns of fc1 and builds its column slice of
@@ -73,7 +75,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import adjoint, cellgrid, cellpool, hypercol
+from ..ops import adjoint, cellgrid, cellpool, hypercol, pixhead
 from ..ops.kernels import device_const
 from ..ops import pooling as seg_pool
 from ..ops.resize import _interp_matrix, fused_upsample_sum, resize_w_only
@@ -458,15 +460,25 @@ def forward_pixel(model: WESUP, img: torch.Tensor,
 
     The stage maps go through ``hypercol_upsample`` (``ops/hypercol.py``;
     its plain version on the CPU): the W-resize, the H-upsample and sum,
-    the bias cast to the maps' dtype and added there, and fc1's ReLU, so
-    in bf16 the whole head runs in bf16 and only the softmax in f32, as
-    in JAX.  Not differentiable.  The phases are
-    :func:`_projected_stages`'s, ``wesup.step.upsample`` (the kernel) and
-    ``wesup.step.head``."""
+    the bias cast to the maps' dtype and added there, and fc1's ReLU.
+    fc2 is one matmul (reduced over the model axis under tensor
+    parallelism), and everything after it, fc2's bias and ReLU, fc3, its
+    bias and ReLU, the classifier and the softmax, is ``pixel_head``
+    (``ops/pixhead.py``; its plain version on the CPU), which reads fc2's
+    output once and does not keep fc3's features.  So in bf16 the whole
+    head runs in bf16 and only the softmax in f32, as in JAX.  Not
+    differentiable.  The phases are :func:`_projected_stages`'s,
+    ``wesup.step.upsample`` and ``wesup.step.head``."""
     maps, bias = _projected_stages(model, img, compute_dtype)
     with span("wesup.step.upsample"):
         h = hypercol.upsample(maps, bias)
     del maps
     with span("wesup.step.head"):
-        probs, _ = _mlp_head(model, h, relu=False)
-    return probs
+        dt = h.dtype
+        fc2, fc3, cls = (model.fc_layers[2], model.fc_layers[4],
+                         model.classifier[0])
+        z = reduce_from_model(_tp(model), h @ fc2.weight.t().to(dt))
+        del h
+        return pixhead.head(z, fc2.bias.to(dt), fc3.weight.to(dt),
+                            fc3.bias.to(dt), cls.weight.to(dt),
+                            cls.bias.to(dt))

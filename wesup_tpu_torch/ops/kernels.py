@@ -7,9 +7,9 @@ place that calls the library: it guards the tensors' card, appends the
 current stream, raises ``RuntimeError`` naming the kernel on a nonzero
 CUDA error code and, after a success, adds one to the tracer's counter
 ``launches.<name>`` (read by :func:`launch_counts`).  The wrappers
-(``cellpool``, ``pooling``, ``adjoint``, ``pool``, ``tile``, ``hypercol``)
-keep their argument checks, their CPU branch to the plain version, their
-output allocation and one :func:`launch` per kernel call.
+(``cellpool``, ``pooling``, ``adjoint``, ``pool``, ``tile``, ``hypercol``,
+``pixhead``) keep their argument checks, their CPU branch to the plain
+version, their output allocation and one :func:`launch` per kernel call.
 
 The library is built on first use by :func:`wesup_tpu_torch.native.load`:
 each ``.cu`` source by its own nvcc process (``$CUDA_HOME/bin/nvcc`` where
@@ -80,6 +80,8 @@ KERNELS = dict((
     # the pixel head's upsample (csrc/hypercol.cu)
     _kernel("hypercol_upsample", "wesup_hypercol_upsample",
             [_P] * 11 + [_I] * 14),
+    # the pixel head after fc2 (csrc/pixhead.cu)
+    _kernel("pixel_head", "wesup_pixel_head", [_P] * 7 + [_L] + [_I] * 4),
 ))
 
 _SIGNATURES = {k.symbol: (ctypes.c_int, [*k.argtypes, _P])
